@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's device decode once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's device decode and encode once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds both CUDA kernels from csrc/ with nvcc, then:
+Builds the five CUDA kernels from csrc/ (concurrent nvcc), then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps)
@@ -18,12 +19,23 @@ Builds both CUDA kernels from csrc/ with nvcc, then:
      block on the device, both kernels launched by that decode.
   4. A 10 s -m 6 -P 3 stream (long-term prediction; the encoder picks LPC
      orders up to 93 on this signal) decoded on the card: lossless.
+  5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
+     csrc/rice_search.cu) and K5 (bit pack, csrc/bitpack.cu) against their
+     plain versions on the card, on the inputs the main path's 1291-block
+     group of 4096 samples gives them: bit-equal, CUDA-event times.
+  6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
+     at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
+     every COMPRESS block emitted from the device or a counted host repair
+     or overflow, K3, K4 and K5 launched by that encode, and the stream
+     decoded losslessly by the port. Prints the warm best-of-3 encode speed
+     and a per-step breakdown.
 
-Prints the card's name and power limit, the build time, the warm decode
-speed (x realtime) and each kernel's time beside its plain version's, then
-one JSON line describing the kernels and, last, the device JSON line. Any
-failed check raises and the exit code is non-zero; without a CUDA device it
-exits non-zero before printing any result. Imports nothing of JAX.
+Prints the card's name and power limit, the build time, the warm decode and
+encode speeds (x realtime) and each kernel's time beside its plain
+version's, then one JSON line describing the kernels and, last, the device
+JSON line. Any failed check raises and the exit code is non-zero; without a
+CUDA device it exits non-zero before printing any result. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -171,6 +183,154 @@ def phase_rice(torch, dev, stream: bytes):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+KERNELS = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
+           "bitpack")
+
+
+def main_param():
+    """-m 4 -B 4096 -V 0 for 16-bit stereo at 44.1 kHz."""
+    from srla_tpu.encoder import EncodeParameter
+    return EncodeParameter(num_channels=2, bits_per_sample=16,
+                           sampling_rate=SAMPLE_RATE, preset=4,
+                           min_num_samples_per_block=4096)
+
+
+def main_group(torch, np, dev, pcm):
+    """The main path's 1291-block group of 4096 samples on the card, with
+    the encoder's device arguments and section bound W for it."""
+    from srla_tpu_torch import SRLAEncoder
+    n = 4096
+    B = pcm.shape[1] // n
+    blocks = np.ascontiguousarray(
+        pcm[:, :B * n].reshape(2, B, n).transpose(1, 0, 2), np.int16)
+    enc = SRLAEncoder(main_param(), dev)
+    return (torch.from_numpy(blocks).to(dev), B, enc._host._device_args(n),
+            enc._section_words(n))
+
+
+def compare(torch, name, kernel, plain, args, reps: int = 20):
+    """Kernel against its plain version on the same inputs: bit-equal, and
+    both timed with CUDA events. Returns (max_abs_err, ms, plain_ms)."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    e = max_abs_err(torch, got, want)
+    require(e == 0, f"{name} differs from its plain version "
+                    f"(max abs err {e})")
+    ms = cuda_ms(torch, lambda: kernel(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
+    return e, ms, plain_ms
+
+
+def phase_encode_kernels(torch, np, dev, pcm):
+    """K3, K4 and K5 against their plain versions at the main path's
+    shapes: the analysis of the 1291-block group gives K3 and K4 their
+    inputs, its selection gives K5 the chosen rows' codeword stream."""
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.bitpack import pack, pack_plain
+    from srla_tpu_torch.kernels.lpc import wrap32
+    from srla_tpu_torch.kernels.predict import predict, predict_plain
+    from srla_tpu_torch.kernels.rice_search import (rice_sums,
+                                                    rice_sums_plain)
+
+    blocks, B, args, W = main_group(torch, np, dev, pcm)
+    n = args["n"]
+    small, big, core = exact.variant_analysis(blocks, 0, **args)
+    V = core["work"].shape[0]
+    recs = []
+    k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
+    e, ms, pms = compare(torch, "K3", predict, predict_plain, k3)
+    print(f"phase 5 K3 fir_predict at V={V} n={n} M={k3[1].shape[1]}: "
+          f"bit-equal, kernel {ms:.4f} ms, plain {pms:.2f} ms")
+    recs.append(dict(name="fir_predict", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/fir_predict.cu",
+                     replaces="srla_tpu/kernels/encode.py:180",
+                     max_abs_err=e, ms=ms, plain_ms=pms))
+    u, ks, rec, _, _ = exact.rice_params(core["residual"], n,
+                                         args["max_porder"])
+    k4 = (wrap32(u).to(torch.int32), ks.to(torch.int32).contiguous(),
+          rec.to(torch.int32), n, args["max_porder"])
+    e, ms, pms = compare(torch, "K4", rice_sums, rice_sums_plain, k4)
+    print(f"phase 5 K4 rice_search at V={V} n={n} porders "
+          f"0..{args['max_porder']}: bit-equal, kernel {ms:.4f} ms, "
+          f"plain {pms:.2f} ms")
+    recs.append(dict(name="rice_search", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/rice_search.cu",
+                     replaces="srla_tpu/kernels/exact.py:454",
+                     max_abs_err=e, ms=ms, plain_ms=pms))
+    sel = exact.select_rows(small, B=B, C=2, n=n, bps=16, W=W,
+                            max_params=args["max_params"])
+    offs, tails, tbits = exact.chosen_stream(big, sel, n)
+    k5 = (offs, tails, tbits, B * 2 * W)
+    e, ms, pms = compare(torch, "K5", pack, pack_plain, k5)
+    print(f"phase 5 K5 bitpack of {offs.shape[0]} rows x {offs.shape[1]} "
+          f"slots into {B * 2 * W} words: bit-equal, kernel {ms:.4f} ms, "
+          f"plain {pms:.2f} ms")
+    recs.append(dict(name="bitpack", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/bitpack.cu",
+                     replaces="srla_tpu/kernels/pallas_pack.py:79",
+                     max_abs_err=e, ms=ms, plain_ms=pms))
+    return recs
+
+
+def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
+    """The port's encode of the main path: bytes, block accounting, kernel
+    launches, the port's own decode, then speed and a step breakdown.
+    Returns the launch counts of K3, K4 and K5 in that encode."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.kernels.bitpack import pack
+    from srla_tpu_torch.kernels.predict import predict
+    from srla_tpu_torch.kernels.rice_search import rice_sums
+
+    param = main_param()
+    predict.launches = rice_sums.launches = pack.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    enc = SRLAEncoder(param, dev)
+    data = enc.encode_whole(pcm)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"fir_predict": predict.launches,
+                "rice_search": rice_sums.launches,
+                "bitpack": pack.launches}
+    require(data == stream, "port encode differs from the host exact "
+                            "stream")
+    ncomp = compress_blocks(stream)
+    s = enc.stats
+    handled = (s["device_blocks"] + s["repaired_blocks"]
+               + s["w_overflow_blocks"])
+    require(handled == ncomp, f"block accounting {s}: {handled} of "
+                              f"{ncomp} COMPRESS blocks")
+    for name, count in launches.items():
+        require(count > 0, f"{name} was not launched by the encode")
+    _, out = decode(data, device=dev)
+    require(np.array_equal(out, pcm), "port decode of the port's stream "
+                                      "is not lossless")
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SRLAEncoder(param, dev).encode_whole(pcm)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    print(f"phase 6 encode {MAIN_SECONDS:.0f} s stereo -m 4 -B 4096 -V 0 on "
+          f"the card: byte-identical to the host exact stream, "
+          f"{s['device_blocks']} device / {s['repaired_blocks']} repaired / "
+          f"{s['w_overflow_blocks']} overflow of {ncomp} COMPRESS blocks "
+          f"(repaired_blocks {s['repaired_blocks']}), launches {launches}, "
+          f"port decode lossless; peak device memory {peak_gb:.2f} GiB; "
+          f"warm best of 3 {best * 1e3:.1f} ms = "
+          f"{MAIN_SECONDS / best:.1f}x realtime [{card}]")
+    enc = SRLAEncoder(param, dev)
+    enc.timer = StepTimer(dev)
+    enc.encode_whole(pcm)
+    steps = enc.timer.seconds
+    print("phase 6 encode breakdown (host clock, synchronised per step, ms): "
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
+          + f"; total {sum(steps.values()) * 1e3:.2f}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -204,9 +364,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    for name in ("lpc_synth", "rice_decode"):
-        build.load(name)
-    print("kernel build (nvcc, s): " + ", ".join(
+    build.load_all(KERNELS)
+    print("kernel build (concurrent nvcc, s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in build.build_seconds.items()))
 
     records = [phase_lpc(torch, np, dev)]
@@ -254,6 +413,9 @@ def main() -> int:
     require(np.array_equal(out4, pcm4), "-m 6 -P 3 decode is not lossless")
     print(f"phase 4 decode -m 6 -P 3 {LTP_SECONDS:.0f} s: lossless, max "
           f"order {max(g.M for g in groups4)}, LTP on")
+
+    records += phase_encode_kernels(torch, np, dev, pcm)
+    launches.update(phase_encode(torch, np, dev, pcm, stream, card))
 
     require("jax" not in sys.modules, "jax was imported")
     for rec in records:

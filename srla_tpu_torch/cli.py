@@ -1,12 +1,13 @@
 """srla-compatible command line tool for the PyTorch/CUDA port.
 
+    python -m srla_tpu_torch.cli -e -m 4 -V 0 in.wav out.srl --device cuda
     python -m srla_tpu_torch.cli -d in.srl out.wav --device cuda
-    python -m srla_tpu_torch.cli -e -m 4 -B 4096 in.wav out.srl
 
-Decode (-d) runs on the device through the port's kernels. Encode (-e) hands
-its arguments to ``srla_tpu.cli`` with ``--backend exact``: the shared host
-encoder (bit-identical to the reference, jax-free), until the port has a
-device encoder. The encode flags and their defaults are ``srla_tpu.cli``'s.
+Both directions run on --device through the port's kernels (default cuda;
+cpu runs the kernels' plain versions). The flags and their defaults are
+``srla_tpu.cli``'s, plus --device. The port encodes fixed-size blocks
+only, so -e needs -V 0 (srla_tpu's default is -V 1), and it has no -P or SVR
+yet: those raise instead of running on the host.
 """
 
 from __future__ import annotations
@@ -16,56 +17,74 @@ import struct
 import sys
 import time
 
+import numpy as np
+
 from srla_tpu import cli as host_cli
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="srla-tpu-torch",
-        description="SRLA lossless audio codec (PyTorch/CUDA port). "
-                    "-d decodes on --device; -e encodes on the host with "
-                    "srla_tpu's exact encoder (no device encode yet).")
-    p.add_argument("-e", "--encode", action="store_true",
-                   help="Encode on the host: every other argument goes to "
-                        "srla_tpu.cli with --backend exact (see python -m "
-                        "srla_tpu.cli --help for -m/-B/-V/-L/-P)")
-    p.add_argument("-d", "--decode", action="store_true",
-                   help="Decode mode (on --device)")
-    p.add_argument("--no-checksum-check", action="store_true",
-                   help="Skip checksum verification at decode")
+    p = host_cli.build_parser()
+    p.prog = "srla-tpu-torch"
+    p.description = ("SRLA lossless audio codec (PyTorch/CUDA port): -e and "
+                     "-d run on --device. --backend does not apply.")
     p.add_argument("--device", default="cuda",
-                   help="torch device that decodes (default: cuda)")
-    p.add_argument("-v", "--version", action="version",
-                   version="srla-tpu-torch 0.1")
-    p.add_argument("input", help="Input file")
-    p.add_argument("output", help="Output file")
+                   help="torch device that encodes or decodes (default: "
+                        "cuda; cpu runs the kernels' plain versions)")
     return p
-
-
-def _has_flag(argv: list[str], flag: str) -> bool:
-    return any(a == flag or a.startswith(flag + "=") for a in argv)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if _has_flag(argv, "-e") or _has_flag(argv, "--encode"):
-        for flag in ("--device", "--backend"):
-            if _has_flag(argv, flag):
-                print(f"{flag} does not apply to -e: encode runs on the host "
-                      "with srla_tpu's exact encoder.", file=sys.stderr)
-                return 1
-        return host_cli.main(argv + ["--backend", "exact"])
+    if any(a == "--backend" or a.startswith("--backend=") for a in argv):
+        print("--backend does not apply: the port runs on --device.",
+              file=sys.stderr)
+        return 1
     args = build_parser().parse_args(argv)
-    if not args.decode:
+    if args.encode == args.decode:
         print("Please specify exactly one of -e (encode) or -d (decode).",
               file=sys.stderr)
         return 1
 
-    from srla_tpu.wavio import WavData, write_wav
+    from srla_tpu.wavio import WavData, read_audio, write_wav
+
+    t0 = time.time()
+    if args.encode:
+        from srla_tpu.encoder import EncodeParameter
+
+        from .encoder import SRLAEncoder
+
+        if not 0 <= args.mode <= 6:
+            print(f"invalid compress mode: {args.mode}", file=sys.stderr)
+            return 1
+        wav = read_audio(args.input)
+        param = EncodeParameter(
+            num_channels=wav.pcm.shape[0],
+            bits_per_sample=wav.bits_per_sample,
+            sampling_rate=wav.sampling_rate, preset=args.mode,
+            max_num_samples_per_block=args.max_block_size,
+            min_num_samples_per_block=(args.max_block_size
+                                       >> args.variable_block_divisions),
+            num_lookahead_samples=(args.lookahead_sample_factor
+                                   * args.max_block_size),
+            ltp_order=args.long_term_prediction,
+            num_svr_filter_learning_iteration=(
+                args.svr_filter_learning_iteration))
+        try:
+            data = SRLAEncoder(param, args.device).encode_whole(
+                np.asarray(wav.pcm, dtype=np.int32))
+        except ValueError as e:
+            print(f"encoding error: {e}", file=sys.stderr)
+            return 1
+        with open(args.output, "wb") as f:
+            f.write(data)
+        insize = wav.pcm.nbytes // 4 * (wav.bits_per_sample // 8) + 44
+        print(f"finished: {insize} -> {len(data)} "
+              f"({100.0 * len(data) / insize:6.2f} %) "
+              f"[{time.time() - t0:.2f}s]")
+        return 0
 
     from .decoder import SRLADecoder
 
-    t0 = time.time()
     with open(args.input, "rb") as f:
         data = f.read()
     try:

@@ -1,0 +1,313 @@
+"""SRLA encoder on a PyTorch device (twin of ``srla_tpu.encoder``'s exact
+device path, ``_encode_spans`` -> ``_device_dispatch`` ->
+``_device_finish_fused``).
+
+The host types the blocks (RAW below the order limit, SILENT when all zero,
+else COMPRESS) and groups the COMPRESS blocks by size. Each even-size group
+crosses to the device once and is encoded there in one
+``kernels.exact.encode_blocks`` call: f64 analysis with decision-boundary
+flags, FIR residual (kernel K3), Rice parameter search (K4), bit accounting,
+stereo selection and the residual pack (K5). The host then fetches the
+parameters and exactly the packed words it needs, re-derives flagged blocks
+on the exact host path (``stats["repaired_blocks"]``) and assembles the
+framed blocks. The output is byte-identical to
+``srla_tpu.encode(..., backend="exact")``.
+
+Odd-size blocks need the reference's stale work-buffer emulation and are
+encoded serially on the host, as in ``srla_tpu``. Variable block sizes
+(-V > 0), long-term prediction (-P) and SVR refinement are not ported yet
+and raise ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from srla_tpu import encoder as host_encoder
+from srla_tpu.bitsplice import PayloadBuilder
+from srla_tpu.constants import BlockDataType
+from srla_tpu.encoder import (EncodeParameter, _compute_offset_lshift,
+                              _gather_blocks)
+from srla_tpu.format import StreamHeader, encode_header, frame_block
+
+from .kernels.exact import no_timer, encode_blocks
+
+_NOT_PORTED = {
+    "ltp_order": "-P (long-term prediction) is not ported to the device "
+                 "yet (ROADMAP.md queue 1, item 8)",
+    "num_svr_filter_learning_iteration":
+        "SVR refinement is not ported to the device yet (ROADMAP.md queue "
+        "1, item 9)",
+}
+
+
+class StepTimer:
+    """Host-clock seconds per named step, with a device synchronise at each
+    step boundary (so each step's device work lands in its own step). Only
+    for measuring: it serialises host and device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds: dict[str, float] = {}
+        self._last = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self):
+        self._sync()
+        self._last = time.perf_counter()
+
+    def __call__(self, name: str):
+        self._sync()
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._last
+        self._last = now
+
+
+class SRLAEncoder:
+    # Blocks per device call. Device memory grows with the call (peak 2.78
+    # GiB for 1291 blocks of 16-bit stereo at -B 4096 -m 4, 4.41 GiB for
+    # 2048, on an H100 80GB), so a long file's group is cut into calls of
+    # at most this many blocks.
+    MAX_CALL_BLOCKS = 2048
+
+    def __init__(self, parameter: EncodeParameter, device):
+        """device: the torch device that encodes the COMPRESS blocks
+        ("cuda" runs the CUDA kernels, "cpu" their plain versions).
+        Flagged blocks, odd-size blocks, RAW and SILENT blocks are encoded on
+        the host by a held ``srla_tpu.encoder.SRLAEncoder(backend="exact")``,
+        whose ``stats`` dict this encoder shares."""
+        parameter.validate()
+        for field, why in _NOT_PORTED.items():
+            if getattr(parameter, field) > 0:
+                raise ValueError(why)
+        if parameter.min_num_samples_per_block \
+                != parameter.max_num_samples_per_block:
+            raise ValueError("-V > 0 (variable block sizes) is not ported to "
+                             "the device yet (ROADMAP.md queue 1, item 7); "
+                             "use -V 0")
+        self.p = parameter
+        self.device = torch.device(device)
+        self._host = host_encoder.SRLAEncoder(parameter, backend="exact")
+        # srla_tpu's keys and meaning: COMPRESS blocks emitted from the
+        # device, blocks encoded on the host (repairs included), flagged
+        # blocks re-derived on the host, blocks whose section exceeded W.
+        self.stats = self._host.stats
+        # Set to a StepTimer to collect a per-step breakdown of encode_whole.
+        self.timer = None
+
+    def encode_whole(self, pcm: np.ndarray, progress_callback=None) -> bytes:
+        """pcm: (C, N) int32. Returns the complete .srl stream."""
+        pcm = np.asarray(pcm, dtype=np.int32)
+        C, N = pcm.shape
+        p = self.p
+        tick = self.timer or no_timer
+        if self.timer is not None:
+            self.timer.start()
+        self._host._progress_cb = progress_callback
+        self._host._progress_done = 0
+        lshift = _compute_offset_lshift(pcm)
+        header = StreamHeader(C, N, p.sampling_rate, p.bits_per_sample,
+                              lshift, p.max_num_samples_per_block, p.preset)
+        n = p.max_num_samples_per_block
+        spans = [(off, min(n, N - off)) for off in range(0, N, n)]
+        out = [encode_header(header)]
+        out.extend(self._encode_spans(pcm, spans, lshift, tick))
+        self._host._check_repair_rate()
+        return b"".join(out)
+
+    def _encode_spans(self, pcm, spans, lshift, tick) -> list[bytes]:
+        """Type the blocks, encode each even-size COMPRESS group on the
+        device, odd-size ones serially on the host (``srla_tpu``'s
+        ``_encode_spans`` with the device route always taken)."""
+        host = self._host
+        C = pcm.shape[0]
+        types = {}
+        for i, (off, size) in enumerate(spans):
+            if size <= host.preset.max_num_parameters:
+                types[i] = BlockDataType.RAW
+            elif not pcm[:, off:off + size].any():
+                types[i] = BlockDataType.SILENT
+            else:
+                types[i] = BlockDataType.COMPRESS
+        by_size: dict[int, list[int]] = {}
+        for i, (_, size) in enumerate(spans):
+            if types[i] == BlockDataType.COMPRESS:
+                by_size.setdefault(size, []).append(i)
+        tick("host typing")
+        results: dict[int, bytes] = {}
+        for size, idxs in by_size.items():
+            if size % 2 == 0:
+                for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
+                    results.update(self._encode_group(
+                        pcm, spans, idxs[lo:lo + self.MAX_CALL_BLOCKS],
+                        size, lshift, tick))
+                continue
+            # Odd-length blocks: the reference's Welch window leaves the
+            # middle sample holding stale work-buffer content.
+            for i in idxs:
+                state = host._incoming_state(pcm, spans, types, i, lshift)
+                off = spans[i][0]
+                method, params, _ = host._compute_coefficients(
+                    pcm[:, off:off + size][None], size, lshift,
+                    stale_state=state)
+                results[i] = host._finish_block(pcm, spans, i, size, params,
+                                                int(method[0]), 0, C)
+            tick("odd-size blocks (host)")
+        for i, (off, size) in enumerate(spans):
+            if types[i] == BlockDataType.SILENT:
+                results[i] = frame_block(BlockDataType.SILENT, size, b"")
+            elif types[i] == BlockDataType.RAW:
+                results[i] = self._raw_block(pcm, off, size)
+        tick("assembly")
+        return [results[i] for i in range(len(spans))]
+
+    def _section_words(self, size: int) -> int:
+        """W, the packed words a residual section may take before its
+        block goes to the host (``srla_tpu``'s bound)."""
+        return (size * (self.p.bits_per_sample + 4)) // 32 + 64
+
+    def _raw_block(self, pcm, off: int, size: int) -> bytes:
+        return frame_block(BlockDataType.RAW, size, self._host._raw_payload(
+            pcm[:, off:off + size], size))
+
+    def _encode_group(self, pcm, spans, idxs, size: int, lshift: int,
+                      tick) -> dict[int, bytes]:
+        """Equal-size blocks on the device: one ``encode_blocks`` call,
+        one fetch of the parameters, one fetch of exactly sum(lens_w) packed
+        words, host repair of flagged blocks, native assembly."""
+        host = self._host
+        C = pcm.shape[0]
+        B = len(idxs)
+        bps = self.p.bits_per_sample
+        blocks = np.ascontiguousarray(
+            _gather_blocks(pcm, spans, idxs, size),
+            np.int16 if bps <= 16 else np.int32)
+        dev_blocks = torch.from_numpy(blocks).to(self.device)
+        W = self._section_words(size)
+        tick("upload")
+        small_t, flat_t = encode_blocks(
+            dev_blocks, lshift, C=C, W=W, timer=tick,
+            **host._device_args(size))
+        keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
+                "section_bits", "method", "bits", "raw_blk", "risky_blk",
+                "lens_w")
+        small = {k: small_t[k].cpu().numpy() for k in keys}
+        lens_w = small["lens_w"].astype(np.int64)
+        starts = np.cumsum(lens_w) - lens_w
+        total = int(lens_w.sum())
+        flat = flat_t[:total].cpu().numpy()
+        flat_bytes = flat.view(np.uint32).astype(">u4").tobytes()
+        tick("fetch + big-endian bytes")
+
+        raw_blk = small["raw_blk"]
+        # Host repair: flagged blocks (decisions unproven) and blocks with a
+        # section above W words (lens_w forced to 0 while not raw).
+        repair = set(np.flatnonzero(small["risky_blk"]).tolist())
+        self.stats["repaired_blocks"] += len(repair)
+        zero_row = (lens_w.reshape(B, C) == 0).any(axis=1)
+        for bi in np.flatnonzero(zero_row & ~raw_blk).tolist():
+            if bi not in repair:
+                repair.add(bi)
+                self.stats["w_overflow_blocks"] += 1
+        results: dict[int, bytes] = {}
+        if repair:
+            results.update(host._encode_host_batch(
+                pcm, spans, [idxs[bi] for bi in sorted(repair)], size,
+                lshift))
+        tick("repair (host)")
+        compress_idx = [bi for bi in range(B)
+                        if not raw_blk[bi] and bi not in repair]
+        self.stats["device_blocks"] += len(compress_idx)
+        if compress_idx:
+            results.update(self._assemble(pcm, spans, idxs, size, small,
+                                          compress_idx, flat_bytes, starts,
+                                          lens_w))
+        for bi in range(B):
+            if raw_blk[bi] and bi not in repair:
+                results[idxs[bi]] = self._raw_block(pcm, spans[idxs[bi]][0],
+                                                    size)
+        host._report_progress(B * size)
+        tick("assembly")
+        return results
+
+    def _assemble(self, pcm, spans, idxs, size, small, compress_idx,
+                  flat_bytes, starts, lens_w) -> dict[int, bytes]:
+        """Frame the device-encoded blocks: parameter headers from the
+        fetched arrays, residual sections spliced from the packed words."""
+        host = self._host
+        C = pcm.shape[0]
+        B = len(idxs)
+        bps = self.p.bits_per_sample
+        method = small["method"]
+        ci = np.arange(C)[None, :]
+        bsel = np.asarray(compress_idx)
+        m = method[bsel][:, None]
+        if C >= 2:
+            vix = np.where((m == 1) & (ci < 2), ci,
+                           np.where(((m == 2) & (ci == 1))
+                                    | ((m == 3) & (ci == 0)), 1, 2 + ci))
+        else:
+            vix = np.zeros((len(bsel), 1), np.int64)
+        rows2 = vix * B + bsel[:, None]                # chosen variant rows
+        flatrows = bsel[:, None] * C + ci              # packed rows
+        sec_bits = small["section_bits"].astype(np.int64)
+        out: dict[int, bytes] = {}
+        from srla_tpu import native_decoder as nd
+        if nd.available():
+            maxp = max(host.preset.max_num_parameters, 1)
+            framed, sizes = nd.assemble_blocks(
+                method[bsel], small["pre_prev"][rows2],
+                small["pre_coef"][rows2], small["orders"][rows2],
+                small["rshifts"][rows2], small["coefs"][rows2][:, :, :maxp],
+                flat_bytes, starts[flatrows.ravel()] * 4,
+                sec_bits[rows2.ravel()], C, bps, size)
+            ends = np.cumsum(sizes)
+            for k, bi in enumerate(compress_idx):
+                i = idxs[bi]
+                sz = int(sizes[k])
+                out[i] = (framed[ends[k] - sz:ends[k]] if sz
+                          else self._raw_block(pcm, spans[i][0], size))
+            return out
+        # No native library: the Python bit writer builds each payload.
+        pos = {bi: k for k, bi in enumerate(compress_idx)}
+
+        def row_of(bi, c):
+            return int(rows2[pos[bi], c])
+
+        for bi in compress_idx:
+            i = idxs[bi]
+            pb = PayloadBuilder(int(small["bits"][bi]) // 8 + 8)
+            head = host._params_header_bits(small, method, B, bi, row_of, C)
+            pb.append_bytes(head.getvalue(), head.tell_bits())
+            for c in range(C):
+                r = bi * C + c
+                lo = int(starts[r]) * 4
+                hi = lo + int(lens_w[r]) * 4
+                pb.append_array(np.frombuffer(flat_bytes[lo:hi], np.uint8),
+                                int(sec_bits[row_of(bi, c)]))
+            payload = pb.getvalue()
+            out[i] = (self._raw_block(pcm, spans[i][0], size)
+                      if 8 * len(payload) >= bps * size * C
+                      else frame_block(BlockDataType.COMPRESS, size, payload))
+        return out
+
+
+def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
+           device, preset: int = 4, max_block: int = 4096) -> bytes:
+    """One-shot file encode on ``device``: ``srla_tpu.encode``'s result
+    for the same preset and block size (fixed-size blocks, no LTP or
+    SVR)."""
+    pcm = np.asarray(pcm, dtype=np.int32)
+    param = EncodeParameter(
+        num_channels=pcm.shape[0], bits_per_sample=bits_per_sample,
+        sampling_rate=sampling_rate, preset=preset,
+        max_num_samples_per_block=max_block,
+        min_num_samples_per_block=max_block,
+        num_lookahead_samples=4 * max_block)
+    return SRLAEncoder(param, device).encode_whole(pcm)

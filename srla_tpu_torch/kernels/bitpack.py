@@ -1,0 +1,201 @@
+"""Residual-section codewords and K5, the bit pack of the encode.
+
+``residual_codewords`` is the twin of ``srla_tpu.kernels.bitpack.
+residual_codewords`` and ``word_splits`` of its ``_word_splits``: PyTorch
+ops on int64. ``pack`` writes a stream of (offset, tail, tbits) codewords
+into one flat buffer of MSB-first 32-bit words, the job of the Pallas kernel
+``srla_tpu.kernels.pallas_pack.pallas_pack_rows`` and of the XLA packers
+``bitpack.pack_flat_stream`` / ``pack_monotone_stream``. On a CUDA tensor it
+launches the hand-written kernel ``csrc/bitpack.cu``; on a CPU tensor it
+runs ``pack_plain``, the PyTorch version the kernel is checked against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from srla_tpu.constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
+                                CODER_RICE_PARAMETER_BITS)
+
+from . import build
+from .lpc import _MASK32, wrap32
+
+
+def zigzag(x: torch.Tensor) -> torch.Tensor:
+    """int32-range values -> their zigzag codes in [0, 2^32) as int64."""
+    x = x.long()
+    return ((x << 1) ^ (x >> 31)) & _MASK32
+
+
+def _shl(x, k):
+    """(x << k) mod 2^32 with XLA's rule: a count outside 0..31 gives 0."""
+    ok = (k >= 0) & (k < 32)
+    return torch.where(ok, (x << k.clamp(0, 31)) & _MASK32, 0)
+
+
+def _shr(x, k):
+    """x >> k for x in [0, 2^32); a count outside 0..31 gives 0."""
+    ok = (k >= 0) & (k < 32)
+    return torch.where(ok, x >> k.clamp(0, 31), 0)
+
+
+def residual_codewords(u, code_type, porder, ks, n: int):
+    """Codewords of each row's residual section as one monotone stream in
+    natural bit order: the 2 header slots (code type, partition order), then
+    per partition its parameter codeword followed by its samples.
+
+    u (V, n) zigzag residuals; code_type, porder (V,); ks (V, MAXP)
+    per-partition parameters. Returns ((offsets, tails, tbits), total_bits),
+    the stream arrays (V, 2 + MAXP + n) int64 with tails in [0, 2^32) and
+    masked slots at tbits 0. Section layout parity:
+    libs/srla_coder/src/srla_coder.c:486-595.
+    """
+    dev = u.device
+    V = u.shape[0]
+    uu = u.long() & _MASK32
+    ct = code_type.long()
+    po = porder.long()
+    ks = ks.long()
+    allzero = ct == 2
+    recursive = (ct == 1)[:, None]
+
+    nsmpl = (torch.full_like(po, n) >> po)[:, None]          # (V, 1)
+    s_idx = torch.arange(n, device=dev)[None, :]
+    k = torch.gather(ks, 1, s_idx // nsmpl)
+    one_k = _shl(torch.ones_like(k), k)
+    mask = (one_k - 1) & _MASK32
+    # Plain Rice: q zeros, 1, k low bits.
+    q_r = _shr(uu, k)
+    tail_r = one_k | (uu & mask)
+    # Recursive Rice: small -> 1 + k1 bits; big -> q' zeros, 1, k2 bits.
+    k1pow = _shl(torch.ones_like(k), k + 1)
+    small = uu < k1pow
+    tmp = torch.where(small, 0, (uu - k1pow) & _MASK32)
+    q_rr = torch.where(small, 0, 1 + _shr(tmp, k))
+    tail_rr = torch.where(small, k1pow | uu, one_k | (tmp & mask))
+    s_lead = torch.where(recursive, q_rr, q_r)
+    s_tails = torch.where(recursive, tail_rr, tail_r)
+    s_tbits = torch.where(recursive, torch.where(small, k + 2, k + 1), k + 1)
+    s_tbits = torch.where(allzero[:, None], 0, s_tbits)
+
+    # Partition parameter codewords: 5-bit k, then unary zigzag deltas.
+    MAXP = ks.shape[1]
+    nparts = (torch.ones_like(po) << po)[:, None]
+    pidx = torch.arange(MAXP, device=dev)[None, :]
+    pactive = (pidx < nparts) & ~allzero[:, None]
+    diff = ks - torch.cat([ks[:, :1], ks[:, :-1]], dim=1)
+    p_lead = torch.where(pactive & (pidx > 0), zigzag(diff), 0)
+    p_tails = torch.where(pidx == 0, ks & _MASK32, 1)
+    p_tbits = torch.where(pactive, torch.where(
+        pidx == 0, CODER_RICE_PARAMETER_BITS, 1), 0)
+
+    # Merge into natural bit order: per row a period of nsmpl + 1 slots.
+    T = 2 + MAXP + n
+    e = torch.arange(T - 2, device=dev)[None, :]
+    period = nsmpl + 1
+    part = e // period
+    within = e - part * period
+    is_param = within == 0
+    live = part < nparts
+    partc = part.clamp(max=MAXP - 1)
+    sidxc = (part * nsmpl + within - 1).clamp(0, n - 1)
+
+    def pick(pv, sv):
+        return torch.where(live & is_param, torch.gather(pv, 1, partc),
+                           torch.where(live, torch.gather(sv, 1, sidxc), 0))
+
+    lead = pick(p_lead, s_lead)
+    tails = pick(p_tails, s_tails)
+    tbits = pick(p_tbits, s_tbits)
+
+    # Header slots: type (2 bits) + porder (10); ALLZERO emits only the type.
+    h_tails = torch.stack([ct & _MASK32, po & _MASK32], dim=1)
+    h_tbits = torch.stack([torch.full_like(ct, 2), torch.where(
+        allzero, 0, CODER_LOG2_MAX_NUM_PARTITIONS)], dim=1)
+    lead = torch.cat([torch.zeros_like(h_tails), lead], dim=1)
+    tails = torch.cat([h_tails, tails], dim=1)
+    tbits = torch.cat([h_tbits, tbits], dim=1)
+
+    bits = lead + tbits
+    csum = torch.cumsum(bits, dim=1)
+    offsets = csum - bits + lead                             # tail starts
+    return (offsets, tails, tbits), csum[:, -1]
+
+
+def word_splits(offsets, tails, tbits, cap_w: int):
+    """Per entry: its first word and its two word-aligned contributions
+    (``bitpack._word_splits``). Invalid entries (tbits <= 0) and entries at
+    or beyond cap_w * 32 point at word cap_w; all int64."""
+    off = offsets.long()
+    tb = tbits.long()
+    t = tails.long() & _MASK32
+    valid = tb > 0
+    limit = cap_w * 32
+    off = torch.where(valid, off.clamp(max=limit), limit)
+    sh = off & 31
+    over = (tb - (32 - sh)).clamp(min=0)
+    keep = tb - over
+    vA = torch.where(valid & (keep > 0),
+                     _shl(_shr(t, over), 32 - sh - keep), 0)
+    vB = torch.where(valid & (over > 0), _shl(t, 32 - over), 0)
+    return off >> 5, vA, vB
+
+
+def pack_plain(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
+    """Plain PyTorch version of K5: an index_add of both contributions into
+    cap_w + 2 int64 bins (bit-disjoint, so sum == or), then the first cap_w
+    as int32 bit patterns."""
+    w0, vA, vB = word_splits(offsets.reshape(-1), tails.reshape(-1),
+                             tbits.reshape(-1), cap_w)
+    w0 = torch.where(w0 < 0, cap_w, w0)
+    buf = torch.zeros(cap_w + 2, dtype=torch.int64, device=offsets.device)
+    buf.index_add_(0, w0, vA)
+    buf.index_add_(0, w0 + 1, vB)
+    return wrap32(buf[:cap_w] & _MASK32).to(torch.int32)
+
+
+def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
+    """offsets (..., T) absolute bit positions; tails (..., T) with the low
+    tbits bits significant; tbits (..., T), 0 for a masked slot. Entries
+    may come in any order; words at or beyond cap_w are dropped. Returns
+    (cap_w,) int32: the MSB-first words as bit patterns.
+
+    CUDA tensors go through the kernel (``pack.launches`` counts its
+    launches); CPU tensors go through ``pack_plain``.
+    """
+    if offsets.device.type == "cpu":
+        return pack_plain(offsets, tails, tbits, cap_w)
+    if offsets.device.type != "cuda":
+        raise ValueError(f"pack: no kernel for device {offsets.device}")
+    dev = offsets.device
+    offs = offsets.reshape(-1).to(torch.int64).contiguous()
+    tl = wrap32(tails.reshape(-1).long()).to(torch.int32).contiguous()
+    tb = tbits.reshape(-1).to(torch.int32).contiguous()
+    count = offs.numel()
+    if tl.numel() != count or tb.numel() != count:
+        raise ValueError("pack: offsets, tails and tbits differ in size")
+    out = torch.zeros(cap_w, dtype=torch.int32, device=dev)
+    if count == 0 or cap_w == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.srla_bitpack(offs.data_ptr(), tl.data_ptr(), tb.data_ptr(),
+                           out.data_ptr(), count, cap_w, stream)
+    build.check(err, "bitpack")
+    pack.launches += 1
+    return out
+
+
+pack.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("bitpack")
+    fn = lib.srla_bitpack
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
+            + [ctypes.c_void_p]
+    return lib

@@ -49,26 +49,44 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     if there is no up-to-date ``build/lib<name>.so``."""
+    return load_all([name])[name]
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """Load several kernels' libraries; the ones that need building are
+    compiled by concurrent nvcc processes, one per source."""
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(SRC_DIR, f"{name}.cu")
-        so = os.path.join(BUILD_DIR, f"lib{name}.so")
         t0 = time.perf_counter()
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(src)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
+        jobs = {}
+        for name in names:
+            if name in _LIBS:
+                continue
+            src = os.path.join(SRC_DIR, f"{name}.cu")
+            so = os.path.join(BUILD_DIR, f"lib{name}.so")
+            if (not os.path.exists(so)
+                    or os.path.getmtime(so) < os.path.getmtime(src)):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                jobs[name] = (src, so, tmp, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+        failed = []
+        for name, (src, so, tmp, proc) in jobs.items():
+            _, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
-        build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
-        _LIBS[name] = lib
-        return lib
+                failed.append(f"nvcc failed on {src}:\n{err}")
+            else:
+                os.replace(tmp, so)
+            build_seconds[name] = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _LIBS:
+                build_seconds.setdefault(name, 0.0)
+                _LIBS[name] = ctypes.CDLL(
+                    os.path.join(BUILD_DIR, f"lib{name}.so"))
+        return {name: _LIBS[name] for name in names}
 
 
 def check(err: int, what: str) -> None:

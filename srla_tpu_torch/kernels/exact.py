@@ -1,0 +1,591 @@
+"""Exact device encode analysis in f64 with decision-boundary flags, and the
+fused encode of one equal-size block group.
+
+Twin of ``srla_tpu.kernels.exact`` at the flags the port runs (no LTP, no
+SVR). The JAX package computes its analysis in df64 (two-f32) arithmetic
+because the TPU has no fast f64; the H100 has, so every float here is a
+torch f64. For every discrete decision the floats feed (pre-emphasis
+coefficient rounding, LPC order argmin, coefficient quantization and its
+frexp shift, Rice parameter boundaries, recursive/plain choice, silent
+threshold) the distance to the nearest decision boundary is computed; a
+variant closer than the margin is flagged ``risky`` and its block is
+re-derived on the exact host path. The margins are the JAX package's,
+unchanged (``exact.py:46-57``): f64 rounding error sits below df64's, so an
+unflagged decision equals the host's f64 decision. The residual and all bit
+math are exact integer code, partly in the kernels K3 (``predict``), K4
+(``rice_search``) and K5 (``bitpack``).
+
+Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
+(autocorr + Levinson), :535-570, :1341-1405 (quantize),
+libs/srla_coder/src/srla_coder.c:262-324 (Rice parameters),
+libs/srla_internal/src/srla_utility.c:206-257 (pre-emphasis),
+srla_encoder.c:1121-1187 (accounting), :1323-1367 (selection).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from srla_tpu.constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
+                                CODER_RICE_PARAMETER_BITS,
+                                LPC_COEFFICIENT_BITWIDTH,
+                                LPC_COEFFICIENT_ORDER_BITWIDTH,
+                                LPC_RIDGE_REGULARIZATION_PARAMETER,
+                                PREEMPHASIS_COEF_SHIFT,
+                                RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+from srla_tpu.dsp.window import welch_inverse_squared_sum, welch_window
+from srla_tpu.rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
+
+from .bitpack import pack, residual_codewords, zigzag
+from .lpc import wrap32
+from .predict import predict, reverse_coefs
+from .rice_search import rice_sums
+
+FLT_EPSILON = 1.1920928955078125e-07
+
+# Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
+# errors are smaller, so they hold a fortiori).
+_EPS_PREEMPH = 1e-8          # |16*r1/r0| distance to rounding half-boundary
+_EPS_RICE_LOG = 1e-8         # |log2v| distance to round-half boundary
+_EPS_RICE_TRUNC = 1e-9       # relative distance to k2 truncation boundary
+_EPS_RICE_MEAN2 = 1e-9       # |mean - 2| recursive/plain selection
+_EPS_SILENT = 1e-6           # relative |r0| distance to FLT_EPSILON
+_EPS_ORDER_BASE = 1e-6       # bits; matches the host tie-repair trigger
+_EPS_QUANT_BASE = 1e-7       # quantized-units distance to rounding boundary
+_KAPPA_SCALE = 2.0 ** -40    # conditioning amplification allowance
+
+_F64 = torch.float64
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """C round(): floor(|x| + 0.5) with x's sign, in f64 as the host does."""
+    r = torch.floor(x.abs() + 0.5)
+    return torch.where(x < 0, -r, r)
+
+
+def _dist_to_half(x: torch.Tensor) -> torch.Tensor:
+    """Distance of x to the nearest k + 0.5 (round-half boundaries)."""
+    ax = x.abs()
+    return ((ax - torch.floor(ax)) - 0.5).abs()
+
+
+# ---------------------------------------------------------------------------
+# Analysis stages (``_analyze_core_exact`` without LTP and SVR)
+# ---------------------------------------------------------------------------
+
+def preemphasis_exact(sig: torch.Tensor):
+    """sig (V, n) int32. Returns (work int32, coef int32, risky bool).
+    r0 and r1 are exact int64 sums rounded once to f64, as the host's are
+    whenever they stay below 2^53."""
+    x = sig.long()
+    r0i = (x * x).sum(dim=1)
+    r1i = (x[:, :-1] * x[:, 1:]).sum(dim=1)
+    zero = r0i == 0
+    r0 = torch.where(zero, 1, r0i).to(_F64)
+    dc16 = (r1i.to(_F64) / r0) * float(1 << PREEMPHASIS_COEF_SHIFT)
+    q = _round_half_away(dc16).clamp(-(1 << PREEMPHASIS_COEF_SHIFT),
+                                     (1 << PREEMPHASIS_COEF_SHIFT) - 1)
+    coef = torch.where(zero, 0, q.long())
+    risky = (_dist_to_half(dc16) < _EPS_PREEMPH) & ~zero
+    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    pred = wrap32(prev * coef[:, None]) >> PREEMPHASIS_COEF_SHIFT
+    work = wrap32(x - pred).to(torch.int32)
+    return work, coef.to(torch.int32), risky
+
+
+def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
+             fft_size: int) -> torch.Tensor:
+    """work (V, n) int32 -> (V, order) f64 windowed autocorrelation, direct
+    lag by lag and circular over the zero-padded fft_size buffer, scaled by
+    fft_size / n: the value the host's FFT path computes. The window times
+    2^-(bps-1) is exact, so the windowed samples equal the host's. Odd n:
+    the Welch window's unwritten middle sample is taken as 0."""
+    win = welch_window(n).copy()
+    if n & 1:
+        win[n // 2] = 0.0
+    w = torch.from_numpy(win * 2.0 ** (-(bps - 1))).to(work.device)
+    d = F.pad(work.to(_F64) * w, (0, fft_size - n))
+    d2 = torch.cat([d, d[:, :order]], dim=1)
+    norm = float(fft_size) / float(n)
+    ac = torch.empty((work.shape[0], order), dtype=_F64, device=work.device)
+    for k in range(order):
+        ac[:, k] = (d * d2[:, k:k + fft_size]).sum(dim=1) * norm
+    return ac
+
+
+def levinson(ac: torch.Tensor, max_order: int, orders=None):
+    """Levinson-Durbin recursion. ac (V, M+1) f64 with the ridge on lag 0.
+    Returns (error_vars (V, M+1), coefs (V, M) at per-row ``orders`` or None,
+    silent (V,), risky (V,), kappa (V,)). risky: r0 near the silent
+    threshold, or a non-finite error variance on a non-silent row."""
+    V = ac.shape[0]
+    M = max_order
+    r0 = ac[:, 0]
+    sr0 = torch.where(r0 == 0, 1.0, r0)
+    a = torch.zeros((V, M + 2), dtype=_F64, device=ac.device)
+    a[:, 0] = 1.0
+    a1 = -ac[:, 1] / sr0
+    a[:, 1] = a1
+    ev = torch.zeros((V, M + 1), dtype=_F64, device=ac.device)
+    ev[:, 0] = r0
+    ev[:, 1] = r0 + ac[:, 1] * a1
+    collected = None
+    if orders is not None:
+        collected = torch.zeros((V, M), dtype=_F64, device=ac.device)
+        collected[:, 0] = torch.where(orders == 1, a1, 0.0)
+    for k in range(M - 1):
+        # gamma = sum_{j <= k+1} a[j] * ac[k+2-j]
+        gamma = (a[:, :k + 2] * ac[:, 1:k + 3].flip(1)).sum(dim=1)
+        evk = ev[:, k + 1]
+        gamma = gamma / -torch.where(evk == 0, 1.0, evk)
+        ev[:, k + 2] = evk * (1.0 - gamma * gamma)
+        a_new = a[:, :k + 3] + gamma[:, None] * a[:, :k + 3].flip(1)
+        a[:, :k + 3] = a_new
+        if collected is not None:
+            sel = (orders == k + 2)[:, None]
+            collected[:, :k + 2] = torch.where(sel, a_new[:, 1:],
+                                               collected[:, :k + 2])
+    absr0 = r0.abs()
+    silent = absr0 < FLT_EPSILON
+    risky = (absr0 - FLT_EPSILON).abs() < _EPS_SILENT * FLT_EPSILON
+    evs = torch.where(silent[:, None], r0[:, None], ev)
+    if collected is not None:
+        collected = torch.where(silent[:, None], 0.0, collected)
+    # Conditioning estimate: r0 / min |ev| over the recursion.
+    ev_abs = evs.abs()
+    min_ev = torch.where(ev_abs > 0, ev_abs, math.inf).min(dim=1).values
+    ok = torch.isfinite(min_ev) & (min_ev > 0)
+    kappa = torch.where(silent, 1.0,
+                        absr0 / torch.where(ok, min_ev, 1.0))
+    kappa = torch.where(torch.isfinite(kappa) & (kappa >= 1.0), kappa,
+                        math.inf)
+    nonfinite = ~torch.isfinite(evs).all(dim=1)
+    risky = risky | (nonfinite & ~silent)
+    return evs, collected, silent, risky, kappa
+
+
+def select_order_exact(ev: torch.Tensor, n: int, bps: int, max_params: int,
+                       max_fixed: bool, kappa: torch.Tensor):
+    """BRUTEFORCE_ESTIMATION order choice from the window-corrected error
+    variances ev (V, M+1). Returns (orders (V,) int64, risky (V,)); the first
+    strict minimum of the estimated code length wins, as np.argmin."""
+    V = ev.shape[0]
+    if max_fixed:
+        return (torch.full((V,), max_params, dtype=torch.int64,
+                           device=ev.device),
+                torch.zeros(V, dtype=torch.bool, device=ev.device))
+    M = max_params
+    evo = ev[:, 1:M + 1]
+    neg_ev = evo < 0
+    mabse = 2.0 * torch.sqrt(torch.where(neg_ev, 0.0, evo) * 0.5)
+    intmean = mabse * float(1 << (bps - 1))
+    rho = 1.0 / (1.0 + intmean)
+    invrho = 1.0 - rho
+    z = mabse < 1e-16
+    t1 = invrho * (torch.log(torch.where(invrho <= 0, 0.5, invrho))
+                   * _INV_LOGE2)
+    t2 = rho * (torch.log(torch.where(rho <= 0, 0.5, rho)) * _INV_LOGE2)
+    ent = torch.where(z, 0.0, -(t1 + t2) / rho)
+    coef_bits = LPC_COEFFICIENT_BITWIDTH * torch.arange(
+        1, M + 1, dtype=_F64, device=ev.device)[None, :]
+    length = ent * float(n) + coef_bits
+    risky = (~neg_ev & ((mabse - 1e-16).abs() < 1e-17)).any(dim=1)
+    bad = neg_ev | ~torch.isfinite(length)
+    length = torch.where(bad, math.inf, length)
+    idx = length.argmin(dim=1)          # the first minimal index
+    best = length.gather(1, idx[:, None])[:, 0]
+    orders = idx + 1
+    others = length.scatter(1, idx[:, None], math.inf)
+    gap = others.min(dim=1).values - best
+    eps = torch.clamp(float(n) * kappa * _KAPPA_SCALE, min=_EPS_ORDER_BASE)
+    risky = risky | ~torch.isfinite(best) | (torch.isfinite(gap)
+                                             & (gap < eps))
+    return orders, risky
+
+
+def quantize_exact(coefs: torch.Tensor, orders: torch.Tensor, nbits: int,
+                   max_bits: int, kappa: torch.Tensor):
+    """coefs (V, M) f64 left-aligned. Backward error-feedback quantization.
+    Returns (int coefs (V, M) int64, rshift (V,) int64, risky (V,))."""
+    V, M = coefs.shape
+    dev = coefs.device
+    qmax = 1 << (nbits - 1)
+    mask = torch.arange(M, device=dev)[None, :] < orders[:, None]
+    maxabs = torch.where(mask, coefs.abs(), 0.0).max(dim=1).values
+    eps_k = torch.clamp(float(2 * qmax) * kappa * _KAPPA_SCALE,
+                        min=_EPS_QUANT_BASE)
+    tiny_thresh = 2.0 ** (-(nbits - 1))
+    tiny = maxabs <= tiny_thresh
+    risky = (maxabs - tiny_thresh).abs() < tiny_thresh * 1e-6
+    # frexp boundary: maxabs close to a power of two flips ndigit.
+    m, e = torch.frexp(maxabs)
+    risky = risky | (~tiny & (((m - 0.5).abs() < 1e-7) | (m > 1.0 - 1e-7)))
+    ndigit = torch.where(maxabs == 0, 0, e.long())
+    rshift = (nbits - 1) - ndigit
+    rshift = torch.where((rshift >= max_bits) | (rshift < 0), max_bits - 1,
+                         rshift)
+    rshift = torch.where(tiny, nbits, rshift)
+    scale = (torch.ones_like(rshift) << rshift).to(_F64)   # exact 2^rshift
+    qerr = torch.zeros(V, dtype=_F64, device=dev)
+    intc = torch.zeros((V, M), dtype=torch.int64, device=dev)
+    for ordi in range(M - 1, -1, -1):
+        active = orders > ordi
+        qe = qerr + coefs[:, ordi] * scale
+        qt = _round_half_away(qe).clamp(-qmax, qmax - 1)
+        risky = risky | (active & (_dist_to_half(qe) < eps_k))
+        qerr = torch.where(active, qe - qt, qerr)
+        intc[:, ordi] = torch.where(active, qt, 0.0).long()
+    intc = torch.where(tiny[:, None], 0, intc)
+    risky = risky | ~torch.isfinite(maxabs)
+    return intc, rshift, risky
+
+
+@lru_cache(maxsize=None)
+def rice_k_boundaries():
+    """Decision boundaries of the two Rice-parameter chains in
+    partition-mean space, as plain f64 tables of 33 entries (index j holds
+    boundary j for j = 1..31; 0 and 32 are sentinels) with their margins
+    (``exact._rice_k_boundaries``).
+
+    Plain Rice (srla_coder.c:262-287): k = max(0, round(log2v)) with
+    log2v = log2(ln OPTX / ln(1 - 1/(1+m))): boundary j at log2v = j - 0.5.
+    Recursive (c:298-324): k2 = log2floor(trunc(MLNOPTX*(1+m))): boundary j
+    at MLNOPTX*(1+m) = 2^j. Both are strictly increasing in m.
+    Returns ((kb, kb_eps), (tb, tb_eps)) as numpy f64 arrays."""
+    def m_of_log2v(l2v):
+        om = math.exp(_LOG_OPTX / 2.0 ** l2v)
+        return om / (1.0 - om)
+
+    big = 3.0e38
+    kb, kb_eps, tb, tb_eps = [-big], [0.0], [-big], [0.0]
+    for j in range(1, 32):
+        m = m_of_log2v(j - 0.5)
+        kb.append(m)
+        kb_eps.append(abs(m_of_log2v(j - 0.5 + _EPS_RICE_LOG) - m)
+                      + m * 2.0 ** -40 + 1e-12)
+        t = 2.0 ** j / MLNOPTX - 1.0
+        tb.append(t)
+        tb_eps.append(max(_EPS_RICE_TRUNC, t * 2.0 ** -38))
+    kb.append(big)
+    kb_eps.append(0.0)
+    tb.append(big)
+    tb_eps.append(0.0)
+    # The JAX package compares margins in f32: keep their f32 values.
+    return ((np.asarray(kb), np.asarray(kb_eps, np.float32).astype(float)),
+            (np.asarray(tb), np.asarray(tb_eps, np.float32).astype(float)))
+
+
+def _count_and_flag(flat, bounds, eps, zero_mean):
+    """k = number of boundaries 1..31 at or below each mean, and whether the
+    mean lies within the margin of either neighbouring boundary."""
+    b = torch.from_numpy(bounds).to(flat.device)
+    be = torch.from_numpy(eps).to(flat.device)
+    k = torch.searchsorted(b[1:32].contiguous(), flat.contiguous(),
+                           right=True)
+    d1 = (flat - b[k]).abs()
+    d2 = (b[k + 1] - flat).abs()
+    flagged = ((d1 < be[k]) | (d2 < be[k + 1]) | (k >= 31)) & ~zero_mean
+    return k, flagged
+
+
+def rice_params(residual: torch.Tensor, n: int, max_porder: int):
+    """The float half of the Rice parameter search: zigzag, partition means
+    (exact leaf sums, then pairwise halving as the host does), the
+    recursive/plain choice and each partition's k. Returns (u (V, n) int64,
+    ks (V, P) int64 in the flat layout of ``rice_search``, recursive (V,),
+    flagged (V, P) per-partition boundary flags, risky (V,))."""
+    V = residual.shape[0]
+    u = zigzag(residual)
+    nleaf = 1 << max_porder
+    nsl = n >> max_porder
+    means = [None] * (max_porder + 1)
+    means[max_porder] = u.reshape(V, nleaf, nsl).sum(dim=2).to(_F64) / nsl
+    for p in range(max_porder - 1, -1, -1):
+        m = means[p + 1]
+        means[p] = (m[:, 0::2] + m[:, 1::2]) / 2.0
+    mean_all = means[0][:, 0]
+    recursive = mean_all >= 2.0
+    risky = (mean_all - 2.0).abs() < _EPS_RICE_MEAN2
+    flat = torch.cat(means, dim=1)
+    zero_mean = flat == 0
+    (kb, kb_eps), (tb, tb_eps) = rice_k_boundaries()
+    kr, r_log = _count_and_flag(flat, kb, kb_eps, zero_mean)
+    k2, r_trunc = _count_and_flag(flat, tb, tb_eps, zero_mean)
+    rec = recursive[:, None]
+    return (u, torch.where(rec, k2, kr), recursive,
+            torch.where(rec, r_trunc, r_log), risky)
+
+
+def no_timer(_name):
+    pass
+
+
+def rice_exact(residual: torch.Tensor, n: int, max_porder: int,
+               timer=no_timer):
+    """residual (V, n) int32. Returns (code_type, porder, bits (+2), ks
+    (V, 2^max_porder) int64, risky). The per-partition sums run in K4."""
+    V = residual.shape[0]
+    u, ks, recursive, pflag, risky = rice_params(residual, n, max_porder)
+    timer("Rice means + parameters (torch f64)")
+    sums = rice_sums(wrap32(u).to(torch.int32),
+                     ks.to(torch.int32).contiguous(),
+                     recursive.to(torch.int32), n, max_porder).long()
+    timer("K4 rice_search")
+    nsmpl = torch.cat([torch.full((1 << p,), n >> p, dtype=torch.int64,
+                                  device=u.device)
+                       for p in range(max_porder + 1)])
+    part_bits = sums + torch.where(recursive[:, None], ks + 2, ks + 1) * nsmpl
+    MAXP = 1 << max_porder
+    best_bits = torch.full((V,), 1 << 30, dtype=torch.int64,
+                           device=u.device)
+    best_porder = torch.zeros(V, dtype=torch.int64, device=u.device)
+    best_ks = torch.zeros((V, MAXP), dtype=torch.int64, device=u.device)
+    for porder in range(max_porder + 1):
+        nparts = 1 << porder
+        cols = slice(nparts - 1, 2 * nparts - 1)
+        k = ks[:, cols]
+        risky = risky | pflag[:, cols].any(dim=1)
+        deltas = zigzag(k[:, 1:] - k[:, :-1])
+        bits = (CODER_LOG2_MAX_NUM_PARTITIONS + CODER_RICE_PARAMETER_BITS
+                + part_bits[:, cols].sum(dim=1) + (deltas + 1).sum(dim=1))
+        better = bits < best_bits
+        best_bits = torch.where(better, bits, best_bits)
+        best_porder = torch.where(better, porder, best_porder)
+        best_ks = torch.where(better[:, None], F.pad(k, (0, MAXP - nparts)),
+                              best_ks)
+    allzero = u.max(dim=1).values == 0
+    code_type = torch.where(allzero, 2, torch.where(recursive, 1, 0))
+    bits = torch.where(allzero, 0, best_bits) + 2
+    best_porder = torch.where(allzero, 0, best_porder)
+    timer("Rice partition-order search (torch)")
+    return code_type, best_porder, bits, best_ks, risky & ~allzero
+
+
+def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
+                 max_fixed: bool, fft_size: int, max_porder: int,
+                 timer=no_timer) -> dict:
+    """The exact analysis of each variant row of sig (V, n) int32: the twin
+    of ``_analyze_core_exact`` without LTP and SVR. Returns a dict of
+    per-row tensors, ``work`` (the pre-emphasised rows) among them.
+    ``timer`` is called with a step name after each step."""
+    V = sig.shape[0]
+    dev = sig.device
+    work, pre_coef, risky = preemphasis_exact(sig)
+    if max_params > 0:
+        ac = autocorr(work, n, bps, max_params + 1, fft_size)
+        ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
+        timer("variants + pre-emphasis + autocorrelation (torch f64)")
+        ev, _, _, r_lev, kappa = levinson(ac, max_params)
+        orders, r_ord = select_order_exact(
+            ev * welch_inverse_squared_sum(n), n, bps, max_params,
+            max_fixed, kappa)
+        _, coefs, _, _, _ = levinson(ac, max_params, orders)
+        intc, rshifts, r_q = quantize_exact(
+            coefs, orders, LPC_COEFFICIENT_BITWIDTH,
+            1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH, kappa)
+        orders = orders.to(torch.int32)
+        rshifts = torch.where(orders > 0, rshifts, 0).to(torch.int32)
+        coefs_rev = reverse_coefs(intc, orders)
+        timer("Levinson x2 + order choice + quantization (torch f64)")
+        residual = predict(work, coefs_rev, orders, rshifts)
+        timer("K3 fir_predict")
+        risky = risky | r_lev | r_ord | r_q
+    else:
+        orders = torch.zeros(V, dtype=torch.int32, device=dev)
+        rshifts = torch.zeros(V, dtype=torch.int32, device=dev)
+        coefs_rev = torch.zeros((V, 1), dtype=torch.int32, device=dev)
+        residual = work
+    code_type, porder, rice_bits, ks, r_rice = rice_exact(residual, n,
+                                                          max_porder, timer)
+    return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
+                rshifts=rshifts, coefs=coefs_rev, work=work,
+                residual=residual, code_type=code_type, porder=porder,
+                rice_bits=rice_bits, ks=ks, risky=risky | r_rice)
+
+
+def variant_stack(blocks: torch.Tensor, lshift: int) -> torch.Tensor:
+    """blocks (B, C, n) int -> the (V, n) int32 analysis rows: [M, S] (for
+    C >= 2) then each channel, each a (B, n) slab, after the offset shift."""
+    work = blocks.to(torch.int32) >> lshift
+    C = work.shape[1]
+    parts = []
+    if C >= 2:
+        s = work[:, 1] - work[:, 0]
+        parts += [work[:, 0] + (s >> 1), s]
+    parts += [work[:, c] for c in range(C)]
+    return torch.cat(parts, dim=0).contiguous()
+
+
+def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+                     max_params: int, max_fixed: bool, fft_size: int,
+                     max_porder: int, timer=no_timer):
+    """Stack the stereo variants and analyse them. Returns (small, big,
+    core): ``small`` and ``big`` hold what ``srla_tpu.kernels.exact.
+    analyze_blocks_exact`` returns (per-row parameters and risky flags; the
+    zigzag residuals and the Rice choices), ``core`` is ``analyze_core``'s
+    dict."""
+    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
+                        max_params=max_params, max_fixed=max_fixed,
+                        fft_size=fft_size, max_porder=max_porder,
+                        timer=timer)
+    V = core["orders"].shape[0]
+    small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
+                                  "rshifts", "coefs", "code_type", "porder",
+                                  "risky")}
+    small["section_bits"] = core["rice_bits"]
+    small["ltp_period"] = torch.zeros(V, dtype=torch.int32,
+                                      device=blocks.device)
+    big = dict(u=zigzag(core["residual"]), code_type=core["code_type"],
+               porder=core["porder"], ks=core["ks"])
+    return small, big, core
+
+
+def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
+    """The numpy outputs of ``srla_tpu.kernels.exact.analyze_blocks_exact``
+    (``small``, ``big``) as the port's tensors on ``device``, so that the
+    port's selection, codewords and pack can run on JAX's decisions."""
+    keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
+            "code_type", "porder", "section_bits", "ltp_period")
+    s = {k: torch.from_numpy(np.asarray(small[k]).astype(np.int32)).to(device)
+         for k in keys}
+    s["risky"] = torch.from_numpy(np.array(small["risky"], bool)).to(device)
+    b = {"u": torch.from_numpy(
+             np.asarray(big["u"]).astype(np.uint32).astype(np.int64)
+         ).to(device)}
+    for k in ("code_type", "porder", "ks"):
+        b[k] = torch.from_numpy(np.asarray(big[k]).astype(np.int64)).to(
+            device)
+    return s, b
+
+
+# ---------------------------------------------------------------------------
+# Fused encode: bit accounting, stereo selection and the residual pack
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _huffman_len_tables():
+    from srla_tpu.huffman import parameter_codebook, sum_parameter_codebook
+    return (np.asarray(parameter_codebook().lengths, np.int64),
+            np.asarray(sum_parameter_codebook().lengths, np.int64))
+
+
+def account_bits(sec_bits, orders, coefs, bps: int):
+    """Exact per-variant code length (everything but the stereo method
+    field) and the direct-vs-summed coefficient choice: the twin of
+    ``exact._account_bits_dev`` (no LTP). coefs (V, M) reversed,
+    left-aligned. Returns (code_len (V,) int64, use_sum (V,) bool)."""
+    dev = coefs.device
+    pl, sl = _huffman_len_tables()
+    plens = torch.from_numpy(pl).to(dev)
+    slens = torch.from_numpy(sl).to(dev)
+    M = coefs.shape[1]
+    orders = orders.long()
+    mask = torch.arange(M, device=dev)[None, :] < orders[:, None]
+    uvc = zigzag(coefs).clamp(max=255)
+    coef_cost = torch.where(mask, plens[uvc], 0).sum(dim=1)
+    suv = zigzag(wrap32(coefs[:, 1:].long() + coefs[:, :-1].long()))
+    smask = mask[:, 1:]
+    svalid = (~smask | (suv < 256)).all(dim=1)
+    sum_cost = plens[uvc[:, 0]] + torch.where(
+        smask, slens[suv.clamp(max=255)], 0).sum(dim=1)
+    use_sum = (orders > 0) & svalid & ((orders == 1)
+                                       | (sum_cost < coef_cost))
+    coef_bits = torch.where(orders > 0,
+                            torch.where(use_sum, sum_cost, coef_cost), 0)
+    fixed = (bps + 1 + (PREEMPHASIS_COEF_SHIFT + 1)
+             + LPC_COEFFICIENT_ORDER_BITWIDTH
+             + RSHIFT_LPC_COEFFICIENT_BITWIDTH + 1 + 1)
+    return sec_bits.long() + fixed + coef_bits, use_sum
+
+
+def select_rows(small: dict, *, B: int, C: int, n: int, bps: int, W: int,
+                max_params: int) -> dict:
+    """Stereo method (first minimum wins, as jnp.argmin), rounded block
+    bits, raw-fallback and risky block masks, the chosen variant row of
+    each (block, channel), and the packed section lengths in words:
+    ``encode_blocks_exact``'s selection (:1373-1411). Rows r = block*C +
+    channel; a zero ``lens_w`` row is not packed (raw fallback, risky
+    block, or a section above W words)."""
+    dev = small["orders"].device
+    nvar = C + 2 if C >= 2 else 1
+    code_len, use_sum = account_bits(
+        small["section_bits"], small["orders"],
+        small["coefs"][:, :max(max_params, 1)], bps)
+    cl = code_len.reshape(nvar, B)
+    bi = torch.arange(B, device=dev)[:, None]
+    ci = torch.arange(C, device=dev)[None, :]
+    if C >= 2:
+        lens4 = torch.stack([cl[2] + cl[3], cl[0] + cl[1],
+                             cl[2] + cl[1], cl[3] + cl[1]])
+        method = lens4.argmin(dim=0)
+        bits = lens4.gather(0, method[None, :])[0]
+        m = method[:, None]
+        vix = torch.where((m == 1) & (ci < 2), ci,
+                          torch.where(((m == 2) & (ci == 1))
+                                      | ((m == 3) & (ci == 0)), 1, 2 + ci))
+    else:
+        method = torch.zeros(B, dtype=torch.int64, device=dev)
+        bits = cl[0]
+        vix = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    bits = ((bits + 2 + 7) // 8) * 8
+    raw_blk = bits >= bps * n * C
+    risky_blk = small["risky"].reshape(nvar, B).any(dim=0)
+    rows = (vix * B + bi).reshape(-1)
+    sec = small["section_bits"].long()[rows]
+    skip = ((raw_blk | risky_blk)[:, None]
+            | (sec.reshape(B, C) > W * 32)).reshape(-1)
+    lens_w = torch.where(skip, 0, (sec + 31) // 32)
+    return dict(method=method, bits=bits, raw_blk=raw_blk,
+                risky_blk=risky_blk, use_sum=use_sum, rows=rows, skip=skip,
+                lens_w=lens_w)
+
+
+def chosen_stream(big: dict, sel: dict, n: int):
+    """The chosen rows' codeword stream at absolute bit offsets in the
+    compacted buffer: each row starts at the running sum of the previous
+    rows' lens_w words; skipped rows contribute nothing. Returns
+    (offsets, tails, tbits) (K, 2 + MAXP + n) int64."""
+    rows, skip, lens_w = sel["rows"], sel["skip"], sel["lens_w"]
+    starts = torch.cumsum(lens_w, dim=0) - lens_w
+    (offs, tails, tbits), _ = residual_codewords(
+        big["u"][rows], big["code_type"][rows], big["porder"][rows],
+        big["ks"][rows], n)
+    offs = torch.where(skip[:, None], 0, offs) + starts[:, None] * 32
+    tbits = torch.where(skip[:, None], 0, tbits)
+    return offs, tails, tbits
+
+
+def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+                  max_params: int, max_fixed: bool, fft_size: int,
+                  max_porder: int, C: int, W: int, timer=no_timer):
+    """Fused exact encode of one equal-size block group (the twin of
+    ``srla_tpu.kernels.exact.encode_blocks_exact`` without LTP and SVR).
+
+    blocks (B, C, n) int16/int32 samples on the device. Returns (small,
+    flat): ``small`` holds the per-variant parameters plus the per-block
+    selection (method, bits, raw_blk, risky_blk, use_sum) and lens_w, the
+    packed section length of each (block, channel) row in words; ``flat`` is
+    a (B*C*W,) int32 word buffer whose first sum(lens_w) words are the
+    chosen residual sections, bit-packed MSB-first and compacted in row
+    order. ``timer`` is called with a step name after each step.
+    """
+    B = blocks.shape[0]
+    small, big, _ = variant_analysis(
+        blocks, lshift, n=n, bps=bps, max_params=max_params,
+        max_fixed=max_fixed, fft_size=fft_size, max_porder=max_porder,
+        timer=timer)
+    sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
+                      max_params=max_params)
+    offs, tails, tbits = chosen_stream(big, sel, n)
+    timer("accounting + selection + codewords (torch)")
+    flat = pack(offs, tails, tbits, B * C * W)
+    timer("K5 bitpack")
+    for k in ("method", "bits", "raw_blk", "risky_blk", "use_sum",
+              "lens_w"):
+        small[k] = sel[k]
+    return small, flat

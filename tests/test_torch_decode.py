@@ -169,14 +169,21 @@ def test_cli_roundtrip(tmp_path):
     wav = tmp_path / "in.wav"
     write_wav(str(wav), WavData(signals.chirp(20000, 2, 16), 44100, 16))
     srl, out = tmp_path / "x.srl", tmp_path / "out.wav"
+    # srla_tpu's default -V 1 is not ported: refused, not run on the host.
     assert main(["-e", "--device", "cpu", str(wav), str(srl)]) == 1
-    assert main(["-e", "-B", "1024", str(wav), str(srl)]) == 0
+    assert main(["-e", "--backend", "exact", "-V", "0", str(wav),
+                 str(srl)]) == 1
+    assert main(["-e", "-B", "1024", "-V", "0", "--device", "cpu", str(wav),
+                 str(srl)]) == 0
+    pcm = signals.chirp(20000, 2, 16)
+    assert srl.read_bytes() == encode(pcm, 16, 44100, max_block=1024,
+                                      variable_divisions=0)
     assert main(["-d", "--device", "cpu", str(srl), str(out)]) == 0
     assert out.read_bytes() == wav.read_bytes()
 
 
 def test_port_never_imports_jax():
-    """Importing the port and decoding through it leaves jax and
+    """Importing the port, encoding and decoding through it leaves jax and
     srla_tpu.kernels unimported (a subprocess: this one has jax loaded)."""
     code = (
         "import sys\n"
@@ -184,8 +191,10 @@ def test_port_never_imports_jax():
         "import srla_tpu_torch, srla_tpu_torch.cli\n"
         "from srla_tpu import encode\n"
         "pcm = (np.arange(3000).reshape(1, -1) % 97 - 48).astype(np.int32)\n"
-        "_, out = srla_tpu_torch.decode(encode(pcm, 16, 44100, "
-        "max_block=512), device='cpu')\n"
+        "data = srla_tpu_torch.encode(pcm, 16, 44100, device='cpu', "
+        "max_block=512)\n"
+        "assert data == encode(pcm, 16, 44100, max_block=512)\n"
+        "_, out = srla_tpu_torch.decode(data, device='cpu')\n"
         "assert (out == pcm).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'srla_tpu.kernels'))]\n"

@@ -5,12 +5,12 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a). It holds the device
 decode, ``decode(stream, device="cuda")``, and the exact device encode,
 ``encode(pcm, bits, rate, device="cuda")``, byte-identical to
 ``srla_tpu.encode(..., backend="exact")``. The host layer (stream format,
-bit reader and writer, Huffman tables, native parameter parser and
-assembler, host encoder for repairs) is shared with ``srla_tpu`` and
-imported from it.
+bit reader and writer, Huffman tables, host DSP, the native library for
+parsing and assembly, the exact host encoder for repairs and as the byte
+reference) is the port's own: copies of ``srla_tpu``'s modules under the
+same names, each naming its source.
 
-Importing this package never imports jax, and nothing under
-``srla_tpu.kernels`` (that subpackage is the JAX/Pallas device code).
+Nothing in this package imports jax or ``srla_tpu``.
 """
 
 from .decoder import SRLADecoder, decode

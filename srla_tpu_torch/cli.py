@@ -5,9 +5,10 @@
 
 Both directions run on --device through the port's kernels (default cuda;
 cpu runs the kernels' plain versions). The flags and their defaults are
-``srla_tpu.cli``'s, plus --device. The port encodes fixed-size blocks
-only, so -e needs -V 0 (srla_tpu's default is -V 1), and it has no -P or SVR
-yet: those raise instead of running on the host.
+``srla_tpu.cli``'s (``build_parser`` is the port's copy of
+``srla_tpu/cli.py:18``), with --device in place of --backend. The port
+encodes fixed-size blocks only, so -e needs -V 0 (the default is -V 1), and
+it has no -P or SVR yet: those raise instead of running on the host.
 """
 
 from __future__ import annotations
@@ -19,17 +20,37 @@ import time
 
 import numpy as np
 
-from srla_tpu import cli as host_cli
-
 
 def build_parser() -> argparse.ArgumentParser:
-    p = host_cli.build_parser()
-    p.prog = "srla-tpu-torch"
-    p.description = ("SRLA lossless audio codec (PyTorch/CUDA port): -e and "
-                     "-d run on --device. --backend does not apply.")
+    p = argparse.ArgumentParser(
+        prog="srla-tpu-torch",
+        description="SRLA lossless audio codec (PyTorch/CUDA port): -e and "
+                    "-d run on --device.")
+    p.add_argument("-e", "--encode", action="store_true", help="Encode mode")
+    p.add_argument("-d", "--decode", action="store_true", help="Decode mode")
+    p.add_argument("-m", "--mode", type=int, default=4,
+                   help="Compress mode: 0(fast), ..., 6(high compression) "
+                        "(default: 4)")
+    p.add_argument("-B", "--max-block-size", type=int, default=4096,
+                   help="Max number of block samples (default: 4096)")
+    p.add_argument("-V", "--variable-block-divisions", type=int, default=1,
+                   help="Number of variable block-size divisions (default: 1)")
+    p.add_argument("-L", "--lookahead-sample-factor", type=int, default=4,
+                   help="Lookahead multiplier for variable block division "
+                        "(default: 4)")
+    p.add_argument("-P", "--long-term-prediction", type=int, default=0,
+                   help="Long term (pitch) prediction order (odd, default: 0)")
+    p.add_argument("--svr-filter-learning-iteration", type=int, default=0,
+                   help="SVR filter learning iterations (default: 0)")
+    p.add_argument("--no-checksum-check", action="store_true",
+                   help="Skip checksum verification at decode")
     p.add_argument("--device", default="cuda",
                    help="torch device that encodes or decodes (default: "
                         "cuda; cpu runs the kernels' plain versions)")
+    p.add_argument("-v", "--version", action="version",
+                   version="srla-tpu-torch 0.1")
+    p.add_argument("input", help="Input file")
+    p.add_argument("output", help="Output file")
     return p
 
 
@@ -45,13 +66,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
-    from srla_tpu.wavio import WavData, read_audio, write_wav
+    from .wavio import WavData, read_audio, write_wav
 
     t0 = time.time()
     if args.encode:
-        from srla_tpu.encoder import EncodeParameter
-
         from .encoder import SRLAEncoder
+        from .host_encoder import EncodeParameter
 
         if not 0 <= args.mode <= 6:
             print(f"invalid compress mode: {args.mode}", file=sys.stderr)

@@ -18,11 +18,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from srla_tpu import decoder as host_decoder
-from srla_tpu.constants import (HEADER_SIZE, MAX_COEFFICIENT_ORDER,
-                                MAX_LTP_ORDER, BlockDataType)
-from srla_tpu.format import StreamHeader, decode_header, parse_block_header
-
+from . import host_decoder
+from .constants import (HEADER_SIZE, MAX_COEFFICIENT_ORDER, MAX_LTP_ORDER,
+                        BlockDataType)
+from .format import StreamHeader, decode_header, parse_block_header
 from .kernels.decode2 import decode_blocks, pack_meta
 
 
@@ -49,15 +48,15 @@ class SRLADecoder:
     def __init__(self, device, check_checksum: bool = True):
         """device: the torch device that decodes the COMPRESS blocks
         ("cuda" runs the CUDA kernels, "cpu" their plain versions).
-        Parameter headers are parsed by the native library
-        (``srla_tpu.native_decoder``), or in Python where it does not build."""
+        Parameter headers are parsed by the port's native library
+        (``native_decoder``), or in Python where it does not build."""
         self.device = torch.device(device)
         self.check_checksum = check_checksum
         # COMPRESS blocks decoded on the device / on the host, accumulated
         # over decode_whole calls as in srla_tpu. The host count stays 0:
         # nothing is routed to the host.
         self.stats = {"device_blocks": 0, "host_blocks": 0}
-        self._host = host_decoder.SRLADecoder(check_checksum=check_checksum)
+        self._host = host_decoder.SRLADecoder()
 
     def decode_whole(self, data: bytes) -> tuple[StreamHeader, np.ndarray]:
         """Decode a whole .srl stream -> (header, PCM (C, N) int32)."""

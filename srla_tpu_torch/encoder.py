@@ -10,8 +10,8 @@ flags, FIR residual (kernel K3), Rice parameter search (K4), bit accounting,
 stereo selection and the residual pack (K5). The host then fetches the
 parameters and exactly the packed words it needs, re-derives flagged blocks
 on the exact host path (``stats["repaired_blocks"]``) and assembles the
-framed blocks. The output is byte-identical to
-``srla_tpu.encode(..., backend="exact")``.
+framed blocks. The output is byte-identical to the port's exact host encoder
+(``host_encoder.encode``) and so to ``srla_tpu.encode(..., backend="exact")``.
 
 Odd-size blocks need the reference's stale work-buffer emulation and are
 encoded serially on the host, as in ``srla_tpu``. Variable block sizes
@@ -26,14 +26,13 @@ import time
 import numpy as np
 import torch
 
-from srla_tpu import encoder as host_encoder
-from srla_tpu.bitsplice import PayloadBuilder
-from srla_tpu.constants import BlockDataType
-from srla_tpu.encoder import (EncodeParameter, _compute_offset_lshift,
-                              _gather_blocks)
-from srla_tpu.format import StreamHeader, encode_header, frame_block
-
-from .kernels.exact import no_timer, encode_blocks
+from . import host_encoder, native_decoder
+from .bitsplice import PayloadBuilder
+from .constants import BlockDataType
+from .format import StreamHeader, encode_header, frame_block
+from .host_encoder import (EncodeParameter, _compute_offset_lshift,
+                           _gather_blocks, make_parameter)
+from .kernels.exact import encode_blocks, no_timer
 
 _NOT_PORTED = {
     "ltp_order": "-P (long-term prediction) is not ported to the device "
@@ -80,8 +79,8 @@ class SRLAEncoder:
         """device: the torch device that encodes the COMPRESS blocks
         ("cuda" runs the CUDA kernels, "cpu" their plain versions).
         Flagged blocks, odd-size blocks, RAW and SILENT blocks are encoded on
-        the host by a held ``srla_tpu.encoder.SRLAEncoder(backend="exact")``,
-        whose ``stats`` dict this encoder shares."""
+        the host by a held ``host_encoder.SRLAEncoder``, whose ``stats``
+        dict this encoder shares."""
         parameter.validate()
         for field, why in _NOT_PORTED.items():
             if getattr(parameter, field) > 0:
@@ -93,7 +92,7 @@ class SRLAEncoder:
                              "use -V 0")
         self.p = parameter
         self.device = torch.device(device)
-        self._host = host_encoder.SRLAEncoder(parameter, backend="exact")
+        self._host = host_encoder.SRLAEncoder(parameter)
         # srla_tpu's keys and meaning: COMPRESS blocks emitted from the
         # device, blocks encoded on the host (repairs included), flagged
         # blocks re-derived on the host, blocks whose section exceeded W.
@@ -258,10 +257,9 @@ class SRLAEncoder:
         flatrows = bsel[:, None] * C + ci              # packed rows
         sec_bits = small["section_bits"].astype(np.int64)
         out: dict[int, bytes] = {}
-        from srla_tpu import native_decoder as nd
-        if nd.available():
+        if native_decoder.available():
             maxp = max(host.preset.max_num_parameters, 1)
-            framed, sizes = nd.assemble_blocks(
+            framed, sizes = native_decoder.assemble_blocks(
                 method[bsel], small["pre_prev"][rows2],
                 small["pre_coef"][rows2], small["orders"][rows2],
                 small["rshifts"][rows2], small["coefs"][rows2][:, :, :maxp],
@@ -300,14 +298,10 @@ class SRLAEncoder:
 
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            device, preset: int = 4, max_block: int = 4096) -> bytes:
-    """One-shot file encode on ``device``: ``srla_tpu.encode``'s result
-    for the same preset and block size (fixed-size blocks, no LTP or
-    SVR)."""
+    """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
+    ``srla_tpu.encode``'s) result for the same preset and block size
+    (fixed-size blocks, no LTP or SVR)."""
     pcm = np.asarray(pcm, dtype=np.int32)
-    param = EncodeParameter(
-        num_channels=pcm.shape[0], bits_per_sample=bits_per_sample,
-        sampling_rate=sampling_rate, preset=preset,
-        max_num_samples_per_block=max_block,
-        min_num_samples_per_block=max_block,
-        num_lookahead_samples=4 * max_block)
+    param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
+                           preset, max_block)
     return SRLAEncoder(param, device).encode_whole(pcm)

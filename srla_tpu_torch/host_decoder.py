@@ -1,0 +1,103 @@
+"""The host side of the port's decoder: RAW payloads and parameter headers.
+
+The port's own copy of the parts of ``srla_tpu/decoder.py`` (:91-218) that
+the device decoder needs on the host: ``decode_raw_block``,
+``_parse_params`` (the Python parameter-header parser, for hosts where the
+native library does not build) and the handle of the native library, whose
+``parse_params_batch`` parses every header of a stream in one call.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import native_decoder
+from .bitio import BitReader, uint32_to_sint32
+from .constants import (LPC_COEFFICIENT_ORDER_BITWIDTH,
+                        LTP_COEFFICIENT_BITWIDTH, LTP_MIN_PERIOD,
+                        LTP_ORDER_BITWIDTH, LTP_PERIOD_BITWIDTH,
+                        MAX_COEFFICIENT_ORDER, PREEMPHASIS_COEF_SHIFT,
+                        RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+from .format import StreamHeader
+from .huffman import parameter_codebook, sum_parameter_codebook
+
+
+@dataclass
+class _BlockParams:
+    method: int
+    pre_prev: np.ndarray
+    pre_coef: np.ndarray
+    orders: np.ndarray
+    rshifts: np.ndarray
+    coefs: np.ndarray
+    ltp_orders: np.ndarray
+    ltp_periods: np.ndarray
+    ltp_coefs: np.ndarray
+
+
+class SRLADecoder:
+    def __init__(self):
+        self._param_cb = parameter_codebook()
+        self._sum_cb = sum_parameter_codebook()
+        # The native library's module where it builds, else None (callers
+        # then parse each header with _parse_params).
+        self._native = native_decoder if native_decoder.available() else None
+
+    def _parse_params(self, payload: bytes, header: StreamHeader
+                      ) -> tuple[_BlockParams, BitReader]:
+        """Parse the parameter header of a compress payload; the returned
+        reader is positioned at the first channel's residual section."""
+        C = header.num_channels
+        r = BitReader(payload)
+        method = r.get(2)
+        pre_prev = np.zeros(C, dtype=np.int32)
+        pre_coef = np.zeros(C, dtype=np.int32)
+        for c in range(C):
+            pre_prev[c] = uint32_to_sint32(
+                np.uint32(r.get(header.bits_per_sample + 1)))
+            pre_coef[c] = uint32_to_sint32(
+                np.uint32(r.get(PREEMPHASIS_COEF_SHIFT + 1)))
+        orders = np.zeros(C, dtype=np.int32)
+        rshifts = np.zeros(C, dtype=np.int32)
+        coefs = np.zeros((C, MAX_COEFFICIENT_ORDER), dtype=np.int32)
+        for c in range(C):
+            o = r.get(LPC_COEFFICIENT_ORDER_BITWIDTH)
+            orders[c] = o
+            rshifts[c] = r.get(RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+            use_sum = r.get(1)
+            if not use_sum:
+                for i in range(o):
+                    coefs[c, i] = uint32_to_sint32(
+                        np.uint32(self._param_cb.decode_one(r)))
+            elif o > 0:
+                coefs[c, 0] = uint32_to_sint32(
+                    np.uint32(self._param_cb.decode_one(r)))
+                for i in range(1, o):
+                    v = uint32_to_sint32(np.uint32(self._sum_cb.decode_one(r)))
+                    coefs[c, i] = np.int32(int(v) - int(coefs[c, i - 1]))
+        ltp_orders = np.zeros(C, dtype=np.int32)
+        ltp_periods = np.zeros(C, dtype=np.int32)
+        ltp_coefs = np.zeros((C, 8), dtype=np.int32)
+        for c in range(C):
+            if r.get(1):
+                ltp_orders[c] = 2 * r.get(LTP_ORDER_BITWIDTH) + 1
+                ltp_periods[c] = r.get(LTP_PERIOD_BITWIDTH) + LTP_MIN_PERIOD
+                for i in range(ltp_orders[c]):
+                    ltp_coefs[c, i] = uint32_to_sint32(
+                        np.uint32(r.get(LTP_COEFFICIENT_BITWIDTH)))
+        return _BlockParams(method, pre_prev, pre_coef, orders, rshifts,
+                            coefs, ltp_orders, ltp_periods, ltp_coefs), r
+
+    def decode_raw_block(self, payload: bytes, header: StreamHeader,
+                         num_samples: int) -> np.ndarray:
+        C = header.num_channels
+        bps = header.bits_per_sample
+        nbytes = bps // 8
+        buf = np.frombuffer(payload[:num_samples * C * nbytes], dtype=np.uint8)
+        buf = buf.reshape(num_samples, C, nbytes)
+        uv = np.zeros((num_samples, C), dtype=np.uint32)
+        for i in range(nbytes):
+            uv = (uv << 8) | buf[:, :, i].astype(np.uint32)
+        return uint32_to_sint32(uv).T.astype(np.int32).copy()

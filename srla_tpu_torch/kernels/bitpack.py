@@ -16,9 +16,8 @@ import ctypes
 
 import torch
 
-from srla_tpu.constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
-                                CODER_RICE_PARAMETER_BITS)
-
+from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
+                         CODER_RICE_PARAMETER_BITS)
 from . import build
 from .lpc import _MASK32, wrap32
 

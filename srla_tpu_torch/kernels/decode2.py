@@ -14,8 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from srla_tpu.constants import LTP_COEFFICIENT_BITWIDTH, MAX_LTP_ORDER
-
+from ..constants import LTP_COEFFICIENT_BITWIDTH, MAX_LTP_ORDER
 from .lpc import lpc_scan, wrap32
 from .rice_decode import rice_decode
 

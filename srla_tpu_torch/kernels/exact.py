@@ -31,16 +31,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from srla_tpu.constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
-                                CODER_RICE_PARAMETER_BITS,
-                                LPC_COEFFICIENT_BITWIDTH,
-                                LPC_COEFFICIENT_ORDER_BITWIDTH,
-                                LPC_RIDGE_REGULARIZATION_PARAMETER,
-                                PREEMPHASIS_COEF_SHIFT,
-                                RSHIFT_LPC_COEFFICIENT_BITWIDTH)
-from srla_tpu.dsp.window import welch_inverse_squared_sum, welch_window
-from srla_tpu.rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
-
+from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
+                         CODER_RICE_PARAMETER_BITS, LPC_COEFFICIENT_BITWIDTH,
+                         LPC_COEFFICIENT_ORDER_BITWIDTH,
+                         LPC_RIDGE_REGULARIZATION_PARAMETER,
+                         PREEMPHASIS_COEF_SHIFT,
+                         RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+from ..dsp.window import welch_inverse_squared_sum, welch_window
+from ..huffman import parameter_codebook, sum_parameter_codebook
+from ..rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
 from .bitpack import pack, residual_codewords, zigzag
 from .lpc import wrap32
 from .predict import predict, reverse_coefs
@@ -469,7 +468,6 @@ def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
 
 @lru_cache(maxsize=None)
 def _huffman_len_tables():
-    from srla_tpu.huffman import parameter_codebook, sum_parameter_codebook
     return (np.asarray(parameter_codebook().lengths, np.int64),
             np.asarray(sum_parameter_codebook().lengths, np.int64))
 

@@ -1,7 +1,7 @@
 """The port's whole decode slice, srla_tpu_torch.SRLADecoder, on the CPU
 (kernels' plain versions) against the source PCM, the native decoder and
 srla_tpu's device decoder on JAX-CPU; plus the port's parameter packing,
-its CLI, and its freedom from jax.
+its CLI, and its freedom from jax and srla_tpu.
 
 Every output is an integer, so every comparison is exact (tolerance 0)."""
 
@@ -182,34 +182,46 @@ def test_cli_roundtrip(tmp_path):
     assert out.read_bytes() == wav.read_bytes()
 
 
-def test_port_never_imports_jax():
-    """Importing the port, encoding and decoding through it leaves jax and
-    srla_tpu.kernels unimported (a subprocess: this one has jax loaded)."""
+def test_port_never_imports_jax(tmp_path):
+    """Importing the port, encoding, decoding and running its CLI leave jax
+    and every srla_tpu module unimported (a subprocess: this one has both
+    loaded). The reference bytes come from this process, through a file."""
+    pcm = (np.arange(3000).reshape(1, -1) % 97 - 48).astype(np.int32)
+    ref = tmp_path / "ref.srl"
+    ref.write_bytes(encode(pcm, 16, 44100, max_block=512))
     code = (
         "import sys\n"
         "import numpy as np\n"
         "import srla_tpu_torch, srla_tpu_torch.cli\n"
-        "from srla_tpu import encode\n"
         "pcm = (np.arange(3000).reshape(1, -1) % 97 - 48).astype(np.int32)\n"
         "data = srla_tpu_torch.encode(pcm, 16, 44100, device='cpu', "
         "max_block=512)\n"
-        "assert data == encode(pcm, 16, 44100, max_block=512)\n"
+        f"ref = {str(ref)!r}\n"
+        "assert data == open(ref, 'rb').read()\n"
         "_, out = srla_tpu_torch.decode(data, device='cpu')\n"
         "assert (out == pcm).all()\n"
-        "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'srla_tpu.kernels'))]\n"
+        "wav = ref + '.wav'\n"
+        "assert srla_tpu_torch.cli.main(['-d', '--device', 'cpu', ref, "
+        "wav]) == 0\n"
+        "assert srla_tpu_torch.cli.main(['-e', '-V', '0', '-B', '512', "
+        "'--device', 'cpu', wav, ref + '.2']) == 0\n"
+        "assert open(ref + '.2', 'rb').read() == data\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'srla_tpu', 'bench')"
+        " or m.startswith(('jax.', 'srla_tpu.'))]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 
-def test_decode_without_native_parser():
-    """The Python parameter parser (hosts where the native library does not
-    build) gives the same PCM."""
+def test_decode_without_native_parser(monkeypatch):
+    """The Python parameter parser (hosts where the port's native library
+    does not build) gives the same PCM."""
+    from srla_tpu_torch import native_decoder
     pcm, data = _encode("ltp")
+    monkeypatch.setattr(native_decoder, "available", lambda: False)
     dec = SRLADecoder("cpu")
-    dec._host._native = None
+    assert dec._host._native is None
     _, got = dec.decode_whole(data)
     np.testing.assert_array_equal(got, pcm)
 

@@ -15,11 +15,11 @@ torch = pytest.importorskip("torch")
 
 import signals  # noqa: E402
 from srla_tpu import encode as host_encode  # noqa: E402
-from srla_tpu import native_decoder  # noqa: E402
 from srla_tpu.constants import HEADER_SIZE, BlockDataType  # noqa: E402
-from srla_tpu.encoder import EncodeParameter  # noqa: E402
 from srla_tpu.format import decode_header, parse_block_header  # noqa: E402
 from srla_tpu_torch import SRLAEncoder, decode, encode  # noqa: E402
+from srla_tpu_torch import native_decoder  # noqa: E402
+from srla_tpu_torch.host_encoder import EncodeParameter  # noqa: E402
 from srla_tpu_torch.kernels import exact as texact  # noqa: E402
 
 BLOCK = 512
@@ -173,8 +173,8 @@ def test_overlong_sections_go_to_host(monkeypatch):
 
 
 def test_python_assembly_without_native_library(monkeypatch):
-    """Where the native library does not build, the payloads are built with
-    the Python bit writer: the same bytes."""
+    """Where the port's native library does not build, the payloads are
+    built with the Python bit writer: the same bytes."""
     pcm = _pcm("chirp", 2, 16)
     want = host_encode(pcm, 16, 44100, max_block=BLOCK)
     monkeypatch.setattr(native_decoder, "available", lambda: False)

@@ -4,22 +4,25 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the six CUDA libraries of csrc/ (eight kernels; concurrent nvcc),
-then:
+Builds the six CUDA libraries of csrc/ (eight kernels) and the serial-chain
+probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
-     on the card at the main-path shape (2584 rows x 4096 samples, 64 taps)
-     and at 256 taps (264 rows, orders 200..256: the kernel's shared memory
-     goes past the 48 KiB default), with edge rows, with and without fused
-     de-emphasis: bit-equal.
+     on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
+     at the tail group's shape (2 rows x 4064 samples, 64 taps) and at 256
+     taps (264 rows, orders 200..256), with edge rows, with and without
+     fused de-emphasis: bit-equal. Times the main shape (ms) and the tail
+     shape (tail_ms).
   2. K2 (Rice entropy decode, csrc/rice_decode.cu) against its plain version
-     on every block group of the phase-3 stream: bit-equal.
+     on every block group of the phase-3 stream: bit-equal. Times the
+     1291-block group (ms) and the 1-block tail group (tail_ms).
   3. 120 s of stereo 16-bit 44.1 kHz music-like audio, encoded on the host
      at -m 4 -B 4096 -V 0 (the port's exact host encoder,
      srla_tpu_torch.host_encoder, which the CPU tests hold byte-equal to
      srla_tpu.encode(backend="exact")), decoded with
      srla_tpu_torch.decode(..., device="cuda"): lossless, every COMPRESS
-     block on the device, both kernels launched by that decode.
+     block on the device, both kernels launched by that decode; then one
+     warm decode under torch.profiler (device time by kernel).
   4. A 10 s -m 6 -P 3 stream from the same host encoder (long-term
      prediction; LPC orders up to 93 on this signal) decoded on the card:
      lossless.
@@ -49,7 +52,10 @@ device JSON line. A kernel's bound is the larger of the bytes it must move
 over 3.35 TB/s and the 32-bit integer instructions its inputs need (a
 multiply-add is one) over the H100's INT32 issue rate: 132 SMs x 64 INT32
 lanes x 1.98 GHz = 16.7 T/s, a quarter of the 67 T/s non-tensor float32
-rate, which counts a fused multiply-add as two.
+rate, which counts a fused multiply-add as two. K1 and K2 are recurrences,
+so each also gets a serial floor: its samples (K1, per row) or codewords
+(K2, per block; C * n, one per sample) times the time one warp takes for
+the shortest dependent step alone, measured in the same run.
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -123,8 +129,9 @@ def compress_blocks(stream: bytes) -> int:
 
 def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
                seed: int):
-    """K1 arguments on the card: rows of order min_order..M plus edge rows
-    (order 0, rshift 0, order M, int32-wrapping residuals and taps)."""
+    """K1 arguments on the card: rows of order min_order..M plus, when
+    R >= 5, edge rows (order 0, rshift 0, order M, int32-wrapping residuals
+    and taps)."""
     from srla_tpu_torch.kernels.decode2 import align_coefs
 
     rng = np.random.RandomState(seed)
@@ -132,11 +139,12 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
     orders = rng.randint(min_order, M + 1, R)
     coefs = rng.randint(-(1 << 15), 1 << 15, (R, M))
     rshifts = rng.randint(1, 16, R)
-    orders[0] = 0                         # order 0 passes residuals through
-    rshifts[1] = 0                        # rshift 0: half = INT_MIN
-    orders[2] = M                         # full-order row
-    res[3:5] = rng.randint(-(1 << 30), 1 << 30, (2, n))   # int32 wrapping
-    coefs[3:5] = rng.randint(-(1 << 30), 1 << 30, (2, M))
+    if R >= 5:
+        orders[0] = 0                     # order 0 passes residuals through
+        rshifts[1] = 0                    # rshift 0: half = INT_MIN
+        orders[2] = M                     # full-order row
+        res[3:5] = rng.randint(-(1 << 30), 1 << 30, (2, n))  # int32 wrapping
+        coefs[3:5] = rng.randint(-(1 << 30), 1 << 30, (2, M))
     dcoef = rng.randint(0, 16, R)
     dprev = rng.randint(-30000, 30000, R)
 
@@ -148,50 +156,87 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
     return args, dict(dcoef=t(dcoef), dprev=t(dprev))
 
 
+def chain_step_ms(torch, kind: int) -> float:
+    """Milliseconds one warp needs for one step of a serial chain alone
+    (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword): the
+    difference of two chain lengths over their difference, CUDA events."""
+    import ctypes
+
+    from srla_tpu_torch.kernels import build
+    fn = build.load("chain_probe").srla_chain_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.empty(32, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(steps):
+        err = fn(kind, steps, 0x9E3779B1, 0x2545F491, out.data_ptr(), stream)
+        require(err == 0, f"chain probe launch failed ({err})")
+
+    short, long_ = 1 << 14, 1 << 16
+    run(short)
+    t_short = cuda_ms(torch, lambda: run(short), 5)
+    t_long = cuda_ms(torch, lambda: run(long_), 5)
+    return (t_long - t_short) / (long_ - short)
+
+
 def phase_lpc(torch, np, dev):
-    """K1 against its plain version at 256 taps (orders 200..256, more than
-    48 KiB of shared memory) and at the main-path shape, with and without
-    fused de-emphasis; times the main-path shape. Returns the kernel's JSON
-    record without its launch count."""
+    """K1 against its plain version at 256 taps (orders 200..256), at the
+    tail group's shape (2 rows of 4064 samples) and at the main-path shape,
+    with and without fused de-emphasis; times the main and the tail shape.
+    Returns the kernel's JSON record without its launch count."""
     from srla_tpu_torch.kernels.lpc import lpc_scan, lpc_scan_plain
 
-    err = 0
-    for R, n, M, min_order in ((264, 4096, 256, 200), (2584, 4096, 64, 1)):
+    err, shapes = 0, {}
+    for R, n, M, min_order in ((264, 4096, 256, 200), (2, 4064, 64, 1),
+                               (2584, 4096, 64, 1)):
         args, fused = lpc_inputs(torch, np, dev, R, n, M, min_order, seed=M)
         for kw in ({}, fused):
             got = lpc_scan(*args, **kw)
             want = lpc_scan_plain(*args, **kw)
             torch.cuda.synchronize()
             e = max_abs_err(torch, got, want)
-            require(e == 0, f"K1 differs from its plain version at M={M} "
-                            f"(fused={bool(kw)}, max abs err {e})")
+            require(e == 0, f"K1 differs from its plain version at R={R} "
+                            f"M={M} (fused={bool(kw)}, max abs err {e})")
             err = max(err, e)
+        shapes[R] = (args, fused)
         print(f"phase 1 K1 lpc_synth: bit-equal to plain at R={R} n={n} "
               f"M={M}, orders {min_order}..{M}, with and without fused "
               f"de-emphasis")
-    # The last shape is the main path's: time it.
+    args, fused = shapes[2584]
+    tail_args, tail_fused = shapes[2]
     ms = cuda_ms(torch, lambda: lpc_scan(*args, **fused), 20)
+    tail_ms = cuda_ms(torch, lambda: lpc_scan(*tail_args, **tail_fused), 20)
     plain_ms = cuda_ms(torch, lambda: lpc_scan_plain(*args, **fused), 1)
     res, aligned, orders = args[0], args[1], args[2]
+    R, n = res.shape
     # Read residuals, taps, order, shift and the two de-emphasis scalars
     # once, write the samples once; a multiply-add per tap and sample, and
     # the rounding, shift, subtraction and de-emphasis per sample.
     b = bound(nbytes(*args[:4], *fused.values()) + nbytes(res),
               n * (int(orders.long().sum()) + 6 * R))
-    print(f"phase 1 K1 lpc_synth at R={R} n={n} M={M} (+fused de-emphasis): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
-          f"{b['ops_ms']:.4f} ms)")
+    # Each row's samples wait on each other: n steps of the shortest chain.
+    step = chain_step_ms(torch, 0)
+    floor_ms, tail_floor_ms = n * step, tail_args[0].shape[1] * step
+    print(f"phase 1 K1 lpc_synth at R={R} n={n} M={aligned.shape[1]} "
+          f"(+fused de-emphasis): kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
+          f"{b['ops_ms']:.4f} ms), serial floor {floor_ms:.4f} ms "
+          f"({step * 1e6:.3f} ns a sample); tail R=2 n=4064: kernel "
+          f"{tail_ms:.4f} ms, serial floor {tail_floor_ms:.4f} ms")
     return dict(name="lpc_synth", route="cuda",
                 source="srla_tpu_torch/kernels/csrc/lpc_synth.cu",
                 replaces="srla_tpu/kernels/pallas_lpc.py:102",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                library_ms=None)
+                library_ms=None, tail_ms=tail_ms, serial_floor_ms=floor_ms,
+                tail_serial_floor_ms=tail_floor_ms)
 
 
 def phase_rice(torch, dev, stream: bytes):
     """K2 against its plain version on every block group of ``stream``;
-    times both on the largest group."""
+    times the kernel on the largest group (ms) and on the smallest (the
+    tail group, tail_ms), the plain version on the largest."""
     from srla_tpu_torch.decoder import SRLADecoder, upload_stream
     from srla_tpu_torch.kernels.decode2 import meta_cols
     from srla_tpu_torch.kernels.rice_decode import (rice_decode,
@@ -200,7 +245,7 @@ def phase_rice(torch, dev, stream: bytes):
     header, _, groups = SRLADecoder(dev).plan(stream)
     C = header.num_channels
     words = upload_stream(stream, dev)
-    err, timed = 0, None
+    err, cases = 0, []
     for g in groups:
         cols, _ = meta_cols(C, g.M, 3)
         meta = torch.from_numpy(g.meta).to(dev)
@@ -214,29 +259,71 @@ def phase_rice(torch, dev, stream: bytes):
         require(e == 0, f"K2 differs from its plain version on the "
                         f"{len(g.starts)}-block group of n={g.n}")
         err = max(err, e)
-        if timed is None or len(g.starts) > len(timed[0].starts):
-            timed = (g, args)
-    g, args = timed
+        cases.append((len(g.starts), g, args))
+    cases.sort(key=lambda c: c[0])
+    _, g, args = cases[-1]
+    _, tail_g, tail_args = cases[0]
     ms = cuda_ms(torch, lambda: rice_decode(*args), 20)
+    tail_ms = cuda_ms(torch, lambda: rice_decode(*tail_args), 20)
     plain_ms = cuda_ms(torch, lambda: rice_decode_plain(*args), 1)
     # Read the stream words and each block's start once, write the samples
     # once; at least a peek, a count of leading zeros, a shift and the
     # unzigzag per decoded sample.
     B = len(g.starts)
     b = bound(nbytes(*args[:3]) + 4 * B * C * g.n, 4 * B * C * g.n)
+    # A block's codewords wait on each other: at least C * n of them (one
+    # per sample; the partitions' k deltas come on top) times the shortest
+    # chain of one codeword.
+    step = chain_step_ms(torch, 1)
+    floor_ms, tail_floor_ms = C * g.n * step, C * tail_g.n * step
     print(f"phase 2 K2 rice_decode: bit-equal to plain on {len(groups)} "
           f"groups; at B={B} C={C} n={g.n}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms)")
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms), serial floor "
+          f"{floor_ms:.4f} ms ({step * 1e6:.3f} ns a codeword); tail "
+          f"B={len(tail_g.starts)} n={tail_g.n}: kernel {tail_ms:.4f} ms, "
+          f"serial floor {tail_floor_ms:.4f} ms")
     return dict(name="rice_decode", route="cuda",
                 source="srla_tpu_torch/kernels/csrc/rice_decode.cu",
                 replaces="srla_tpu/kernels/decode2.py:218",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                library_ms=None)
+                library_ms=None, tail_ms=tail_ms, serial_floor_ms=floor_ms,
+                tail_serial_floor_ms=tail_floor_ms)
+
+
+def profile_decode(torch, decode, stream: bytes, dev) -> None:
+    """One warm decode under torch.profiler: wall time, device time and the
+    device time of the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(stream, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # The device's own events (kernels, copies); the CPU operators that
+    # launched them carry the same time again.
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("Activity Buffer")),
+                    key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in events)
+    top = ", ".join(f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in events[:8] if dev_us(e) > 0)
+    print(f"phase 3 decode profile (torch.profiler, one warm decode): wall "
+          f"{wall * 1e3:.1f} ms, device {total / 1e3:.3f} ms; {top}")
 
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe")
+PROBES = ("chain_probe",)        # measurement only: the serial floors
 
 
 def main_param():
@@ -518,7 +605,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    build.load_all(LIBRARIES)
+    build.load_all(LIBRARIES + PROBES)
     print("kernel build (concurrent nvcc, s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in build.build_seconds.items()))
 
@@ -557,6 +644,7 @@ def main() -> int:
           f"{ncomp} COMPRESS blocks on the device, launches {launches}; "
           f"warm best of 3 {best * 1e3:.1f} ms = "
           f"{MAIN_SECONDS / best:.1f}x realtime [{card}]")
+    profile_decode(torch, decode, stream, dev)
 
     # Phase 4: high orders and long-term prediction.
     pcm4 = make_music(LTP_SECONDS)

@@ -5,6 +5,9 @@ the Pallas kernel ``srla_tpu.kernels.pallas_lpc.lpc_scan_pallas``: same
 arguments, same wrapping-int32 semantics. On a CUDA tensor it launches the
 hand-written kernel ``csrc/lpc_synth.cu``; on a CPU tensor it runs
 ``lpc_scan_plain``, the PyTorch version the kernel is checked against.
+The kernel runs one warp per row with up to eight taps a lane, so the
+wrapper takes at most ``MAX_TAPS`` taps on every device (the format's
+orders stop at 255).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from . import build
 
 _MASK32 = 0xFFFFFFFF
+MAX_TAPS = 256           # 8 taps per lane of the kernel's warp
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +83,8 @@ def lpc_scan(res, aligned, orders, rshifts, n: int, M: int,
     CUDA tensors go through the kernel (``lpc_scan.launches`` counts its
     launches); CPU tensors go through ``lpc_scan_plain``.
     """
+    if not 1 <= M <= MAX_TAPS:
+        raise ValueError(f"lpc_scan: M must be in 1..{MAX_TAPS}, got {M}")
     if res.device.type == "cpu":
         return lpc_scan_plain(res, aligned, orders, rshifts, n, M,
                               dcoef=dcoef, dprev=dprev)
@@ -86,8 +92,6 @@ def lpc_scan(res, aligned, orders, rshifts, n: int, M: int,
         raise ValueError(f"lpc_scan: no kernel for device {res.device}")
     R = res.shape[0]
     fuse = dcoef is not None
-    if M < 1:
-        raise ValueError("lpc_scan: M must be >= 1")
     build.check_arg("lpc_scan", "res", res, (R, n), res.device)
     build.check_arg("lpc_scan", "aligned", aligned, (R, M), res.device)
     for name, t in (("orders", orders), ("rshifts", rshifts)) + (

@@ -5,7 +5,7 @@ stream.
 ``srla_tpu.kernels.decode2`` (``_assemble(*_entropy_scan(
 _stage_from_flat(...)))``) and decodes what ``srla_tpu.rice.decode`` reads.
 On a CUDA tensor it launches the hand-written kernel ``csrc/rice_decode.cu``
-(one thread per block); on a CPU tensor it runs ``rice_decode_plain``, the
+(one warp per block); on a CPU tensor it runs ``rice_decode_plain``, the
 PyTorch version the kernel is checked against. The stream format and the
 bounds on corrupt payloads are described in the kernel's source.
 

@@ -79,6 +79,48 @@ def test_plain_matches_pallas_interpret(fuse):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# Orders on both sides of the kernel's 32-lane tap groups (one warp per row
+# holds the taps of lags l+1, l+33, ... in lane l), n not a multiple of the
+# 32-sample chunk, and an odd R.
+GROUP_ORDERS = (0, 1, 31, 32, 33, 63, 64, 65, 72)
+GR, GN, GM = 45, 70, 72
+
+
+def _group_inputs(seed, R=GR, n=GN, M=GM, orders=GROUP_ORDERS):
+    rng = np.random.RandomState(seed)
+    ords = np.resize(np.asarray(orders, np.int32), R)
+    res = rng.randint(-30000, 30000, (R, n)).astype(np.int32)
+    coefs = rng.randint(-(1 << 15), 1 << 15, (R, M)).astype(np.int32)
+    rshifts = rng.randint(0, 16, R).astype(np.int32)
+    res[1] = rng.randint(-(1 << 30), 1 << 30, n)     # int32 wrapping
+    coefs[1] = rng.randint(-(1 << 30), 1 << 30, M)
+    aligned = np.asarray(_align_coefs(jnp.asarray(coefs), jnp.asarray(ords),
+                                      M))
+    dcoef = rng.randint(0, 16, R).astype(np.int32)
+    dprev = rng.randint(-30000, 30000, R).astype(np.int32)
+    return res, aligned, ords, rshifts, dcoef, dprev
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["plain", "deemph"])
+def test_plain_matches_xla_scan_across_lane_groups(fuse):
+    res, al, orders, rsh, dcoef, dprev = _group_inputs(seed=9)
+    kw = dict(dcoef=jnp.asarray(dcoef), dprev=jnp.asarray(dprev)) if fuse \
+        else {}
+    want = np.asarray(_lpc_scan(jnp.asarray(res), jnp.asarray(al),
+                                jnp.asarray(orders), jnp.asarray(rsh), GN, GM,
+                                **kw))
+    tkw = dict(zip(("dcoef", "dprev"), _t(dcoef, dprev))) if fuse else {}
+    got = lpc_scan_plain(*_t(res, al, orders, rsh), GN, GM, **tkw)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrapper_refuses_more_taps_than_the_kernel_holds():
+    args = _t(np.zeros((2, 4), np.int32), np.zeros((2, 257), np.int32),
+              np.zeros(2, np.int32), np.zeros(2, np.int32))
+    with pytest.raises(ValueError, match="M must be in 1..256"):
+        lpc_scan(*args, 4, 257)
+
+
 def test_wrapper_runs_plain_on_cpu_tensors():
     res, al, orders, rsh, dcoef, dprev = _inputs(seed=3)
     before = lpc_scan.launches
@@ -159,3 +201,36 @@ def test_kernel_matches_plain_at_order_255_on_card(cuda):
     want = lpc_scan_plain(res_t, al, ord_t, rsh_t, n, M, dcoef, dprev)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 4064])
+def test_kernel_matches_plain_across_lane_groups_on_card(cuda, n):
+    """Orders 0..72 around the lane groups at M = 72 (four taps a lane),
+    rows that end inside a 32-sample chunk."""
+    res, al, orders, rsh, dcoef, dprev = _group_inputs(seed=10 + n, n=n)
+    args = _t(res, al, orders, rsh, device=cuda)
+    for kw in ({}, dict(zip(("dcoef", "dprev"),
+                            _t(dcoef, dprev, device=cuda)))):
+        got = lpc_scan(*args, n, GM, **kw)
+        want = lpc_scan_plain(*args, n, GM, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_at_256_taps_on_card(cuda):
+    """M = 256, eight taps a lane, orders 200..256."""
+    rng = np.random.RandomState(11)
+    R, n, M = 37, 600, 256
+    orders = rng.randint(200, 257, R).astype(np.int32)
+    orders[:2] = (256, 200)
+    res, al, orders, rsh, dcoef, dprev = _group_inputs(
+        seed=12, R=R, n=n, M=M, orders=orders)
+    args = _t(res, al, orders, rsh, device=cuda)
+    for kw in ({}, dict(zip(("dcoef", "dprev"),
+                            _t(dcoef, dprev, device=cuda)))):
+        got = lpc_scan(*args, n, M, **kw)
+        want = lpc_scan_plain(*args, n, M, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)

@@ -29,7 +29,12 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
   5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
      csrc/rice_search.cu) and K5 (bit pack, csrc/bitpack.cu) against their
      plain versions on the card, on the inputs the main path's 1291-block
-     group of 4096 samples gives them: bit-equal, CUDA-event times.
+     group of 4096 samples gives them: bit-equal, CUDA-event times. K4 also
+     on the inputs of the 1-block tail group (4 rows of 4064 samples,
+     partition orders 0..5, leaves of 127: its kernel for lengths that are
+     no power of two; tail_ms) and on 12 rows of 512 samples at partition
+     orders 0..9 (leaves of one sample, shorter than a thread's run; both
+     row kinds, parameters 0, 30 and 31): bit-equal.
   6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
      at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
      every COMPRESS block emitted from the device or a counted host repair
@@ -42,7 +47,10 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
      path's entry point (counted), then each kernel against its plain
      version and against ``scatter_add_`` at R = 1 (the tool's shape) and
      R = 4096 rows: bit-equal, CUDA-event times (R = 4096 cycles through
-     inputs larger than L2).
+     inputs larger than L2); then each against its plain version at R = 37,
+     C = 300, W = 200 (no multiple of a warp or of a CTA's words) with
+     full-range values and a tenth of the words and of the shifts out of
+     range: bit-equal.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -56,6 +64,9 @@ rate, which counts a fused multiply-add as two. K1 and K2 are recurrences,
 so each also gets a serial floor: its samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
+K4 and K6 also get a device time (device_ms): at their smaller shapes the
+host needs longer to enqueue a call than the card to run it, so the calls
+are captured into one CUDA graph and the replay is timed.
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -93,6 +104,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call of fn with reps calls captured into one
+    CUDA graph and the graph replayed: the device's time for the calls back
+    to back. Unlike cuda_ms it leaves out the host's time to enqueue a
+    call, which at small sizes exceeds the kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(torch, graph.replay, 5) / reps
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -334,14 +360,19 @@ def main_param():
                            min_num_samples_per_block=4096)
 
 
-def main_group(torch, np, dev, pcm):
-    """The main path's 1291-block group of 4096 samples on the card, with
-    the encoder's device arguments and section bound W for it."""
+def main_group(torch, np, dev, pcm, tail: bool = False):
+    """The main path's 1291-block group of 4096 samples on the card (tail:
+    its 1-block group of the samples left over), with the encoder's device
+    arguments and section bound W for it."""
     from srla_tpu_torch import SRLAEncoder
     n = 4096
     B = pcm.shape[1] // n
+    part = pcm[:, :B * n]
+    if tail:
+        part, B = pcm[:, B * n:], 1
+        n = part.shape[1]
     blocks = np.ascontiguousarray(
-        pcm[:, :B * n].reshape(2, B, n).transpose(1, 0, 2), np.int16)
+        part.reshape(2, B, n).transpose(1, 0, 2), np.int16)
     enc = SRLAEncoder(main_param(), dev)
     return (torch.from_numpy(blocks).to(dev), B, enc._host._device_args(n),
             enc._section_words(n))
@@ -361,13 +392,41 @@ def compare(torch, name, kernel, plain, args, reps: int = 20):
     return e, ms, plain_ms
 
 
+def rice_search_args(torch, core, args):
+    """K4's arguments as the analysis of a group hands them over."""
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.lpc import wrap32
+    u, ks, rec, _, _ = exact.rice_params(core["residual"], args["n"],
+                                         args["max_porder"])
+    return (wrap32(u).to(torch.int32), ks.to(torch.int32).contiguous(),
+            rec.to(torch.int32), args["n"], args["max_porder"])
+
+
+def small_leaf_args(torch, np, dev):
+    """K4 arguments whose finest partitions are one sample, shorter than a
+    thread's run: 12 rows of 512 samples at partition orders 0..9, a
+    full-range row, a zero row, rows with every parameter at 30, 31 and 0,
+    both row kinds."""
+    V, n, max_porder = 12, 512, 9
+    rng = np.random.RandomState(0)
+    u = rng.randint(0, 1 << 12, (V, n))
+    u[1] = rng.randint(0, 1 << 31, n)
+    u[2] = 0
+    ks = rng.randint(0, 14, (V, (2 << max_porder) - 1))
+    ks[3], ks[4], ks[5] = 30, 31, 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return t(u), t(ks), t(np.arange(V) % 2), n, max_porder
+
+
 def phase_encode_kernels(torch, np, dev, pcm):
     """K3, K4 and K5 against their plain versions at the main path's
     shapes: the analysis of the 1291-block group gives K3 and K4 their
     inputs, its selection gives K5 the chosen rows' codeword stream."""
     from srla_tpu_torch.kernels import exact
     from srla_tpu_torch.kernels.bitpack import pack, pack_plain
-    from srla_tpu_torch.kernels.lpc import wrap32
     from srla_tpu_torch.kernels.predict import predict, predict_plain
     from srla_tpu_torch.kernels.rice_search import (rice_sums,
                                                     rice_sums_plain)
@@ -393,11 +452,19 @@ def phase_encode_kernels(torch, np, dev, pcm):
                      replaces="srla_tpu/kernels/encode.py:180",
                      max_abs_err=e, ms=ms, plain_ms=pms, **b,
                      library_ms=None))
-    u, ks, rec, _, _ = exact.rice_params(core["residual"], n,
-                                         args["max_porder"])
-    k4 = (wrap32(u).to(torch.int32), ks.to(torch.int32).contiguous(),
-          rec.to(torch.int32), n, args["max_porder"])
+    k4 = rice_search_args(torch, core, args)
     e, ms, pms = compare(torch, "K4", rice_sums, rice_sums_plain, k4)
+    tail_blocks, _, tail_args, _ = main_group(torch, np, dev, pcm, tail=True)
+    _, _, tail_core = exact.variant_analysis(tail_blocks, 0, **tail_args)
+    k4_tail = rice_search_args(torch, tail_core, tail_args)
+    tail_e, tail_ms, _ = compare(torch, "K4 (tail group)", rice_sums,
+                                 rice_sums_plain, k4_tail)
+    k4_small = small_leaf_args(torch, np, dev)
+    small_e, _, _ = compare(torch, "K4 (leaves of one sample)", rice_sums,
+                            rice_sums_plain, k4_small, reps=1)
+    e = max(e, tail_e, small_e)
+    dev_ms = device_ms(torch, lambda: rice_sums(*k4), 20)
+    tail_dev_ms = device_ms(torch, lambda: rice_sums(*k4_tail), 20)
     # Read the codes, parameters and row kinds once, write the sums once;
     # a shift and an add per sample and partition order.
     b = bound(nbytes(*k4[:3]) + nbytes(k4[1]),
@@ -405,12 +472,19 @@ def phase_encode_kernels(torch, np, dev, pcm):
     print(f"phase 5 K4 rice_search at V={V} n={n} porders "
           f"0..{args['max_porder']}: bit-equal, kernel {ms:.4f} ms, "
           f"plain {pms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms)")
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms), device time "
+          f"{dev_ms:.4f} ms (CUDA graph); tail "
+          f"V={k4_tail[0].shape[0]} n={k4_tail[3]} porders "
+          f"0..{k4_tail[4]}: bit-equal, kernel {tail_ms:.4f} ms, device "
+          f"time {tail_dev_ms:.4f} ms; "
+          f"V={k4_small[0].shape[0]} n={k4_small[3]} porders "
+          f"0..{k4_small[4]}: bit-equal")
     recs.append(dict(name="rice_search", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/rice_search.cu",
                      replaces="srla_tpu/kernels/exact.py:454",
                      max_abs_err=e, ms=ms, plain_ms=pms, **b,
-                     library_ms=None))
+                     library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
+                     tail_device_ms=tail_dev_ms))
     sel = exact.select_rows(small, B=B, C=2, n=n, bps=16, W=W,
                             max_params=args["max_params"])
     offs, tails, tbits = exact.chosen_stream(big, sel, n)
@@ -441,10 +515,27 @@ def k6_rows(torch, np, dev, R: int, seed: int):
             for k in range(3)]
 
 
+def k6_odd_rows(torch, np, dev, R: int, C: int, W: int):
+    """R rows of C full-range values on the card; a tenth of the words lie
+    outside 0..W-1 and a tenth of the shifts outside 0..31."""
+    rng = np.random.RandomState(R + C + W)
+    vals = rng.randint(-(1 << 31), 1 << 31, (R, C))
+    word = np.where(rng.rand(R, C) < 0.1,
+                    rng.choice([-1, -W, W, W + 3, 1 << 30], (R, C)),
+                    rng.randint(0, W, (R, C)))
+    shift = np.where(rng.rand(R, C) < 0.1,
+                     rng.choice([-1, 32, 33, 40, 1 << 20], (R, C)),
+                     rng.randint(0, 32, (R, C)))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in (vals, word, shift)]
+
+
 def phase_bitfield(torch, np, dev):
     """K6: the tool's entry point once (the path, counted), then each of
     the three kernels against its plain version and against scatter_add_
-    at R = 1 and R = K6_ROWS. Returns (records, launches)."""
+    at R = 1 and R = K6_ROWS, and against its plain version at a shape
+    that is no multiple of a warp or of a CTA's words. Returns (records,
+    launches)."""
     import itertools
 
     from srla_tpu_torch.kernels import bitfield as bf
@@ -482,6 +573,7 @@ def phase_bitfield(torch, np, dev):
             return bf.place_scatter_add(sets[i][0], idx[i], sets[i][2], W)
 
         lib_ms = cuda_ms(torch, library, 200)
+        lib_dev_ms = device_ms(torch, library, 48)
         # Read vals, word and shift once, write the words once; a shift
         # and an add per codeword.
         b = bound(nbytes(vals, word, shift) + 4 * R * W,
@@ -497,18 +589,30 @@ def phase_bitfield(torch, np, dev):
             recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e)
             cyc = itertools.cycle(sets)
             ms = cuda_ms(torch, lambda: kernel(*next(cyc), W), 200)
+            dev_ms = device_ms(torch, lambda: kernel(*next(cyc), W), 48)
             plain_ms = cuda_ms(torch, lambda: plain(vals, word, shift, W),
                                3)
             print(f"phase 7 K6 {name} at R={R} C={vals.shape[1]} W={W}: "
                   f"bit-equal to plain and scatter_add_, kernel {ms:.4f} "
                   f"ms, plain {plain_ms:.3f} ms, scatter_add_ "
                   f"{lib_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
-                  f"({b['bound_by']}; operations {b['ops_ms']:.6f} ms)")
-            times = dict(ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms)
+                  f"({b['bound_by']}; operations {b['ops_ms']:.6f} ms); "
+                  f"device time (CUDA graph) kernel {dev_ms:.4f} ms, "
+                  f"scatter_add_ {lib_dev_ms:.4f} ms")
+            times = dict(ms=ms, plain_ms=plain_ms, **b, library_ms=lib_ms,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms)
             if R == 1:
                 recs[name].update(times)        # the tool's shape
             else:
                 recs[name][f"rows_{R}"] = times
+    odd = (37, 300, 200)
+    odd_args = (*k6_odd_rows(torch, np, dev, *odd), odd[2])
+    for name, kernel, plain, _ in kernels:
+        e, _, _ = compare(torch, f"{name} at R, C, W = {odd}", kernel, plain,
+                          odd_args, reps=1)
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], e)
+    print(f"phase 7 K6 dot, rmw and mask at R, C, W = {odd}, words and "
+          f"shifts out of range among them: bit-equal to plain")
     for name, count in launches.items():
         require(count > 0, f"{name} was not launched by bitfield_probes")
     return list(recs.values()), launches

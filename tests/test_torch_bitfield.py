@@ -67,6 +67,57 @@ def test_plain_matches_jax_body(monkeypatch, body, seed):
     assert (want < 0).any()          # a field at bit 24 sets the sign bit
 
 
+# (R, C, W): the tool's shape at one row and at many, C and W that are no
+# multiple of a warp or of a CTA's words, one codeword into one word, and a
+# row longer than the kernels' staging buffer with W over several CTAs.
+SHAPES = [(1, 256, 128), (4096, 256, 128), (37, 300, 200), (3, 1, 1),
+          (2, 5000, 3000)]
+
+
+def _shape_id(shape):
+    return "R{}-C{}-W{}".format(*shape)
+
+
+def _shape_inputs(R, C, W, bad_words):
+    """Full-range values (sums wrap, fields overlap), a tenth of the shifts
+    outside 0..31 and, with bad_words, a tenth of the words outside
+    0..W-1."""
+    rng = np.random.RandomState(R * 7919 + C * 31 + W)
+    vals = rng.randint(-(1 << 31), 1 << 31, (R, C)).astype(np.int32)
+    word = rng.randint(0, W, (R, C))
+    shift = rng.randint(0, 32, (R, C))
+    shift = np.where(rng.rand(R, C) < 0.1,
+                     rng.choice([-1, 32, 33, 40, 1 << 20], (R, C)), shift)
+    if bad_words:
+        word = np.where(rng.rand(R, C) < 0.1,
+                        rng.choice([-1, -W, W, W + 3, 1 << 30], (R, C)),
+                        word)
+    return [torch.from_numpy(a.astype(np.int32))
+            for a in (vals, word, shift)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+@pytest.mark.parametrize("body", sorted(BODIES))
+def test_plain_matches_jax_body_at_shape(monkeypatch, body, shape):
+    """The first, a middle and the last row of each shape through the TPU
+    body (one row a call, as the tool runs it). The read-modify-write
+    body's dynamic slice cannot take a word outside 0..W-1; the other two
+    get such words too."""
+    kernel, plain = BODIES[body]
+    R, C, Wn = shape
+    vals, word, shift = _shape_inputs(R, C, Wn, bad_words=body != "rmw")
+    monkeypatch.setattr(TOOL, "C", C)
+    monkeypatch.setattr(TOOL, "W", Wn)
+    rows = sorted({0, R // 2, R - 1})
+    got = plain(vals[rows], word[rows], shift[rows], Wn).numpy()
+    for i, r in enumerate(rows):
+        inputs = tuple(jax.numpy.asarray(t[r:r + 1].numpy())
+                       for t in (vals, word, shift))
+        monkeypatch.setattr(TOOL, "_inputs", lambda: inputs)
+        want = TOOL._run(kernel, interpret=True)
+        np.testing.assert_array_equal(got[i:i + 1], want)
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_make_inputs_is_the_tools(seed):
     for mine, theirs in zip(bitfield_probes.make_inputs(seed),
@@ -149,3 +200,44 @@ def test_kernels_match_plain_on_card(cuda, R):
 @pytest.mark.gpu
 def test_tool_on_card(cuda):
     assert bitfield_probes.main(["--device", "cuda"]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
+def test_kernels_match_plain_at_shape(cuda, shape):
+    """Each kernel against its plain version with words and shifts out of
+    range mixed in; rows of the plain versions in slices, so that their
+    (R, C, W) intermediates stay small."""
+    R, C, Wn = shape
+    vals, word, shift = (t.to(cuda) for t in _shape_inputs(R, C, Wn, True))
+    step = max(1, (1 << 24) // (C * Wn))
+    for kernel, plain in ((bitfield.place_dot, bitfield.place_dot_plain),
+                          (bitfield.place_rmw, bitfield.place_rmw_plain),
+                          (bitfield.place_mask, bitfield.place_mask_plain)):
+        before = kernel.launches
+        got = kernel(vals, word, shift, Wn)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for r0 in range(0, R, step):
+            rows = slice(r0, r0 + step)
+            want = plain(vals[rows].contiguous(), word[rows].contiguous(),
+                         shift[rows].contiguous(), Wn)
+            assert torch.equal(got[rows], want)
+
+
+@pytest.mark.gpu
+def test_kernels_take_unaligned_rows(cuda):
+    """Rows that start 4 bytes into their buffers cannot take 128-bit
+    loads; the result is the same."""
+    R, C, Wn = 5, 256, 128
+    cpu = _shape_inputs(R, C, Wn, True)
+    off = []
+    for t in cpu:
+        buf = torch.zeros(R * C + 1, dtype=torch.int32, device=cuda)
+        view = buf[1:].view(R, C)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        off.append(view)
+    for kernel, plain in ((bitfield.place_dot, bitfield.place_dot_plain),
+                          (bitfield.place_mask, bitfield.place_mask_plain)):
+        assert torch.equal(kernel(*off, Wn), plain(*off, Wn))

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the six CUDA libraries of csrc/ (eight kernels) and the serial-chain
+Builds the six CUDA libraries of csrc/ (nine kernels) and the serial-chain
 probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
@@ -27,20 +27,30 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
      prediction; LPC orders up to 93 on this signal) decoded on the card:
      lossless.
   5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
-     csrc/rice_search.cu) and K5 (bit pack, csrc/bitpack.cu) against their
-     plain versions on the card, on the inputs the main path's 1291-block
-     group of 4096 samples gives them: bit-equal, CUDA-event times. K4 also
-     on the inputs of the 1-block tail group (4 rows of 4064 samples,
-     partition orders 0..5, leaves of 127: its kernel for lengths that are
-     no power of two; tail_ms) and on 12 rows of 512 samples at partition
-     orders 0..9 (leaves of one sample, shorter than a thread's run; both
-     row kinds, parameters 0, 30 and 31): bit-equal.
+     csrc/rice_search.cu) and K5 (csrc/bitpack.cu: pack_residual_sections,
+     residuals to packed sections in one kernel, the entry the encode runs,
+     and pack, the generic pack of a ready codeword stream, which is off
+     the encode's path) against their plain versions on the card, on the
+     inputs the main path's 1291-block group of 4096 samples gives them:
+     bit-equal, CUDA-event times. All four also on the inputs of the
+     1-block tail group (4 variant rows, 2 chosen rows of 4064 samples,
+     partition orders 0..5; tail_ms) and with a device time (CUDA graph
+     replay) at both shapes, and each at one small odd shape: K3 at 11 rows
+     of 333 samples, M 12 (orders 0, 1, M and M + 1, which reads as M;
+     shifts 0 and 31; rows that are not 16-byte aligned); K4 and both K5
+     entries at 12 rows of 512 samples at partition orders 0..9 (partitions
+     of one sample, shorter than a thread's run; both row kinds, a
+     full-range, a zero, an ALLZERO and a skipped row, parameters 0, 30 and
+     31): bit-equal. Also times the codeword stream (torch ops) that the
+     generic pack needs first: with pack's time, what the fused entry's
+     work cost before.
   6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
      at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
      every COMPRESS block emitted from the device or a counted host repair
-     or overflow, K3, K4 and K5 launched by that encode, and the stream
-     decoded losslessly by the port. Prints the warm best-of-3 encode speed
-     and a per-step breakdown.
+     or overflow, K3, K4 and K5's pack_residual_sections launched by that
+     encode (twice each, once a group; the generic pack not at all), and
+     the stream decoded losslessly by the port. Prints the warm best-of-3
+     encode speed and a per-step breakdown.
   7. K6 (bit-field placement probes, csrc/bitfield_probe.cu: one-hot
      product, read-modify-write OR, masked lane reduction): the port's tool
      ``python -m srla_tpu_torch.tools.bitfield_probes`` run once as the
@@ -64,9 +74,11 @@ rate, which counts a fused multiply-add as two. K1 and K2 are recurrences,
 so each also gets a serial floor: its samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
-K4 and K6 also get a device time (device_ms): at their smaller shapes the
-host needs longer to enqueue a call than the card to run it, so the calls
-are captured into one CUDA graph and the replay is timed.
+K3, K4, K5 and K6 also get a device time (device_ms): at their smaller
+shapes the host needs longer to enqueue a call than the card to run it, so
+the calls are captured into one CUDA graph and the replay is timed. K3 and
+K5's fused entry also get copy_ms, the device time of one copy that moves
+as many bytes as their bound counts.
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -137,6 +149,15 @@ def bound(moved_bytes: float, ops: float) -> dict:
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 ops_ms=t_ops)
+
+
+def copy_ms(torch, dev, moved_bytes: float) -> float:
+    """Device time of one device-to-device copy that moves ``moved_bytes``
+    (half read, half written), by CUDA graph replay: what this card's
+    memory takes for a kernel's bytes, beside the bound at its peak rate."""
+    src = torch.zeros(int(moved_bytes) // 8, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    return device_ms(torch, lambda: dst.copy_(src), 20)
 
 
 def compress_blocks(stream: bytes) -> int:
@@ -421,12 +442,86 @@ def small_leaf_args(torch, np, dev):
     return t(u), t(ks), t(np.arange(V) % 2), n, max_porder
 
 
+def fir_odd_args(torch, np, dev):
+    """K3 arguments at a shape no tile fits: 11 rows of 333 samples (odd:
+    three rows of four are not 16-byte aligned), M 12 (no multiple of the tap
+    group), orders 0, 1, M and M + 1 (which reads as M), shifts 0 and 31,
+    int32-sized samples and taps. Returns (kernel args, plain args): the
+    plain version takes the clamped order."""
+    from srla_tpu_torch.kernels.predict import reverse_coefs
+    V, n, M = 11, 333, 12
+    rng = np.random.RandomState(3)
+    work = rng.randint(-(1 << 30), 1 << 30, (V, n))
+    intc = rng.randint(-(1 << 30), 1 << 30, (V, M))
+    orders = rng.randint(0, M + 1, V)
+    rshifts = rng.randint(1, 16, V)
+    orders[:5] = (0, 1, M, M, M)
+    rshifts[2], rshifts[3] = 0, 31
+    intc[np.arange(M)[None, :] >= orders[:, None]] = 0
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    o = t(orders)
+    above = o.clone()
+    above[4] = M + 1
+    rev = reverse_coefs(t(intc), o)
+    return (t(work), rev, above, t(rshifts)), (t(work), rev, o, t(rshifts))
+
+
+def section_odd_args(torch, np, dev):
+    """pack_residual_sections arguments whose finest partitions are one
+    sample (several parameter codewords inside a thread's run): 12 rows of
+    512 samples at partition orders 0..9, both code types, a full-range
+    row, a zero row, an ALLZERO row, parameters 0 (long unary leads), 30
+    and 31, parameter deltas of up to 31, a skipped row; rows laid out with
+    gaps between them. Returns (args, owned): ``owned`` marks the words of
+    the buffer that a row owns."""
+    from srla_tpu_torch.kernels.bitpack import residual_codewords
+    V, n, maxp = 12, 512, 1024
+    rng = np.random.RandomState(12)
+    u = rng.randint(0, 1 << 12, (V, n)).astype(np.int64)
+    ct = np.arange(V) % 2
+    po = np.arange(V) % 10
+    ks = rng.randint(5, 14, (V, maxp))
+    u[1] = rng.randint(0, 1 << 32, n)
+    ks[1] = rng.randint(27, 32, maxp)
+    u[2] = 0
+    u[3], ct[3] = 0, 2
+    ks[4] = 0
+    u[4] = rng.randint(0, 40, n)
+    for row, k in ((5, 30), (6, 31), (7, 31)):
+        u[row] = rng.randint(0, 1 << 32, n)
+        ks[row] = k
+    po[8] = po[9] = 9
+    ks[9] = rng.randint(0, 32, maxp)
+    u[9] = rng.randint(0, 1 << 8, n)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    _, total = residual_codewords(t(u), t(ct), t(po), t(ks), n)
+    lens_w = (total + 31) // 32
+    lens_w[10] = 0
+    starts = torch.cumsum(lens_w + 3, 0) - lens_w
+    cap = int(starts[-1] + lens_w[-1]) + 3
+    owned = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    owned.index_add_(0, starts, torch.ones_like(starts))
+    owned.index_add_(0, starts + lens_w, -torch.ones_like(starts))
+    owned = torch.cumsum(owned, 0)[:cap] > 0
+    return (t(u), t(ct), t(po), t(ks), n, starts, lens_w, cap), owned
+
+
 def phase_encode_kernels(torch, np, dev, pcm):
-    """K3, K4 and K5 against their plain versions at the main path's
-    shapes: the analysis of the 1291-block group gives K3 and K4 their
-    inputs, its selection gives K5 the chosen rows' codeword stream."""
+    """K3, K4 and both K5 entries against their plain versions at the main
+    path's shapes, at the tail group's and at a small odd shape each: the
+    analysis of a group gives K3 and K4 their inputs, its selection gives
+    K5 the chosen rows."""
     from srla_tpu_torch.kernels import exact
-    from srla_tpu_torch.kernels.bitpack import pack, pack_plain
+    from srla_tpu_torch.kernels.bitpack import (pack, pack_plain,
+                                                pack_residual_sections,
+                                                pack_residual_sections_plain,
+                                                zigzag32)
     from srla_tpu_torch.kernels.predict import predict, predict_plain
     from srla_tpu_torch.kernels.rice_search import (rice_sums,
                                                     rice_sums_plain)
@@ -434,28 +529,53 @@ def phase_encode_kernels(torch, np, dev, pcm):
     blocks, B, args, W = main_group(torch, np, dev, pcm)
     n = args["n"]
     small, big, core = exact.variant_analysis(blocks, 0, **args)
+    tail_blocks, _, tail_args, tail_W = main_group(torch, np, dev, pcm,
+                                                   tail=True)
+    tail_small, tail_big, tail_core = exact.variant_analysis(
+        tail_blocks, 0, **tail_args)
+    tail_n = tail_args["n"]
     V = core["work"].shape[0]
     recs = []
-    k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
+
+    def fir_args(c):
+        return (c["work"], c["coefs"], c["orders"], c["rshifts"])
+
+    k3, k3_tail = fir_args(core), fir_args(tail_core)
     e, ms, pms = compare(torch, "K3", predict, predict_plain, k3)
+    tail_e, tail_ms, _ = compare(torch, "K3 (tail group)", predict,
+                                 predict_plain, k3_tail)
+    k3_odd, k3_odd_plain = fir_odd_args(torch, np, dev)
+    got = predict(*k3_odd)
+    torch.cuda.synchronize()
+    odd_e = max_abs_err(torch, got, predict_plain(*k3_odd_plain))
+    require(odd_e == 0, f"K3 differs from its plain version at the odd "
+                        f"shape (max abs err {odd_e})")
+    e = max(e, tail_e, odd_e)
+    dev_ms = device_ms(torch, lambda: predict(*k3), 20)
+    tail_dev_ms = device_ms(torch, lambda: predict(*k3_tail), 20)
     # Read the samples and each row's taps, order and shift once, write the
     # residual once; a multiply-add per tap and sample, rounding, shift and
     # subtraction per sample.
-    b = bound(nbytes(*k3) + nbytes(k3[0]),
-              n * (int(k3[2].long().sum()) + 3 * V))
+    moved = nbytes(*k3) + nbytes(k3[0])
+    b = bound(moved, n * (int(k3[2].long().sum()) + 3 * V))
+    cp_ms = copy_ms(torch, dev, moved)
     print(f"phase 5 K3 fir_predict at V={V} n={n} M={k3[1].shape[1]}: "
           f"bit-equal, kernel {ms:.4f} ms, plain {pms:.2f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
-          f"{b['ops_ms']:.4f} ms)")
+          f"{b['ops_ms']:.4f} ms), device time {dev_ms:.4f} ms (CUDA graph; "
+          f"a copy of the same bytes {cp_ms:.4f} ms); "
+          f"tail V={k3_tail[0].shape[0]} n={tail_n}: bit-equal, kernel "
+          f"{tail_ms:.4f} ms, device time {tail_dev_ms:.4f} ms; "
+          f"V={k3_odd[0].shape[0]} n={k3_odd[0].shape[1]} "
+          f"M={k3_odd[1].shape[1]}: bit-equal")
     recs.append(dict(name="fir_predict", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/fir_predict.cu",
                      replaces="srla_tpu/kernels/encode.py:180",
                      max_abs_err=e, ms=ms, plain_ms=pms, **b,
-                     library_ms=None))
+                     library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
+                     tail_device_ms=tail_dev_ms, copy_ms=cp_ms))
     k4 = rice_search_args(torch, core, args)
     e, ms, pms = compare(torch, "K4", rice_sums, rice_sums_plain, k4)
-    tail_blocks, _, tail_args, _ = main_group(torch, np, dev, pcm, tail=True)
-    _, _, tail_core = exact.variant_analysis(tail_blocks, 0, **tail_args)
     k4_tail = rice_search_args(torch, tail_core, tail_args)
     tail_e, tail_ms, _ = compare(torch, "K4 (tail group)", rice_sums,
                                  rice_sums_plain, k4_tail)
@@ -485,25 +605,115 @@ def phase_encode_kernels(torch, np, dev, pcm):
                      max_abs_err=e, ms=ms, plain_ms=pms, **b,
                      library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
                      tail_device_ms=tail_dev_ms))
-    sel = exact.select_rows(small, B=B, C=2, n=n, bps=16, W=W,
-                            max_params=args["max_params"])
+
+    # K5. The chosen rows of a group as the encode hands them over, and
+    # the same rows' codeword stream for the generic pack.
+    def section_args(sm, big_, c, nB, n_, W_, margs):
+        sel = exact.select_rows(sm, B=nB, C=2, n=n_, bps=16, W=W_,
+                                max_params=margs["max_params"])
+        big32 = dict(big_, u=zigzag32(c["residual"]))
+        return sel, exact.chosen_sections(big32, sel, n_, nB * 2 * W_)
+
+    sel, sec = section_args(small, big, core, B, n, W, args)
+    tail_sel, tail_sec = section_args(tail_small, tail_big, tail_core, 1,
+                                      tail_n, tail_W, tail_args)
+    odd_sec, odd_owned = section_odd_args(torch, np, dev)
+
+    def fused(a, image):
+        return lambda: pack_residual_sections(*a, section_words=image)
+
+    def compare_sections(what, a, image, owned=None):
+        """Fused entry against its plain version on the words the rows own
+        (the first sum(lens_w) of a compacted buffer)."""
+        got = fused(a, image)()
+        want = pack_residual_sections_plain(*a)
+        torch.cuda.synchronize()
+        if owned is None:
+            total = int(a[6].sum())
+            got, want = got[:total], want[:total]
+        else:
+            got, want = got[owned], want[owned]
+        err = max_abs_err(torch, got, want)
+        require(err == 0, f"K5 pack_residual_sections differs from its "
+                          f"plain version {what} (max abs err {err})")
+        return err
+
+    e = max(compare_sections("at the main shape", sec, W),
+            compare_sections("at the tail shape", tail_sec, tail_W),
+            compare_sections("at the odd shape", odd_sec, None, odd_owned))
+    ms = cuda_ms(torch, fused(sec, W), 20)
+    tail_ms = cuda_ms(torch, fused(tail_sec, tail_W), 20)
+    dev_ms = device_ms(torch, fused(sec, W), 20)
+    tail_dev_ms = device_ms(torch, fused(tail_sec, tail_W), 20)
+    pms = cuda_ms(torch, lambda: pack_residual_sections_plain(*sec), 2)
+    # Read the residuals of the rows that are packed and the parameters of
+    # their partitions once, each row's type, order, start and length
+    # once, write the sections' words once; about a dozen operations per
+    # sample (parameter lookup, quotient, tail, width, offset, two shifts,
+    # an OR).
+    lens_w = sec[6]
+    live_rows = lens_w > 0
+    K = lens_w.numel()
+    words = int(lens_w.sum())
+    n_live = int(live_rows.sum())
+    nparts = int((1 << sec[2][live_rows]).sum())
+    moved = 4 * n_live * n + 8 * nparts + 32 * K + 4 * words
+    b = bound(moved, 12 * n_live * n)
+    cp_ms = copy_ms(torch, dev, moved)
+    # What the same work cost before: the stream in torch ops, then pack.
+    stream_ms = cuda_ms(torch, lambda: exact.chosen_stream(big, sel, n), 3)
     offs, tails, tbits = exact.chosen_stream(big, sel, n)
     k5 = (offs, tails, tbits, B * 2 * W)
-    e, ms, pms = compare(torch, "K5", pack, pack_plain, k5)
+    ge, gms, gpms = compare(torch, "K5 pack", pack, pack_plain, k5)
+    k5_tail = (*exact.chosen_stream(tail_big, tail_sel, tail_n), 2 * tail_W)
+    tail_ge, tail_gms, _ = compare(torch, "K5 pack (tail group)", pack,
+                                   pack_plain, k5_tail)
+    from srla_tpu_torch.kernels.bitpack import section_stream
+    k5_odd = (*section_stream(*odd_sec[:7]), odd_sec[7])
+    odd_ge, _, _ = compare(torch, "K5 pack (odd shape)", pack, pack_plain,
+                           k5_odd, reps=1)
+    gdev_ms = device_ms(torch, lambda: pack(*k5), 10)
+    tail_gdev_ms = device_ms(torch, lambda: pack(*k5_tail), 20)
+    print(f"phase 5 K5 pack_residual_sections of {K} rows x {n} samples "
+          f"({n_live} packed) into {words} words: bit-equal, kernel "
+          f"{ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA graph; a copy "
+          f"of the same bytes {cp_ms:.4f} ms), plain "
+          f"{pms:.2f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+          f"operations {b['ops_ms']:.4f} ms); before: codeword stream "
+          f"(torch) {stream_ms:.4f} ms + pack {gms:.4f} ms; tail "
+          f"{tail_sec[0].shape[0]} rows x {tail_n}: bit-equal, kernel "
+          f"{tail_ms:.4f} ms, device time {tail_dev_ms:.4f} ms; "
+          f"{odd_sec[0].shape[0]} rows x {odd_sec[4]} at porders 0..9: "
+          f"bit-equal")
+    recs.append(dict(name="pack_residual_sections", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/bitpack.cu",
+                     replaces="srla_tpu/kernels/bitpack.py:385",
+                     max_abs_err=e, ms=ms, plain_ms=pms, **b,
+                     library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
+                     tail_device_ms=tail_dev_ms, copy_ms=cp_ms,
+                     stream_ms=stream_ms, before_ms=stream_ms + gms))
     # Read each slot's offset (int64), tail and width (int32) once, write
     # the words once; about eight operations per live codeword (split,
     # two shifts, two ORs).
     live = int((tbits > 0).sum())
     b = bound(16 * offs.numel() + 4 * B * 2 * W, 8 * live)
-    print(f"phase 5 K5 bitpack of {offs.shape[0]} rows x {offs.shape[1]} "
+    print(f"phase 5 K5 pack (generic, off the encode's path) of "
+          f"{offs.shape[0]} rows x {offs.shape[1]} "
           f"slots ({live} live) into {B * 2 * W} words: bit-equal, kernel "
-          f"{ms:.4f} ms, plain {pms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms)")
+          f"{gms:.4f} ms, device time {gdev_ms:.4f} ms (CUDA graph), plain "
+          f"{gpms:.2f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms); tail "
+          f"{k5_tail[0].shape[0]} rows x {k5_tail[0].shape[1]} slots: "
+          f"bit-equal, kernel {tail_gms:.4f} ms, device time "
+          f"{tail_gdev_ms:.4f} ms; {k5_odd[0].shape[0]} rows x "
+          f"{k5_odd[0].shape[1]} slots: bit-equal")
     recs.append(dict(name="bitpack", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/bitpack.cu",
                      replaces="srla_tpu/kernels/pallas_pack.py:79",
-                     max_abs_err=e, ms=ms, plain_ms=pms, **b,
-                     library_ms=None))
+                     max_abs_err=max(ge, tail_ge, odd_ge), ms=gms,
+                     plain_ms=gpms, **b, library_ms=None, tail_ms=tail_gms,
+                     device_ms=gdev_ms, tail_device_ms=tail_gdev_ms,
+                     on_encode_path=False))
     return recs
 
 
@@ -621,15 +831,17 @@ def phase_bitfield(torch, np, dev):
 def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     """The port's encode of the main path: bytes, block accounting, kernel
     launches, the port's own decode, then speed and a step breakdown.
-    Returns the launch counts of K3, K4 and K5 in that encode."""
+    Returns the launch counts of K3, K4 and both K5 entries in that
+    encode."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
-    from srla_tpu_torch.kernels.bitpack import pack
+    from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
     from srla_tpu_torch.kernels.predict import predict
     from srla_tpu_torch.kernels.rice_search import rice_sums
 
     param = main_param()
     predict.launches = rice_sums.launches = pack.launches = 0
+    pack_residual_sections.launches = 0
     torch.cuda.reset_peak_memory_stats()
     enc = SRLAEncoder(param, dev)
     data = enc.encode_whole(pcm)
@@ -637,6 +849,7 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {"fir_predict": predict.launches,
                 "rice_search": rice_sums.launches,
+                "pack_residual_sections": pack_residual_sections.launches,
                 "bitpack": pack.launches}
     require(data == stream, "port encode differs from the host exact "
                             "stream")
@@ -646,8 +859,12 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
                + s["w_overflow_blocks"])
     require(handled == ncomp, f"block accounting {s}: {handled} of "
                               f"{ncomp} COMPRESS blocks")
+    # Two groups (1291 blocks of 4096, 1 block of 4064): one launch each.
+    # The generic pack is off the encode's path.
     for name, count in launches.items():
-        require(count > 0, f"{name} was not launched by the encode")
+        want = 0 if name == "bitpack" else 2
+        require(count == want, f"{name} was launched {count} times by the "
+                               f"encode, expected {want}")
     _, out = decode(data, device=dev)
     require(np.array_equal(out, pcm), "port decode of the port's stream "
                                       "is not lossless")

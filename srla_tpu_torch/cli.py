@@ -77,6 +77,17 @@ def main(argv=None) -> int:
             print(f"invalid compress mode: {args.mode}", file=sys.stderr)
             return 1
         wav = read_audio(args.input)
+        total = wav.pcm.shape[1]
+
+        def progress(done, _total=total):
+            # Per-block progress meter (parity: the reference CLI's
+            # EncodeBlockCallback display, tools/srla_codec/srla_codec.c:66).
+            if sys.stderr.isatty():
+                pct = min(100.0, 100.0 * done / max(_total, 1))
+                print(f"\rprogress: {pct:5.1f} %", end="", file=sys.stderr)
+                if done >= _total:
+                    print(file=sys.stderr)
+
         param = EncodeParameter(
             num_channels=wav.pcm.shape[0],
             bits_per_sample=wav.bits_per_sample,
@@ -91,7 +102,8 @@ def main(argv=None) -> int:
                 args.svr_filter_learning_iteration))
         try:
             data = SRLAEncoder(param, args.device).encode_whole(
-                np.asarray(wav.pcm, dtype=np.int32))
+                np.asarray(wav.pcm, dtype=np.int32),
+                progress_callback=progress)
         except ValueError as e:
             print(f"encoding error: {e}", file=sys.stderr)
             return 1

@@ -99,17 +99,25 @@ class SRLAEncoder:
         self.stats = self._host.stats
         # Set to a StepTimer to collect a per-step breakdown of encode_whole.
         self.timer = None
+        self._progress_cb = None
+        self._progress_done = 0
 
     def encode_whole(self, pcm: np.ndarray, progress_callback=None) -> bytes:
-        """pcm: (C, N) int32. Returns the complete .srl stream."""
+        """pcm: (C, N) int32. Returns the complete .srl stream.
+        ``progress_callback(samples_done)`` is called once per block as its
+        group finishes."""
         pcm = np.asarray(pcm, dtype=np.int32)
         C, N = pcm.shape
         p = self.p
         tick = self.timer or no_timer
         if self.timer is not None:
             self.timer.start()
-        self._host._progress_cb = progress_callback
-        self._host._progress_done = 0
+        # The meter is this encoder's: once per block (parity: the
+        # reference's EncodeBlockCallback, srla_encoder.c:1780). The held
+        # host encoder, which reports per batch, stays silent.
+        self._host._progress_cb = None
+        self._progress_cb = progress_callback
+        self._progress_done = 0
         lshift = _compute_offset_lshift(pcm)
         header = StreamHeader(C, N, p.sampling_rate, p.bits_per_sample,
                               lshift, p.max_num_samples_per_block, p.preset)
@@ -119,6 +127,18 @@ class SRLAEncoder:
         out.extend(self._encode_spans(pcm, spans, lshift, tick))
         self._host._check_repair_rate()
         return b"".join(out)
+
+    def _blocks_done(self, count: int, size: int) -> None:
+        """Advance the progress meter: one call for each of ``count``
+        finished blocks of ``size`` samples."""
+        for _ in range(count):
+            if self._progress_cb is None:
+                return
+            self._progress_done += size
+            try:
+                self._progress_cb(self._progress_done)
+            except Exception:
+                self._progress_cb = None   # a broken meter never kills encode
 
     def _encode_spans(self, pcm, spans, lshift, tick) -> list[bytes]:
         """Type the blocks, encode each even-size COMPRESS group on the
@@ -143,9 +163,10 @@ class SRLAEncoder:
         for size, idxs in by_size.items():
             if size % 2 == 0:
                 for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
-                    results.update(self._encode_group(
-                        pcm, spans, idxs[lo:lo + self.MAX_CALL_BLOCKS],
-                        size, lshift, tick))
+                    call = idxs[lo:lo + self.MAX_CALL_BLOCKS]
+                    results.update(self._encode_group(pcm, spans, call, size,
+                                                      lshift, tick))
+                    self._blocks_done(len(call), size)
                 continue
             # Odd-length blocks: the reference's Welch window leaves the
             # middle sample holding stale work-buffer content.
@@ -157,12 +178,16 @@ class SRLAEncoder:
                     stale_state=state)
                 results[i] = host._finish_block(pcm, spans, i, size, params,
                                                 int(method[0]), 0, C)
+                self._blocks_done(1, size)
             tick("odd-size blocks (host)")
         for i, (off, size) in enumerate(spans):
             if types[i] == BlockDataType.SILENT:
                 results[i] = frame_block(BlockDataType.SILENT, size, b"")
             elif types[i] == BlockDataType.RAW:
                 results[i] = self._raw_block(pcm, off, size)
+            else:
+                continue
+            self._blocks_done(1, size)
         tick("assembly")
         return [results[i] for i in range(len(spans))]
 
@@ -231,7 +256,6 @@ class SRLAEncoder:
             if raw_blk[bi] and bi not in repair:
                 results[idxs[bi]] = self._raw_block(pcm, spans[idxs[bi]][0],
                                                     size)
-        host._report_progress(B * size)
         tick("assembly")
         return results
 

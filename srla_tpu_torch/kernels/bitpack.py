@@ -2,12 +2,24 @@
 
 ``residual_codewords`` is the twin of ``srla_tpu.kernels.bitpack.
 residual_codewords`` and ``word_splits`` of its ``_word_splits``: PyTorch
-ops on int64. ``pack`` writes a stream of (offset, tail, tbits) codewords
-into one flat buffer of MSB-first 32-bit words, the job of the Pallas kernel
+ops on int64.
+
+``pack_residual_sections`` is the twin of ``srla_tpu.kernels.bitpack.
+pack_residual_sections``: from the chosen rows' zigzag residuals and Rice
+choices to their packed sections in one step, each row at its own word
+offset of one flat buffer. On a CUDA tensor it launches the hand-written
+kernel ``pack_sections_kernel`` of ``csrc/bitpack.cu`` (a CTA per row, no
+codeword stream in device memory); on a CPU tensor it runs
+``pack_residual_sections_plain``: the codeword stream, then ``pack_plain``.
+This is the entry the encode runs.
+
+``pack`` writes a ready stream of (offset, tail, tbits) codewords into one
+flat buffer of MSB-first 32-bit words, the job of the Pallas kernel
 ``srla_tpu.kernels.pallas_pack.pallas_pack_rows`` and of the XLA packers
 ``bitpack.pack_flat_stream`` / ``pack_monotone_stream``. On a CUDA tensor it
-launches the hand-written kernel ``csrc/bitpack.cu``; on a CPU tensor it
-runs ``pack_plain``, the PyTorch version the kernel is checked against.
+launches ``bitpack_kernel`` of the same source; on a CPU tensor it runs
+``pack_plain``. It is off the encode's path since the fused entry took its
+place there, and stays for callers that hold a stream.
 """
 
 from __future__ import annotations
@@ -26,6 +38,11 @@ def zigzag(x: torch.Tensor) -> torch.Tensor:
     """int32-range values -> their zigzag codes in [0, 2^32) as int64."""
     x = x.long()
     return ((x << 1) ^ (x >> 31)) & _MASK32
+
+
+def zigzag32(x: torch.Tensor) -> torch.Tensor:
+    """int32 values -> the int32 bit patterns of their zigzag codes."""
+    return (x << 1) ^ (x >> 31)
 
 
 def _shl(x, k):
@@ -162,7 +179,8 @@ def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
     (cap_w,) int32: the MSB-first words as bit patterns.
 
     CUDA tensors go through the kernel (``pack.launches`` counts its
-    launches); CPU tensors go through ``pack_plain``.
+    launches); CPU tensors go through ``pack_plain``. The encode does not
+    call it: ``pack_residual_sections`` packs its sections.
     """
     if offsets.device.type == "cpu":
         return pack_plain(offsets, tails, tbits, cap_w)
@@ -190,6 +208,99 @@ def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
 pack.launches = 0
 
 
+# Shared memory a CTA can have on sm_90 (227 KB), less the kernel's static
+# scratch.
+_MAX_SHARED_BYTES = 232448 - 64
+
+
+def section_stream(u, code_type, porder, ks, n: int, starts, lens_w):
+    """The rows' codeword streams (``residual_codewords``) at absolute bit
+    offsets of one flat buffer: row r starts at word starts[r]; a row with
+    lens_w[r] == 0 contributes nothing. Returns (offsets, tails, tbits),
+    each (K, 2 + MAXP + n) int64."""
+    (offs, tails, tbits), _ = residual_codewords(u, code_type, porder, ks, n)
+    skip = (lens_w == 0)[:, None]
+    offs = torch.where(skip, 0, offs) + starts.long()[:, None] * 32
+    return offs, tails, torch.where(skip, 0, tbits)
+
+
+def pack_residual_sections_plain(u, code_type, porder, ks, n: int, starts,
+                                 lens_w, cap_w: int) -> torch.Tensor:
+    """Plain PyTorch version of ``pack_residual_sections``: the codeword
+    stream of every row, then ``pack_plain``. Words no row owns are 0."""
+    return pack_plain(*section_stream(u, code_type, porder, ks, n, starts,
+                                      lens_w), cap_w)
+
+
+def pack_residual_sections(u, code_type, porder, ks, n: int, starts, lens_w,
+                           cap_w: int, section_words=None) -> torch.Tensor:
+    """Pack the residual section of each row into one flat word buffer.
+
+    u (K, n) zigzag residuals (int64 in [0, 2^32) or their int32 bit
+    patterns); code_type, porder (K,); ks (K, MAXP) per-partition parameters
+    in 0..31, 2^porder of them live with n divisible by 2^porder; starts,
+    lens_w (K,) the first word and the length in words of each row's section
+    in the buffer (lens_w = ceil(section bits / 32), or 0 for a row that is
+    not packed); the rows' word ranges are disjoint. Returns (cap_w,) int32:
+    MSB-first words as bit patterns. Words that no row owns are unspecified
+    on a CUDA tensor (the buffer is not zeroed) and 0 on a CPU tensor.
+
+    ``section_words`` is an upper bound of lens_w, the size of the kernel's
+    row image in shared memory; left out, it is max(lens_w), which costs a
+    device synchronisation.
+
+    CUDA tensors go through the kernel (``pack_residual_sections.launches``
+    counts its launches); CPU tensors go through
+    ``pack_residual_sections_plain``.
+    """
+    if u.device.type == "cpu":
+        return pack_residual_sections_plain(u, code_type, porder, ks, n,
+                                            starts, lens_w, cap_w)
+    if u.device.type != "cuda":
+        raise ValueError(f"pack_residual_sections: no kernel for device "
+                         f"{u.device}")
+    dev = u.device
+    K = u.shape[0]
+    if tuple(u.shape) != (K, n) or ks.dim() != 2 or ks.shape[0] != K:
+        raise ValueError("pack_residual_sections: u must be (K, n) and ks "
+                         f"(K, MAXP), got {tuple(u.shape)} and "
+                         f"{tuple(ks.shape)} at n = {n}")
+    for name, t in (("code_type", code_type), ("porder", porder),
+                    ("starts", starts), ("lens_w", lens_w)):
+        if tuple(t.shape) != (K,) or t.device != dev:
+            raise ValueError(f"pack_residual_sections: {name} must have "
+                             f"shape ({K},) on {dev}")
+    u32 = u if u.dtype == torch.int32 else wrap32(u.long()).to(torch.int32)
+    u32 = u32.contiguous()
+    # The kernel reads the rest as int64, the type the analysis leaves them
+    # in: no conversion pass on the encode's path.
+    ct, po, k64, st, lw = (t.to(torch.int64).contiguous()
+                           for t in (code_type, porder, ks, starts, lens_w))
+    out = torch.empty(cap_w, dtype=torch.int32, device=dev)
+    if K == 0 or cap_w == 0:
+        return out
+    if section_words is None:
+        section_words = int(lw.max())
+    section_words = max(int(section_words), 1)
+    maxp = k64.shape[1]
+    if 4 * (section_words + maxp) > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"pack_residual_sections: a row image of {section_words} words "
+            f"and {maxp} parameters does not fit in a CTA's shared memory")
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.srla_pack_sections(
+        u32.data_ptr(), ct.data_ptr(), po.data_ptr(), k64.data_ptr(),
+        st.data_ptr(), lw.data_ptr(), out.data_ptr(), K, n, maxp,
+        section_words, cap_w, stream)
+    build.check(err, "pack_sections")
+    pack_residual_sections.launches += 1
+    return out
+
+
+pack_residual_sections.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("bitpack")
     fn = lib.srla_bitpack
@@ -197,4 +308,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
             + [ctypes.c_void_p]
+        fused = lib.srla_pack_sections
+        fused.restype = ctypes.c_int
+        fused.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+            + [ctypes.c_longlong, ctypes.c_void_p]
     return lib

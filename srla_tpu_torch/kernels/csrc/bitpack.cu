@@ -1,30 +1,66 @@
-// K5: bit pack of a codeword stream into MSB-first 32-bit words.
+// K5: the bit pack of the encode, two kernels.
 //
-// Replaces the Pallas TPU kernel srla_tpu/kernels/pallas_pack.py
-// (pallas_pack_rows -> _pack_rows_kernel) and the XLA packers the JAX
-// encoder runs instead, srla_tpu/kernels/bitpack.py pack_flat_stream (the
-// grouped-window prefix pack) and pack_monotone_stream (scatter). Every entry
-// e with tbits[e] > 0 puts the low tbits bits of tails[e] at absolute bit
-// offset offs[e] of the output, most significant bit first:
+// pack_sections_kernel takes the chosen residual sections from zigzag
+// residuals to packed words in one step: the job of
+// srla_tpu/kernels/bitpack.py pack_residual_sections (residual_codewords,
+// then a row-wise pack: what the Pallas TPU kernel
+// srla_tpu/kernels/pallas_pack.py pallas_pack_rows was written for). It is
+// the kernel on the encode's path. bitpack_kernel is the generic pack of a
+// ready codeword stream, the twin of pallas_pack_rows and of the XLA packers
+// pack_flat_stream and pack_monotone_stream; it is off the encode's path and
+// kept for callers that hold a stream.
+//
+// The stream, most significant bit first: every entry e with tbits[e] > 0
+// puts the low tbits bits of tails[e] at absolute bit offset offs[e]:
 //
 //   w0 = off >> 5, sh = off & 31, over = max(tbits - (32 - sh), 0),
 //   keep = tbits - over
 //   word w0     |= (tail >> over) << (32 - sh - keep)      (if keep > 0)
 //   word w0 + 1 |= tail << (32 - over)                      (if over > 0)
 //
-// Words at or beyond cap_w are dropped, as both JAX packers drop them; an
-// entry at a negative offset is dropped too. Shift counts >= 32 give 0, as
-// XLA's shifts do. Bit ranges of distinct entries are disjoint in a valid
-// stream, so the OR equals the JAX packers' sum and the result does not
-// depend on the order of the atomics.
+// A section (libs/srla_coder/src/srla_coder.c:486-595): 2 bits of code type
+// and, unless the type is ALLZERO (2, nothing more follows), 10 bits of
+// partition order; then per partition its parameter (5 bits of k for
+// partition 0, after that the zigzag of the difference to the previous k in
+// unary) followed by its n >> porder samples. A sample u at parameter k is
+// plain Rice (u >> k zeros, a one, the low k bits) or, in a recursive row
+// (type 1), k + 2 bits of 2^(k+1) | u when u < 2^(k+1), else 1 +
+// ((u - 2^(k+1)) >> k) zeros, a one, k bits. 2^(k+1) is 0 at k = 31 and all
+// arithmetic is unsigned, as in the plain version.
 //
-// What bounds it on an H100: the stream (2582 rows x 5122 slots at the main
-// path, 13.2 M entries of 16 bytes) is read once and the packed words
-// (~15 MB) are written through L2 atomics; it is bound by memory traffic.
-// Design: one thread per entry, at most two atomicOr into a buffer the
-// wrapper zeroes. The TPU's grouped windows, frame overflow and prefix sums
-// were workarounds for missing scatter; the atomics have no frame limit, so
-// nothing overflows.
+// What bounds pack_sections_kernel on an H100: it reads the chosen rows'
+// residuals once (2582 x 4096 x 4 bytes at the main path) and writes ~15 MB
+// of words: memory traffic, ~0.02 ms, against about two dozen integer
+// instructions a sample over two walks. Design: a CTA owns a row. Rows start
+// word-aligned, so no two CTAs share an output word: no global atomic, and
+// no zeroed output for the words a row owns. A thread takes kRun consecutive
+// samples in registers (128-bit loads), walks them once to count its bits,
+// gets its bit offset from one block-wide exclusive scan (warp shuffles and
+// one shared pass), and walks them again to place each codeword: shifted
+// into a 64-bit pair of words and ORed into the row's shared-memory image
+// by one shared atomicOr, and a second where it straddles a word (the image
+// is zeroed first, so words inside a long unary lead are never touched).
+// The walk is branch-free where a thread's run lies inside one partition
+// (n >> porder a multiple of kRun: every order up to 8 at n = 4096), with
+// the parameter's masks hoisted; finer partitions take a walk that tracks
+// the partition per sample. Assembling whole words in registers and storing
+// only a thread's first and last word atomically was measured first and
+// dropped: the "does this codeword leave the word" branches diverge in
+// every warp and cost more than the atomics they save. The CTA then copies
+// lens_w[row] words to out[starts[row]:], coalesced. A row longer than
+// kRowThreads * kRun samples takes several rounds with the bit offset
+// carried over. Positions at or beyond the image are dropped, so a row
+// whose lens_w is too small for its bits loses its end but writes nowhere
+// else.
+//
+// bitpack_kernel: one thread per entry, at most two atomicOr into a buffer
+// the wrapper zeroes. Words at or beyond cap_w are dropped, as both JAX
+// packers drop them; an entry at a negative offset is dropped too. Shift
+// counts >= 32 give 0, as XLA's shifts do. Bit ranges of distinct entries
+// are disjoint in a valid stream, so the OR equals the JAX packers' sum and
+// the result does not depend on the order of the atomics. The TPU's grouped
+// windows, frame overflow and prefix sums were workarounds for missing
+// scatter; neither kernel has a frame limit, so nothing overflows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,6 +101,261 @@ __global__ void bitpack_kernel(const int64_t* __restrict__ offs,
     }
 }
 
+// ---------------------------------------------------------------------------
+// Residual sections: codewords and pack fused, a CTA per row
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRun = 16;                   // samples a thread and round
+constexpr uint32_t kMaxLead = 1u << 24;    // beyond any image: see below
+
+// Counts the bits of a thread's codewords.
+struct BitCounter {
+    uint32_t bits = 0;
+    __device__ __forceinline__ void put(uint32_t lead, uint32_t, uint32_t nb) {
+        bits += lead + nb;
+    }
+};
+
+// Places a thread's codewords, which are contiguous in the bit stream from
+// bit `pos` on, into the row image.
+struct BitWriter {
+    uint32_t* img;
+    uint32_t limit;        // words of the image this row may write
+    uint32_t pos;
+
+    __device__ __forceinline__ BitWriter(uint32_t* image, uint32_t words,
+                                         uint32_t start)
+        : img(image), limit(words), pos(start) {}
+
+    // nb in 1..32 bits of tail behind `lead` zeros: the codeword's bits as
+    // the two words they fall into, most significant bit first.
+    __device__ __forceinline__ void put(uint32_t lead, uint32_t tail,
+                                        uint32_t nb) {
+        pos += lead;
+        const uint32_t w0 = pos >> 5;
+        const uint64_t v = (uint64_t)tail << (64 - (pos & 31) - nb);
+        const uint32_t hi = (uint32_t)(v >> 32), lo = (uint32_t)v;
+        if (w0 < limit) atomicOr(&img[w0], hi);
+        if (lo != 0 && w0 + 1 < limit) atomicOr(&img[w0 + 1], lo);
+        pos += nb;
+    }
+};
+
+// The codewords of `live` samples u[0..live) that start at sample `rem` of
+// partition `part`, in stream order: a partition's parameter before its
+// first sample. nb is never 0 and a tail has no bit above its nb.
+template <bool kFull, typename Sink>
+__device__ __forceinline__ void walk_run(const uint32_t (&u)[kRun], int live,
+                                         uint32_t part, uint32_t rem,
+                                         uint32_t nsmpl, const uint32_t* ks,
+                                         bool recursive, Sink& sink) {
+    uint32_t k = ks[part];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+        if (kFull || j < live) {
+            if (rem == 0) {
+                k = ks[part];
+                if (part == 0) {
+                    sink.put(0, k, 5);
+                } else {
+                    const int32_t d = (int32_t)k - (int32_t)ks[part - 1];
+                    sink.put(((uint32_t)d << 1) ^ (uint32_t)(d >> 31), 1, 1);
+                }
+            }
+            const uint32_t x = u[j];
+            const uint32_t one_k = 1u << k;
+            uint32_t lead = x >> k;
+            uint32_t tail = one_k | (x & (one_k - 1));
+            uint32_t nb = k + 1;
+            if (recursive) {
+                const uint32_t k1pow = k < 31 ? one_k << 1 : 0u;
+                const uint32_t tmp = x - k1pow;
+                const bool small = x < k1pow;
+                lead = small ? 0u : 1u + (tmp >> k);
+                tail = small ? (k1pow | x) : (one_k | (tmp & (one_k - 1)));
+                nb = small ? k + 2 : k + 1;
+            }
+            // A lead this long lies beyond every image (at most 2^21 bits);
+            // the cap keeps the 32-bit positions from wrapping.
+            sink.put(min(lead, kMaxLead), tail, nb);
+            if (++rem == nsmpl) {
+                rem = 0;
+                ++part;
+            }
+        }
+    }
+}
+
+// The same for a full run that lies inside partition `part` (`starts`: at
+// its first sample): one parameter, its masks hoisted, no tracking.
+template <typename Sink>
+__device__ __forceinline__ void walk_one(const uint32_t (&u)[kRun],
+                                         uint32_t part, bool starts,
+                                         const uint32_t* ks, bool recursive,
+                                         Sink& sink) {
+    const uint32_t k = ks[part];
+    if (starts) {
+        if (part == 0) {
+            sink.put(0, k, 5);
+        } else {
+            const int32_t d = (int32_t)k - (int32_t)ks[part - 1];
+            sink.put(((uint32_t)d << 1) ^ (uint32_t)(d >> 31), 1, 1);
+        }
+    }
+    const uint32_t one_k = 1u << k, mask = one_k - 1;
+    const uint32_t k1pow = k < 31 ? one_k << 1 : 0u;
+    if (recursive) {
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+            const uint32_t x = u[j];
+            const uint32_t tmp = x - k1pow;
+            const bool small = x < k1pow;
+            const uint32_t lead = small ? 0u : 1u + (tmp >> k);
+            const uint32_t tail = small ? (k1pow | x)
+                                        : (one_k | (tmp & mask));
+            sink.put(min(lead, kMaxLead), tail, small ? k + 2 : k + 1);
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+            const uint32_t x = u[j];
+            sink.put(min(x >> k, kMaxLead), one_k | (x & mask), k + 1);
+        }
+    }
+}
+
+// Exclusive sum of v over the CTA's threads in thread order, and the total.
+__device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
+                                                        uint32_t* warp_sums,
+                                                        uint32_t* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    uint32_t inc = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t up = __shfl_up_sync(0xffffffffu, inc, d);
+        if (lane >= d) inc += up;
+    }
+    if (lane == 31) warp_sums[warp] = inc;
+    __syncthreads();
+    uint32_t before = 0, all = 0;
+#pragma unroll
+    for (int i = 0; i < kRowWarps; ++i) {
+        const uint32_t s = warp_sums[i];
+        if (i < warp) before += s;
+        all += s;
+    }
+    __syncthreads();               // warp_sums is free for the next round
+    *total = all;
+    return before + inc - v;
+}
+
+__global__ void __launch_bounds__(kRowThreads, 8)
+pack_sections_kernel(const uint32_t* __restrict__ u,
+                     const long long* __restrict__ code_type,
+                     const long long* __restrict__ porder,
+                     const long long* __restrict__ ks,
+                     const long long* __restrict__ starts,
+                     const long long* __restrict__ lens_w,
+                     uint32_t* __restrict__ out, int n, int maxp,
+                     int image_words, long long cap_w) {
+    extern __shared__ uint32_t smem[];
+    __shared__ uint32_t warp_sums[kRowWarps];
+    uint32_t* img = smem;                      // image_words
+    uint32_t* ksh = smem + image_words;        // maxp parameters, 0..31
+    const long long row = blockIdx.x;
+    const long long lw64 = lens_w[row];
+    if (lw64 <= 0) return;                     // a row that is not packed
+    const uint32_t lw = (uint32_t)(lw64 < image_words ? lw64 : image_words);
+    const int t = threadIdx.x;
+    const uint32_t ct = (uint32_t)code_type[row] & 3u;
+    const long long po64 = porder[row];
+    const int po = po64 < 0 ? 0 : (po64 > 30 ? 30 : (int)po64);
+    const uint32_t nsmpl = (uint32_t)n >> po;
+    uint32_t nparts = nsmpl == 0 ? 0u : 1u << po;
+    if (nparts > (uint32_t)maxp) nparts = (uint32_t)maxp;
+    const uint32_t n_emit = nsmpl * nparts;    // == n in a valid row
+    for (uint32_t i = t; i < lw; i += kRowThreads) img[i] = 0;
+    for (uint32_t i = t; i < nparts; i += kRowThreads) {
+        ksh[i] = (uint32_t)ks[row * maxp + i] & 31u;
+    }
+    __syncthreads();
+    if (ct == 2u) {
+        if (t == 0) img[0] = ct << 30;         // ALLZERO: the type alone
+    } else {
+        const uint32_t cap_bits = lw * 32u;
+        const bool recursive = ct == 1u;
+        const uint32_t* urow = u + row * n;
+        const bool aligned = (reinterpret_cast<uintptr_t>(urow) & 15) == 0;
+        uint32_t base = 0;
+        for (uint32_t r0 = 0; r0 < n_emit || r0 == 0;
+             r0 += kRowThreads * kRun) {
+            const uint32_t s0 = r0 + kRun * t;
+            const int live = s0 >= n_emit ? 0
+                : (n_emit - s0 < (uint32_t)kRun ? (int)(n_emit - s0) : kRun);
+            uint32_t x[kRun];
+            if (live == kRun && aligned) {
+#pragma unroll
+                for (int j = 0; j < kRun; j += 4) {
+                    const uint4 v =
+                        *reinterpret_cast<const uint4*>(urow + s0 + j);
+                    x[j] = v.x; x[j + 1] = v.y; x[j + 2] = v.z;
+                    x[j + 3] = v.w;
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < kRun; ++j) {
+                    x[j] = j < live ? urow[s0 + j] : 0u;
+                }
+            }
+            uint32_t part = 0, rem = 0;
+            if (live > 0) {
+                part = s0 / nsmpl;
+                rem = s0 - part * nsmpl;
+            }
+            const bool header = r0 == 0 && t == 0;
+            BitCounter count;
+            if (header) count.bits = 12;
+            // Partitions of whole runs: a live run is full and lies in one.
+            const bool one_part = nsmpl % kRun == 0;
+            if (one_part && live == kRun) {
+                walk_one(x, part, rem == 0, ksh, recursive, count);
+            } else if (live == kRun) {
+                walk_run<true>(x, live, part, rem, nsmpl, ksh, recursive,
+                               count);
+            } else if (live > 0) {
+                walk_run<false>(x, live, part, rem, nsmpl, ksh, recursive,
+                                count);
+            }
+            uint32_t total;
+            const uint32_t mine = min(count.bits, cap_bits);
+            const uint32_t before = block_exclusive_sum(mine, warp_sums,
+                                                        &total);
+            BitWriter wr(img, lw, base + before);
+            if (header) {
+                wr.put(0, ct, 2);
+                wr.put(0, (uint32_t)po & 1023u, 10);
+            }
+            if (one_part && live == kRun) {
+                walk_one(x, part, rem == 0, ksh, recursive, wr);
+            } else if (live == kRun) {
+                walk_run<true>(x, live, part, rem, nsmpl, ksh, recursive, wr);
+            } else if (live > 0) {
+                walk_run<false>(x, live, part, rem, nsmpl, ksh, recursive,
+                                wr);
+            }
+            base = min(base + total, cap_bits);
+        }
+    }
+    __syncthreads();
+    const long long start = starts[row];
+    for (uint32_t i = t; i < lw; i += kRowThreads) {
+        const long long w = start + i;
+        if (w >= 0 && w < cap_w) out[w] = img[i];
+    }
+}
+
 }  // namespace
 
 // offs: (count,) int64 absolute bit offsets; tails, tbits: (count,) int32;
@@ -76,5 +367,32 @@ extern "C" int srla_bitpack(const void* offs, const void* tails,
     bitpack_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const int64_t*)offs, (const int32_t*)tails, (const int32_t*)tbits,
         (uint32_t*)out, count, cap_w);
+    return (int)cudaGetLastError();
+}
+
+// u: (rows, n) zigzag residuals as 32-bit patterns; the others int64, as
+// the analysis leaves them: code_type, porder (rows,); ks (rows, maxp) in
+// 0..31; starts, lens_w (rows,) in words, lens_w at most image_words (a
+// longer section loses its end); out: (cap_w,) 32-bit words, written
+// only at [starts[r], starts[r] + lens_w[r]). Returns cudaErrorInvalidValue
+// when the image and the parameters do not fit in a CTA's shared memory.
+extern "C" int srla_pack_sections(const void* u, const void* code_type,
+                                  const void* porder, const void* ks,
+                                  const void* starts, const void* lens_w,
+                                  void* out, int rows, int n, int maxp,
+                                  int image_words, long long cap_w,
+                                  void* stream) {
+    const size_t smem = ((size_t)image_words + maxp) * sizeof(uint32_t);
+    if (smem > 232448 - 64) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        pack_sections_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    pack_sections_kernel<<<rows, kRowThreads, smem, (cudaStream_t)stream>>>(
+        (const uint32_t*)u, (const long long*)code_type,
+        (const long long*)porder, (const long long*)ks,
+        (const long long*)starts,
+        (const long long*)lens_w, (uint32_t*)out, n, maxp, image_words,
+        cap_w);
     return (int)cudaGetLastError();
 }

@@ -13,7 +13,7 @@ re-derived on the exact host path. The margins are the JAX package's,
 unchanged (``exact.py:46-57``): f64 rounding error sits below df64's, so an
 unflagged decision equals the host's f64 decision. The residual and all bit
 math are exact integer code, partly in the kernels K3 (``predict``), K4
-(``rice_search``) and K5 (``bitpack``).
+(``rice_search``) and K5 (``bitpack.pack_residual_sections``).
 
 Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
 (autocorr + Levinson), :535-570, :1341-1405 (quantize),
@@ -40,7 +40,8 @@ from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
 from ..dsp.window import welch_inverse_squared_sum, welch_window
 from ..huffman import parameter_codebook, sum_parameter_codebook
 from ..rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
-from .bitpack import pack, residual_codewords, zigzag
+from .bitpack import (pack_residual_sections, section_stream, zigzag,
+                      zigzag32)
 from .lpc import wrap32
 from .predict import predict, reverse_coefs
 from .rice_search import rice_sums
@@ -48,7 +49,38 @@ from .rice_search import rice_sums
 FLT_EPSILON = 1.1920928955078125e-07
 
 # Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
-# errors are smaller, so they hold a fortiori).
+# errors are smaller, so they hold a fortiori). The f64 error they rest on,
+# with u = 2^-53 and n <= 16384 terms a sum:
+#
+# - Pre-emphasis: r0 and r1 are exact integer sums on both sides while they
+#   stay below 2^53, and then 16 * r1 / r0 is the same two roundings: the
+#   distance is 0. Above 2^53 (24-bit blocks can reach 2^60) the host sums
+#   sequentially in f64, off by at most n * u = 2^-39 of r0 in each sum:
+#   |16 * r1 / r0| moves by under 16 * 2^-38 = 6e-11 < _EPS_PREEMPH.
+# - Autocorrelation: torch sums the n lag products in a tree (strips of a
+#   few terms, then pairwise), off by at most (log2 n + strip) * u of r0;
+#   measured <= 2^-52 * r0. The host takes the same lags from a real FFT of
+#   round_up_pow2(n) points, off by a few log2(n) * u of r0 in every lag;
+#   measured <= 2^-43 * r0 at n = 16384. Together under 2^-42 * r0, which
+#   tests/test_torch_encode_margins.py pins. A kernel that sums the products
+#   in another order must stay under that: a strictly sequential sum
+#   (n * u = 2^-39) would not.
+# - Levinson carries a relative error d of the lags into kappa * d of the
+#   error variances and coefficients to first order (kappa = r0 / min |ev|).
+#   The order choice compares lengths of n * entropy(ev) bits, which move
+#   by at most n * kappa * d / ln 2; its margin is n * kappa * 2^-40 bits
+#   (_KAPPA_SCALE), four times n * kappa * 2^-42, and never below the
+#   host's own tie-repair trigger of 1e-6 bits. Quantization rounds
+#   coef * 2^rshift with |coef * 2^rshift| <= 2 * qmax; its margin is
+#   2 * qmax * kappa * 2^-40, the same factor of four, never below 1e-7.
+# - Rice: the partition means are exact leaf sums divided once and halved
+#   pairwise, the same operations in the same order as the host's: the
+#   distance is 0. The host's plain k comes from a chain of libm calls, each
+#   within an ulp, behind 1 - 1/(1+mean), which cancels: its log2v is off
+#   by up to 8e-17 * (1 + mean), under 1e-9 for means below 1.2e7, against
+#   _EPS_RICE_LOG = 1e-8 (beyond that see _PLAIN_K_TRUSTED); the recursive
+#   k2 truncates MLNOPTX * (1 + mean), one rounding, against a relative
+#   _EPS_RICE_TRUNC = 1e-9.
 _EPS_PREEMPH = 1e-8          # |16*r1/r0| distance to rounding half-boundary
 _EPS_RICE_LOG = 1e-8         # |log2v| distance to round-half boundary
 _EPS_RICE_TRUNC = 1e-9       # relative distance to k2 truncation boundary
@@ -279,16 +311,26 @@ def rice_k_boundaries():
             (np.asarray(tb), np.asarray(tb_eps, np.float32).astype(float)))
 
 
-def _count_and_flag(flat, bounds, eps, zero_mean):
+# From this plain-Rice parameter on a partition is always flagged: the
+# host's 1 - 1/(1+mean) cancels, so its log2v is off by 8e-17 * mean (over
+# _EPS_RICE_LOG from mean 1.2e8 on), and the table's own margins, taken
+# through exp() of a number within 1e-8 of 0, lose their digits from
+# boundary 25 on. No encode comes near: the plain chain serves rows whose
+# mean is under 2, so a partition's mean stays under 2 * 1024.
+_PLAIN_K_TRUSTED = 24
+
+
+def _count_and_flag(flat, bounds, eps, zero_mean, top: int = 31):
     """k = number of boundaries 1..31 at or below each mean, and whether the
-    mean lies within the margin of either neighbouring boundary."""
+    mean lies within the margin of either neighbouring boundary (or k is at
+    least ``top``)."""
     b = torch.from_numpy(bounds).to(flat.device)
     be = torch.from_numpy(eps).to(flat.device)
     k = torch.searchsorted(b[1:32].contiguous(), flat.contiguous(),
                            right=True)
     d1 = (flat - b[k]).abs()
     d2 = (b[k + 1] - flat).abs()
-    flagged = ((d1 < be[k]) | (d2 < be[k + 1]) | (k >= 31)) & ~zero_mean
+    flagged = ((d1 < be[k]) | (d2 < be[k + 1]) | (k >= top)) & ~zero_mean
     return k, flagged
 
 
@@ -313,7 +355,8 @@ def rice_params(residual: torch.Tensor, n: int, max_porder: int):
     flat = torch.cat(means, dim=1)
     zero_mean = flat == 0
     (kb, kb_eps), (tb, tb_eps) = rice_k_boundaries()
-    kr, r_log = _count_and_flag(flat, kb, kb_eps, zero_mean)
+    kr, r_log = _count_and_flag(flat, kb, kb_eps, zero_mean,
+                                top=_PLAIN_K_TRUSTED)
     k2, r_trunc = _count_and_flag(flat, tb, tb_eps, zero_mean)
     rec = recursive[:, None]
     return (u, torch.where(rec, k2, kr), recursive,
@@ -420,6 +463,17 @@ def variant_stack(blocks: torch.Tensor, lshift: int) -> torch.Tensor:
     return torch.cat(parts, dim=0).contiguous()
 
 
+def _small(core: dict) -> dict:
+    """``analyze_core``'s per-row parameters and flags under the names of
+    ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``."""
+    small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
+                                  "rshifts", "coefs", "code_type", "porder",
+                                  "risky")}
+    small["section_bits"] = core["rice_bits"]
+    small["ltp_period"] = torch.zeros_like(core["orders"])
+    return small
+
+
 def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                      max_params: int, max_fixed: bool, fft_size: int,
                      max_porder: int, timer=no_timer):
@@ -432,16 +486,9 @@ def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
                         timer=timer)
-    V = core["orders"].shape[0]
-    small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
-                                  "rshifts", "coefs", "code_type", "porder",
-                                  "risky")}
-    small["section_bits"] = core["rice_bits"]
-    small["ltp_period"] = torch.zeros(V, dtype=torch.int32,
-                                      device=blocks.device)
     big = dict(u=zigzag(core["residual"]), code_type=core["code_type"],
                porder=core["porder"], ks=core["ks"])
-    return small, big, core
+    return _small(core), big, core
 
 
 def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
@@ -543,19 +590,27 @@ def select_rows(small: dict, *, B: int, C: int, n: int, bps: int, W: int,
                 lens_w=lens_w)
 
 
+def section_starts(lens_w: torch.Tensor) -> torch.Tensor:
+    """The first word of each row's section in the compacted buffer: the
+    running sum of the previous rows' lens_w."""
+    return torch.cumsum(lens_w, dim=0) - lens_w
+
+
+def chosen_sections(big: dict, sel: dict, n: int, cap_w: int) -> tuple:
+    """``bitpack.pack_residual_sections``' arguments for the chosen rows:
+    their zigzag residuals (big["u"]: int64 codes or int32 bit patterns) and
+    Rice choices, compacted in row order into a buffer of cap_w words;
+    skipped rows have lens_w 0 and contribute nothing."""
+    rows, lens_w = sel["rows"], sel["lens_w"]
+    return (big["u"][rows], big["code_type"][rows], big["porder"][rows],
+            big["ks"][rows], n, section_starts(lens_w), lens_w, cap_w)
+
+
 def chosen_stream(big: dict, sel: dict, n: int):
     """The chosen rows' codeword stream at absolute bit offsets in the
-    compacted buffer: each row starts at the running sum of the previous
-    rows' lens_w words; skipped rows contribute nothing. Returns
-    (offsets, tails, tbits) (K, 2 + MAXP + n) int64."""
-    rows, skip, lens_w = sel["rows"], sel["skip"], sel["lens_w"]
-    starts = torch.cumsum(lens_w, dim=0) - lens_w
-    (offs, tails, tbits), _ = residual_codewords(
-        big["u"][rows], big["code_type"][rows], big["porder"][rows],
-        big["ks"][rows], n)
-    offs = torch.where(skip[:, None], 0, offs) + starts[:, None] * 32
-    tbits = torch.where(skip[:, None], 0, tbits)
-    return offs, tails, tbits
+    compacted buffer. Returns (offsets, tails, tbits) (K, 2 + MAXP + n)
+    int64: what the generic ``bitpack.pack`` takes."""
+    return section_stream(*chosen_sections(big, sel, n, 0)[:7])
 
 
 def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
@@ -570,18 +625,23 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     packed section length of each (block, channel) row in words; ``flat`` is
     a (B*C*W,) int32 word buffer whose first sum(lens_w) words are the
     chosen residual sections, bit-packed MSB-first and compacted in row
-    order. ``timer`` is called with a step name after each step.
+    order; the words after them are unspecified. ``timer`` is called with a
+    step name after each step.
     """
     B = blocks.shape[0]
-    small, big, _ = variant_analysis(
-        blocks, lshift, n=n, bps=bps, max_params=max_params,
-        max_fixed=max_fixed, fft_size=fft_size, max_porder=max_porder,
-        timer=timer)
+    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
+                        max_params=max_params, max_fixed=max_fixed,
+                        fft_size=fft_size, max_porder=max_porder,
+                        timer=timer)
+    small = _small(core)
     sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
                       max_params=max_params)
-    offs, tails, tbits = chosen_stream(big, sel, n)
+    # K5's arguments, the zigzag codes as the 32-bit patterns it reads.
+    sections = chosen_sections(
+        dict(u=zigzag32(core["residual"]), code_type=core["code_type"],
+             porder=core["porder"], ks=core["ks"]), sel, n, B * C * W)
     timer("accounting + selection + codewords (torch)")
-    flat = pack(offs, tails, tbits, B * C * W)
+    flat = pack_residual_sections(*sections, section_words=W)
     timer("K5 bitpack")
     for k in ("method", "bits", "raw_blk", "risky_blk", "use_sum",
               "lens_w"):

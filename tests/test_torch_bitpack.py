@@ -1,7 +1,9 @@
-"""K5 (srla_tpu_torch.kernels.bitpack.pack) and the codeword stream around
-it against their JAX twins on JAX-CPU: the Pallas kernel pallas_pack_rows
-in interpret mode (as tests/test_bitpack.py runs it), the flat
-grouped-window pack pack_flat_stream, the scatter pack
+"""K5 (srla_tpu_torch.kernels.bitpack: pack_residual_sections, the fused
+entry of the encode, and pack, the generic one) and the codeword stream
+around them against their JAX twins on JAX-CPU: pack_residual_sections
+(scatter pack) and the flat buffer of encode_blocks_exact, the Pallas kernel
+pallas_pack_rows in interpret mode (as tests/test_bitpack.py runs it), the
+flat grouped-window pack pack_flat_stream, the scatter pack
 pack_monotone_stream(impl="scatter"), _word_splits and
 residual_codewords; and one section's bytes against rice.emit_channel.
 
@@ -187,3 +189,247 @@ def test_kernel_matches_plain_on_card(cuda):
     np.testing.assert_array_equal(
         bitpack.pack(*edge, 3).cpu().numpy(),
         bitpack.pack_plain(*edge, 3).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# pack_residual_sections: residuals to packed sections in one step
+# ---------------------------------------------------------------------------
+
+SECTION_MAXP = 1024
+
+
+def _section_rows(kind, porder, n, seed=0, V=5):
+    """V rows of one kind (plain Rice, recursive Rice or ALLZERO) at one
+    partition order with random per-partition parameters around the rows'
+    scale; row 1 is skipped (lens_w 0), and the rows lie at starts with a
+    gap of three words between them."""
+    rng = np.random.RandomState(seed + n + 7 * porder)
+    if kind == "allzero":
+        res = np.zeros((V, n), np.int64)
+        ct, base = 2, 0
+    elif kind == "recursive":
+        res = rng.laplace(0, 4000, size=(V, n)).astype(np.int64)
+        ct, base = 1, 9
+    else:
+        res = rng.laplace(0, 18, size=(V, n)).astype(np.int64)
+        ct, base = 0, 2
+    res[0, ::37] *= 50                               # long unary runs
+    u = sint32_to_uint32(res.astype(np.int32)).astype(np.uint32)
+    ks = np.zeros((V, SECTION_MAXP), np.int32)
+    ks[:, :1 << porder] = base + rng.randint(0, 5, (V, 1 << porder))
+    return (u, np.full(V, ct, np.int32), np.full(V, porder, np.int32), ks, n)
+
+
+def _layout(total_bits, skip_row=1, gap=3):
+    lens_w = (np.asarray(total_bits).astype(np.int64) + 31) // 32
+    lens_w[skip_row] = 0
+    starts = np.cumsum(lens_w + gap) - lens_w
+    return starts, lens_w, int(starts[-1] + lens_w[-1] + gap)
+
+
+def _max_porder(n):
+    p = 0
+    while n % (2 << p) == 0 and p < 10:
+        p += 1
+    return p
+
+
+SECTION_CASES = [(kind, n, po) for kind in ("plain", "recursive", "allzero")
+                 for n in (512, 480) for po in (0, _max_porder(n))]
+
+
+def _owned(starts, lens_w, cap):
+    mask = np.zeros(cap, bool)
+    for s, l in zip(starts, lens_w):
+        mask[s:s + l] = True
+    return mask
+
+
+@pytest.mark.parametrize("kind,n,porder", SECTION_CASES,
+                         ids=[f"{k}-n{n}-p{p}" for k, n, p in SECTION_CASES])
+def test_sections_plain_match_jax_pack_residual_sections(kind, n, porder):
+    """Each row's words at starts[row] equal the row of JAX's (V, W) pack;
+    the skipped row and the gaps between rows stay 0."""
+    u, ct, po, ks, n = _section_rows(kind, porder, n)
+    W = 2 * n                                        # ample: 64 bits a sample
+    want, total, ovf = jbitpack.pack_residual_sections(
+        jnp.asarray(u), jnp.asarray(ct), jnp.asarray(po), jnp.asarray(ks), n,
+        W, impl="scatter")
+    assert not np.asarray(ovf).any()
+    want = _u32(want)
+    starts, lens_w, cap = _layout(total)
+    assert lens_w.max() <= W
+    args = (_t(u), _t(ct), _t(po), _t(ks), n, _t(starts), _t(lens_w), cap)
+    got = _u32(bitpack.pack_residual_sections_plain(*args).numpy())
+    for r in range(u.shape[0]):
+        np.testing.assert_array_equal(
+            got[starts[r]:starts[r] + lens_w[r]], want[r, :lens_w[r]],
+            err_msg=f"row {r}")
+    assert not got[~_owned(starts, lens_w, cap)].any()
+    # The wrapper takes the plain version for CPU tensors, and int32 bit
+    # patterns of u give the same words.
+    u32 = torch.from_numpy(u.view(np.int32))
+    for uu in (args[0], u32):
+        np.testing.assert_array_equal(
+            _u32(bitpack.pack_residual_sections(uu, *args[1:]).numpy()), got)
+
+
+def test_sections_plain_match_encode_blocks_exact_flat():
+    """On JAX's own analysis of one small group, the port's fused entry
+    gives the first sum(lens_w) words of encode_blocks_exact's flat buffer
+    (scatter pack): the same rows at the same compacted starts."""
+    import signals
+    from srla_tpu.kernels.exact import (analyze_blocks_exact,
+                                        encode_blocks_exact)
+    from srla_tpu_torch.kernels import exact as texact
+    from test_exact_device import _signals
+
+    B, C, N, bps = 4, 2, 512, 16
+    sig = _signals(2 * B, N, bps)
+    blocks = np.stack([sig[:B], sig[B:]], axis=1)
+    blocks[2] = signals.white_noise(N, 2, 16, seed=9)    # raw fallback
+    W = (N * (bps + 4)) // 32 + 64
+    kw = dict(n=N, bps=bps, max_params=32, max_fixed=False, fft_size=N,
+              max_porder=_max_porder(N))
+    js, jb = analyze_blocks_exact(blocks, np.int32(0), C=C, **kw)
+    want, flat = encode_blocks_exact(blocks, np.int32(0), C=C, W=W,
+                                     impl="scatter", **kw)
+    small, big = texact.from_jax_analysis(jax.device_get(js),
+                                          jax.device_get(jb), "cpu")
+    sel = texact.select_rows(small, B=B, C=C, n=N, bps=bps, W=W,
+                             max_params=32)
+    lens_w = np.asarray(want["lens_w"])
+    np.testing.assert_array_equal(sel["lens_w"].numpy(), lens_w)
+    assert (lens_w == 0).any() and (lens_w > 0).any()
+    got = bitpack.pack_residual_sections(
+        *texact.chosen_sections(big, sel, N, B * C * W),
+        section_words=W).numpy()
+    total = int(lens_w.sum())
+    np.testing.assert_array_equal(got[:total],
+                                  np.asarray(flat).view(np.int32)[:total])
+    # The generic pack of the same rows' stream gives the same words.
+    np.testing.assert_array_equal(
+        bitpack.pack(*texact.chosen_stream(big, sel, N), B * C * W).numpy(),
+        got)
+
+
+def _odd_section_rows():
+    """12 rows of 512 samples at partition orders 0..9 (partitions down to
+    one sample: several parameters inside a thread's run) with a full-range
+    row, a zero row under a Rice type, an ALLZERO row, both code types,
+    parameters 0, 30 and 31, and a skipped row."""
+    V, n = 12, 512
+    rng = np.random.RandomState(12)
+    u = rng.randint(0, 1 << 12, (V, n)).astype(np.int64)
+    ct = (np.arange(V) % 2).astype(np.int32)
+    po = (np.arange(V) % 10).astype(np.int32)
+    ks = rng.randint(5, 14, (V, SECTION_MAXP)).astype(np.int32)
+    u[1] = rng.randint(0, 1 << 32, n)                # full range
+    ks[1] = rng.randint(27, 32, SECTION_MAXP)
+    u[2] = 0                                         # zeros, recursive type
+    u[3], ct[3] = 0, 2                               # ALLZERO
+    ks[4] = 0                                        # long unary leads
+    u[4] = rng.randint(0, 40, n)
+    u[5] = rng.randint(0, 1 << 32, n)
+    ks[5] = 30
+    u[6] = rng.randint(0, 1 << 32, n)
+    ks[6] = 31
+    u[7] = rng.randint(0, 1 << 32, n)
+    ks[7] = 31                                       # recursive at k = 31
+    po[8], po[9] = 9, 9                              # one sample a partition
+    ks[9] = rng.randint(0, 32, SECTION_MAXP)         # deltas of up to 31
+    u[9] = rng.randint(0, 1 << 8, n)
+    return u, ct, po, ks, n
+
+
+def _plain_layout(u, ct, po, ks, n, skip_row):
+    (_, _, _), tot = bitpack.residual_codewords(_t(u), _t(ct), _t(po),
+                                                _t(ks), n)
+    return _layout(tot.numpy(), skip_row=skip_row)
+
+
+def test_sections_plain_odd_rows_match_emit_channel():
+    """The odd rows' sections against the host bit writer, row by row
+    (but for recursive rows at k = 31, where the device's 2^(k+1) wraps to
+    0 and the host's does not: no encode chooses them)."""
+    u, ct, po, ks, n = _odd_section_rows()
+    starts, lens_w, cap = _plain_layout(u, ct, po, ks, n, skip_row=10)
+    got = bitpack.pack_residual_sections_plain(
+        _t(u), _t(ct), _t(po), _t(ks), n, _t(starts), _t(lens_w), cap)
+    data = got.numpy().view(np.uint32).astype(">u4").tobytes()
+    for v in range(u.shape[0]):
+        if not lens_w[v] or (ct[v] == 1
+                             and (ks[v, :1 << po[v]] == 31).any()):
+            continue
+        w = BitWriter()
+        rice.emit_channel(w, u[v], n, int(ct[v]), int(po[v]), ks[v])
+        ref = w.getvalue()
+        assert (w.tell_bits() + 31) // 32 == lens_w[v]
+        sec = data[4 * starts[v]:4 * (starts[v] + lens_w[v])]
+        assert sec[:len(ref)] == ref, v
+        assert not any(sec[len(ref):]), v
+
+
+def _assert_kernel_matches_plain(cuda, u, ct, po, ks, n, starts, lens_w, cap,
+                                 **kw):
+    args = [_t(a, cuda) for a in (u, ct, po, ks)]
+    lay = [_t(starts, cuda), _t(lens_w, cuda)]
+    before = bitpack.pack_residual_sections.launches
+    got = bitpack.pack_residual_sections(*args, n, *lay, cap, **kw)
+    torch.cuda.synchronize()
+    assert bitpack.pack_residual_sections.launches == before + 1
+    want = bitpack.pack_residual_sections_plain(*args, n, *lay, cap)
+    own = _owned(starts, lens_w, cap)
+    np.testing.assert_array_equal(got.cpu().numpy()[own],
+                                  want.cpu().numpy()[own])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,porder", SECTION_CASES,
+                         ids=[f"{k}-n{n}-p{p}" for k, n, p in SECTION_CASES])
+def test_sections_kernel_matches_plain_on_card(cuda, kind, n, porder):
+    u, ct, po, ks, n = _section_rows(kind, porder, n)
+    starts, lens_w, cap = _plain_layout(u, ct, po, ks, n, skip_row=1)
+    _assert_kernel_matches_plain(cuda, u, ct, po, ks, n, starts, lens_w, cap)
+
+
+@pytest.mark.gpu
+def test_sections_kernel_odd_rows_on_card(cuda):
+    u, ct, po, ks, n = _odd_section_rows()
+    starts, lens_w, cap = _plain_layout(u, ct, po, ks, n, skip_row=10)
+    _assert_kernel_matches_plain(cuda, u, ct, po, ks, n, starts, lens_w, cap,
+                                 section_words=int(lens_w.max()) + 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,W", [(4064, 2604), (16384, 14400)],
+                         ids=["tail-n4064", "rounds-n16384"])
+def test_sections_kernel_long_rows_on_card(cuda, n, W):
+    """A row with fewer samples than a round holds, and rows of several
+    rounds (24-bit scale) with the widest image the encoder asks for."""
+    rng = np.random.RandomState(n)
+    V = 6
+    res = rng.laplace(0, 300 if n == 4064 else 60000, (V, n)).astype(np.int32)
+    u = sint32_to_uint32(res).astype(np.uint32)
+    porder = _max_porder(n)
+    ks = np.zeros((V, SECTION_MAXP), np.int32)
+    ks[:, :1 << porder] = (6 if n == 4064 else 13) + rng.randint(
+        0, 4, (V, 1 << porder))
+    ct = (np.arange(V) % 2).astype(np.int32)
+    po = np.full(V, porder, np.int32)
+    po[0] = 0
+    starts, lens_w, cap = _plain_layout(u, ct, po, ks, n, skip_row=3)
+    assert lens_w.max() <= W
+    _assert_kernel_matches_plain(cuda, u, ct, po, ks, n, starts, lens_w, cap,
+                                 section_words=W)
+
+
+@pytest.mark.gpu
+def test_sections_kernel_refuses_an_image_beyond_shared_memory(cuda):
+    u, ct, po, ks, n = _section_rows("plain", 0, 512)
+    starts, lens_w, cap = _plain_layout(u, ct, po, ks, n, skip_row=1)
+    args = [_t(a, cuda) for a in (u, ct, po, ks)]
+    with pytest.raises(ValueError, match="shared memory"):
+        bitpack.pack_residual_sections(*args, n, _t(starts, cuda),
+                                       _t(lens_w, cuda), cap,
+                                       section_words=60000)

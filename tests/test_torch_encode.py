@@ -8,6 +8,8 @@ and the refusal of the flags the port does not run yet.
 
 Every comparison is exact (bytes or integers)."""
 
+import warnings
+
 import numpy as np
 import pytest
 
@@ -250,6 +252,57 @@ def test_cli_encode_roundtrip(tmp_path):
                 ["-V", "1"]):
         assert main(["-e", "-V", "0", *bad, "--device", "cpu", str(wav),
                      str(srl)]) == 1
+
+
+@pytest.mark.parametrize("flagged", [False, True],
+                         ids=["device", "all-repaired"])
+def test_progress_callback_fires_once_per_block(monkeypatch, flagged):
+    """One call a block, whatever encoded it (device group, host repair,
+    SILENT, RAW fallback, the odd-size tail), with the samples done so far:
+    strictly rising, ending at the stream's length; a broken callback does
+    not break the encode."""
+    if flagged:
+        monkeypatch.setattr(texact, "_EPS_PREEMPH", 1.0)
+    pcm = _pcm("music", 2, 16)
+    nblocks = -(-pcm.shape[1] // BLOCK)
+    seen = []
+    enc = SRLAEncoder(_param(2, 16, 4), "cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        data = enc.encode_whole(pcm, progress_callback=seen.append)
+    assert data == host_encode(pcm, 16, 44100, max_block=BLOCK)
+    assert len(seen) == nblocks == sum(_blocks(data).values())
+    assert all(b > a for a, b in zip(seen, seen[1:]))
+    assert seen[-1] == pcm.shape[1]
+
+    def broken(done):
+        raise RuntimeError("meter")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        assert SRLAEncoder(_param(2, 16, 4), "cpu").encode_whole(
+            pcm, progress_callback=broken) == data
+
+
+def test_cli_progress_meter(tmp_path, monkeypatch, capsys):
+    """On a terminal the CLI prints the per-block meter to stderr, one
+    update a block, ending at 100 %; piped, it prints none."""
+    import sys
+
+    from srla_tpu.wavio import WavData, write_wav
+    from srla_tpu_torch.cli import main
+    pcm = _pcm("music", 2, 16)
+    wav, srl = tmp_path / "in.wav", tmp_path / "x.srl"
+    write_wav(str(wav), WavData(pcm, 44100, 16))
+    argv = ["-e", "-B", str(BLOCK), "-V", "0", "--device", "cpu", str(wav),
+            str(srl)]
+    assert main(argv) == 0
+    assert "progress" not in capsys.readouterr().err
+    monkeypatch.setattr(sys.stderr, "isatty", lambda: True, raising=False)
+    assert main(argv) == 0
+    err = capsys.readouterr().err
+    assert err.count("progress:") == -(-pcm.shape[1] // BLOCK)
+    assert err.rstrip().endswith("100.0 %")
 
 
 @pytest.mark.gpu

@@ -150,7 +150,8 @@ def test_selection_and_pack_on_jax_decisions():
     lens_w = np.asarray(want["lens_w"]).copy()
     lens_w[5 * C:6 * C] = 0                              # the flagged block
     np.testing.assert_array_equal(sel["lens_w"].numpy(), lens_w)
-    got = texact.pack(*texact.chosen_stream(big, sel, N), B * C * W)
+    got = texact.pack_residual_sections(
+        *texact.chosen_sections(big, sel, N, B * C * W), section_words=W)
     # The flagged block only removes its rows: compare the others' words.
     jstarts = np.cumsum(np.asarray(want["lens_w"])) - np.asarray(
         want["lens_w"])

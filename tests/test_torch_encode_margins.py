@@ -1,0 +1,293 @@
+"""The decision-boundary flags of the port's f64 encode analysis
+(srla_tpu_torch.kernels.exact) at the boundaries themselves.
+
+Each test drives one decision to its boundary (the pre-emphasis
+coefficient's rounding half, a tie of two LPC orders, a coefficient's
+quantization half and the shift's frexp edge, the Rice parameter boundaries
+of rice_k_boundaries) and to points a few float roundings and a few margins
+away from it, hands the port's stage inputs moved by the error the margins
+are sized for (2^-42 relative, see the comment above the margins in
+exact.py) and the host's stage (srla_tpu_torch.host_encoder and its dsp/
+and rice modules) the unmoved ones, and checks the contract of the flags:
+every row whose decision differs from the host's is flagged risky. Rows on
+the boundary must be flagged and rows several margins away must not, so the
+tests are not vacuous. One test pins the summation error bound that the
+margins rest on. CPU only: a kernel that changes the order of these sums
+has to keep this file passing.
+"""
+
+from fractions import Fraction
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from srla_tpu_torch import rice  # noqa: E402
+from srla_tpu_torch.constants import (LPC_COEFFICIENT_BITWIDTH,  # noqa: E402
+                                      RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+from srla_tpu_torch.dsp import preemphasis as host_preemphasis  # noqa: E402
+from srla_tpu_torch.dsp.autocorr import autocorr_fft  # noqa: E402
+from srla_tpu_torch.dsp.fft import round_up_pow2  # noqa: E402
+from srla_tpu_torch.dsp.quantize import quantize_coefficients  # noqa: E402
+from srla_tpu_torch.dsp.window import welch_window  # noqa: E402
+from srla_tpu_torch.host_encoder import (EncodeParameter,  # noqa: E402
+                                         SRLAEncoder)
+from srla_tpu_torch.kernels import exact  # noqa: E402
+
+# The relative error of the analysis inputs that the margins allow for.
+MOVE = 2.0 ** -42
+
+
+def _moved(values: np.ndarray) -> np.ndarray:
+    """values with every entry moved by MOVE, up and down in turns."""
+    signs = np.where(np.arange(values.size) % 2 == 0, 1.0, -1.0)
+    return values * (1.0 + MOVE * signs.reshape(values.shape))
+
+
+def _assert_flag_contract(port, host, risky, must_flag, must_not_flag):
+    """port == host wherever the port does not flag; the rows on a boundary
+    are flagged, the rows well away from one are not."""
+    port, host, risky = (np.asarray(a) for a in (port, host, risky))
+    differs = port != host
+    if differs.ndim > 1:
+        differs = differs.any(axis=tuple(range(1, differs.ndim)))
+    assert not (differs & ~risky).any(), np.flatnonzero(differs & ~risky)
+    assert risky[must_flag].all(), np.flatnonzero(~risky & must_flag)
+    assert not risky[must_not_flag].any(), np.flatnonzero(
+        risky & must_not_flag)
+
+
+# ---------------------------------------------------------------------------
+# The summation error the margins rest on
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,bps", [(16384, 24), (4096, 16), (4064, 16)])
+def test_autocorrelation_error_within_the_stated_bound(n, bps):
+    """Port (tree sums of the lag products) and host (real FFT) against the
+    exact rational autocorrelation: under 2^-50 and 2^-42 of r0."""
+    rng = np.random.RandomState(n)
+    hi = 1 << (bps - 1)
+    work = np.stack([
+        rng.randint(-hi, hi, n),
+        (np.sin(np.arange(n) * 0.01) * hi * 0.9).astype(np.int64),
+    ]).astype(np.int32)
+    fft_size = round_up_pow2(n)
+    lags = (0, 1, 7)
+    port = exact.autocorr(torch.from_numpy(work), n, bps, lags[-1] + 1,
+                          fft_size).numpy()
+    windowed = work.astype(np.float64) * 2.0 ** -(bps - 1) * welch_window(n)
+    host = autocorr_fft(windowed.copy(), n, lags[-1] + 1)
+    scale = Fraction(fft_size, n)
+    for r in range(work.shape[0]):
+        d = [Fraction(float(v)) for v in windowed[r]]
+        d += [Fraction(0)] * (fft_size - n)
+        r0 = sum(v * v for v in d) * scale
+        for k in lags:
+            want = sum(d[i] * d[(i + k) % fft_size]
+                       for i in range(fft_size)) * scale
+            port_err = abs(Fraction(float(port[r, k])) - want) / r0
+            host_err = abs(Fraction(float(host[r, k])) - want) / r0
+            assert port_err <= Fraction(1, 2 ** 50), (r, k, float(port_err))
+            assert host_err <= Fraction(1, 2 ** 42), (r, k, float(host_err))
+
+
+# ---------------------------------------------------------------------------
+# Pre-emphasis: 16 * r1 / r0 at a rounding half
+# ---------------------------------------------------------------------------
+
+def _preemphasis_rows(n=256, scale=1 << 15):
+    """Integer rows with 16 * r1 / r0 = +-7.5 exactly (a pair (15, +-15)
+    and singles 5, 2, 1 between zeros: r1 = +-225, r0 = 480), then the same
+    with one more single of e = 1 (inside the margin), 40 and 4000 (outside),
+    all times ``scale``."""
+    rows, kinds = [], []
+    for sign in (1, -1):
+        for extra in (0, 1, 40, 4000):
+            x = np.zeros(n, np.int64)
+            x[3], x[4] = 15 * scale, sign * 15 * scale
+            x[10], x[20], x[30] = 5 * scale, 2 * scale, scale
+            x[40] = extra
+            rows.append(x)
+            kinds.append(extra)
+    return np.stack(rows).astype(np.int32), np.asarray(kinds)
+
+
+def test_preemphasis_half_boundary_is_flagged():
+    sig, extra = _preemphasis_rows()
+    _, coef, risky = exact.preemphasis_exact(torch.from_numpy(sig))
+    host = host_preemphasis.calculate_coefficient(sig, sig.shape[1])
+    _assert_flag_contract(coef.numpy(), host, risky.numpy(),
+                          must_flag=extra <= 1, must_not_flag=extra >= 40)
+    # Away from the boundary both round 7.5 - d to 7 (and -7.5 + d to -7).
+    np.testing.assert_array_equal(coef.numpy()[extra >= 40],
+                                  [7, 7, -7, -7])
+
+
+# ---------------------------------------------------------------------------
+# LPC order: two orders whose estimated lengths tie
+# ---------------------------------------------------------------------------
+
+N_ORDER, BPS, MAX_PARAMS = 4096, 16, 32
+GAPS = (0.0, 1e-9, -1e-9, 1e-7, -1e-7, 5e-7, -5e-7, 1e-3, -1e-3, 0.5, -0.5)
+
+
+def _length(ev, order):
+    mabse = 2.0 * np.sqrt(ev / 2.0)
+    rho = 1.0 / (1.0 + mabse * float(1 << (BPS - 1)))
+    ent = -((1.0 - rho) * np.log2(1.0 - rho) + rho * np.log2(rho)) / rho
+    return ent * N_ORDER + LPC_COEFFICIENT_BITWIDTH * order
+
+
+def _order_tie_rows():
+    """Error variances whose best order is 9 and whose runner-up, order
+    17, is longer by each of GAPS bits (bisection on ev[17])."""
+    rng = np.random.RandomState(5)
+    base = np.empty(MAX_PARAMS + 1)
+    base[0] = 0.02
+    for j in range(1, MAX_PARAMS + 1):
+        base[j] = base[j - 1] * (1.0 - rng.uniform(0.0, 0.002))
+    base[9:] *= 0.7                       # a real gain at order 9
+    lengths = _length(base[1:], np.arange(1, MAX_PARAMS + 1))
+    assert lengths.argmin() + 1 == 9
+    rows = []
+    for gap in GAPS:
+        lo, hi = base[17] * 0.5, base[17]
+        target = lengths[8] + gap
+        for _ in range(200):
+            mid = 0.5 * (lo + hi)
+            if _length(mid, 17) < target:
+                lo = mid
+            else:
+                hi = mid
+        ev = base.copy()
+        ev[17] = hi
+        rows.append(ev)
+    return np.stack(rows), np.abs(np.asarray(GAPS))
+
+
+def test_order_tie_is_flagged():
+    ev, gap = _order_tie_rows()
+    param = EncodeParameter(num_channels=1, bits_per_sample=BPS,
+                            sampling_rate=44100, preset=4,
+                            min_num_samples_per_block=N_ORDER,
+                            max_num_samples_per_block=N_ORDER)
+    host = SRLAEncoder(param)._select_order(ev, N_ORDER, MAX_PARAMS)
+    orders, risky = exact.select_order_exact(
+        torch.from_numpy(_moved(ev)), N_ORDER, BPS, MAX_PARAMS, False,
+        torch.ones(ev.shape[0], dtype=torch.float64))
+    assert set(np.asarray(host).tolist()) <= {9, 17}
+    _assert_flag_contract(orders.numpy(), host, risky.numpy(),
+                          must_flag=gap <= 5e-7, must_not_flag=gap >= 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Quantization: coef * 2^rshift at a rounding half, max |coef| at the edges
+# ---------------------------------------------------------------------------
+
+NBITS = LPC_COEFFICIENT_BITWIDTH
+MAX_BITS = 1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH
+
+
+def _quantize_rows():
+    """Orders of 4 with max |coef| = 0.88 (shift NBITS - 1). The last
+    coefficient is a whole number of steps; the one before sits on a half,
+    a few ulps and 1e-9, 1e-5 and 0.17 steps beside it. Then rows whose
+    max |coef| is 0.5 (the frexp edge), just below it, and the smallest
+    representable step 2^-(NBITS - 1) and its neighbours."""
+    step = 2.0 ** -(NBITS - 1)
+    rows, flag, clear = [], [], []
+    for off in (0.0, 2.0 ** -45, -2.0 ** -45, 1e-9, -1e-9, 1e-5, -1e-5,
+                0.17, -0.17):
+        for half in (20.5, -37.5):
+            rows.append([0.88, 0.25, (half + off) * step, 12 * step])
+            flag.append(abs(off) <= 1e-9)
+            clear.append(abs(off) >= 1e-5)
+    for top in (0.5, np.nextafter(0.5, 0.0), 0.5 * (1 - 1e-8),
+                step, np.nextafter(step, 1.0), np.nextafter(step, 0.0)):
+        rows.append([top, 0.3 * top, -0.2 * top, 0.1 * top])
+        flag.append(True)
+        clear.append(False)
+    for top in (0.7, 0.3, 100 * step):
+        rows.append([top, 0.3 * top, -0.21 * top, 0.13 * top])
+        flag.append(False)
+        clear.append(False)
+    return np.asarray(rows), np.asarray(flag), np.asarray(clear)
+
+
+def test_quantization_half_and_shift_edges_are_flagged():
+    coefs, must_flag, must_not_flag = _quantize_rows()
+    V, M = coefs.shape
+    orders = np.full(V, M, np.int64)
+    host_c, host_r = quantize_coefficients(coefs, orders, NBITS, MAX_BITS)
+    intc, rshift, risky = exact.quantize_exact(
+        torch.from_numpy(_moved(coefs)), torch.from_numpy(orders), NBITS,
+        MAX_BITS, torch.ones(V, dtype=torch.float64))
+    port = np.concatenate([intc.numpy(), rshift.numpy()[:, None]], axis=1)
+    host = np.concatenate([host_c, host_r[:, None]], axis=1)
+    _assert_flag_contract(port, host, risky.numpy(), must_flag,
+                          must_not_flag)
+
+
+# ---------------------------------------------------------------------------
+# Rice parameters: partition means at the boundaries of both chains
+# ---------------------------------------------------------------------------
+
+def _boundary_means(bounds):
+    """Each boundary 1..31, its float neighbours (1 and 16 ulps), and
+    points 1e-12, 1e-6 and 1e-3 (relative) to both sides. Returns (means,
+    near, far): ``near`` marks the points within a few ulps or 1e-12, ``far``
+    those at 1e-3."""
+    means, near, far = [], [], []
+    for b in bounds[1:32]:
+        pts = [b]
+        for ulps in (1, 16):
+            up = down = b
+            for _ in range(ulps):
+                up, down = np.nextafter(up, np.inf), np.nextafter(down, 0.0)
+            pts += [up, down]
+        pts += [b * (1 + 1e-12), b * (1 - 1e-12)]
+        means += pts
+        near += [True] * len(pts)
+        far += [False] * len(pts)
+        means += [b * (1 + 1e-6), b * (1 - 1e-6), b * (1 + 1e-3),
+                  b * (1 - 1e-3)]
+        near += [False] * 4
+        far += [False, False, True, True]
+    return np.asarray(means), np.asarray(near), np.asarray(far)
+
+
+@pytest.mark.parametrize("chain", ["plain", "recursive"])
+def test_rice_parameter_boundaries_are_flagged(chain):
+    (kb, kb_eps), (tb, tb_eps) = exact.rice_k_boundaries()
+    bounds, eps, host_k = ((kb, kb_eps, rice.rice_k_array)
+                           if chain == "plain" else
+                           (tb, tb_eps, rice.recursive_rice_k2_array))
+    means, near, far = _boundary_means(bounds)
+    moved = torch.from_numpy(_moved(means))
+    # The plain chain is trusted below _PLAIN_K_TRUSTED only (the host's
+    # own chain cancels at larger means); the table ends at 31.
+    top = exact._PLAIN_K_TRUSTED if chain == "plain" else 31
+    k, flagged = exact._count_and_flag(
+        moved, bounds, eps, torch.zeros(means.size, dtype=torch.bool),
+        top=top)
+    host = host_k(means)
+    assert flagged.numpy()[k.numpy() >= top].all()
+    _assert_flag_contract(k.numpy(), host, flagged.numpy(),
+                          must_flag=near,
+                          must_not_flag=far & (means < bounds[top] * 0.99))
+
+
+def test_rice_rows_at_the_type_boundary_are_flagged():
+    """A row whose mean zigzag code is exactly 2 sits on the plain /
+    recursive choice; one whose mean is 2 + 1 / n does not."""
+    n, max_porder = 512, 5
+    res = np.ones((2, n), np.int32)           # zigzag 2 everywhere
+    res[1, 0] = -2                            # zigzag 3: mean 2 + 1 / n
+    u, ks, recursive, _, risky = exact.rice_params(torch.from_numpy(res), n,
+                                                   max_porder)
+    assert risky.tolist() == [True, False]
+    ct, _, _, host_ks = rice.analyze_batch(res, n)
+    assert recursive.tolist() == [True, True] and list(ct) == [1, 1]
+    # Order 0's parameter of the unflagged row is the host's.
+    assert int(ks[1, 0]) == int(host_ks[1, 0])

@@ -61,17 +61,44 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
      C = 300, W = 200 (no multiple of a warp or of a CTA's words) with
      full-range values and a tenth of the words and of the shifts out of
      range: bit-equal.
+  8. The -V path (variable block sizes: every candidate span of every
+     lookahead window measured on the card by kernels.exact.measure_spans,
+     K3 and K4, one call per span length; the reference's Dijkstra on the
+     host; the chosen blocks encoded as in phase 6): 120 s of make_music at
+     the CLI's defaults (-m 4 -B 4096 -V 1 -L 4) and 30 s of the segmented
+     signal (srla_tpu_torch.signals.make_segmented) at -V 1 and -V 3, each
+     encoded by SRLAEncoder(device="cuda"): byte-identical to the port's
+     host exact encoder at the same flags, every span enumerated here
+     measured on the card or a counted host re-measure, every COMPRESS
+     block from the device or a counted repair or overflow, K3 and K4
+     launched once per measurement call plus once per encode group and K5's
+     pack_residual_sections once per encode group (the counts derived here
+     from the spans and the stream), a block length that is no power of two
+     in the -V 3 stream, and each stream decoded losslessly on the card
+     (K1 and K2 launched). Then, for each of the three, K3 and K4 against
+     their plain versions on the inputs of every measurement call and
+     every encode group (each call's spans cut and analysed as the encoder
+     does; 2048-10,332 rows of 512-4096 samples, the clipped tails
+     included) and K5's pack_residual_sections on those of every encode
+     group: bit-equal. Prints the 120 s -V 1 encode's and decode's warm
+     best of 3 beside the host exact encoder's time, its step breakdown,
+     its measurement's call count and the largest call's time and peak
+     memory, and K4's generic kernel against its plain version on the -V 3
+     measurement's 3072-sample group (CUDA events, device time, bound).
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
 version's, its bound and, where one PyTorch call computes the same function,
-that call's time; then one JSON line describing the kernels and, last, the
-device JSON line. A kernel's bound is the larger of the bytes it must move
-over 3.35 TB/s and the 32-bit integer instructions its inputs need (a
-multiply-add is one) over the H100's INT32 issue rate: 132 SMs x 64 INT32
-lanes x 1.98 GHz = 16.7 T/s, a quarter of the 67 T/s non-tensor float32
-rate, which counts a fused multiply-add as two. K1 and K2 are recurrences,
-so each also gets a serial floor: its samples (K1, per row) or codewords
+that call's time; then one JSON line describing the kernels (``launches``
+counted on phases 3, 6 and 7; ``launches_variable`` on each of phase 8's
+three paths, its encode and its decode apart) and, last, the device JSON
+line. A kernel's bound is the
+larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
+instructions its inputs need (a multiply-add is one) over the H100's INT32
+issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, a quarter of
+the 67 T/s non-tensor float32 rate, which counts a fused multiply-add as
+two. K1 and K2 are recurrences, so each also gets a serial floor: its
+samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
 K3, K4, K5 and K6 also get a device time (device_ms): at their smaller
@@ -94,6 +121,7 @@ import time
 SAMPLE_RATE = 44100
 MAIN_SECONDS = 120.0
 LTP_SECONDS = 10.0
+VAR_SECONDS = 30.0               # the segmented signal of phase 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 # H100 SXM: 132 SMs, 64 INT32 results per clock per SM for add, shift,
 # logic and multiply-add (compute capability 9.0), 1.98 GHz boost clock.
@@ -160,18 +188,25 @@ def copy_ms(torch, dev, moved_bytes: float) -> float:
     return device_ms(torch, lambda: dst.copy_(src), 20)
 
 
-def compress_blocks(stream: bytes) -> int:
-    """COMPRESS blocks in a stream, counted from its block headers."""
-    from srla_tpu_torch.constants import HEADER_SIZE, BlockDataType
+def stream_blocks(stream: bytes) -> list[tuple[int, int]]:
+    """(block type, samples) of each block of a stream, from its block
+    headers."""
+    from srla_tpu_torch.constants import HEADER_SIZE
     from srla_tpu_torch.format import decode_header, parse_block_header
     header = decode_header(stream)
-    offset, progress, count = HEADER_SIZE, 0, 0
+    offset, progress, blocks = HEADER_SIZE, 0, []
     while progress < header.num_samples and offset < len(stream):
         btype, nsamples, poff, psize = parse_block_header(stream, offset)
-        count += btype == BlockDataType.COMPRESS
+        blocks.append((btype, nsamples))
         offset = poff + psize
         progress += nsamples
-    return count
+    return blocks
+
+
+def compress_blocks(stream: bytes) -> int:
+    """COMPRESS blocks in a stream, counted from its block headers."""
+    from srla_tpu_torch.constants import BlockDataType
+    return sum(t == BlockDataType.COMPRESS for t, _ in stream_blocks(stream))
 
 
 def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
@@ -399,15 +434,22 @@ def main_group(torch, np, dev, pcm, tail: bool = False):
             enc._section_words(n))
 
 
-def compare(torch, name, kernel, plain, args, reps: int = 20):
-    """Kernel against its plain version on the same inputs: bit-equal, and
-    both timed with CUDA events. Returns (max_abs_err, ms, plain_ms)."""
+def check(torch, name, kernel, plain, args) -> int:
+    """Kernel against its plain version on the same inputs: bit-equal.
+    Returns max_abs_err."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     e = max_abs_err(torch, got, want)
     require(e == 0, f"{name} differs from its plain version "
                     f"(max abs err {e})")
+    return e
+
+
+def compare(torch, name, kernel, plain, args, reps: int = 20):
+    """Kernel against its plain version on the same inputs: bit-equal, and
+    both timed with CUDA events. Returns (max_abs_err, ms, plain_ms)."""
+    e = check(torch, name, kernel, plain, args)
     ms = cuda_ms(torch, lambda: kernel(*args), reps)
     plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
     return e, ms, plain_ms
@@ -512,6 +554,37 @@ def section_odd_args(torch, np, dev):
     return (t(u), t(ct), t(po), t(ks), n, starts, lens_w, cap), owned
 
 
+def check_sections(torch, what, args, image, owned=None) -> int:
+    """K5's fused entry against its plain version on the words the rows
+    own (the first sum(lens_w) of a compacted buffer, or ``owned``).
+    Returns max_abs_err."""
+    from srla_tpu_torch.kernels.bitpack import (pack_residual_sections,
+                                                pack_residual_sections_plain)
+    got = pack_residual_sections(*args, section_words=image)
+    want = pack_residual_sections_plain(*args)
+    torch.cuda.synchronize()
+    if owned is None:
+        total = int(args[6].sum())
+        got, want = got[:total], want[:total]
+    else:
+        got, want = got[owned], want[owned]
+    err = max_abs_err(torch, got, want)
+    require(err == 0, f"K5 pack_residual_sections differs from its plain "
+                      f"version {what} (max abs err {err})")
+    return err
+
+
+def section_args(torch, small, big, core, B, n, W, args):
+    """K5's fused-entry arguments as the encode of a group of B blocks of
+    n samples hands them over: the chosen rows of its analysis."""
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.bitpack import zigzag32
+    sel = exact.select_rows(small, B=B, C=2, n=n, bps=16, W=W,
+                            max_params=args["max_params"])
+    big32 = dict(big, u=zigzag32(core["residual"]))
+    return sel, exact.chosen_sections(big32, sel, n, B * 2 * W)
+
+
 def phase_encode_kernels(torch, np, dev, pcm):
     """K3, K4 and both K5 entries against their plain versions at the main
     path's shapes, at the tail group's and at a small odd shape each: the
@@ -520,8 +593,7 @@ def phase_encode_kernels(torch, np, dev, pcm):
     from srla_tpu_torch.kernels import exact
     from srla_tpu_torch.kernels.bitpack import (pack, pack_plain,
                                                 pack_residual_sections,
-                                                pack_residual_sections_plain,
-                                                zigzag32)
+                                                pack_residual_sections_plain)
     from srla_tpu_torch.kernels.predict import predict, predict_plain
     from srla_tpu_torch.kernels.rice_search import (rice_sums,
                                                     rice_sums_plain)
@@ -608,39 +680,18 @@ def phase_encode_kernels(torch, np, dev, pcm):
 
     # K5. The chosen rows of a group as the encode hands them over, and
     # the same rows' codeword stream for the generic pack.
-    def section_args(sm, big_, c, nB, n_, W_, margs):
-        sel = exact.select_rows(sm, B=nB, C=2, n=n_, bps=16, W=W_,
-                                max_params=margs["max_params"])
-        big32 = dict(big_, u=zigzag32(c["residual"]))
-        return sel, exact.chosen_sections(big32, sel, n_, nB * 2 * W_)
-
-    sel, sec = section_args(small, big, core, B, n, W, args)
-    tail_sel, tail_sec = section_args(tail_small, tail_big, tail_core, 1,
-                                      tail_n, tail_W, tail_args)
+    sel, sec = section_args(torch, small, big, core, B, n, W, args)
+    tail_sel, tail_sec = section_args(torch, tail_small, tail_big, tail_core,
+                                      1, tail_n, tail_W, tail_args)
     odd_sec, odd_owned = section_odd_args(torch, np, dev)
 
     def fused(a, image):
         return lambda: pack_residual_sections(*a, section_words=image)
 
-    def compare_sections(what, a, image, owned=None):
-        """Fused entry against its plain version on the words the rows own
-        (the first sum(lens_w) of a compacted buffer)."""
-        got = fused(a, image)()
-        want = pack_residual_sections_plain(*a)
-        torch.cuda.synchronize()
-        if owned is None:
-            total = int(a[6].sum())
-            got, want = got[:total], want[:total]
-        else:
-            got, want = got[owned], want[owned]
-        err = max_abs_err(torch, got, want)
-        require(err == 0, f"K5 pack_residual_sections differs from its "
-                          f"plain version {what} (max abs err {err})")
-        return err
-
-    e = max(compare_sections("at the main shape", sec, W),
-            compare_sections("at the tail shape", tail_sec, tail_W),
-            compare_sections("at the odd shape", odd_sec, None, odd_owned))
+    e = max(check_sections(torch, "at the main shape", sec, W),
+            check_sections(torch, "at the tail shape", tail_sec, tail_W),
+            check_sections(torch, "at the odd shape", odd_sec, None,
+                           odd_owned))
     ms = cuda_ms(torch, fused(sec, W), 20)
     tail_ms = cuda_ms(torch, fused(tail_sec, tail_W), 20)
     dev_ms = device_ms(torch, fused(sec, W), 20)
@@ -893,6 +944,325 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     return launches
 
 
+def variable_param(V: int):
+    """-m 4 -B 4096 -V V -L 4 for 16-bit stereo at 44.1 kHz (at V 1 the
+    CLI's defaults)."""
+    from srla_tpu_torch.host_encoder import make_parameter
+    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4)
+
+
+def span_groups(pcm, param) -> dict:
+    """The spans the -V search measures by analysis (typed COMPRESS: above
+    the order limit and not all zero), as {length: [offsets]}, enumerated
+    here from the parameter alone (srla_encoder.c:310-424). Requires every
+    lookahead window to be of even length (none measured serially on the
+    host)."""
+    from srla_tpu_torch.constants import PARAMETER_PRESETS
+    C, N = pcm.shape
+    dmin = param.min_num_samples_per_block
+    dmax = param.max_num_samples_per_block
+    limit = PARAMETER_PRESETS[param.preset].max_num_parameters
+    groups: dict = {}
+    for wo in range(0, N, param.num_lookahead_samples):
+        span = min(param.num_lookahead_samples, N - wo)
+        require(span % 2 == 0, "phase 8 needs even lookahead windows")
+        nodes = (span + dmin - 1) // dmin + 1
+        for i in range(nodes):
+            for j in range(i + 1, min(nodes, i + dmax // dmin + 1)):
+                size = min((j - i) * dmin, span - i * dmin)
+                off = wo + i * dmin
+                if size > limit and pcm[:, off:off + size].any():
+                    groups.setdefault(size, []).append(off)
+    return groups
+
+
+def encode_groups(pcm, param, stream: bytes) -> dict:
+    """The blocks of the stream that the device encode analyses (typed
+    COMPRESS: above the order limit and not all zero), as {length:
+    [offsets]}, from the stream's block headers. Requires every such block
+    to be of even length (none encoded serially on the host)."""
+    from srla_tpu_torch.constants import PARAMETER_PRESETS
+    limit = PARAMETER_PRESETS[param.preset].max_num_parameters
+    groups: dict = {}
+    off = 0
+    for _, n in stream_blocks(stream):
+        if n > limit and pcm[:, off:off + n].any():
+            require(n % 2 == 0, "phase 8 needs even block lengths")
+            groups.setdefault(n, []).append(off)
+        off += n
+    return groups
+
+
+def calls_of(offsets, per_call: int) -> list:
+    """The offsets cut into the encoder's calls of at most per_call."""
+    return [offsets[lo:lo + per_call]
+            for lo in range(0, len(offsets), per_call)]
+
+
+def expected_calls(spans: dict, blocks: dict) -> tuple[int, int]:
+    """(measurement calls, encode groups) of the device -V encode: a call
+    per span length of at most MAX_MEASURE_SAMPLES span samples, and a
+    group per block length of at most MAX_CALL_BLOCKS blocks."""
+    from srla_tpu_torch import SRLAEncoder
+    measure = sum(len(calls_of(offs, max(1, SRLAEncoder.MAX_MEASURE_SAMPLES
+                                         // n)))
+                  for n, offs in spans.items())
+    encode = sum(len(calls_of(offs, SRLAEncoder.MAX_CALL_BLOCKS))
+                 for offs in blocks.values())
+    return measure, encode
+
+
+def best_of(torch, fn, reps: int = 3) -> float:
+    """Least wall seconds of reps calls of fn, synchronised around each."""
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def timed(fn) -> float:
+    """Wall seconds of one call of fn (host work only)."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
+                     time_n: int = 0):
+    """K3 and K4 against their plain versions on the inputs of every
+    measurement call of one -V encode (its spans of each length, cut into
+    calls as the encoder cuts them) and of every encode group (the
+    stream's blocks of each length), K5's pack_residual_sections on those
+    of every encode group: bit-equal. At the first measurement call of
+    length time_n it also times K4 (CUDA events, device time, bound).
+    Returns (max_abs_err by kernel, [(what, rows, n)] checked, K4's timed
+    record or None)."""
+    from srla_tpu_torch import SRLAEncoder
+    from srla_tpu_torch.host_encoder import _compute_offset_lshift
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.predict import predict, predict_plain
+    from srla_tpu_torch.kernels.rice_search import (rice_sums,
+                                                    rice_sums_plain)
+    enc = SRLAEncoder(param, dev)
+    file = enc._upload(pcm)
+    lshift = _compute_offset_lshift(pcm)
+    err = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
+    checked, timed_k4 = [], None
+
+    def analysed(offs, n, what):
+        args = enc._host._device_args(n)
+        small, big, core = exact.variant_analysis(
+            exact.cut_spans(file, offs, n), lshift, **args)
+        at = f"{what}, {len(offs)} of {n}"
+        k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
+        err["fir_predict"] = max(err["fir_predict"], check(
+            torch, f"K3 ({at})", predict, predict_plain, k3))
+        k4 = rice_search_args(torch, core, args)
+        err["rice_search"] = max(err["rice_search"], check(
+            torch, f"K4 ({at})", rice_sums, rice_sums_plain, k4))
+        checked.append((what, k3[0].shape[0], n))
+        return args, small, big, core, k4
+
+    for n, offs in sorted(spans.items()):
+        per_call = max(1, SRLAEncoder.MAX_MEASURE_SAMPLES // n)
+        for k, part in enumerate(calls_of(offs, per_call)):
+            args, _, _, _, k4 = analysed(part, n, "measurement call")
+            if n == time_n and k == 0:
+                e, ms, pms = compare(torch, f"K4 (generic, n={n})",
+                                     rice_sums, rice_sums_plain, k4)
+                dev_ms = device_ms(torch, lambda: rice_sums(*k4), 20)
+                V, porders = k4[0].shape[0], args["max_porder"]
+                b = bound(nbytes(*k4[:3]) + nbytes(k4[1]),
+                          2 * V * n * (porders + 1))
+                timed_k4 = dict(rows=V, n=n, max_porder=porders,
+                                max_abs_err=e, ms=ms, device_ms=dev_ms,
+                                plain_ms=pms, **b)
+    for n, offs in sorted(blocks.items()):
+        W = enc._section_words(n)
+        for part in calls_of(offs, SRLAEncoder.MAX_CALL_BLOCKS):
+            args, small, big, core, _ = analysed(part, n, "encode group")
+            _, sec = section_args(torch, small, big, core, len(part), n, W,
+                                  args)
+            err["pack_residual_sections"] = max(
+                err["pack_residual_sections"],
+                check_sections(torch, f"(encode group, {len(part)} of {n})",
+                               sec, W))
+    return err, checked, timed_k4
+
+
+VARIABLE_PATHS = (("music120_V1", 1), ("segmented30_V1", 1),
+                  ("segmented30_V3", 3))
+
+
+def phase_variable(torch, np, dev, music, card):
+    """Phase 8, the -V path on the card: 120 s of make_music at the CLI's
+    defaults (-m 4 -B 4096 -V 1 -L 4) and 30 s of the segmented signal at -V
+    1 and -V 3, each encoded by SRLAEncoder(device="cuda") and decoded by
+    decode(..., device="cuda"). Checks bytes against the host exact encoder,
+    span and block accounting, launch counts and lossless decode; then K3,
+    K4 and K5's fused entry against their plain versions on the inputs of
+    each path's measurement calls and encode groups. Times the 120 s -V 1
+    case, its measurement's largest call and K4's generic kernel at the -V
+    3 measurement's 3072-sample group. Returns (each path's kernel launches,
+    encode and decode apart; the checks' max_abs_err by kernel; K4's
+    generic record)."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.host_encoder import encode as host_encode
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
+    from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.predict import predict
+    from srla_tpu_torch.kernels.rice_decode import rice_decode
+    from srla_tpu_torch.kernels.rice_search import rice_sums
+    from srla_tpu_torch.signals import make_segmented
+
+    wrappers = {"fir_predict": predict, "rice_search": rice_sums,
+                "pack_residual_sections": pack_residual_sections,
+                "bitpack": pack, "lpc_synth": lpc_scan,
+                "rice_decode": rice_decode}
+
+    def counted(fn):
+        """fn()'s result and the launches it made, each wrapper's count set
+        to 0 just before."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: w.launches for k, w in wrappers.items()}
+
+    seg = make_segmented(VAR_SECONDS)
+    launches: dict = {}
+    errs = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
+    main_case = generic = None
+    for path, V in VARIABLE_PATHS:
+        pcm = music if path.startswith("music") else seg
+        what = (f"make_music {MAIN_SECONDS:.0f} s" if pcm is music
+                else f"segmented {VAR_SECONDS:.0f} s")
+        param = variable_param(V)
+        t0 = time.perf_counter()
+        stream = host_encode(pcm, 16, SAMPLE_RATE, variable_divisions=V)
+        host_s = time.perf_counter() - t0
+        spans = span_groups(pcm, param)
+        blocks = encode_groups(pcm, param, stream)
+        n_measure, n_encode = expected_calls(spans, blocks)
+        enc = SRLAEncoder(param, dev)
+        torch.cuda.reset_peak_memory_stats()
+        data, got = counted(lambda: enc.encode_whole(pcm))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(data == stream, f"-V {V} encode of {what} differs from the "
+                                f"host exact stream")
+        s = enc.stats
+        nspans = sum(len(o) for o in spans.values())
+        require(s["device_spans"] + s["remeasured_spans"] == nspans
+                and s["host_spans"] == 0,
+                f"-V {V} span accounting {s}: {nspans} spans measured by "
+                f"analysis, none on the host")
+        ncomp = compress_blocks(stream)
+        handled = (s["device_blocks"] + s["repaired_blocks"]
+                   + s["w_overflow_blocks"])
+        require(handled == ncomp, f"-V {V} block accounting {s}: {handled} "
+                                  f"of {ncomp} COMPRESS blocks")
+        want = {"fir_predict": n_measure + n_encode,
+                "rice_search": n_measure + n_encode,
+                "pack_residual_sections": n_encode, "bitpack": 0}
+        for name, count in want.items():
+            require(got[name] == count, f"-V {V}: {name} launched "
+                                        f"{got[name]} times, expected {count}")
+        (_, out), dec_got = counted(lambda: decode(data, device=dev))
+        require(np.array_equal(out, pcm), f"-V {V} decode of {what} is not "
+                                          f"lossless")
+        for name in ("lpc_synth", "rice_decode"):
+            require(dec_got[name] > 0, f"{name} was not launched by the -V "
+                                       f"{V} decode")
+        launches[path] = {"encode": got, "decode": dec_got}
+        sizes: dict = {}
+        for _, n in stream_blocks(stream):
+            sizes[n] = sizes.get(n, 0) + 1
+        if V == 3:       # leaving out the last window's clipped block
+            require(any(n & (n - 1) for _, n in stream_blocks(stream)[:-1]),
+                    "the -V 3 stream holds no block length that is no "
+                    "power of two")
+        print(f"phase 8 encode {what} -V {V} on the card: byte-identical to "
+              f"the host exact stream ({host_s:.2f} s on the host), blocks "
+              f"by length {dict(sorted(sizes.items()))}, "
+              f"{s['device_blocks']} device / {s['repaired_blocks']} "
+              f"repaired / {s['w_overflow_blocks']} overflow of {ncomp} "
+              f"COMPRESS blocks; spans {s['device_spans']} device / "
+              f"{s['remeasured_spans']} re-measured / {s['host_spans']} host "
+              f"of {nspans}, {len(spans)} lengths in {n_measure} "
+              f"measurement calls; {n_encode} encode groups; launches "
+              f"{got}; decode on the card lossless, launches "
+              f"{ {k: dec_got[k] for k in ('lpc_synth', 'rice_decode')} }; "
+              f"peak device memory {peak_gb:.2f} GiB")
+        err, checked, timed_k4 = variable_kernels(
+            torch, dev, pcm, param, spans, blocks, 3072 if V == 3 else 0)
+        for k, e in err.items():
+            errs[k] = max(errs[k], e)
+        generic = timed_k4 or generic
+        print(f"phase 8 -V {V} {what}: K3 and K4 bit-equal to their plain "
+              f"versions on the inputs of its {n_measure} measurement calls "
+              f"and {n_encode} encode groups, K5's pack_residual_sections on "
+              f"those of its encode groups; rows x n checked: "
+              + "; ".join(kind + " " + ", ".join(f"{r}x{n}"
+                                                 for w, r, n in checked
+                                                 if w == kind)
+                          for kind in ("measurement call", "encode group")))
+        if main_case is None:
+            main_case = (pcm, param, stream, spans, n_measure)
+    require(generic is not None, "the -V 3 measurement has no 3072 group")
+
+    pcm, param, stream, spans, n_measure = main_case
+    host_best = min(timed(lambda: host_encode(pcm, 16, SAMPLE_RATE,
+                                              variable_divisions=1))
+                    for _ in range(3))
+    enc_best = best_of(torch, lambda: SRLAEncoder(param, dev).encode_whole(
+        pcm))
+    dec_best = best_of(torch, lambda: decode(stream, device=dev))
+    print(f"phase 8 -V 1 {MAIN_SECONDS:.0f} s stereo (CLI defaults), warm "
+          f"best of 3: encode {enc_best * 1e3:.1f} ms = "
+          f"{MAIN_SECONDS / enc_best:.1f}x realtime (before: the host exact "
+          f"encoder {host_best * 1e3:.1f} ms), decode {dec_best * 1e3:.1f} "
+          f"ms = {MAIN_SECONDS / dec_best:.1f}x realtime [{card}]")
+    enc = SRLAEncoder(param, dev)
+    enc.timer = StepTimer(dev)
+    enc.encode_whole(pcm)
+    steps = enc.timer.seconds
+    print("phase 8 -V 1 encode breakdown (host clock, synchronised per "
+          "step, ms): " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                    for k, v in steps.items())
+          + f"; total {sum(steps.values()) * 1e3:.2f}")
+    # The measurement's largest call alone, for its peak memory.
+    n = max(spans, key=lambda k: k * len(spans[k]))
+    offs = spans[n]
+    file = torch.from_numpy(np.ascontiguousarray(pcm, np.int16)).to(dev)
+    args = enc._host._device_args(n)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    exact.measure_spans(file, offs, 0, C=2, **args)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    call_ms = cuda_ms(torch, lambda: exact.measure_spans(file, offs, 0, C=2,
+                                                         **args), 3)
+    print(f"phase 8 -V 1 measurement: {n_measure} calls (span lengths "
+          f"{sorted(spans)}); the largest, {len(offs)} spans of {n}, "
+          f"{call_ms:.1f} ms, peak device memory {peak_gb:.2f} GiB above "
+          f"the resident file [{card}]")
+    print(f"phase 8 K4 generic kernel at the -V 3 measurement's group of "
+          f"{generic['rows']} rows x {generic['n']} (porders "
+          f"0..{generic['max_porder']}): bit-equal, kernel "
+          f"{generic['ms']:.4f} ms, device time {generic['device_ms']:.4f} "
+          f"ms (CUDA graph), plain {generic['plain_ms']:.2f} ms, bound "
+          f"{generic['bound_ms']:.4f} ms ({generic['bound_by']}; operations "
+          f"{generic['ops_ms']:.4f} ms) [{card}]")
+    return launches, errs, generic
+
+
 def main() -> int:
     try:
         import torch
@@ -982,12 +1352,22 @@ def main() -> int:
     k6_records, k6_launches = phase_bitfield(torch, np, dev)
     records += k6_records
     launches.update(k6_launches)
+    var_launches, var_errs, generic = phase_variable(torch, np, dev, pcm,
+                                                     card)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "srla_tpu", "bench"))
     require(not foreign, f"imported outside the port: {foreign[:5]}")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        # Phase 8: each -V path's launches, its encode and its decode apart.
+        rec["launches_variable"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in var_launches.items()}
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 var_errs.get(rec["name"], 0))
+        if rec["name"] == "rice_search":
+            rec["generic_3072"] = generic
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,14 +1,15 @@
 """srla-compatible command line tool for the PyTorch/CUDA port.
 
-    python -m srla_tpu_torch.cli -e -m 4 -V 0 in.wav out.srl --device cuda
+    python -m srla_tpu_torch.cli -e in.wav out.srl --device cuda
     python -m srla_tpu_torch.cli -d in.srl out.wav --device cuda
 
 Both directions run on --device through the port's kernels (default cuda;
 cpu runs the kernels' plain versions). The flags and their defaults are
 ``srla_tpu.cli``'s (``build_parser`` is the port's copy of
-``srla_tpu/cli.py:18``), with --device in place of --backend. The port
-encodes fixed-size blocks only, so -e needs -V 0 (the default is -V 1), and
-it has no -P or SVR yet: those raise instead of running on the host.
+``srla_tpu/cli.py:18``), with --device in place of --backend: at the
+defaults (-m 4 -B 4096 -V 1 -L 4) -e writes the bytes of
+``python -m srla_tpu.cli -e``. There is no -P or SVR yet: those exit 1
+instead of running on the host.
 """
 
 from __future__ import annotations

@@ -1,22 +1,33 @@
 """SRLA encoder on a PyTorch device (twin of ``srla_tpu.encoder``'s exact
-device path, ``_encode_spans`` -> ``_device_dispatch`` ->
-``_device_finish_fused``).
+device path: ``_encode_spans`` -> ``_device_dispatch`` ->
+``_device_finish_fused``, and at -V > 0 ``_encode_variable`` with
+``_measure_spans_device``).
 
-The host types the blocks (RAW below the order limit, SILENT when all zero,
-else COMPRESS) and groups the COMPRESS blocks by size. Each even-size group
-crosses to the device once and is encoded there in one
-``kernels.exact.encode_blocks`` call: f64 analysis with decision-boundary
-flags, FIR residual (kernel K3), Rice parameter search (K4), bit accounting,
-stereo selection and the residual pack (K5). The host then fetches the
-parameters and exactly the packed words it needs, re-derives flagged blocks
-on the exact host path (``stats["repaired_blocks"]``) and assembles the
-framed blocks. The output is byte-identical to the port's exact host encoder
-(``host_encoder.encode``) and so to ``srla_tpu.encode(..., backend="exact")``.
+The file's samples go to the device once per encode (int16, int32 above 16
+bits); every group of blocks or spans is cut from that resident copy on the
+device. The host types the blocks (RAW below the order limit, SILENT when
+all zero, else COMPRESS) and groups the COMPRESS blocks by size. Each
+even-size group is encoded in one ``kernels.exact.encode_blocks`` call: f64
+analysis with decision-boundary flags, FIR residual (kernel K3), Rice
+parameter search (K4), bit accounting, stereo selection and the residual
+pack (K5). The host then fetches the parameters and exactly the packed words
+it needs, re-derives flagged blocks on the exact host path
+(``stats["repaired_blocks"]``) and assembles the framed blocks.
 
-Odd-size blocks need the reference's stale work-buffer emulation and are
-encoded serially on the host, as in ``srla_tpu``. Variable block sizes
-(-V > 0), long-term prediction (-P) and SVR refinement are not ported yet
-and raise ``ValueError``.
+Variable block sizes (-V > 0) first choose the blocks: every candidate span
+of every even-length lookahead window is measured, one
+``kernels.exact.measure_spans`` call per span size (K3 and K4, no pack),
+flagged spans are re-measured on the host (``stats["remeasured_spans"]``,
+beside ``stats["device_spans"]``), and the reference's Dijkstra picks each
+window's partition on the host. The chosen spans are then encoded as above.
+
+Odd-size blocks and the odd-length last lookahead window need the
+reference's stale work-buffer emulation and stay on the host, as in
+``srla_tpu`` (spans measured there count in ``stats["host_spans"]``). The
+output is byte-identical to the port's exact host encoder
+(``host_encoder.encode``) and so to ``srla_tpu.encode(...,
+backend="exact")``. Long-term prediction (-P) and SVR refinement are not
+ported yet and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -31,8 +42,8 @@ from .bitsplice import PayloadBuilder
 from .constants import BlockDataType
 from .format import StreamHeader, encode_header, frame_block
 from .host_encoder import (EncodeParameter, _compute_offset_lshift,
-                           _gather_blocks, make_parameter)
-from .kernels.exact import encode_blocks, no_timer
+                           make_parameter)
+from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
 
 _NOT_PORTED = {
     "ltp_order": "-P (long-term prediction) is not ported to the device "
@@ -41,7 +52,6 @@ _NOT_PORTED = {
         "SVR refinement is not ported to the device yet (ROADMAP.md queue "
         "1, item 9)",
 }
-
 
 class StepTimer:
     """Host-clock seconds per named step, with a device synchronise at each
@@ -74,28 +84,33 @@ class SRLAEncoder:
     # 2048, on an H100 80GB), so a long file's group is cut into calls of
     # at most this many blocks.
     MAX_CALL_BLOCKS = 2048
+    # Span samples (spans x span length) per measurement call, which packs
+    # nothing: 8192 spans of 4096. Its peak device memory grows with the
+    # call (1.90 GiB for the 2260 spans of 4096 of 120 s of 16-bit stereo at
+    # -V 1, on an H100 80GB), so a size's spans go in calls of at most this
+    # many samples: one call a size up to about 7 minutes of audio.
+    MAX_MEASURE_SAMPLES = 1 << 25
 
     def __init__(self, parameter: EncodeParameter, device):
-        """device: the torch device that encodes the COMPRESS blocks
-        ("cuda" runs the CUDA kernels, "cpu" their plain versions).
-        Flagged blocks, odd-size blocks, RAW and SILENT blocks are encoded on
-        the host by a held ``host_encoder.SRLAEncoder``, whose ``stats``
-        dict this encoder shares."""
+        """device: the torch device that encodes the COMPRESS blocks and
+        measures the -V spans ("cuda" runs the CUDA kernels, "cpu" their
+        plain versions). Flagged blocks, odd-size blocks, the odd last
+        lookahead window, RAW and SILENT blocks are encoded on the host by a
+        held ``host_encoder.SRLAEncoder``, whose ``stats`` dict this encoder
+        shares."""
         parameter.validate()
         for field, why in _NOT_PORTED.items():
             if getattr(parameter, field) > 0:
                 raise ValueError(why)
-        if parameter.min_num_samples_per_block \
-                != parameter.max_num_samples_per_block:
-            raise ValueError("-V > 0 (variable block sizes) is not ported to "
-                             "the device yet (ROADMAP.md queue 1, item 7); "
-                             "use -V 0")
         self.p = parameter
         self.device = torch.device(device)
         self._host = host_encoder.SRLAEncoder(parameter)
         # srla_tpu's keys and meaning: COMPRESS blocks emitted from the
         # device, blocks encoded on the host (repairs included), flagged
         # blocks re-derived on the host, blocks whose section exceeded W.
+        # Then the spans measured for the -V search and the block API: on
+        # the device, flagged and re-measured on the host, measured on the
+        # host (odd sizes, the odd last window).
         self.stats = self._host.stats
         # Set to a StepTimer to collect a per-step breakdown of encode_whole.
         self.timer = None
@@ -109,24 +124,105 @@ class SRLAEncoder:
         pcm = np.asarray(pcm, dtype=np.int32)
         C, N = pcm.shape
         p = self.p
+        host = self._host
         tick = self.timer or no_timer
         if self.timer is not None:
             self.timer.start()
         # The meter is this encoder's: once per block (parity: the
         # reference's EncodeBlockCallback, srla_encoder.c:1780). The held
         # host encoder, which reports per batch, stays silent.
-        self._host._progress_cb = None
+        host._progress_cb = None
         self._progress_cb = progress_callback
         self._progress_done = 0
         lshift = _compute_offset_lshift(pcm)
         header = StreamHeader(C, N, p.sampling_rate, p.bits_per_sample,
                               lshift, p.max_num_samples_per_block, p.preset)
-        n = p.max_num_samples_per_block
-        spans = [(off, min(n, N - off)) for off in range(0, N, n)]
+        file = self._upload(pcm)
+        tick("upload")
+        variable = p.min_num_samples_per_block != p.max_num_samples_per_block
+        if variable:
+            spans = host._variable_spans(
+                pcm, lshift, self._measure_route(file, tick), tick)
+        else:
+            n = p.max_num_samples_per_block
+            spans = [(off, min(n, N - off)) for off in range(0, N, n)]
         out = [encode_header(header)]
-        out.extend(self._encode_spans(pcm, spans, lshift, tick))
-        self._host._check_repair_rate()
+        out.extend(self._encode_spans(pcm, file, spans, lshift, tick))
+        if variable:
+            for size, framed in host._encode_odd_window(pcm, spans, lshift):
+                out.append(framed)
+                self._blocks_done(1, size)
+            tick("odd last window (host)")
+        host._check_repair_rate()
         return b"".join(out)
+
+    def compute_block_size(self, pcm_block: np.ndarray,
+                           offset_lshift: int = 0) -> int:
+        """Byte size this block would encode to
+        (SRLAEncoder_ComputeBlockSize), measured on the device."""
+        pcm_block = np.asarray(pcm_block, dtype=np.int32)
+        route = self._measure_route(self._upload(pcm_block), no_timer)
+        return self._host._measure_blocks(pcm_block, [0], pcm_block.shape[1],
+                                          offset_lshift, route)[0]
+
+    def encode_optimal_partitioned_block(self, pcm_window: np.ndarray,
+                                         offset_lshift: int = 0) -> bytes:
+        """Optimal-partition encode of one lookahead window
+        (SRLAEncoder_EncodeOptimalPartitionedBlock), its spans measured and
+        its blocks encoded on the device."""
+        pcm_window = np.asarray(pcm_window, dtype=np.int32)
+        file = self._upload(pcm_window)
+        spans = self._host._variable_spans(
+            pcm_window, offset_lshift, self._measure_route(file, no_timer),
+            windows=[(0, pcm_window.shape[1])])
+        return b"".join(self._encode_spans(pcm_window, file, spans,
+                                           offset_lshift, no_timer))
+
+    def _upload(self, pcm: np.ndarray) -> torch.Tensor:
+        """The (C, N) samples on the device, int16 up to 16 bits."""
+        dtype = np.int16 if self.p.bits_per_sample <= 16 else np.int32
+        return torch.from_numpy(np.ascontiguousarray(pcm, dtype)).to(
+            self.device)
+
+    def _measure_route(self, file: torch.Tensor, tick):
+        """The device route of the host's ``_measure_blocks`` for the
+        COMPRESS spans of ``file``'s host copy: rounded block bits per span,
+        even sizes measured on the device in calls of at most
+        MAX_MEASURE_SAMPLES span samples (one call per size as a rule),
+        flagged spans re-measured on the host; odd sizes measured on the
+        host, as in ``srla_tpu``."""
+        host = self._host
+
+        def step(name):
+            tick("measure: " + name)
+
+        def measure_bits(window, offsets, size, lshift):
+            if size % 2:
+                bits = host._measure_bits_host(window, offsets, size, lshift)
+                step("odd size (host)")
+                return bits
+            per_call = max(1, self.MAX_MEASURE_SAMPLES // size)
+            parts = []
+            for lo in range(0, len(offsets), per_call):
+                small = measure_spans(file, offsets[lo:lo + per_call], lshift,
+                                      C=window.shape[0], timer=step,
+                                      **host._device_args(size))
+                parts.append((small["bits"].cpu().numpy(),
+                              small["risky_blk"].cpu().numpy()))
+            bits = np.concatenate([b for b, _ in parts])
+            risky = np.flatnonzero(np.concatenate([r for _, r in parts]))
+            step("fetch")
+            if len(risky):
+                blocks = np.stack([window[:, offsets[k]:offsets[k] + size]
+                                   for k in risky])
+                _m, _p, bits[risky] = host._compute_coefficients(
+                    blocks.astype(np.int32), size, lshift, measure_only=True)
+                step("re-measure (host)")
+            self.stats["device_spans"] += len(offsets) - len(risky)
+            self.stats["remeasured_spans"] += len(risky)
+            return bits
+
+        return measure_bits
 
     def _blocks_done(self, count: int, size: int) -> None:
         """Advance the progress meter: one call for each of ``count``
@@ -140,10 +236,11 @@ class SRLAEncoder:
             except Exception:
                 self._progress_cb = None   # a broken meter never kills encode
 
-    def _encode_spans(self, pcm, spans, lshift, tick) -> list[bytes]:
+    def _encode_spans(self, pcm, file, spans, lshift, tick) -> list[bytes]:
         """Type the blocks, encode each even-size COMPRESS group on the
-        device, odd-size ones serially on the host (``srla_tpu``'s
-        ``_encode_spans`` with the device route always taken)."""
+        device (cut from ``file``, the resident copy of ``pcm``), odd-size
+        ones serially on the host (``srla_tpu``'s ``_encode_spans`` with the
+        device route always taken)."""
         host = self._host
         C = pcm.shape[0]
         types = {}
@@ -164,8 +261,8 @@ class SRLAEncoder:
             if size % 2 == 0:
                 for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
                     call = idxs[lo:lo + self.MAX_CALL_BLOCKS]
-                    results.update(self._encode_group(pcm, spans, call, size,
-                                                      lshift, tick))
+                    results.update(self._encode_group(
+                        pcm, file, spans, call, size, lshift, tick))
                     self._blocks_done(len(call), size)
                 continue
             # Odd-length blocks: the reference's Welch window leaves the
@@ -200,24 +297,19 @@ class SRLAEncoder:
         return frame_block(BlockDataType.RAW, size, self._host._raw_payload(
             pcm[:, off:off + size], size))
 
-    def _encode_group(self, pcm, spans, idxs, size: int, lshift: int,
+    def _encode_group(self, pcm, file, spans, idxs, size: int, lshift: int,
                       tick) -> dict[int, bytes]:
-        """Equal-size blocks on the device: one ``encode_blocks`` call,
-        one fetch of the parameters, one fetch of exactly sum(lens_w) packed
-        words, host repair of flagged blocks, native assembly."""
+        """Equal-size blocks on the device: one ``encode_blocks`` call on
+        the blocks cut from ``file``, one fetch of the parameters, one fetch
+        of exactly sum(lens_w) packed words, host repair of flagged blocks,
+        native assembly."""
         host = self._host
         C = pcm.shape[0]
         B = len(idxs)
-        bps = self.p.bits_per_sample
-        blocks = np.ascontiguousarray(
-            _gather_blocks(pcm, spans, idxs, size),
-            np.int16 if bps <= 16 else np.int32)
-        dev_blocks = torch.from_numpy(blocks).to(self.device)
         W = self._section_words(size)
-        tick("upload")
         small_t, flat_t = encode_blocks(
-            dev_blocks, lshift, C=C, W=W, timer=tick,
-            **host._device_args(size))
+            cut_spans(file, [spans[i][0] for i in idxs], size), lshift, C=C,
+            W=W, timer=tick, **host._device_args(size))
         keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
                 "section_bits", "method", "bits", "raw_blk", "risky_blk",
                 "lens_w")
@@ -321,11 +413,12 @@ class SRLAEncoder:
 
 
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
-           device, preset: int = 4, max_block: int = 4096) -> bytes:
+           device, preset: int = 4, max_block: int = 4096,
+           variable_divisions: int = 0, lookahead_factor: int = 4) -> bytes:
     """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
-    ``srla_tpu.encode``'s) result for the same preset and block size
-    (fixed-size blocks, no LTP or SVR)."""
+    ``srla_tpu.encode``'s) result for the same arguments (no LTP or SVR)."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
-                           preset, max_block)
+                           preset, max_block, variable_divisions,
+                           lookahead_factor)
     return SRLAEncoder(param, device).encode_whole(pcm)

@@ -1,19 +1,21 @@
-"""SRLA exact host encoder at fixed block sizes.
+"""SRLA exact host encoder.
 
-The port's own copy of the exact host path of ``srla_tpu/encoder.py``, cut to
-fixed block sizes (-V 0): the batched per-channel analysis (pre-emphasis,
-long-term prediction, windowed autocorrelation, Levinson-Durbin, order
-selection, quantization, FIR residual, Rice search, bit accounting), stereo
-selection, payload emission, the stale work-buffer chain of odd-length
-blocks, RAW and SILENT blocks, progress and the repair-rate warning.
+The port's own copy of the exact host path of ``srla_tpu/encoder.py``: the
+batched per-channel analysis (pre-emphasis, long-term prediction, windowed
+autocorrelation, Levinson-Durbin, order selection, quantization, FIR
+residual, Rice search, bit accounting), stereo selection, payload emission,
+the stale work-buffer chain of odd-length blocks, RAW and SILENT blocks,
+progress, the repair-rate warning, and the variable block-size search
+(-V > 0: every candidate span of a lookahead window measured, then the
+reference's Dijkstra over their byte sizes, ``srla_encoder.c:249-424``).
 
 ``SRLAEncoder`` here is what the port's device ``encoder.SRLAEncoder`` holds
-for blocks it encodes on the host (odd sizes, RAW and SILENT, flagged
-repairs), and ``encode`` is the byte reference of the port's tests and
-``chip_smoke.py``: the tests hold it byte-equal to
-``srla_tpu.encode(..., backend="exact")``, which is byte-exact with the C
-reference. Not copied: the device backends, the host worker process, SVR
-refinement and variable block sizes (``-V``); the latter two raise.
+for what it encodes or measures on the host (odd sizes, the odd last
+lookahead window, RAW and SILENT blocks, flagged repairs), and ``encode`` is
+the byte reference of the port's tests and ``chip_smoke.py``: the tests hold
+it byte-equal to ``srla_tpu.encode(..., backend="exact")``, which is
+byte-exact with the C reference. Not copied: the device backends, the host
+worker process and SVR refinement, which raises.
 
 API parity targets: SRLAEncoder_* in libs/srla_encoder/src/srla_encoder.c.
 """
@@ -51,6 +53,7 @@ from .huffman import parameter_codebook, sum_parameter_codebook
 
 _INV_LOGE2 = 1.4426950408889634
 _FLT_MAX = 3.402823466e38
+_BIG = float(1 << 24)      # the -V search's cost of a missing edge
 
 
 @dataclass
@@ -121,18 +124,19 @@ class SRLAEncoder:
         if parameter.num_svr_filter_learning_iteration > 0:
             raise ValueError("SVR refinement is not in the port's host "
                              "encoder (ROADMAP.md queue 1, item 9)")
-        if parameter.min_num_samples_per_block \
-                != parameter.max_num_samples_per_block:
-            raise ValueError("-V > 0 (variable block sizes) is not in the "
-                             "port's host encoder (ROADMAP.md queue 1, item "
-                             "7); use -V 0")
         self.p = parameter
         # Per-encode accounting, with srla_tpu's keys: COMPRESS blocks
         # emitted from the device, blocks encoded on the host, flagged
         # blocks re-derived on the host, blocks whose packed section
         # exceeded its bound. The device counts are the device encoder's.
+        # Then the spans whose bits the -V search (or the block API)
+        # measured by analysis: on the device, flagged there and re-measured
+        # on the host, or measured on the host (odd sizes, the odd last
+        # window).
         self.stats = {"device_blocks": 0, "host_blocks": 0,
-                      "repaired_blocks": 0, "w_overflow_blocks": 0}
+                      "repaired_blocks": 0, "w_overflow_blocks": 0,
+                      "device_spans": 0, "remeasured_spans": 0,
+                      "host_spans": 0}
         self.preset = PARAMETER_PRESETS[parameter.preset]
         self._param_cb = parameter_codebook()
         self._sum_cb = sum_parameter_codebook()
@@ -412,9 +416,13 @@ class SRLAEncoder:
         return orders
 
     def _compute_coefficients(self, blocks: np.ndarray, n: int,
-                              offset_lshift: int, stale_state=None):
+                              offset_lshift: int, stale_state=None,
+                              measure_only: bool = False):
         """blocks: (B, C, n) int32 raw samples. Returns (method (B,),
-        params per output channel list[C] of _ChannelParams, bits (B,))."""
+        params per output channel list[C] of _ChannelParams, bits (B,)).
+        With `measure_only`, params is None: the per-channel merge (which
+        copies residual-sized arrays) is skipped and only the
+        decision-exact bit counts are produced (the -V span measurement)."""
         B, C, _ = blocks.shape
         work = _apply_lshift(blocks, offset_lshift)
 
@@ -439,6 +447,7 @@ class SRLAEncoder:
                     state = state.copy()
                     state[:len(raw)] = raw
                 split.append(params)
+            self._last_state = state
         else:
             stack = np.ascontiguousarray(np.concatenate(variants, axis=0))
             all_params = self._analyze_channel(stack, n)
@@ -463,8 +472,9 @@ class SRLAEncoder:
             lens = np.stack([l0 + l1, m0 + m1, l0 + m1, l1 + m1])  # NONE,MS,LS,SR
             method = np.argmin(lens, axis=0).astype(np.int32)  # first min wins
             bits = lens[method, np.arange(B)]
-            out_params = [self._merge_params(ch_params, ms_params, method,
-                                             c, B) for c in range(C)]
+            out_params = (None if measure_only else
+                          [self._merge_params(ch_params, ms_params, method,
+                                              c, B) for c in range(C)])
         bits = bits + 2
         bits = ((bits + 7) // 8) * 8
         return method, out_params, bits
@@ -603,9 +613,30 @@ class SRLAEncoder:
         n = p.max_num_samples_per_block
         spans = [(off, min(n, N - off)) for off in range(0, N, n)]
         out = [encode_header(header)]
-        out.extend(self._encode_spans(pcm, spans, offset_lshift))
+        if p.min_num_samples_per_block == p.max_num_samples_per_block:
+            out.extend(self._encode_spans(pcm, spans, offset_lshift))
+        else:
+            out.extend(self._encode_variable(pcm, offset_lshift))
         self._check_repair_rate()
         return b"".join(out)
+
+    def compute_block_size(self, pcm_block: np.ndarray,
+                           offset_lshift: int = 0) -> int:
+        """Byte size this block would encode to
+        (SRLAEncoder_ComputeBlockSize)."""
+        pcm_block = np.asarray(pcm_block, dtype=np.int32)
+        n = pcm_block.shape[1]
+        return self._measure_blocks(pcm_block, [0], n, offset_lshift)[0]
+
+    def encode_optimal_partitioned_block(self, pcm_window: np.ndarray,
+                                         offset_lshift: int = 0) -> bytes:
+        """Optimal-partition encode of one lookahead window
+        (SRLAEncoder_EncodeOptimalPartitionedBlock)."""
+        pcm_window = np.asarray(pcm_window, dtype=np.int32)
+        spans = self._variable_spans(pcm_window, offset_lshift,
+                                     windows=[(0, pcm_window.shape[1])])
+        return b"".join(self._encode_spans(pcm_window, spans,
+                                           offset_lshift))
 
     # Boundary-flag (host repair) rate above which the encode is still
     # byte-exact but silently degrades toward host speed; make that mode
@@ -777,6 +808,201 @@ class SRLAEncoder:
             state[:len(raw)] = raw
         return state
 
+    # ------------------------------------------------------------------ #
+    # Variable block sizes (-V): optimal partition per lookahead window   #
+    # ------------------------------------------------------------------ #
+
+    def _windows(self, N: int) -> list[tuple[int, int]]:
+        """The lookahead windows (offset, length) of an N-sample stream."""
+        la = self.p.num_lookahead_samples
+        return [(off, min(la, N - off)) for off in range(0, N, la)]
+
+    def _encode_variable(self, pcm: np.ndarray, offset_lshift: int):
+        """Variable-block encode: the even windows' partition search
+        (``_variable_spans``), one batched encode of the chosen spans, then
+        the odd last window in the reference's serial order."""
+        spans = self._variable_spans(pcm, offset_lshift)
+        out = self._encode_spans(pcm, spans, offset_lshift)
+        out += [framed for _, framed in self._encode_odd_window(
+            pcm, spans, offset_lshift)]
+        return out
+
+    def _variable_spans(self, pcm: np.ndarray, offset_lshift: int,
+                        measure_bits=None, tick=lambda name: None,
+                        windows=None):
+        """The chosen (offset, size) spans of the lookahead ``windows``
+        ((offset, length) pairs; by default every even-length window of the
+        stream), in stream order. Every candidate span of every window is
+        measured, batched by size over all the windows into one
+        ``_measure_blocks`` call per size (``measure_bits`` is its route for
+        COMPRESS spans, the host's by default); then a Dijkstra per window
+        over the measured byte sizes. ``tick`` is called with a step name
+        after each host step."""
+        if windows is None:
+            windows = [w for w in self._windows(pcm.shape[1])
+                       if w[1] % 2 == 0]
+        adj_of: dict[int, np.ndarray] = {}
+        jobs_by_size: dict[int, list] = {}
+        for wo, span in windows:
+            adj_of[wo], jobs = self._candidates(span)
+            for key, (off, size) in jobs.items():
+                jobs_by_size.setdefault(size, []).append((wo, key, wo + off))
+        tick("partition search (host)")
+        for size, entries in jobs_by_size.items():
+            sizes = self._measure_blocks(pcm, [g for *_, g in entries],
+                                         size, offset_lshift, measure_bits,
+                                         tick)
+            for (wo, key, _), sz in zip(entries, sizes):
+                adj_of[wo][key] = float(sz)
+        all_spans = []
+        for wo, span in windows:
+            parts = self._shortest_partition(adj_of[wo], span)
+            all_spans += [(wo + off, size) for off, size in _spans_of(parts)]
+        tick("partition search (host)")
+        return all_spans
+
+    def _candidates(self, span: int):
+        """A window's edge matrix, all BIG (no edge), and its candidate
+        spans {(i, j): (offset, size)} in the reference's (i, j) order:
+        boundaries every min block, spans up to the max block, the last one
+        clipped to the window."""
+        dmin = self.p.min_num_samples_per_block
+        dmax = self.p.max_num_samples_per_block
+        num_nodes = (span + dmin - 1) // dmin + 1
+        jobs = {}
+        for i in range(num_nodes):
+            off = i * dmin
+            for j in range(i + 1, num_nodes):
+                size = (j - i) * dmin
+                if size <= dmax:
+                    jobs[(i, j)] = (off, min(size, span - off))
+        return np.full((num_nodes, num_nodes), _BIG), jobs
+
+    def _shortest_partition(self, adj: np.ndarray, span: int) -> list[int]:
+        """Block sizes of a window's cheapest partition, in order: the
+        reference's Dijkstra from the first boundary to the last, the last
+        block clipped to the window's ``span`` samples."""
+        dmin = self.p.min_num_samples_per_block
+        num_nodes = adj.shape[0]
+        path = _dijkstra(adj, num_nodes, 0, num_nodes - 1, _BIG)
+        parts_rev = []
+        node = num_nodes - 1
+        while node != 0:
+            prev = path[node]
+            off = prev * dmin
+            parts_rev.append(min((node - prev) * dmin, span - off))
+            node = prev
+        return parts_rev[::-1]
+
+    def _encode_odd_window(self, pcm: np.ndarray, spans, offset_lshift: int):
+        """The odd-length last lookahead window, if the stream has one, in
+        the reference's serial order: the work-buffer state left by the last
+        COMPRESS span before it threads through the measurement of every
+        candidate span in (i, j) order, then through the encode of the
+        chosen ones. ``spans`` are the even windows' chosen spans. Returns
+        [(size, framed block)] in stream order."""
+        C, N = pcm.shape
+        windows = self._windows(N)
+        if not windows or windows[-1][1] % 2 == 0:
+            return []
+        wo, span = windows[-1]
+        last_compress = None
+        for o, s in reversed(spans):
+            if s > self.preset.max_num_parameters and pcm[:, o:o + s].any():
+                last_compress = (o, s)
+                break
+        state = (self._state_from_block(pcm, *last_compress, offset_lshift)
+                 if last_compress else self._fresh_state())
+        parts, state = self._search_partitions(
+            pcm[:, wo:wo + span], span, offset_lshift, state)
+        out = []
+        for off, size in _spans_of(parts):
+            blk = pcm[:, wo + off:wo + off + size]
+            if size <= self.preset.max_num_parameters:
+                framed = frame_block(
+                    BlockDataType.RAW, size,
+                    self._raw_payload(blk.astype(np.int32), size))
+            elif not blk.any():
+                framed = frame_block(BlockDataType.SILENT, size, b"")
+            else:
+                method, params, _bits = self._compute_coefficients(
+                    blk[None].astype(np.int32), size, offset_lshift,
+                    stale_state=state)
+                state = self._last_state
+                framed = self._finish_block(pcm, [(wo + off, size)], 0, size,
+                                            params, int(method[0]), 0, C)
+            out.append((size, framed))
+        return out
+
+    def _search_partitions(self, window: np.ndarray, span: int,
+                           offset_lshift: int, state):
+        """Shortest-path search over an odd-length window's candidate block
+        boundaries; edge (i, j) costs the measured byte size of that span.
+        The spans are measured serially in the reference's (i, j) order,
+        threading the work-buffer ``state``; returns (the partition, the
+        evolved state). Windows measured without a state chain go through
+        ``_variable_spans``."""
+        adj, jobs = self._candidates(span)
+        C = window.shape[0]
+        bps = self.p.bits_per_sample
+        for key, (off, size) in jobs.items():  # reference (i, j) order
+            blk = window[:, off:off + size]
+            raw11 = 11 + (bps * size * C) // 8
+            if size <= self.preset.max_num_parameters:
+                adj[key] = float(raw11)
+            elif not blk.any():
+                adj[key] = 11.0
+            else:
+                _m, _p, bits = self._compute_coefficients(
+                    blk[None].astype(np.int32), size, offset_lshift,
+                    stale_state=state, measure_only=True)
+                state = self._last_state
+                self.stats["host_spans"] += 1
+                nbits = int(bits[0])
+                adj[key] = float(raw11 if nbits >= bps * size * C
+                                 else 11 + nbits // 8)
+        return self._shortest_partition(adj, span), state
+
+    def _measure_blocks(self, window: np.ndarray, offsets, size: int,
+                        offset_lshift: int, measure_bits=None,
+                        tick=lambda name: None) -> list[int]:
+        """Byte sizes of the equal-size spans of ``window`` at ``offsets``:
+        RAW and SILENT spans by rule, COMPRESS spans from their measured
+        bits (``measure_bits(window, offsets, size, lshift)``, the host's
+        batched analysis by default), with the raw fallback."""
+        C = window.shape[0]
+        bps = self.p.bits_per_sample
+        idxs_compress = []
+        sizes = [0] * len(offsets)
+        raw_size = 11 + (bps * size * C) // 8
+        for k, off in enumerate(offsets):
+            if size <= self.preset.max_num_parameters:
+                sizes[k] = raw_size
+            elif not window[:, off:off + size].any():
+                sizes[k] = 11
+            else:
+                idxs_compress.append(k)
+        tick("span typing (host)")
+        if idxs_compress:
+            bits = (measure_bits or self._measure_bits_host)(
+                window, [offsets[k] for k in idxs_compress], size,
+                offset_lshift)
+            for bi, k in enumerate(idxs_compress):
+                nbits = int(bits[bi])
+                sizes[k] = (raw_size if nbits >= bps * size * C
+                            else 11 + nbits // 8)
+        return sizes
+
+    def _measure_bits_host(self, window: np.ndarray, offsets, size: int,
+                           offset_lshift: int) -> np.ndarray:
+        """Rounded block bits of COMPRESS spans, by the batched host
+        analysis (counted in ``stats["host_spans"]``)."""
+        blocks = np.stack([window[:, o:o + size] for o in offsets])
+        _m, _p, bits = self._compute_coefficients(
+            blocks.astype(np.int32), size, offset_lshift, measure_only=True)
+        self.stats["host_spans"] += len(offsets)
+        return bits
+
     def _device_args(self, n: int):
         """The shape arguments of the device analysis of a group of
         n-sample blocks (``kernels.exact.encode_blocks``)."""
@@ -841,19 +1067,42 @@ class SRLAEncoder:
         return w
 
 
-def _gather_blocks(pcm: np.ndarray, spans, idxs, size: int) -> np.ndarray:
-    """(B, C, n) int32 view/copy of the chosen spans; zero-copy reshape when
-    the spans are contiguous and equally spaced (the fixed-block common case).
+def _dijkstra(adj: np.ndarray, num_nodes: int, start: int, goal: int,
+              big: float) -> list[int]:
+    """Reference-faithful O(V^2) Dijkstra, with the reference's
+    tie-breaking: the first unused node of least cost is taken, and a node's
+    predecessor changes only on a strictly lower cost. Returns each node's
+    predecessor (~0 where none).
+
+    Parity: SRLAOptimalBlockPartitionCalculator_ApplyDijkstraMethod
+    (srla_encoder.c:249-307); copied from ``srla_tpu/encoder.py:2044``.
     """
-    offs = [spans[i][0] for i in idxs]
-    if len(offs) > 1 and all(offs[k + 1] - offs[k] == size
-                             for k in range(len(offs) - 1)):
-        lo = offs[0]
-        view = pcm[:, lo:lo + size * len(offs)]
-        if view.shape[1] == size * len(offs):
-            return np.swapaxes(view.reshape(pcm.shape[0], len(offs), size),
-                               0, 1)
-    return np.stack([pcm[:, o:o + size] for o in offs]).astype(np.int32)
+    used = [False] * num_nodes
+    path = [~0] * num_nodes
+    cost = [big] * num_nodes
+    cost[start] = 0.0
+    while True:
+        mincost = big
+        target = start
+        for i in range(num_nodes):
+            if not used[i] and mincost > cost[i]:
+                mincost = cost[i]
+                target = i
+        if target == goal:
+            break
+        for i in range(num_nodes):
+            via = adj[target, i] + cost[target]
+            if cost[i] > via:
+                cost[i] = via
+                path[i] = target
+        used[target] = True
+    return path
+
+
+def _spans_of(parts) -> list[tuple[int, int]]:
+    """(offset, size) of consecutive blocks of the given sizes from 0."""
+    offs = np.concatenate([[0], np.cumsum(parts, dtype=np.int64)])
+    return [(int(o), int(s)) for o, s in zip(offs, parts)]
 
 
 def _apply_lshift(blocks: np.ndarray, offset_lshift: int) -> np.ndarray:
@@ -875,24 +1124,27 @@ def _compute_offset_lshift(pcm: np.ndarray) -> int:
 
 def make_parameter(num_channels: int, bits_per_sample: int,
                    sampling_rate: int, preset: int = 4,
-                   max_block: int = 4096, lookahead_factor: int = 4,
+                   max_block: int = 4096, variable_divisions: int = 0,
+                   lookahead_factor: int = 4,
                    ltp_order: int = 0) -> EncodeParameter:
-    """The EncodeParameter of ``srla_tpu.encode``'s defaults at -V 0."""
+    """The EncodeParameter of ``srla_tpu.encode`` for these arguments (its
+    defaults: fixed blocks, -V 0)."""
     return EncodeParameter(
         num_channels=num_channels, bits_per_sample=bits_per_sample,
         sampling_rate=sampling_rate, preset=preset,
         max_num_samples_per_block=max_block,
-        min_num_samples_per_block=max_block,
+        min_num_samples_per_block=max_block >> variable_divisions,
         num_lookahead_samples=lookahead_factor * max_block,
         ltp_order=ltp_order)
 
 
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
-           preset: int = 4, max_block: int = 4096, lookahead_factor: int = 4,
-           ltp_order: int = 0) -> bytes:
-    """One-shot exact host encode at fixed block sizes: the bytes of
-    ``srla_tpu.encode(..., variable_divisions=0, backend="exact")``."""
+           preset: int = 4, max_block: int = 4096, variable_divisions: int = 0,
+           lookahead_factor: int = 4, ltp_order: int = 0) -> bytes:
+    """One-shot exact host encode: the bytes of ``srla_tpu.encode(...,
+    backend="exact")`` for the same arguments (no SVR)."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
-                           preset, max_block, lookahead_factor, ltp_order)
+                           preset, max_block, variable_divisions,
+                           lookahead_factor, ltp_order)
     return SRLAEncoder(param).encode_whole(pcm)

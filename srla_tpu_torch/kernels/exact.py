@@ -463,6 +463,20 @@ def variant_stack(blocks: torch.Tensor, lshift: int) -> torch.Tensor:
     return torch.cat(parts, dim=0).contiguous()
 
 
+def cut_spans(file: torch.Tensor, offsets, n: int) -> torch.Tensor:
+    """The (B, C, n) spans of the resident (C, N) ``file`` that start at
+    the host ``offsets`` (B,), cut on the file's device. Every span must lie
+    inside the file: a CUDA gather past its end would read other memory."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    N = file.shape[1]
+    if offs.ndim != 1 or (offs < 0).any() or (offs + n > N).any():
+        raise ValueError(f"cut_spans: a span of {n} samples leaves the "
+                         f"{N}-sample file")
+    idx = (torch.from_numpy(offs).to(file.device)[:, None]
+           + torch.arange(n, device=file.device))
+    return file[:, idx].permute(1, 0, 2)
+
+
 def _small(core: dict) -> dict:
     """``analyze_core``'s per-row parameters and flags under the names of
     ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``."""
@@ -548,6 +562,23 @@ def account_bits(sec_bits, orders, coefs, bps: int):
     return sec_bits.long() + fixed + coef_bits, use_sum
 
 
+def _method_lengths(small: dict, *, B: int, C: int, max_params: int,
+                    bps: int):
+    """Each block's code length under each stereo method (NONE, MS, LS, SR
+    for C >= 2; one row for C = 1), everything but the method field and the
+    byte rounding, and the variants' coefficient choice. Returns ((4 or 1,
+    B) int64, use_sum (V,) bool)."""
+    nvar = C + 2 if C >= 2 else 1
+    code_len, use_sum = account_bits(
+        small["section_bits"], small["orders"],
+        small["coefs"][:, :max(max_params, 1)], bps)
+    cl = code_len.reshape(nvar, B)
+    if C >= 2:
+        cl = torch.stack([cl[2] + cl[3], cl[0] + cl[1], cl[2] + cl[1],
+                          cl[3] + cl[1]])
+    return cl, use_sum
+
+
 def select_rows(small: dict, *, B: int, C: int, n: int, bps: int, W: int,
                 max_params: int) -> dict:
     """Stereo method (first minimum wins, as jnp.argmin), rounded block
@@ -558,24 +589,18 @@ def select_rows(small: dict, *, B: int, C: int, n: int, bps: int, W: int,
     block, or a section above W words)."""
     dev = small["orders"].device
     nvar = C + 2 if C >= 2 else 1
-    code_len, use_sum = account_bits(
-        small["section_bits"], small["orders"],
-        small["coefs"][:, :max(max_params, 1)], bps)
-    cl = code_len.reshape(nvar, B)
+    lens, use_sum = _method_lengths(small, B=B, C=C, max_params=max_params,
+                                    bps=bps)
     bi = torch.arange(B, device=dev)[:, None]
     ci = torch.arange(C, device=dev)[None, :]
+    method = lens.argmin(dim=0)
+    bits = lens.gather(0, method[None, :])[0]
     if C >= 2:
-        lens4 = torch.stack([cl[2] + cl[3], cl[0] + cl[1],
-                             cl[2] + cl[1], cl[3] + cl[1]])
-        method = lens4.argmin(dim=0)
-        bits = lens4.gather(0, method[None, :])[0]
         m = method[:, None]
         vix = torch.where((m == 1) & (ci < 2), ci,
                           torch.where(((m == 2) & (ci == 1))
                                       | ((m == 3) & (ci == 0)), 1, 2 + ci))
     else:
-        method = torch.zeros(B, dtype=torch.int64, device=dev)
-        bits = cl[0]
         vix = torch.zeros((B, 1), dtype=torch.int64, device=dev)
     bits = ((bits + 2 + 7) // 8) * 8
     raw_blk = bits >= bps * n * C
@@ -647,3 +672,38 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
               "lens_w"):
         small[k] = sel[k]
     return small, flat
+
+
+# ---------------------------------------------------------------------------
+# Span measurement for the -V partition search
+# ---------------------------------------------------------------------------
+
+def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
+                  bps: int, max_params: int, max_fixed: bool, fft_size: int,
+                  max_porder: int, C: int, timer=no_timer) -> dict:
+    """Span measurement of the -V partition search: the twin of
+    ``srla_tpu.kernels.exact.measure_spans_exact`` (no LTP, no SVR).
+
+    file: the (C, N) int16 (int32 above 16 bits) samples, resident on the
+    device; offsets: (B,) host offsets with offset + n <= N. The spans are
+    cut on the device and analysed as ``encode_blocks`` analyses a group
+    (K3 and K4 run once each); nothing is packed. Returns ``small``: the
+    per-variant ``section_bits``, ``orders``, ``coefs``, ``risky`` and
+    ``ltp_period`` of ``measure_spans_exact``, plus per span ``bits``, the
+    rounded block bits of the best stereo method
+    (``srla_tpu/encoder.py:2020-2032``), and ``risky_blk``."""
+    blocks = cut_spans(file, offsets, n)
+    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
+                        max_params=max_params, max_fixed=max_fixed,
+                        fft_size=fft_size, max_porder=max_porder,
+                        timer=timer)
+    small = {k: v for k, v in _small(core).items()
+             if k in ("section_bits", "orders", "coefs", "risky",
+                      "ltp_period")}
+    B = blocks.shape[0]
+    lens, _ = _method_lengths(small, B=B, C=C, max_params=max_params,
+                              bps=bps)
+    small["bits"] = ((lens.min(dim=0).values + 2 + 7) // 8) * 8
+    small["risky_blk"] = small["risky"].reshape(-1, B).any(dim=0)
+    timer("accounting + selection (torch)")
+    return small

@@ -25,3 +25,28 @@ def make_music(seconds: float, rate: int = 44100, seed: int = 7) -> np.ndarray:
     right = np.round(np.clip(np.roll(sig, 11) * 0.93, -1, 1)
                      * 23000).astype(np.int32)
     return np.stack([left, right])
+
+
+def make_segmented(seconds: float, rate: int = 44100,
+                   seed: int = 11) -> np.ndarray:
+    """Deterministic stereo signal in segments of 500-6000 samples, each,
+    drawn from ``seed``, one of: ``make_music``, ``make_music`` / 16, or
+    white noise. Unlike the stationary ``make_music``, it makes the -V
+    search pick mixed block sizes (at -V >= 2 also sizes that are no power
+    of two)."""
+    music = make_music(seconds, rate, seed)
+    n = music.shape[1]
+    rng = np.random.RandomState(seed)
+    out = np.empty_like(music)
+    pos = 0
+    while pos < n:
+        end = min(n, pos + rng.randint(500, 6001))
+        kind = rng.randint(3)
+        if kind == 0:
+            out[:, pos:end] = music[:, pos:end]
+        elif kind == 1:
+            out[:, pos:end] = music[:, pos:end] // 16
+        else:
+            out[:, pos:end] = np.round(rng.randn(2, end - pos) * 4000)
+        pos = end
+    return out

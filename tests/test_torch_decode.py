@@ -35,6 +35,17 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the CPU decodes and encodes here are many small
+    torch ops, which run faster on one thread than on a pool that the test
+    workers' pools contend with."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(kind: str):
     """(pcm, bits per sample, encode keyword arguments) per stream kind."""
     rng = np.random.RandomState(sum(map(ord, kind)))
@@ -169,13 +180,15 @@ def test_cli_roundtrip(tmp_path):
     wav = tmp_path / "in.wav"
     write_wav(str(wav), WavData(signals.chirp(20000, 2, 16), 44100, 16))
     srl, out = tmp_path / "x.srl", tmp_path / "out.wav"
-    # srla_tpu's default -V 1 is not ported: refused, not run on the host.
-    assert main(["-e", "--device", "cpu", str(wav), str(srl)]) == 1
+    # The defaults (-V 1) encode, with srla_tpu's bytes; --backend is
+    # refused.
+    pcm = signals.chirp(20000, 2, 16)
+    assert main(["-e", "--device", "cpu", str(wav), str(srl)]) == 0
+    assert srl.read_bytes() == encode(pcm, 16, 44100, variable_divisions=1)
     assert main(["-e", "--backend", "exact", "-V", "0", str(wav),
                  str(srl)]) == 1
     assert main(["-e", "-B", "1024", "-V", "0", "--device", "cpu", str(wav),
                  str(srl)]) == 0
-    pcm = signals.chirp(20000, 2, 16)
     assert srl.read_bytes() == encode(pcm, 16, 44100, max_block=1024,
                                       variable_divisions=0)
     assert main(["-d", "--device", "cpu", str(srl), str(out)]) == 0
@@ -189,6 +202,8 @@ def test_port_never_imports_jax(tmp_path):
     pcm = (np.arange(3000).reshape(1, -1) % 97 - 48).astype(np.int32)
     ref = tmp_path / "ref.srl"
     ref.write_bytes(encode(pcm, 16, 44100, max_block=512))
+    (tmp_path / "ref.srl.v").write_bytes(
+        encode(pcm, 16, 44100, variable_divisions=1))
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -206,6 +221,10 @@ def test_port_never_imports_jax(tmp_path):
         "assert srla_tpu_torch.cli.main(['-e', '-V', '0', '-B', '512', "
         "'--device', 'cpu', wav, ref + '.2']) == 0\n"
         "assert open(ref + '.2', 'rb').read() == data\n"
+        "assert srla_tpu_torch.cli.main(['-e', '--device', 'cpu', wav, "
+        "ref + '.3']) == 0\n"
+        "assert open(ref + '.3', 'rb').read() == open(ref + '.v', "
+        "'rb').read()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'srla_tpu', 'bench')"
         " or m.startswith(('jax.', 'srla_tpu.'))]\n"
         "assert not bad, bad\n")

@@ -229,10 +229,12 @@ def test_step_timer_breakdown():
 def test_unported_flags_raise(kw, what):
     with pytest.raises(ValueError, match=what):
         SRLAEncoder(_param(2, 16, 4, **kw), "cpu")
+    # -V (min block < max block) is ported: it constructs and encodes.
     param = _param(2, 16, 4)
     param.min_num_samples_per_block = BLOCK // 2
-    with pytest.raises(ValueError, match="-V"):
-        SRLAEncoder(param, "cpu")
+    pcm = _pcm("music", 2, 16)
+    assert SRLAEncoder(param, "cpu").encode_whole(pcm) == host_encode(
+        pcm, 16, 44100, max_block=BLOCK, variable_divisions=1)
 
 
 def test_cli_encode_roundtrip(tmp_path):
@@ -248,8 +250,7 @@ def test_cli_encode_roundtrip(tmp_path):
                                            max_block=BLOCK)
     assert main(["-d", "--device", "cpu", str(srl), str(out)]) == 0
     assert out.read_bytes() == wav.read_bytes()
-    for bad in (["-P", "1"], ["--svr-filter-learning-iteration", "1"],
-                ["-V", "1"]):
+    for bad in (["-P", "1"], ["--svr-filter-learning-iteration", "1"]):
         assert main(["-e", "-V", "0", *bad, "--device", "cpu", str(wav),
                      str(srl)]) == 1
 

@@ -118,15 +118,18 @@ def test_host_encoder_stats_and_progress():
     # 4 even blocks typed COMPRESS (the noise block among them, emitted RAW)
     # in one host batch; the odd tail is serial and not a host batch.
     assert enc.stats == {"device_blocks": 0, "host_blocks": 4,
-                         "repaired_blocks": 0, "w_overflow_blocks": 0}
+                         "repaired_blocks": 0, "w_overflow_blocks": 0,
+                         "device_spans": 0, "remeasured_spans": 0,
+                         "host_spans": 0}
     assert seen == [4 * BLOCK]
     param.num_svr_filter_learning_iteration = 1
     with pytest.raises(ValueError, match="SVR"):
         host_encoder.SRLAEncoder(param)
-    param = host_encoder.make_parameter(2, 16, 44100, max_block=BLOCK)
-    param.min_num_samples_per_block = BLOCK // 2
-    with pytest.raises(ValueError, match="-V"):
-        host_encoder.SRLAEncoder(param)
+    # -V is ported: the variable-block search runs on the host.
+    param = host_encoder.make_parameter(2, 16, 44100, max_block=BLOCK,
+                                        variable_divisions=1)
+    assert param.min_num_samples_per_block == BLOCK // 2
+    host_encoder.SRLAEncoder(param)
 
 
 @pytest.mark.parametrize("C,bps", [(1, 8), (2, 16), (3, 24)])

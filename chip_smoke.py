@@ -4,8 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the six CUDA libraries of csrc/ (nine kernels) and the serial-chain
-probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
+Builds the eight CUDA libraries of csrc/ (eleven kernels) and the
+serial-chain probe (csrc/chain_probe.cu, a measurement aid) with concurrent
+nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
@@ -23,9 +24,12 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
      srla_tpu_torch.decode(..., device="cuda"): lossless, every COMPRESS
      block on the device, both kernels launched by that decode; then one
      warm decode under torch.profiler (device time by kernel).
-  4. A 10 s -m 6 -P 3 stream from the same host encoder (long-term
-     prediction; LPC orders up to 93 on this signal) decoded on the card:
-     lossless.
+  4. A 120 s -m 6 -P 3 stream from the same host encoder (long-term
+     prediction; LPC orders up to 93 on this signal) decoded on the card,
+     counted: lossless, K9 (LTP synthesis, csrc/ltp_synth.cu) launched once
+     per LTP group; then K9 against its plain version on every LTP group
+     and at edge shapes (delay 9 at order 3, order 1, period and order 0,
+     period 262, wrapping values, n 300 and 4064): bit-equal; warm speed.
   5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
      csrc/rice_search.cu) and K5 (csrc/bitpack.cu: pack_residual_sections,
      residuals to packed sections in one kernel, the entry the encode runs,
@@ -85,14 +89,28 @@ probe (csrc/chain_probe.cu, a measurement aid) with concurrent nvcc, then:
      its measurement's call count and the largest call's time and peak
      memory, and K4's generic kernel against its plain version on the -V 3
      measurement's 3072-sample group (CUDA events, device time, bound).
+  9. Long-term prediction on the encode: the 120 s of phase 3 at -m 4 -B
+     4096 -V 0 -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), each
+     encoded by SRLAEncoder(device="cuda"), counted: byte-identical to the
+     host exact encoder, span and block accounting, K10 (pitch search and
+     LTP solve, csrc/ltp_analyze.cu), K3 and K4 once per analysis call and
+     K5 once per encode group, analysis rows with LTP on above 0, and the
+     stream decoded losslessly on the card with K9 launched. Then K10
+     against its plain version on the inputs of every analysis call (the
+     pitch lags of every measurement call and encode group) and K9 on every
+     LTP decode group: bit-equal. Prints each encode's and decode's warm
+     best of 3 and the encode's step split, and K10's (at the -V 0 encode's
+     5164 rows) and K9's (at its stream's 2582 rows x 4096) times beside
+     their plain versions' and bounds.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
 version's, its bound and, where one PyTorch call computes the same function,
 that call's time; then one JSON line describing the kernels (``launches``
-counted on phases 3, 6 and 7; ``launches_variable`` on each of phase 8's
-three paths, its encode and its decode apart) and, last, the device JSON
-line. A kernel's bound is the
+counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
+-V 0 encode; ``launches_variable`` on each of phase 8's three paths,
+``launches_ltp`` on phase 4's and phase 9's, encode and decode apart) and,
+last, the device JSON line. A kernel's bound is the
 larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
 instructions its inputs need (a multiply-add is one) over the H100's INT32
 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, a quarter of
@@ -101,7 +119,9 @@ two. K1 and K2 are recurrences, so each also gets a serial floor: its
 samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
-K3, K4, K5 and K6 also get a device time (device_ms): at their smaller
+K10's operations are f64, over the H100's 34 TFLOP/s outside the tensor
+cores.
+K3, K4, K5, K6, K9 and K10 also get a device time (device_ms): at their smaller
 shapes the host needs longer to enqueue a call than the card to run it, so
 the calls are captured into one CUDA graph and the replay is timed. K3 and
 K5's fused entry also get copy_ms, the device time of one copy that moves
@@ -120,12 +140,15 @@ import time
 
 SAMPLE_RATE = 44100
 MAIN_SECONDS = 120.0
-LTP_SECONDS = 10.0
+LTP_SECONDS = 120.0              # phase 4's -m 6 -P 3 stream
 VAR_SECONDS = 30.0               # the segmented signal of phase 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 # H100 SXM: 132 SMs, 64 INT32 results per clock per SM for add, shift,
 # logic and multiply-add (compute capability 9.0), 1.98 GHz boost clock.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM f64 outside the tensor cores: 34 TFLOP/s (data sheet), a fused
+# multiply-add counted as two.
+F64_OPS_PER_S = 34e12
 K6_ROWS = 4096
 
 
@@ -169,11 +192,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(moved_bytes: float, ops: float) -> dict:
+def bound(moved_bytes: float, ops: float,
+          ops_per_s: float = INT32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the 32-bit integer instructions over the INT32 rate."""
+    memory rate and the operations over their peak rate (32-bit integer
+    instructions over the INT32 rate unless ``ops_per_s`` says another)."""
     t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 ops_ms=t_ops)
@@ -404,7 +429,7 @@ def profile_decode(torch, decode, stream: bytes, dev) -> None:
 
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
-             "bitpack", "bitfield_probe")
+             "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze")
 PROBES = ("chain_probe",)        # measurement only: the serial floors
 
 
@@ -1031,6 +1056,31 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+def counted(torch, wrappers: dict, fn):
+    """fn()'s result and the launches it made, each wrapper's count set to
+    0 just before and read just after."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def all_wrappers() -> dict:
+    """Every kernel wrapper of the codec's paths, by record name."""
+    from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
+    from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
+    from srla_tpu_torch.kernels.predict import predict
+    from srla_tpu_torch.kernels.rice_decode import rice_decode
+    from srla_tpu_torch.kernels.rice_search import rice_sums
+    return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
+            "fir_predict": predict, "rice_search": rice_sums,
+            "pack_residual_sections": pack_residual_sections,
+            "bitpack": pack, "ltp_synth": ltp_synth,
+            "ltp_analyze": ltp_analyze}
+
+
 def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
                      time_n: int = 0):
     """K3 and K4 against their plain versions on the inputs of every
@@ -1114,26 +1164,9 @@ def phase_variable(torch, np, dev, music, card):
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import encode as host_encode
     from srla_tpu_torch.kernels import exact
-    from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
-    from srla_tpu_torch.kernels.lpc import lpc_scan
-    from srla_tpu_torch.kernels.predict import predict
-    from srla_tpu_torch.kernels.rice_decode import rice_decode
-    from srla_tpu_torch.kernels.rice_search import rice_sums
     from srla_tpu_torch.signals import make_segmented
 
-    wrappers = {"fir_predict": predict, "rice_search": rice_sums,
-                "pack_residual_sections": pack_residual_sections,
-                "bitpack": pack, "lpc_synth": lpc_scan,
-                "rice_decode": rice_decode}
-
-    def counted(fn):
-        """fn()'s result and the launches it made, each wrapper's count set
-        to 0 just before."""
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: w.launches for k, w in wrappers.items()}
+    wrappers = all_wrappers()
 
     seg = make_segmented(VAR_SECONDS)
     launches: dict = {}
@@ -1152,7 +1185,7 @@ def phase_variable(torch, np, dev, music, card):
         n_measure, n_encode = expected_calls(spans, blocks)
         enc = SRLAEncoder(param, dev)
         torch.cuda.reset_peak_memory_stats()
-        data, got = counted(lambda: enc.encode_whole(pcm))
+        data, got = counted(torch, wrappers, lambda: enc.encode_whole(pcm))
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         require(data == stream, f"-V {V} encode of {what} differs from the "
                                 f"host exact stream")
@@ -1173,7 +1206,8 @@ def phase_variable(torch, np, dev, music, card):
         for name, count in want.items():
             require(got[name] == count, f"-V {V}: {name} launched "
                                         f"{got[name]} times, expected {count}")
-        (_, out), dec_got = counted(lambda: decode(data, device=dev))
+        (_, out), dec_got = counted(torch, wrappers,
+                                    lambda: decode(data, device=dev))
         require(np.array_equal(out, pcm), f"-V {V} decode of {what} is not "
                                           f"lossless")
         for name in ("lpc_synth", "rice_decode"):
@@ -1263,6 +1297,309 @@ def phase_variable(torch, np, dev, music, card):
     return launches, errs, generic
 
 
+# ---------------------------------------------------------------------------
+# Long-term prediction (-P): K9 in the decode, K10 in the encode
+# ---------------------------------------------------------------------------
+
+LTP_PATHS = (("music120_V0_P3", 0), ("music120_V1_P3", 1))
+
+
+def ltp_synth_groups(torch, dev, stream: bytes) -> list:
+    """K9's arguments for every decode group of ``stream`` that uses LTP,
+    as ``decode2.synthesize`` hands them over: K2 and K1 on the card give
+    the LPC output, the group's parameters its LTP orders, periods and
+    coefficients. Returns [(blocks, n, args)]."""
+    from srla_tpu_torch.decoder import SRLADecoder, upload_stream
+    from srla_tpu_torch.kernels.decode2 import align_coefs, meta_cols
+    from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.rice_decode import rice_decode
+
+    header, _, groups = SRLADecoder(dev).plan(stream)
+    C = header.num_channels
+    words = upload_stream(stream, dev)
+    out = []
+    for g in groups:
+        if not g.has_ltp:
+            continue
+        cols, _ = meta_cols(C, g.M, 3)
+        meta = torch.from_numpy(g.meta).to(dev)
+
+        def col(name, width=0):
+            o, w = cols[name]
+            v = meta[:, o:o + w]
+            return (v.reshape(-1, width) if width
+                    else v.reshape(-1)).contiguous()
+
+        res = rice_decode(words, col("word_start"), col("bit_rem"), g.n, C,
+                          g.W)
+        orders = col("orders")
+        v = lpc_scan(res.reshape(-1, g.n).contiguous(),
+                     align_coefs(col("coefs", g.M), orders, g.M), orders,
+                     col("rshifts"), g.n, g.M)
+        out.append((len(g.starts), g.n,
+                    (v, col("ltp_orders"), col("ltp_periods"),
+                     col("ltp_coefs", 3), g.n)))
+    return out
+
+
+def ltp_edge_args(torch, np, dev, R: int, n: int, seed: int):
+    """K9 arguments at the edges: delay 9 at order 3 (period 8), order 1
+    at period 8, a period-0 and an order-0 row, the largest period,
+    int32-wrapping samples and the extreme coefficients; the other rows
+    orders 1 and 3 at periods 8..262."""
+    rng = np.random.RandomState(seed)
+    v = rng.randint(-(1 << 20), 1 << 20, (R, n))
+    v[:3] = rng.randint(-(1 << 31), 1 << 31, (3, n))
+    lorders = rng.choice([1, 3], R)
+    lperiods = rng.randint(8, 263, R)
+    lcoefs = rng.randint(-32, 32, (R, 3))
+    lorders[:6] = (3, 1, 3, 3, 0, 1)
+    lperiods[:6] = (8, 8, 0, 262, 100, 262)
+    lcoefs[:3] = (31, -32, 31)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return (t(v), t(lorders), t(lperiods), t(lcoefs), n)
+
+
+def check_ltp_synth(torch, what: str, groups: list) -> int:
+    """K9 against its plain version on each (blocks, n, args) group."""
+    from srla_tpu_torch.kernels.ltp import ltp_synth, ltp_synth_plain
+    return max([0] + [check(torch, f"K9 ({what}, {B} blocks of {n})",
+                            ltp_synth, ltp_synth_plain, args)
+                      for B, n, args in groups])
+
+
+def phase_ltp_decode(torch, np, dev, card):
+    """Phase 4: LTP_SECONDS of make_music at -m 6 -P 3 (the host exact
+    stream) decoded on the card, counted: lossless, K9 launched once per
+    LTP group; then K9 against its plain version on every LTP group of the
+    stream and at the edge shapes (n 300 and the 4064-sample tail).
+    Returns (the decode's launches, K9's max_abs_err)."""
+    from srla_tpu_torch import decode
+    from srla_tpu_torch.host_encoder import encode
+    from srla_tpu_torch.kernels.ltp import ltp_synth, ltp_synth_plain
+    from srla_tpu_torch.signals import make_music
+
+    pcm4 = make_music(LTP_SECONDS)
+    stream4 = encode(pcm4, 16, SAMPLE_RATE, preset=6, ltp_order=3)
+    (_, out4), got = counted(torch, all_wrappers(),
+                             lambda: decode(stream4, device=dev))
+    require(np.array_equal(out4, pcm4), "-m 6 -P 3 decode is not lossless")
+    groups = ltp_synth_groups(torch, dev, stream4)
+    require(groups, "-P 3 stream uses no LTP")
+    require(got["ltp_synth"] == len(groups),
+            f"K9 launched {got['ltp_synth']} times by the -m 6 -P 3 decode, "
+            f"expected one per LTP group ({len(groups)})")
+    err = check_ltp_synth(torch, "-m 6 -P 3", groups)
+    for n in (300, 4064):
+        err = max(err, check(torch, f"K9 at the edges (n={n})", ltp_synth,
+                             ltp_synth_plain,
+                             ltp_edge_args(torch, np, dev, 70, n, n)))
+    t = best_of(torch, lambda: decode(stream4, device=dev))
+    print(f"phase 4 decode -m 6 -P 3 {LTP_SECONDS:.0f} s stereo: lossless, "
+          f"{len(groups)} LTP groups, launches "
+          f"{ {k: got[k] for k in ('rice_decode', 'lpc_synth', 'ltp_synth')} }"
+          f"; K9 bit-equal to plain on every LTP group (blocks x n "
+          f"{[(B, n) for B, n, _ in groups]}) and at the edges (70 rows of "
+          f"300 and 4064: delay 9 at order 3, order 1, period 0, order 0, "
+          f"period 262, wrapping values); warm best of 3 {t * 1e3:.1f} ms = "
+          f"{LTP_SECONDS / t:.1f}x realtime [{card}]")
+    return got, err
+
+
+def ltp_param(V: int):
+    """-m 4 -B 4096 -V V -L 4 -P 3 for 16-bit stereo at 44.1 kHz."""
+    from srla_tpu_torch.host_encoder import make_parameter
+    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4, 3)
+
+
+def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
+                       blocks: dict) -> list:
+    """K10's input in every analysis call of one -P encode: each
+    measurement call's spans and each encode group's blocks, cut, stacked
+    into variants and pre-emphasised as the encoder does, then the pitch
+    lags. Returns [(what, lags)]."""
+    from srla_tpu_torch import SRLAEncoder
+    from srla_tpu_torch.host_encoder import _compute_offset_lshift
+    from srla_tpu_torch.kernels import exact
+    enc = SRLAEncoder(param, dev)
+    file = enc._upload(pcm)
+    lshift = _compute_offset_lshift(pcm)
+    calls = []
+    for kind, groups in (("measurement call", spans),
+                         ("encode group", blocks)):
+        for n, offs in sorted(groups.items()):
+            per_call = (max(1, SRLAEncoder.MAX_MEASURE_SAMPLES // n)
+                        if kind == "measurement call"
+                        else SRLAEncoder.MAX_CALL_BLOCKS)
+            args = enc._host._device_args(n)
+            for part in calls_of(offs, per_call):
+                work, _, _ = exact.preemphasis_exact(exact.variant_stack(
+                    exact.cut_spans(file, part, n), lshift))
+                calls.append((f"{kind}, {len(part)} of {n}",
+                              exact.ltp_lags(work, n, args["bps"],
+                                             args["fft_size"])))
+    return calls
+
+
+def phase_ltp_encode(torch, np, dev, music, card):
+    """Phase 9, -P 3 on the card: 120 s of make_music at -m 4 -B 4096 -V 0
+    -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), each encoded by
+    SRLAEncoder(device="cuda"), counted: byte-identical to the host exact
+    encoder, block (and span) accounting, K10, K3, K4 once per analysis
+    call and K5 once per encode group, and the stream decoded losslessly on
+    the card with K9 launched. Then K10 against its plain version on the
+    inputs of every analysis call and K9 on every decode group; the rows
+    with LTP on; each encode's warm best of 3 and step split; K10's and
+    K9's times at the main shapes. Returns (each path's launches, the two
+    kernels' records)."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.host_encoder import encode as host_encode
+    from srla_tpu_torch.kernels.ltp import (ltp_analyze, ltp_analyze_plain,
+                                            ltp_synth, ltp_synth_plain)
+
+    launches: dict = {}
+    err10 = err9 = 0
+    k10_main = k9_main = None
+    for path, V in LTP_PATHS:
+        param = ltp_param(V)
+        t0 = time.perf_counter()
+        stream = host_encode(music, 16, SAMPLE_RATE, variable_divisions=V,
+                             ltp_order=3)
+        host_s = time.perf_counter() - t0
+        spans = span_groups(music, param) if V else {}
+        blocks = encode_groups(music, param, stream)
+        n_measure, n_encode = expected_calls(spans, blocks)
+        enc = SRLAEncoder(param, dev)
+        data, got = counted(torch, all_wrappers(),
+                            lambda: enc.encode_whole(music))
+        require(data == stream, f"-V {V} -P 3 encode differs from the host "
+                                f"exact stream")
+        s = enc.stats
+        nspans = sum(len(o) for o in spans.values())
+        require(s["device_spans"] + s["remeasured_spans"] == nspans
+                and s["host_spans"] == 0,
+                f"-V {V} -P 3 span accounting {s}: {nspans} spans")
+        ncomp = compress_blocks(stream)
+        handled = (s["device_blocks"] + s["repaired_blocks"]
+                   + s["w_overflow_blocks"])
+        require(handled == ncomp, f"-V {V} -P 3 block accounting {s}: "
+                                  f"{handled} of {ncomp} COMPRESS blocks")
+        calls = n_measure + n_encode
+        want = {"ltp_analyze": calls, "fir_predict": calls,
+                "rice_search": calls, "pack_residual_sections": n_encode,
+                "bitpack": 0}
+        for name, count in want.items():
+            require(got[name] == count, f"-V {V} -P 3: {name} launched "
+                                        f"{got[name]} times, expected {count}")
+        (_, out), dec_got = counted(torch, all_wrappers(),
+                                    lambda: decode(data, device=dev))
+        require(np.array_equal(out, music), f"-V {V} -P 3 decode is not "
+                                            f"lossless")
+        dec_names = ("rice_decode", "lpc_synth", "ltp_synth")
+        for name in dec_names:
+            require(dec_got[name] > 0, f"{name} was not launched by the -V "
+                                       f"{V} -P 3 decode")
+        launches[path] = {"encode": got, "decode": dec_got}
+        on, checked = 0, []
+        for what, lags in ltp_analysis_calls(torch, dev, music, param, spans,
+                                             blocks):
+            got10 = ltp_analyze(lags, 3)
+            want10 = ltp_analyze_plain(lags, 3)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(torch, g, w) for g, w in zip(got10, want10))
+            require(e == 0, f"K10 differs from its plain version ({what}, "
+                            f"max abs err {e})")
+            err10 = max(err10, e)
+            on += int((got10[0] > 0).sum())
+            checked.append(f"{lags.shape[0]}x{what.split()[-1]}")
+            if V == 0 and (k10_main is None
+                           or lags.shape[0] > k10_main.shape[0]):
+                k10_main = lags
+        require(on > 0, f"-V {V} -P 3: no analysis row has LTP on")
+        groups = ltp_synth_groups(torch, dev, data)
+        err9 = max(err9, check_ltp_synth(torch, f"-V {V} -P 3", groups))
+        if V == 0:
+            k9_main = max(groups, key=lambda g: g[0])[2]
+        enc_best = best_of(torch, lambda: SRLAEncoder(param, dev).encode_whole(
+            music))
+        dec_best = best_of(torch, lambda: decode(data, device=dev))
+        timed_enc = SRLAEncoder(param, dev)
+        timed_enc.timer = StepTimer(dev)
+        timed_enc.encode_whole(music)
+        steps = timed_enc.timer.seconds
+        print(f"phase 9 encode {MAIN_SECONDS:.0f} s stereo -m 4 -B 4096 -V {V}"
+              f" -P 3 on the card: byte-identical to the host exact stream "
+              f"({host_s:.2f} s on the host), {s['device_blocks']} device / "
+              f"{s['repaired_blocks']} repaired / {s['w_overflow_blocks']} "
+              f"overflow of {ncomp} COMPRESS blocks; spans "
+              f"{s['device_spans']} device / {s['remeasured_spans']} "
+              f"re-measured of {nspans}; {n_measure} measurement calls, "
+              f"{n_encode} encode groups; launches {got}; analysis rows with "
+              f"LTP on: {on}; K10 bit-equal to plain on every call (rows x n "
+              f"{checked}); decode on the card lossless, launches "
+              f"{ {k: dec_got[k] for k in dec_names} }, K9 bit-equal to plain on its {len(groups)} LTP groups; warm "
+              f"best of 3: encode {enc_best * 1e3:.1f} ms = "
+              f"{MAIN_SECONDS / enc_best:.1f}x realtime, decode "
+              f"{dec_best * 1e3:.1f} ms = {MAIN_SECONDS / dec_best:.1f}x "
+              f"realtime [{card}]")
+        print(f"phase 9 -V {V} -P 3 encode breakdown (host clock, "
+              f"synchronised per step, ms): "
+              + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
+              + f"; total {sum(steps.values()) * 1e3:.2f}")
+
+    # K10 at the -V 0 encode's largest call (the 1291-block group).
+    V10 = k10_main.shape[0]
+    ms = cuda_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
+    dev_ms = device_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
+    plain_ms = cuda_ms(torch, lambda: ltp_analyze_plain(k10_main, 3), 1)
+    # Read the lags once, write period, three coefficients and the flag
+    # once; at least the two zero tests and the crossing's two compares at
+    # each of the 255 lags, and some 60 operations of solve and rounding,
+    # in f64.
+    b10 = bound(nbytes(k10_main) + V10 * (4 + 12 + 1), V10 * (255 * 4 + 60),
+                F64_OPS_PER_S)
+    print(f"phase 9 K10 ltp_analyze at V={V10} x {k10_main.shape[1]} lags, "
+          f"order 3: kernel {ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA "
+          f"graph), plain {plain_ms:.2f} ms, bound {b10['bound_ms']:.4f} ms "
+          f"({b10['bound_by']}; operations {b10['ops_ms']:.6f} ms) [{card}]")
+    # K9 at the -V 0 -P 3 stream's 1291-block group.
+    v, lo, lp, lc, n = k9_main
+    ms9 = cuda_ms(torch, lambda: ltp_synth(*k9_main), 20)
+    dev9 = device_ms(torch, lambda: ltp_synth(*k9_main), 20)
+    plain9 = cuda_ms(torch, lambda: ltp_synth_plain(*k9_main), 1)
+    on_rows = (lp > 0) & (lo > 0)
+    delay = lp.long() + (lo.long() >> 1)
+    taps = lo.long().clamp(max=3)
+    samples = (n - delay - 1).clamp(min=0)
+    # Read v and the parameters once, write y once; per LTP sample the taps'
+    # multiply-adds, the rounding add, the shift and the add of v.
+    ops9 = int(torch.where(on_rows, samples * (taps + 3), 0).sum())
+    b9 = bound(2 * nbytes(v) + nbytes(lo, lp, lc), ops9)
+    w = (delay - taps + 1).clamp(1, 32)
+    steps9 = int(torch.where(on_rows, -(-n // w), 0).max())
+    print(f"phase 9 K9 ltp_synth at R={v.shape[0]} n={n} "
+          f"({int(on_rows.sum())} rows with LTP on, at most {steps9} steps a "
+          f"row): kernel {ms9:.4f} ms, device time {dev9:.4f} ms (CUDA "
+          f"graph), plain (before: the torch loop of ceil(n / 7) steps) "
+          f"{plain9:.2f} ms, bound {b9['bound_ms']:.4f} ms "
+          f"({b9['bound_by']}; operations {b9['ops_ms']:.4f} ms) [{card}]")
+    recs = [dict(name="ltp_synth", route="cuda",
+                 source="srla_tpu_torch/kernels/csrc/ltp_synth.cu",
+                 replaces="srla_tpu/kernels/decode2.py:613",
+                 max_abs_err=err9, ms=ms9, plain_ms=plain9, **b9,
+                 library_ms=None, device_ms=dev9, max_steps=steps9),
+            dict(name="ltp_analyze", route="cuda",
+                 source="srla_tpu_torch/kernels/csrc/ltp_analyze.cu",
+                 replaces="srla_tpu/kernels/exact.py:950",
+                 max_abs_err=err10, ms=ms, plain_ms=plain_ms, **b10,
+                 library_ms=None, device_ms=dev_ms)]
+    return launches, recs
+
+
 def main() -> int:
     try:
         import torch
@@ -1337,15 +1674,8 @@ def main() -> int:
           f"{MAIN_SECONDS / best:.1f}x realtime [{card}]")
     profile_decode(torch, decode, stream, dev)
 
-    # Phase 4: high orders and long-term prediction.
-    pcm4 = make_music(LTP_SECONDS)
-    stream4 = encode(pcm4, 16, SAMPLE_RATE, preset=6, ltp_order=3)
-    _, _, groups4 = SRLADecoder(dev).plan(stream4)
-    require(any(g.has_ltp for g in groups4), "-P 3 stream uses no LTP")
-    _, out4 = decode(stream4, device=dev)
-    require(np.array_equal(out4, pcm4), "-m 6 -P 3 decode is not lossless")
-    print(f"phase 4 decode -m 6 -P 3 {LTP_SECONDS:.0f} s: lossless, max "
-          f"order {max(g.M for g in groups4)}, LTP on")
+    # Phase 4: high orders and long-term prediction, decode (K9).
+    ltp_dec_got, k9_err = phase_ltp_decode(torch, np, dev, card)
 
     records += phase_encode_kernels(torch, np, dev, pcm)
     launches.update(phase_encode(torch, np, dev, pcm, stream, card))
@@ -1354,6 +1684,14 @@ def main() -> int:
     launches.update(k6_launches)
     var_launches, var_errs, generic = phase_variable(torch, np, dev, pcm,
                                                      card)
+    ltp_launches, ltp_records = phase_ltp_encode(torch, np, dev, pcm, card)
+    records += ltp_records
+    ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
+    # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
+    launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
+    launches["ltp_analyze"] = ltp_launches["music120_V0_P3"]["encode"][
+        "ltp_analyze"]
+    var_errs["ltp_synth"] = k9_err
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "srla_tpu", "bench"))
@@ -1364,6 +1702,10 @@ def main() -> int:
         rec["launches_variable"] = {
             path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
             for path, runs in var_launches.items()}
+        # Phases 4 and 9: each -P path's launches.
+        rec["launches_ltp"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in ltp_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":

@@ -8,8 +8,9 @@ cpu runs the kernels' plain versions). The flags and their defaults are
 ``srla_tpu.cli``'s (``build_parser`` is the port's copy of
 ``srla_tpu/cli.py:18``), with --device in place of --backend: at the
 defaults (-m 4 -B 4096 -V 1 -L 4) -e writes the bytes of
-``python -m srla_tpu.cli -e``. There is no -P or SVR yet: those exit 1
-instead of running on the host.
+``python -m srla_tpu.cli -e``, and so it does with -P 1 or -P 3 (long-term
+prediction, on --device too). There is no SVR yet:
+--svr-filter-learning-iteration exits 1 instead of running on the host.
 """
 
 from __future__ import annotations

@@ -21,13 +21,20 @@ flagged spans are re-measured on the host (``stats["remeasured_spans"]``,
 beside ``stats["device_spans"]``), and the reference's Dijkstra picks each
 window's partition on the host. The chosen spans are then encoded as above.
 
+Long-term prediction (-P 1 or 3) runs inside the same calls: the pitch
+autocorrelation (torch f64), the pitch search and LTP solve (kernel K10)
+and the LTP residual come before the LPC analysis of every row, and the
+assembly writes the periods and coefficients.
+
 Odd-size blocks and the odd-length last lookahead window need the
 reference's stale work-buffer emulation and stay on the host, as in
-``srla_tpu`` (spans measured there count in ``stats["host_spans"]``). The
-output is byte-identical to the port's exact host encoder
-(``host_encoder.encode``) and so to ``srla_tpu.encode(...,
-backend="exact")``. Long-term prediction (-P) and SVR refinement are not
-ported yet and raise ``ValueError``.
+``srla_tpu`` (spans measured there count in ``stats["host_spans"]``); so do
+LTP groups and spans under 512 samples (``srla_tpu``'s
+``_device_size_ok``), encoded in a counted host batch (``host_blocks``) or
+measured on the host (``host_spans``). The output is byte-identical to the
+port's exact host encoder (``host_encoder.encode``) and so to
+``srla_tpu.encode(..., backend="exact")``. SVR refinement is not ported yet
+and raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,12 +53,12 @@ from .host_encoder import (EncodeParameter, _compute_offset_lshift,
 from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
 
 _NOT_PORTED = {
-    "ltp_order": "-P (long-term prediction) is not ported to the device "
-                 "yet (ROADMAP.md queue 1, item 8)",
     "num_svr_filter_learning_iteration":
         "SVR refinement is not ported to the device yet (ROADMAP.md queue "
         "1, item 9)",
 }
+# The smallest LTP group the device analyses (srla_tpu/encoder.py:1209).
+LTP_MIN_DEVICE_SIZE = 512
 
 class StepTimer:
     """Host-clock seconds per named step, with a device synchronise at each
@@ -197,9 +204,9 @@ class SRLAEncoder:
             tick("measure: " + name)
 
         def measure_bits(window, offsets, size, lshift):
-            if size % 2:
+            if not self._device_size_ok(size):
                 bits = host._measure_bits_host(window, offsets, size, lshift)
-                step("odd size (host)")
+                step("odd size or short LTP span (host)")
                 return bits
             per_call = max(1, self.MAX_MEASURE_SAMPLES // size)
             parts = []
@@ -223,6 +230,13 @@ class SRLAEncoder:
             return bits
 
         return measure_bits
+
+    def _device_size_ok(self, size: int) -> bool:
+        """Whether the device analyses blocks or spans of ``size``: even
+        sizes, and with LTP at least LTP_MIN_DEVICE_SIZE samples (the host
+        keeps the others, as srla_tpu does)."""
+        return size % 2 == 0 and (self.p.ltp_order == 0
+                                  or size >= LTP_MIN_DEVICE_SIZE)
 
     def _blocks_done(self, count: int, size: int) -> None:
         """Advance the progress meter: one call for each of ``count``
@@ -258,12 +272,20 @@ class SRLAEncoder:
         tick("host typing")
         results: dict[int, bytes] = {}
         for size, idxs in by_size.items():
-            if size % 2 == 0:
+            if self._device_size_ok(size):
                 for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
                     call = idxs[lo:lo + self.MAX_CALL_BLOCKS]
                     results.update(self._encode_group(
                         pcm, file, spans, call, size, lshift, tick))
                     self._blocks_done(len(call), size)
+                continue
+            if size % 2 == 0:
+                # LTP groups under the device's smallest size: a counted
+                # host batch.
+                results.update(host._encode_host_batch(pcm, spans, idxs,
+                                                       size, lshift))
+                self._blocks_done(len(idxs), size)
+                tick("short LTP blocks (host)")
                 continue
             # Odd-length blocks: the reference's Welch window leaves the
             # middle sample holding stale work-buffer content.
@@ -312,7 +334,7 @@ class SRLAEncoder:
             W=W, timer=tick, **host._device_args(size))
         keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
                 "section_bits", "method", "bits", "raw_blk", "risky_blk",
-                "lens_w")
+                "lens_w", "ltp_period", "ltp_coefs")
         small = {k: small_t[k].cpu().numpy() for k in keys}
         lens_w = small["lens_w"].astype(np.int64)
         starts = np.cumsum(lens_w) - lens_w
@@ -375,12 +397,15 @@ class SRLAEncoder:
         out: dict[int, bytes] = {}
         if native_decoder.available():
             maxp = max(host.preset.max_num_parameters, 1)
+            ltp_o = self.p.ltp_order
             framed, sizes = native_decoder.assemble_blocks(
                 method[bsel], small["pre_prev"][rows2],
                 small["pre_coef"][rows2], small["orders"][rows2],
                 small["rshifts"][rows2], small["coefs"][rows2][:, :, :maxp],
                 flat_bytes, starts[flatrows.ravel()] * 4,
-                sec_bits[rows2.ravel()], C, bps, size)
+                sec_bits[rows2.ravel()], C, bps, size, ltp_order=ltp_o,
+                ltp_periods=small["ltp_period"][rows2] if ltp_o else None,
+                ltp_coefs=small["ltp_coefs"][rows2] if ltp_o else None)
             ends = np.cumsum(sizes)
             for k, bi in enumerate(compress_idx):
                 i = idxs[bi]
@@ -414,11 +439,12 @@ class SRLAEncoder:
 
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            device, preset: int = 4, max_block: int = 4096,
-           variable_divisions: int = 0, lookahead_factor: int = 4) -> bytes:
+           variable_divisions: int = 0, lookahead_factor: int = 4,
+           ltp_order: int = 0) -> bytes:
     """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
-    ``srla_tpu.encode``'s) result for the same arguments (no LTP or SVR)."""
+    ``srla_tpu.encode``'s) result for the same arguments (no SVR)."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
-                           lookahead_factor)
+                           lookahead_factor, ltp_order)
     return SRLAEncoder(param, device).encode_whole(pcm)

@@ -1005,7 +1005,8 @@ class SRLAEncoder:
 
     def _device_args(self, n: int):
         """The shape arguments of the device analysis of a group of
-        n-sample blocks (``kernels.exact.encode_blocks``)."""
+        n-sample blocks (``kernels.exact.encode_blocks``), the LTP order
+        among them."""
         max_porder = 0
         while n % (1 << (max_porder + 1)) == 0 and max_porder < 10:
             max_porder += 1
@@ -1013,7 +1014,8 @@ class SRLAEncoder:
             n=n, bps=self.p.bits_per_sample,
             max_params=self.preset.max_num_parameters,
             max_fixed=self.preset.lpc_order_tactics == OrderTactics.MAX_FIXED,
-            fft_size=round_up_pow2(n), max_porder=max_porder)
+            fft_size=round_up_pow2(n), max_porder=max_porder,
+            ltp_order=self.p.ltp_order)
 
     def _params_header_bits(self, small, method, B, bi, row_of, C):
         """Method + per-channel parameter fields (everything except the

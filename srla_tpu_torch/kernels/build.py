@@ -5,6 +5,8 @@ it compiles in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
+(plus ``EXTRA_FLAGS[name]``, where a library has any).
+
 The library lands in ``kernels/build/lib<name>.so`` at first use (rebuilt
 when the source is newer). Every C entry takes its pointers and PyTorch's
 current stream as ``void*`` and returns ``cudaGetLastError()`` after its
@@ -27,6 +29,10 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Flags of one library on top of NVCC_FLAGS. K10's f64 decisions feed
+# margin flags that must equal its plain version's: no multiply-add
+# contraction.
+EXTRA_FLAGS = {"ltp_analyze": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -68,7 +74,8 @@ def load_all(names) -> dict[str, ctypes.CDLL]:
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{so}.{os.getpid()}.tmp"
                 jobs[name] = (src, so, tmp, subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                    [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+                     tmp, src],
                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                     text=True))
         failed = []

@@ -3,8 +3,9 @@
 Twin of ``srla_tpu.kernels.decode2`` (``decode_blocks_paged`` and the
 synthesis around the LPC kernel). The entropy decode is kernel K2
 (``rice_decode``), the LPC recurrence and the de-emphasis are kernel K1
-(``lpc_scan``); coefficient alignment, the long-term-prediction pass, the
-stereo inverse and the offset shift are PyTorch ops. Integer semantics are
+(``lpc_scan``), the long-term-prediction synthesis is kernel K9
+(``ltp.ltp_synth``); coefficient alignment, the stereo inverse and the
+offset shift are PyTorch ops. Integer semantics are
 those of the JAX package: every sum wraps mod 2^32, computed here in int64
 and wrapped explicitly (``wrap32``).
 """
@@ -14,14 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import LTP_COEFFICIENT_BITWIDTH, MAX_LTP_ORDER
+from ..constants import MAX_LTP_ORDER
 from .lpc import lpc_scan, wrap32
+from .ltp import ltp_synth
 from .rice_decode import rice_decode
-
-_LTP_RSHIFT = LTP_COEFFICIENT_BITWIDTH - 1
-_LTP_RING = 512          # > LTP max delay (262 + 1)
-_LTP_CHUNK = 7           # min over valid streams of (delay - order + 1)
-_MASK32 = 0xFFFFFFFF
 
 
 def align_coefs(coefs: torch.Tensor, orders: torch.Tensor,
@@ -45,50 +42,13 @@ def deemph_scan(x: torch.Tensor, dcoef: torch.Tensor,
                     dcoef=dcoef.contiguous(), dprev=dprev.contiguous())
 
 
-def ltp_pass(v: torch.Tensor, lorders: torch.Tensor, lperiods: torch.Tensor,
-             lcoefs: torch.Tensor, n: int) -> torch.Tensor:
-    """Long-term-prediction synthesis (``decode2._ltp_pass``):
-    ``y[s] = v[s] + ((half + sum_i c_i * y[s - delay + i]) >> 5)`` for
-    ``s >= delay + 1``, ``delay = period + order // 2``; rows with period 0
-    pass through. The delay is at least 8, so each step resolves
-    ``_LTP_CHUNK`` samples from a ring of final outputs (slot 511 newest)."""
-    R = v.shape[0]
-    dev = v.device
-    maxo = lcoefs.shape[1]
-    delay = lperiods.long() + (lorders.long() >> 1)
-    on = (lperiods > 0) & (lorders > 0)
-    half = 1 << (_LTP_RSHIFT - 1)
-    nchunks = -(-n // _LTP_CHUNK)
-    vp = torch.nn.functional.pad(v.long(), (0, nchunks * _LTP_CHUNK - n))
-    j = torch.arange(_LTP_CHUNK, device=dev)[None, :, None]
-    i = torch.arange(maxo, device=dev)[None, None, :]
-    slot = (_LTP_RING + j - delay[:, None, None] + i).clamp(0, _LTP_RING - 1)
-    slot = slot.reshape(R, _LTP_CHUNK * maxo)
-    imask = (i < lorders.long()[:, None, None]).expand(R, _LTP_CHUNK, maxo)
-    cexp = lcoefs.long().repeat(1, _LTP_CHUNK) * imask.reshape(R, -1)
-    ring = torch.zeros((R, _LTP_RING), dtype=torch.int64, device=dev)
-    lane = torch.arange(_LTP_CHUNK, device=dev)[None, :]
-    outs = []
-    for t in range(nchunks):
-        vx = vp[:, t * _LTP_CHUNK:(t + 1) * _LTP_CHUNK]
-        g = torch.gather(ring, 1, slot)
-        dot = ((g * cexp) & _MASK32).reshape(R, _LTP_CHUNK, maxo).sum(dim=2)
-        yv = wrap32(vx + (wrap32(dot + half) >> _LTP_RSHIFT))
-        sidx = t * _LTP_CHUNK + lane
-        use = on[:, None] & (sidx >= (delay + 1)[:, None]) & (sidx < n)
-        y = torch.where(use, yv, vx)
-        ring = torch.cat([ring[:, _LTP_CHUNK:], y], dim=1)
-        outs.append(y)
-    out = torch.cat(outs, dim=1)[:, :n]
-    return torch.where(on[:, None], out, v.long()).to(torch.int32)
-
-
 def synthesize(res, orders, rshifts, coefs, ltp_orders, ltp_periods,
                ltp_coefs, pre_coef, pre_prev, methods, lshift: int, *,
                n: int, C: int, M: int, has_ltp: bool) -> torch.Tensor:
-    """LPC recurrence (+ de-emphasis), optional LTP pass, stereo inverse and
-    offset shift (``decode2._synthesize``). res (B, C, n) int32; per-block
-    parameters (B, C[, .]) int32; methods (B,). Returns (B, C, n) int32."""
+    """LPC recurrence (+ de-emphasis), optional LTP synthesis (K9), stereo
+    inverse and offset shift (``decode2._synthesize``). res (B, C, n)
+    int32; per-block parameters (B, C[, .]) int32; methods (B,). Returns
+    (B, C, n) int32."""
     B = res.shape[0]
     R = B * C
     resR = res.reshape(R, n).contiguous()
@@ -99,8 +59,9 @@ def synthesize(res, orders, rshifts, coefs, ltp_orders, ltp_periods,
     dprev = pre_prev.reshape(R).contiguous()
     if has_ltp:
         v = lpc_scan(resR, aligned, ordR, rshR, n, M)
-        y = ltp_pass(v, ltp_orders.reshape(R), ltp_periods.reshape(R),
-                     ltp_coefs.reshape(R, -1), n)
+        y = ltp_synth(v, ltp_orders.reshape(R).contiguous(),
+                      ltp_periods.reshape(R).contiguous(),
+                      ltp_coefs.reshape(R, -1).contiguous(), n)
         y = deemph_scan(y, dcoef, dprev)
     else:
         y = lpc_scan(resR, aligned, ordR, rshR, n, M, dcoef=dcoef,

@@ -1,7 +1,7 @@
 """Exact device encode analysis in f64 with decision-boundary flags, and the
 fused encode of one equal-size block group.
 
-Twin of ``srla_tpu.kernels.exact`` at the flags the port runs (no LTP, no
+Twin of ``srla_tpu.kernels.exact`` at the flags the port runs (LTP, no
 SVR). The JAX package computes its analysis in df64 (two-f32) arithmetic
 because the TPU has no fast f64; the H100 has, so every float here is a
 torch f64. For every discrete decision the floats feed (pre-emphasis
@@ -11,9 +11,12 @@ threshold) the distance to the nearest decision boundary is computed; a
 variant closer than the margin is flagged ``risky`` and its block is
 re-derived on the exact host path. The margins are the JAX package's,
 unchanged (``exact.py:46-57``): f64 rounding error sits below df64's, so an
-unflagged decision equals the host's f64 decision. The residual and all bit
-math are exact integer code, partly in the kernels K3 (``predict``), K4
-(``rice_search``) and K5 (``bitpack.pack_residual_sections``).
+unflagged decision equals the host's f64 decision. Long-term prediction
+(``-P``) runs its pitch search and solve in kernel K10
+(``ltp.ltp_analyze``, its margins beside it in ``ltp.py``). The residual and
+all bit math are exact integer code, partly in the kernels K3
+(``predict``), K4 (``rice_search``) and K5
+(``bitpack.pack_residual_sections``).
 
 Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
 (autocorr + Levinson), :535-570, :1341-1405 (quantize),
@@ -35,7 +38,8 @@ from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
                          CODER_RICE_PARAMETER_BITS, LPC_COEFFICIENT_BITWIDTH,
                          LPC_COEFFICIENT_ORDER_BITWIDTH,
                          LPC_RIDGE_REGULARIZATION_PARAMETER,
-                         PREEMPHASIS_COEF_SHIFT,
+                         LTP_COEFFICIENT_BITWIDTH, LTP_ORDER_BITWIDTH,
+                         LTP_PERIOD_BITWIDTH, PREEMPHASIS_COEF_SHIFT,
                          RSHIFT_LPC_COEFFICIENT_BITWIDTH)
 from ..dsp.window import welch_inverse_squared_sum, welch_window
 from ..huffman import parameter_codebook, sum_parameter_codebook
@@ -43,6 +47,7 @@ from ..rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
 from .bitpack import (pack_residual_sections, section_stream, zigzag,
                       zigzag32)
 from .lpc import wrap32
+from .ltp import LTP_COLS, LTP_LAGS, ltp_analyze, ltp_predict
 from .predict import predict, reverse_coefs
 from .rice_search import rice_sums
 
@@ -106,7 +111,7 @@ def _dist_to_half(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Analysis stages (``_analyze_core_exact`` without LTP and SVR)
+# Analysis stages (``_analyze_core_exact`` without SVR)
 # ---------------------------------------------------------------------------
 
 def preemphasis_exact(sig: torch.Tensor):
@@ -147,6 +152,19 @@ def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
     for k in range(order):
         ac[:, k] = (d * d2[:, k:k + fft_size]).sum(dim=1) * norm
     return ac
+
+
+def ltp_lags(work: torch.Tensor, n: int, bps: int,
+             fft_size: int) -> torch.Tensor:
+    """The pitch autocorrelation of work (V, n) int32: lags 0..262 by
+    ``autocorr``, zero-padded to LTP_COLS columns as ``_ltp_exact:968-970``
+    pads (the host's zero tail and a guard). The lags must fit the FFT size
+    (n >= 512 on the device, as in srla_tpu)."""
+    if fft_size < LTP_LAGS:
+        raise ValueError(f"ltp_lags: {LTP_LAGS} lags need an FFT size of at "
+                         f"least {LTP_LAGS}, got {fft_size}")
+    return F.pad(autocorr(work, n, bps, LTP_LAGS, fft_size),
+                 (0, LTP_COLS - LTP_LAGS))
 
 
 def levinson(ac: torch.Tensor, max_order: int, orders=None):
@@ -410,18 +428,32 @@ def rice_exact(residual: torch.Tensor, n: int, max_porder: int,
 
 def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
                  max_fixed: bool, fft_size: int, max_porder: int,
-                 timer=no_timer) -> dict:
+                 ltp_order: int = 0, timer=no_timer) -> dict:
     """The exact analysis of each variant row of sig (V, n) int32: the twin
-    of ``_analyze_core_exact`` without LTP and SVR. Returns a dict of
-    per-row tensors, ``work`` (the pre-emphasised rows) among them.
-    ``timer`` is called with a step name after each step."""
+    of ``_analyze_core_exact`` without SVR. Returns a dict of per-row
+    tensors, ``work`` (the pre-emphasised rows, LTP-filtered at ltp_order >
+    0: the input of K3) among them. ``timer`` is called with a step name
+    after each step."""
     V = sig.shape[0]
     dev = sig.device
     work, pre_coef, risky = preemphasis_exact(sig)
+    ltp_period = torch.zeros(V, dtype=torch.int32, device=dev)
+    ltp_coefs = torch.zeros((V, max(ltp_order, 1)), dtype=torch.int32,
+                            device=dev)
+    if ltp_order > 0:
+        timer("variants + pre-emphasis (torch)")
+        lags = ltp_lags(work, n, bps, fft_size)
+        timer("LTP autocorrelation (torch f64)")
+        ltp_period, ltp_coefs, r_ltp = ltp_analyze(lags, ltp_order)
+        timer("K10 ltp_analyze")
+        work = ltp_predict(work, ltp_coefs, ltp_period, ltp_order)
+        timer("LTP residual (torch)")
+        risky = risky | r_ltp
     if max_params > 0:
         ac = autocorr(work, n, bps, max_params + 1, fft_size)
         ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
-        timer("variants + pre-emphasis + autocorrelation (torch f64)")
+        timer("LPC autocorrelation (torch f64)" if ltp_order > 0 else
+              "variants + pre-emphasis + autocorrelation (torch f64)")
         ev, _, _, r_lev, kappa = levinson(ac, max_params)
         orders, r_ord = select_order_exact(
             ev * welch_inverse_squared_sum(n), n, bps, max_params,
@@ -447,7 +479,8 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
     return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
                 rshifts=rshifts, coefs=coefs_rev, work=work,
                 residual=residual, code_type=code_type, porder=porder,
-                rice_bits=rice_bits, ks=ks, risky=risky | r_rice)
+                rice_bits=rice_bits, ks=ks, risky=risky | r_rice,
+                ltp_period=ltp_period, ltp_coefs=ltp_coefs)
 
 
 def variant_stack(blocks: torch.Tensor, lshift: int) -> torch.Tensor:
@@ -482,15 +515,14 @@ def _small(core: dict) -> dict:
     ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``."""
     small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
                                   "rshifts", "coefs", "code_type", "porder",
-                                  "risky")}
+                                  "risky", "ltp_period", "ltp_coefs")}
     small["section_bits"] = core["rice_bits"]
-    small["ltp_period"] = torch.zeros_like(core["orders"])
     return small
 
 
 def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                      max_params: int, max_fixed: bool, fft_size: int,
-                     max_porder: int, timer=no_timer):
+                     max_porder: int, ltp_order: int = 0, timer=no_timer):
     """Stack the stereo variants and analyse them. Returns (small, big,
     core): ``small`` and ``big`` hold what ``srla_tpu.kernels.exact.
     analyze_blocks_exact`` returns (per-row parameters and risky flags; the
@@ -499,7 +531,7 @@ def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        timer=timer)
+                        ltp_order=ltp_order, timer=timer)
     big = dict(u=zigzag(core["residual"]), code_type=core["code_type"],
                porder=core["porder"], ks=core["ks"])
     return _small(core), big, core
@@ -510,7 +542,7 @@ def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
     (``small``, ``big``) as the port's tensors on ``device``, so that the
     port's selection, codewords and pack can run on JAX's decisions."""
     keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
-            "code_type", "porder", "section_bits", "ltp_period")
+            "code_type", "porder", "section_bits", "ltp_period", "ltp_coefs")
     s = {k: torch.from_numpy(np.asarray(small[k]).astype(np.int32)).to(device)
          for k in keys}
     s["risky"] = torch.from_numpy(np.array(small["risky"], bool)).to(device)
@@ -533,11 +565,14 @@ def _huffman_len_tables():
             np.asarray(sum_parameter_codebook().lengths, np.int64))
 
 
-def account_bits(sec_bits, orders, coefs, bps: int):
+def account_bits(sec_bits, orders, coefs, bps: int, ltp_period,
+                 ltp_order: int):
     """Exact per-variant code length (everything but the stereo method
     field) and the direct-vs-summed coefficient choice: the twin of
-    ``exact._account_bits_dev`` (no LTP). coefs (V, M) reversed,
-    left-aligned. Returns (code_len (V,) int64, use_sum (V,) bool)."""
+    ``exact._account_bits_dev`` plus the LTP fields of the rows with a
+    period (``encode_blocks_exact:1376-1380``). coefs (V, M) reversed,
+    left-aligned; ltp_period (V,) (0: no LTP fields). Returns (code_len
+    (V,) int64, use_sum (V,) bool)."""
     dev = coefs.device
     pl, sl = _huffman_len_tables()
     plens = torch.from_numpy(pl).to(dev)
@@ -559,19 +594,24 @@ def account_bits(sec_bits, orders, coefs, bps: int):
     fixed = (bps + 1 + (PREEMPHASIS_COEF_SHIFT + 1)
              + LPC_COEFFICIENT_ORDER_BITWIDTH
              + RSHIFT_LPC_COEFFICIENT_BITWIDTH + 1 + 1)
-    return sec_bits.long() + fixed + coef_bits, use_sum
+    ltp_bits = torch.where(ltp_period > 0, LTP_ORDER_BITWIDTH
+                           + LTP_PERIOD_BITWIDTH
+                           + ltp_order * LTP_COEFFICIENT_BITWIDTH, 0)
+    return sec_bits.long() + fixed + coef_bits + ltp_bits, use_sum
 
 
 def _method_lengths(small: dict, *, B: int, C: int, max_params: int,
                     bps: int):
     """Each block's code length under each stereo method (NONE, MS, LS, SR
     for C >= 2; one row for C = 1), everything but the method field and the
-    byte rounding, and the variants' coefficient choice. Returns ((4 or 1,
-    B) int64, use_sum (V,) bool)."""
+    byte rounding, and the variants' coefficient choice. The LTP order is
+    the width of small["ltp_coefs"] (its periods are all 0 without -P).
+    Returns ((4 or 1, B) int64, use_sum (V,) bool)."""
     nvar = C + 2 if C >= 2 else 1
     code_len, use_sum = account_bits(
         small["section_bits"], small["orders"],
-        small["coefs"][:, :max(max_params, 1)], bps)
+        small["coefs"][:, :max(max_params, 1)], bps, small["ltp_period"],
+        small["ltp_coefs"].shape[1])
     cl = code_len.reshape(nvar, B)
     if C >= 2:
         cl = torch.stack([cl[2] + cl[3], cl[0] + cl[1], cl[2] + cl[1],
@@ -640,9 +680,10 @@ def chosen_stream(big: dict, sel: dict, n: int):
 
 def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                   max_params: int, max_fixed: bool, fft_size: int,
-                  max_porder: int, C: int, W: int, timer=no_timer):
+                  max_porder: int, C: int, W: int, ltp_order: int = 0,
+                  timer=no_timer):
     """Fused exact encode of one equal-size block group (the twin of
-    ``srla_tpu.kernels.exact.encode_blocks_exact`` without LTP and SVR).
+    ``srla_tpu.kernels.exact.encode_blocks_exact`` without SVR).
 
     blocks (B, C, n) int16/int32 samples on the device. Returns (small,
     flat): ``small`` holds the per-variant parameters plus the per-block
@@ -657,7 +698,7 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        timer=timer)
+                        ltp_order=ltp_order, timer=timer)
     small = _small(core)
     sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
                       max_params=max_params)
@@ -680,26 +721,28 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
 
 def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
                   bps: int, max_params: int, max_fixed: bool, fft_size: int,
-                  max_porder: int, C: int, timer=no_timer) -> dict:
+                  max_porder: int, C: int, ltp_order: int = 0,
+                  timer=no_timer) -> dict:
     """Span measurement of the -V partition search: the twin of
-    ``srla_tpu.kernels.exact.measure_spans_exact`` (no LTP, no SVR).
+    ``srla_tpu.kernels.exact.measure_spans_exact`` (no SVR).
 
     file: the (C, N) int16 (int32 above 16 bits) samples, resident on the
     device; offsets: (B,) host offsets with offset + n <= N. The spans are
     cut on the device and analysed as ``encode_blocks`` analyses a group
-    (K3 and K4 run once each); nothing is packed. Returns ``small``: the
-    per-variant ``section_bits``, ``orders``, ``coefs``, ``risky`` and
-    ``ltp_period`` of ``measure_spans_exact``, plus per span ``bits``, the
-    rounded block bits of the best stereo method
-    (``srla_tpu/encoder.py:2020-2032``), and ``risky_blk``."""
+    (K3 and K4 run once each, K10 too at ltp_order > 0); nothing is packed.
+    Returns ``small``: the per-variant ``section_bits``, ``orders``,
+    ``coefs``, ``risky`` and ``ltp_period`` of ``measure_spans_exact`` and
+    ``ltp_coefs``, plus per span ``bits``, the rounded block bits of the
+    best stereo method (``srla_tpu/encoder.py:2020-2032``), and
+    ``risky_blk``."""
     blocks = cut_spans(file, offsets, n)
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        timer=timer)
+                        ltp_order=ltp_order, timer=timer)
     small = {k: v for k, v in _small(core).items()
              if k in ("section_bits", "orders", "coefs", "risky",
-                      "ltp_period")}
+                      "ltp_period", "ltp_coefs")}
     B = blocks.shape[0]
     lens, _ = _method_lengths(small, B=B, C=C, max_params=max_params,
                               bps=bps)

@@ -4,7 +4,7 @@ host encoder that is byte-exact with the reference: the same bytes over
 mono/stereo, 8/16/24 bit and -m 0/2/4, with SILENT, RAW and odd-size tail
 blocks; the stats invariants; host repair of flagged blocks and of
 over-long sections; the port's own decode of the port's streams; the CLI;
-and the refusal of the flags the port does not run yet.
+and the refusal of the flag the port does not run yet (SVR).
 
 Every comparison is exact (bytes or integers)."""
 
@@ -223,18 +223,20 @@ def test_step_timer_breakdown():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(ltp_order=1), "-P"), (dict(num_svr_filter_learning_iteration=2),
-                                "SVR"),
+    (dict(ltp_order=1, num_svr_filter_learning_iteration=1), "SVR"),
+    (dict(num_svr_filter_learning_iteration=2), "SVR"),
 ])
 def test_unported_flags_raise(kw, what):
     with pytest.raises(ValueError, match=what):
         SRLAEncoder(_param(2, 16, 4, **kw), "cpu")
-    # -V (min block < max block) is ported: it constructs and encodes.
-    param = _param(2, 16, 4)
+    # -V (min block < max block) and -P are ported: they construct and
+    # encode.
+    param = _param(2, 16, 4, ltp_order=kw.get("ltp_order", 0))
     param.min_num_samples_per_block = BLOCK // 2
     pcm = _pcm("music", 2, 16)
     assert SRLAEncoder(param, "cpu").encode_whole(pcm) == host_encode(
-        pcm, 16, 44100, max_block=BLOCK, variable_divisions=1)
+        pcm, 16, 44100, max_block=BLOCK, variable_divisions=1,
+        ltp_order=param.ltp_order)
 
 
 def test_cli_encode_roundtrip(tmp_path):
@@ -250,7 +252,13 @@ def test_cli_encode_roundtrip(tmp_path):
                                            max_block=BLOCK)
     assert main(["-d", "--device", "cpu", str(srl), str(out)]) == 0
     assert out.read_bytes() == wav.read_bytes()
-    for bad in (["-P", "1"], ["--svr-filter-learning-iteration", "1"]):
+    # -P runs; SVR exits 1.
+    assert main(["-e", "-m", "2", "-B", str(BLOCK), "-V", "0", "-P", "1",
+                 "--device", "cpu", str(wav), str(srl)]) == 0
+    assert srl.read_bytes() == host_encode(pcm, 16, 44100, preset=2,
+                                           max_block=BLOCK, ltp_order=1)
+    for bad in (["-P", "1", "--svr-filter-learning-iteration", "1"],
+                ["--svr-filter-learning-iteration", "1"]):
         assert main(["-e", "-V", "0", *bad, "--device", "cpu", str(wav),
                      str(srl)]) == 1
 

@@ -4,10 +4,12 @@
 Each test drives one decision to its boundary (the pre-emphasis
 coefficient's rounding half, a tie of two LPC orders, a coefficient's
 quantization half and the shift's frexp edge, the Rice parameter boundaries
-of rice_k_boundaries) and to points a few float roundings and a few margins
-away from it, hands the port's stage inputs moved by the error the margins
-are sized for (2^-42 relative, see the comment above the margins in
-exact.py) and the host's stage (srla_tpu_torch.host_encoder and its dsp/
+of rice_k_boundaries, and the long-term prediction's crossing signs, peak
+tests, threshold, ratio, Cholesky pivots and coefficient rounding) and to
+points a few float roundings and a few margins away from it, hands the
+port's stage inputs moved by the error the margins are sized for (2^-42
+relative, see the comments above the margins in exact.py and ltp.py) and
+the host's stage (srla_tpu_torch.host_encoder and its dsp/
 and rice modules) the unmoved ones, and checks the contract of the flags:
 every row whose decision differs from the host's is flagged risky. Rows on
 the boundary must be flagged and rows several margins away must not, so the
@@ -33,7 +35,10 @@ from srla_tpu_torch.dsp.quantize import quantize_coefficients  # noqa: E402
 from srla_tpu_torch.dsp.window import welch_window  # noqa: E402
 from srla_tpu_torch.host_encoder import (EncodeParameter,  # noqa: E402
                                          SRLAEncoder)
-from srla_tpu_torch.kernels import exact  # noqa: E402
+from srla_tpu_torch import native_decoder  # noqa: E402
+from srla_tpu_torch.constants import (  # noqa: E402
+    LPC_RIDGE_REGULARIZATION_PARAMETER, LTP_MAX_PERIOD, LTP_MIN_PERIOD)
+from srla_tpu_torch.kernels import exact, ltp  # noqa: E402
 
 # The relative error of the analysis inputs that the margins allow for.
 MOVE = 2.0 ** -42
@@ -291,3 +296,111 @@ def test_rice_rows_at_the_type_boundary_are_flagged():
     assert recursive.tolist() == [True, True] and list(ct) == [1, 1]
     # Order 0's parameter of the unflagged row is the host's.
     assert int(ks[1, 0]) == int(host_ks[1, 0])
+
+
+# ---------------------------------------------------------------------------
+# Long-term prediction: the lag scan, the solve and the rounding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_ltp_lag_error_within_the_stated_bound(n):
+    """The pitch lags up to 262, port and host, against the exact rational
+    autocorrelation: under 2^-50 and 2^-42 of r0 (ltp.py's margins rest on
+    the host's bound)."""
+    rng = np.random.RandomState(n + 1)
+    work = np.stack([
+        rng.randint(-(1 << 15), 1 << 15, n),
+        (np.sin(np.arange(n) * 2 * np.pi / 225) * 30000).astype(np.int64),
+    ]).astype(np.int32)
+    lags = (0, 1, 130, 261, 262)
+    port = exact.ltp_lags(torch.from_numpy(work), n, 16, n).numpy()
+    windowed = work.astype(np.float64) * 2.0 ** -15 * welch_window(n)
+    host = autocorr_fft(windowed.copy(), n, LTP_MAX_PERIOD + 1)
+    for r in range(work.shape[0]):
+        d = [Fraction(float(v)) for v in windowed[r]]
+        r0 = sum(v * v for v in d)
+        for k in lags:
+            want = sum(d[i] * d[(i + k) % n] for i in range(n))
+            port_err = abs(Fraction(float(port[r, k])) - want) / r0
+            host_err = abs(Fraction(float(host[r, k])) - want) / r0
+            assert port_err <= Fraction(1, 2 ** 50), (r, k, float(port_err))
+            assert host_err <= Fraction(1, 2 ** 42), (r, k, float(host_err))
+
+
+_HEAD = [1.0, 0.5, 0.2, 0.1, 0.0, -0.1, -0.2, -0.3]
+
+
+_SLOPE = [0.02, 0.03, 0.04, 0.05, 0.06, 0.0, 0.055, 0.045, 0.035, 0.025]
+
+
+def _pitch_row(peak=0.5, first=None):
+    """Lags with r0 = 1: a segment at 150..159 whose peak is ``peak`` at
+    155 (period 155), and, if ``first``, one before it at 50..59 whose peak
+    is ``first`` at 55; every lag in a segment differs from its neighbours
+    by far more than the margin; -0.3 elsewhere (-0.31 at 261, so that the
+    host's last look at lag 262 meets no tie), zeros past lag 262."""
+    r = np.full(ltp.LTP_COLS, -0.3)
+    r[:8] = _HEAD
+    r[LTP_MAX_PERIOD - 1] = -0.31
+    r[150:160], r[155] = _SLOPE, peak
+    if first is not None:
+        r[50:60], r[55] = _SLOPE, first
+    r[LTP_MAX_PERIOD + 1:] = 0.0
+    return r
+
+
+def _ltp_boundary_rows():
+    """(lags, must_flag, must_not_flag, order) of rows that put one LTP
+    decision on its boundary and a few ulps, 1e-13 and 1e-6 (relative to
+    r0) beside it: a crossing lag at 0, a peak's neighbour equal to it, the
+    peak at 0.1 r0, a first peak at 0.9 of the largest, a Cholesky pivot at
+    0 (r1 = r2 = r0 * (1 + ridge)), and an order-1 coefficient * 32 at 20.5
+    (1e-9 and 1e-5 units beside it)."""
+    rows, flag, clear, orders = [], [], [], []
+
+    def add(r, d, near, far, order=1):
+        rows.append(r)
+        flag.append(abs(d) <= near)
+        clear.append(abs(d) >= far)
+        orders.append(order)
+
+    for d in (0.0, 2.0 ** -45, -2.0 ** -45, 1e-13, -1e-13, 1e-6, -1e-6):
+        r = _pitch_row()
+        r[149] = d                           # the crossing into the segment
+        add(r, d, 1e-13, 1e-6)
+        r = _pitch_row(peak=0.06)
+        r[154] = 0.06 + d                    # the peak's left neighbour
+        add(r, d, 1e-13, 1e-6)
+        add(_pitch_row(peak=0.1 + d), d, 1e-13, 1e-6)   # the threshold
+        add(_pitch_row(first=0.9 * 0.5 + d), d, 1e-13, 1e-6)   # the ratio
+        r = _pitch_row()
+        r[1] = r[2] = (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER) * (1.0 + d)
+        add(r, d, 1e-13, np.inf, order=3)    # the second pivot
+    a0r = 1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER
+    for d in (0.0, 2.0 ** -40, -2.0 ** -40, 1e-9, -1e-9, 1e-5, -1e-5, 0.17):
+        add(_pitch_row(peak=(20.5 + d) / 32.0 * a0r), d, 1e-9, 1e-5)
+    return (np.stack(rows), np.asarray(flag), np.asarray(clear),
+            np.asarray(orders))
+
+
+def _moved_lags(lags: np.ndarray) -> np.ndarray:
+    """Every lag moved by MOVE of r0, up and down in turns."""
+    signs = np.where(np.arange(lags.shape[1]) % 2 == 0, 1.0, -1.0)
+    return lags + MOVE * np.abs(lags[:, :1]) * signs[None, :]
+
+
+def test_ltp_decision_boundaries_are_flagged():
+    lags, must_flag, must_not_flag, orders = _ltp_boundary_rows()
+    for order in (1, 3):
+        sel = orders == order
+        host_p, host_c = native_decoder.ltp_analyze_batch(
+            lags[sel][:, :LTP_MAX_PERIOD + 3].copy(), order, LTP_MIN_PERIOD,
+            LTP_MAX_PERIOD, LPC_RIDGE_REGULARIZATION_PARAMETER)
+        period, coefs, risky = ltp.ltp_analyze_plain(
+            torch.from_numpy(_moved_lags(lags[sel])), order)
+        port = np.concatenate([period.numpy()[:, None], coefs.numpy()], 1)
+        host = np.concatenate([host_p[:, None], host_c], 1)
+        _assert_flag_contract(port, host, risky.numpy(), must_flag[sel],
+                              must_not_flag[sel])
+        # Not vacuous: the rows beside a boundary take both outcomes.
+        assert len(set(host_p.tolist())) > 1

@@ -1,6 +1,8 @@
 """K1 (srla_tpu_torch.kernels.lpc) and the synthesis ops around it against
 their JAX twins: decode2._lpc_scan, the Pallas kernel lpc_scan_pallas in
-interpret mode, _align_coefs, _deemph_scan and _ltp_pass.
+interpret mode, _align_coefs, _deemph_scan and _ltp_pass (K9's plain
+version, srla_tpu_torch.kernels.ltp, which tests/test_torch_ltp.py holds at
+more edges).
 
 Every output is an integer, so every comparison is exact (tolerance 0).
 Inputs are made with numpy from a seed and handed to both sides."""
@@ -16,8 +18,9 @@ from srla_tpu.kernels.decode2 import (_align_coefs, _deemph_scan,  # noqa: E402
                                       _lpc_scan, _ltp_pass)
 from srla_tpu.kernels.pallas_lpc import lpc_scan_pallas  # noqa: E402
 from srla_tpu_torch.kernels.decode2 import (align_coefs,  # noqa: E402
-                                            deemph_scan, ltp_pass)
+                                            deemph_scan)
 from srla_tpu_torch.kernels.lpc import lpc_scan, lpc_scan_plain  # noqa: E402
+from srla_tpu_torch.kernels.ltp import ltp_synth  # noqa: E402
 
 # One shape for every JAX compile of this file: R is not a multiple of 128.
 R, N, M = 130, 40, 16
@@ -163,7 +166,7 @@ def test_ltp_pass_matches_jax():
     want = np.asarray(_ltp_pass(jnp.asarray(v), jnp.asarray(lorders),
                                 jnp.asarray(lperiods), jnp.asarray(lcoefs),
                                 n))
-    got = ltp_pass(*_t(v, lorders, lperiods, lcoefs), n)
+    got = ltp_synth(*_t(v, lorders, lperiods, lcoefs), n)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the eight CUDA libraries of csrc/ (eleven kernels) and the
+Builds the ten CUDA libraries of csrc/ (thirteen kernels) and the
 serial-chain probe (csrc/chain_probe.cu, a measurement aid) with concurrent
 nvcc, then:
 
@@ -51,10 +51,12 @@ nvcc, then:
   6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
      at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
      every COMPRESS block emitted from the device or a counted host repair
-     or overflow, K3, K4 and K5's pack_residual_sections launched by that
-     encode (twice each, once a group; the generic pack not at all), and
-     the stream decoded losslessly by the port. Prints the warm best-of-3
-     encode speed and a per-step breakdown.
+     or overflow, K8 (autocorrelation, csrc/autocorr.cu), K7 (Levinson,
+     order choice and quantization, csrc/lpc_analyze.cu), K3, K4 and K5's
+     pack_residual_sections launched by that encode (twice each, once a
+     group; the generic pack not at all) and no plain version of K7 or K8
+     reached, and the stream decoded losslessly by the port. Prints the
+     warm best-of-3 encode speed and a per-step breakdown.
   7. K6 (bit-field placement probes, csrc/bitfield_probe.cu: one-hot
      product, read-modify-write OR, masked lane reduction): the port's tool
      ``python -m srla_tpu_torch.tools.bitfield_probes`` run once as the
@@ -74,17 +76,20 @@ nvcc, then:
      encoded by SRLAEncoder(device="cuda"): byte-identical to the port's
      host exact encoder at the same flags, every span enumerated here
      measured on the card or a counted host re-measure, every COMPRESS
-     block from the device or a counted repair or overflow, K3 and K4
-     launched once per measurement call plus once per encode group and K5's
-     pack_residual_sections once per encode group (the counts derived here
-     from the spans and the stream), a block length that is no power of two
-     in the -V 3 stream, and each stream decoded losslessly on the card
+     block from the device or a counted repair or overflow, K8, K7, K3 and
+     K4 launched once per measurement call plus once per encode group and
+     K5's pack_residual_sections once per encode group (the counts derived
+     here from the spans and the stream), a block length that is no power
+     of two in the -V 3 stream, and each stream decoded losslessly on the card
      (K1 and K2 launched). Then, for each of the three, K3 and K4 against
      their plain versions on the inputs of every measurement call and
      every encode group (each call's spans cut and analysed as the encoder
      does; 2048-10,332 rows of 512-4096 samples, the clipped tails
      included) and K5's pack_residual_sections on those of every encode
-     group: bit-equal. Prints the 120 s -V 1 encode's and decode's warm
+     group: bit-equal; K8 and K7 on the same calls: K8 within 2^-45 r0 of
+     its plain version, K7 equal to its plain version on every row neither
+     flags, no row flagged by one and not the other. Prints the 120 s -V 1
+     encode's and decode's warm
      best of 3 beside the host exact encoder's time, its step breakdown,
      its measurement's call count and the largest call's time and peak
      memory, and K4's generic kernel against its plain version on the -V 3
@@ -93,22 +98,38 @@ nvcc, then:
      4096 -V 0 -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), each
      encoded by SRLAEncoder(device="cuda"), counted: byte-identical to the
      host exact encoder, span and block accounting, K10 (pitch search and
-     LTP solve, csrc/ltp_analyze.cu), K3 and K4 once per analysis call and
-     K5 once per encode group, analysis rows with LTP on above 0, and the
-     stream decoded losslessly on the card with K9 launched. Then K10
-     against its plain version on the inputs of every analysis call (the
-     pitch lags of every measurement call and encode group) and K9 on every
-     LTP decode group: bit-equal. Prints each encode's and decode's warm
+     LTP solve, csrc/ltp_analyze.cu), K7, K3 and K4 once per analysis call,
+     K8 twice (the pitch lags, then the LPC lags) and K5 once per encode
+     group, analysis rows with LTP on above 0, and the stream decoded
+     losslessly on the card with K9 launched. Then K10 against its plain
+     version on the inputs of every analysis call (the pitch lags of every
+     measurement call and encode group) and K9 on every LTP decode group:
+     bit-equal; K8 (both lag sets) and K7 as in phase 8, no row flagged by
+     one and not the other. Prints each encode's and decode's warm
      best of 3 and the encode's step split, and K10's (at the -V 0 encode's
      5164 rows) and K9's (at its stream's 2582 rows x 4096) times beside
      their plain versions' and bounds.
+ 10. K8 and K7 (the encode's f64 analysis): on phase 6's two analysis calls
+     as in phase 8; K8 within 2^-46 r0 of the exact rational sum on rows
+     of 16384 samples at 24 bits, 4064, 333 (odd) and 20000 (two
+     shared-memory stages) at lags 0, 1, 7, 64 and 262; K7 at M 255 on the
+     main group's lags and on rows built on its decision boundaries (an
+     order tie, a quantization half, the shift's frexp and tiny edges, the
+     silent threshold), the port's lags moved by 2^-42: every row whose
+     decisions differ from the host's is flagged. Times K8 at the main
+     group's 5164 rows x 4096 with 65 lags (the LPC lags) and 263 (the
+     pitch lags) beside its plain version and the cuFFT route (rfft, |X|^2,
+     irfft: the library yardstick, which the port never calls) and K7 at M
+     64 beside its plain version and its serial floor, both also at the
+     tail group's 4 rows.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
 version's, its bound and, where one PyTorch call computes the same function,
 that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
--V 0 encode; ``launches_variable`` on each of phase 8's three paths,
+-V 0 encode, K8's and K7's on phase 6's; ``launches_variable`` on each of
+phase 8's three paths,
 ``launches_ltp`` on phase 4's and phase 9's, encode and decode apart) and,
 last, the device JSON line. A kernel's bound is the
 larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
@@ -119,8 +140,10 @@ two. K1 and K2 are recurrences, so each also gets a serial floor: its
 samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
-K10's operations are f64, over the H100's 34 TFLOP/s outside the tensor
-cores.
+K7's, K8's and K10's operations are f64, over the H100's 34 TFLOP/s
+outside the tensor cores. K7 also gets a serial floor: the first
+recursion's M - 1 steps of the shortest dependent chain of one step
+(chain_probe.cu's f64 case).
 K3, K4, K5, K6, K9 and K10 also get a device time (device_ms): at their smaller
 shapes the host needs longer to enqueue a call than the card to run it, so
 the calls are captured into one CUDA graph and the replay is timed. K3 and
@@ -265,8 +288,9 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
 
 def chain_step_ms(torch, kind: int) -> float:
     """Milliseconds one warp needs for one step of a serial chain alone
-    (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword): the
-    difference of two chain lengths over their difference, CUDA events."""
+    (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
+    a K7 Levinson step): the difference of two chain lengths over their
+    difference, CUDA events."""
     import ctypes
 
     from srla_tpu_torch.kernels import build
@@ -429,7 +453,8 @@ def profile_decode(torch, decode, stream: bytes, dev) -> None:
 
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
-             "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze")
+             "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
+             "autocorr", "lpc_analyze")
 PROBES = ("chain_probe",)        # measurement only: the serial floors
 
 
@@ -907,26 +932,20 @@ def phase_bitfield(torch, np, dev):
 def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     """The port's encode of the main path: bytes, block accounting, kernel
     launches, the port's own decode, then speed and a step breakdown.
-    Returns the launch counts of K3, K4 and both K5 entries in that
-    encode."""
+    Returns the launch counts of K3, K4, both K5 entries, K8 and K7 in
+    that encode, which never reaches K7's or K8's plain version."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
-    from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
-    from srla_tpu_torch.kernels.predict import predict
-    from srla_tpu_torch.kernels.rice_search import rice_sums
 
     param = main_param()
-    predict.launches = rice_sums.launches = pack.launches = 0
-    pack_residual_sections.launches = 0
+    names = ("fir_predict", "rice_search", "pack_residual_sections",
+             "bitpack", "autocorr", "lpc_analyze")
+    wrappers = {k: w for k, w in all_wrappers().items() if k in names}
     torch.cuda.reset_peak_memory_stats()
     enc = SRLAEncoder(param, dev)
-    data = enc.encode_whole(pcm)
-    torch.cuda.synchronize()
+    data, launches = counted(torch, wrappers, lambda: without_plain(
+        lambda: enc.encode_whole(pcm)))
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"fir_predict": predict.launches,
-                "rice_search": rice_sums.launches,
-                "pack_residual_sections": pack_residual_sections.launches,
-                "bitpack": pack.launches}
     require(data == stream, "port encode differs from the host exact "
                             "stream")
     ncomp = compress_blocks(stream)
@@ -935,8 +954,9 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
                + s["w_overflow_blocks"])
     require(handled == ncomp, f"block accounting {s}: {handled} of "
                               f"{ncomp} COMPRESS blocks")
-    # Two groups (1291 blocks of 4096, 1 block of 4064): one launch each.
-    # The generic pack is off the encode's path.
+    # Two groups (1291 blocks of 4096, 1 block of 4064): one launch each,
+    # K8 and K7 too (the LPC lags, then their analysis). The generic pack
+    # is off the encode's path.
     for name, count in launches.items():
         want = 0 if name == "bitpack" else 2
         require(count == want, f"{name} was launched {count} times by the "
@@ -1068,7 +1088,9 @@ def counted(torch, wrappers: dict, fn):
 
 def all_wrappers() -> dict:
     """Every kernel wrapper of the codec's paths, by record name."""
+    from srla_tpu_torch.kernels.autocorr import autocorr
     from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
+    from srla_tpu_torch.kernels.levinson import lpc_analyze
     from srla_tpu_torch.kernels.lpc import lpc_scan
     from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
     from srla_tpu_torch.kernels.predict import predict
@@ -1078,17 +1100,108 @@ def all_wrappers() -> dict:
             "fir_predict": predict, "rice_search": rice_sums,
             "pack_residual_sections": pack_residual_sections,
             "bitpack": pack, "ltp_synth": ltp_synth,
-            "ltp_analyze": ltp_analyze}
+            "ltp_analyze": ltp_analyze, "autocorr": autocorr,
+            "lpc_analyze": lpc_analyze}
+
+
+def without_plain(fn):
+    """fn() with the plain versions of K7 and K8 (and the torch loops they
+    compose) replaced by tripwires: an encode on the card that reached one
+    of them raises."""
+    from srla_tpu_torch.kernels import autocorr as k8
+    from srla_tpu_torch.kernels import levinson as k7
+    names = ((k8, "autocorr_plain"), (k7, "lpc_analyze_plain"),
+             (k7, "levinson"), (k7, "select_order_exact"),
+             (k7, "quantize_exact"))
+    saved = [getattr(m, name) for m, name in names]
+
+    def tripwire(*_a, **_k):
+        raise RuntimeError("a plain version of K7 or K8 ran on the encode's "
+                           "path")
+
+    for m, name in names:
+        setattr(m, name, tripwire)
+    try:
+        return fn()
+    finally:
+        for (m, name), f in zip(names, saved):
+            setattr(m, name, f)
+
+
+def new_tally() -> dict:
+    """Counters of analysis_checks over one path's analysis calls."""
+    return dict(calls=0, rows=0, k8_err=0.0, k8_err_r0=0.0,
+                k7_flag_diff=0, k8_flag_diff=0)
+
+
+def analysis_checks(torch, what: str, pre, work, args, tally: dict) -> None:
+    """K8 and K7 against their plain versions on one analysis call's rows:
+    K8 on the LPC lags of ``work`` (the rows K3 filters) and, with -P, on
+    the pitch lags of the pre-emphasised rows ``pre``, every lag within
+    2^-45 r0; K7 on the call's ridged K8 lags, its orders, shifts and
+    coefficients equal to the plain version's on every row that neither
+    flags, and the plain K7 on K8's lags equal to it on the plain lags on
+    every row that neither flags. Adds to ``tally`` the call's rows, K8's
+    largest error (absolute and in r0), the rows whose flag K7 changes and
+    the rows whose flag K8's lags change."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels.autocorr import autocorr, autocorr_plain
+    from srla_tpu_torch.kernels.levinson import lpc_analyze, lpc_analyze_plain
+    from srla_tpu_torch.kernels.ltp import LTP_LAGS
+    n, bps, F, M = (args[k] for k in ("n", "bps", "fft_size", "max_params"))
+    inputs = [(work, M + 1)] + ([(pre, LTP_LAGS)] if args["ltp_order"]
+                                else [])
+    lags = []
+    for rows, L in inputs:
+        got = autocorr(rows, n, bps, L, F)
+        want = autocorr_plain(rows, n, bps, L, F)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        r0 = want[:, :1].abs()
+        require(bool((err <= r0 * 2.0 ** -45).all()),
+                f"K8 ({what}, {L} lags) is more than 2^-45 r0 from its "
+                f"plain version")
+        tally["k8_err"] = max(tally["k8_err"], float(err.max()))
+        tally["k8_err_r0"] = max(tally["k8_err_r0"], float(
+            (err / torch.where(r0 > 0, r0, 1.0)).max()))
+        lags.append((got, want))
+    ac, ac_plain = (t.clone() for t in lags[0])
+    for t in (ac, ac_plain):
+        t[:, 0] = t[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
+    kw = (n, bps, M, args["max_fixed"])
+    k7 = lpc_analyze(ac, *kw)
+    p7 = lpc_analyze_plain(ac, *kw)
+    p8 = lpc_analyze_plain(ac_plain, *kw)
+    torch.cuda.synchronize()
+    for (got, want), who in (((k7, p7), "K7"), ((p7, p8), "K8's lags")):
+        ok = ~got[3] & ~want[3]
+        for g, w in zip(got[:3], want[:3]):
+            require(torch.equal(g[ok], w[ok]), f"{who} ({what}) change an "
+                                               f"unflagged LPC decision")
+    tally["calls"] += 1
+    tally["rows"] += work.shape[0]
+    tally["k7_flag_diff"] += int((k7[3] != p7[3]).sum())
+    tally["k8_flag_diff"] += int((p7[3] != p8[3]).sum())
+
+
+def tally_text(t: dict) -> str:
+    return (f"K8 within {t['k8_err_r0']:.3g} r0 of plain (max abs "
+            f"{t['k8_err']:.3g}) and K7 equal to plain where neither flags, "
+            f"on {t['rows']} rows of {t['calls']} analysis calls; rows whose "
+            f"flag K7 changes: {t['k7_flag_diff']}, whose flag K8's lags "
+            f"change: {t['k8_flag_diff']}")
 
 
 def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
-                     time_n: int = 0):
+                     tally: dict, time_n: int = 0):
     """K3 and K4 against their plain versions on the inputs of every
     measurement call of one -V encode (its spans of each length, cut into
     calls as the encoder cuts them) and of every encode group (the
     stream's blocks of each length), K5's pack_residual_sections on those
-    of every encode group: bit-equal. At the first measurement call of
-    length time_n it also times K4 (CUDA events, device time, bound).
+    of every encode group: bit-equal; K8 and K7 on the same calls
+    (analysis_checks, counted into ``tally``). At the first measurement
+    call of length time_n it also times K4 (CUDA events, device time,
+    bound).
     Returns (max_abs_err by kernel, [(what, rows, n)] checked, K4's timed
     record or None)."""
     from srla_tpu_torch import SRLAEncoder
@@ -1114,6 +1227,7 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
         k4 = rice_search_args(torch, core, args)
         err["rice_search"] = max(err["rice_search"], check(
             torch, f"K4 ({at})", rice_sums, rice_sums_plain, k4))
+        analysis_checks(torch, at, None, core["work"], args, tally)
         checked.append((what, k3[0].shape[0], n))
         return args, small, big, core, k4
 
@@ -1159,7 +1273,7 @@ def phase_variable(torch, np, dev, music, card):
     case, its measurement's largest call and K4's generic kernel at the -V
     3 measurement's 3072-sample group. Returns (each path's kernel launches,
     encode and decode apart; the checks' max_abs_err by kernel; K4's
-    generic record)."""
+    generic record; each path's K7 and K8 tally)."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import encode as host_encode
@@ -1169,6 +1283,7 @@ def phase_variable(torch, np, dev, music, card):
     wrappers = all_wrappers()
 
     seg = make_segmented(VAR_SECONDS)
+    tallies: dict = {}
     launches: dict = {}
     errs = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
     main_case = generic = None
@@ -1185,7 +1300,8 @@ def phase_variable(torch, np, dev, music, card):
         n_measure, n_encode = expected_calls(spans, blocks)
         enc = SRLAEncoder(param, dev)
         torch.cuda.reset_peak_memory_stats()
-        data, got = counted(torch, wrappers, lambda: enc.encode_whole(pcm))
+        data, got = counted(torch, wrappers, lambda: without_plain(
+            lambda: enc.encode_whole(pcm)))
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         require(data == stream, f"-V {V} encode of {what} differs from the "
                                 f"host exact stream")
@@ -1200,8 +1316,9 @@ def phase_variable(torch, np, dev, music, card):
                    + s["w_overflow_blocks"])
         require(handled == ncomp, f"-V {V} block accounting {s}: {handled} "
                                   f"of {ncomp} COMPRESS blocks")
-        want = {"fir_predict": n_measure + n_encode,
-                "rice_search": n_measure + n_encode,
+        calls = n_measure + n_encode
+        want = {"fir_predict": calls, "rice_search": calls,
+                "autocorr": calls, "lpc_analyze": calls,
                 "pack_residual_sections": n_encode, "bitpack": 0}
         for name, count in want.items():
             require(got[name] == count, f"-V {V}: {name} launched "
@@ -1233,8 +1350,13 @@ def phase_variable(torch, np, dev, music, card):
               f"{got}; decode on the card lossless, launches "
               f"{ {k: dec_got[k] for k in ('lpc_synth', 'rice_decode')} }; "
               f"peak device memory {peak_gb:.2f} GiB")
+        tally = new_tally()
         err, checked, timed_k4 = variable_kernels(
-            torch, dev, pcm, param, spans, blocks, 3072 if V == 3 else 0)
+            torch, dev, pcm, param, spans, blocks, tally,
+            3072 if V == 3 else 0)
+        require(tally["k7_flag_diff"] == 0, f"-V {V} {what}: K7 and its "
+                f"plain version flag {tally['k7_flag_diff']} rows apart")
+        tallies[path] = tally
         for k, e in err.items():
             errs[k] = max(errs[k], e)
         generic = timed_k4 or generic
@@ -1245,7 +1367,8 @@ def phase_variable(torch, np, dev, music, card):
               + "; ".join(kind + " " + ", ".join(f"{r}x{n}"
                                                  for w, r, n in checked
                                                  if w == kind)
-                          for kind in ("measurement call", "encode group")))
+                          for kind in ("measurement call", "encode group"))
+              + "; " + tally_text(tally))
         if main_case is None:
             main_case = (pcm, param, stream, spans, n_measure)
     require(generic is not None, "the -V 3 measurement has no 3072 group")
@@ -1294,7 +1417,7 @@ def phase_variable(torch, np, dev, music, card):
           f"ms (CUDA graph), plain {generic['plain_ms']:.2f} ms, bound "
           f"{generic['bound_ms']:.4f} ms ({generic['bound_by']}; operations "
           f"{generic['ops_ms']:.4f} ms) [{card}]")
-    return launches, errs, generic
+    return launches, errs, generic, tallies
 
 
 # ---------------------------------------------------------------------------
@@ -1417,10 +1540,11 @@ def ltp_param(V: int):
 
 def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
                        blocks: dict) -> list:
-    """K10's input in every analysis call of one -P encode: each
-    measurement call's spans and each encode group's blocks, cut, stacked
-    into variants and pre-emphasised as the encoder does, then the pitch
-    lags. Returns [(what, lags)]."""
+    """The rows of every analysis call of one -P encode: each measurement
+    call's spans and each encode group's blocks, cut, stacked into variants
+    and pre-emphasised as the encoder does, their pitch lags (K10's input)
+    and the LTP-filtered rows the analysis gives K8's LPC lags and K3.
+    Returns [(what, args, pre-emphasised rows, filtered rows, lags)]."""
     from srla_tpu_torch import SRLAEncoder
     from srla_tpu_torch.host_encoder import _compute_offset_lshift
     from srla_tpu_torch.kernels import exact
@@ -1436,10 +1560,13 @@ def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
                         else SRLAEncoder.MAX_CALL_BLOCKS)
             args = enc._host._device_args(n)
             for part in calls_of(offs, per_call):
-                work, _, _ = exact.preemphasis_exact(exact.variant_stack(
-                    exact.cut_spans(file, part, n), lshift))
-                calls.append((f"{kind}, {len(part)} of {n}",
-                              exact.ltp_lags(work, n, args["bps"],
+                rows = exact.variant_stack(exact.cut_spans(file, part, n),
+                                           lshift)
+                pre, _, _ = exact.preemphasis_exact(rows)
+                core = exact.analyze_core(rows, **args)
+                calls.append((f"{kind}, {len(part)} of {n}", args, pre,
+                              core["work"],
+                              exact.ltp_lags(pre, n, args["bps"],
                                              args["fft_size"])))
     return calls
 
@@ -1454,7 +1581,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
     inputs of every analysis call and K9 on every decode group; the rows
     with LTP on; each encode's warm best of 3 and step split; K10's and
     K9's times at the main shapes. Returns (each path's launches, the two
-    kernels' records)."""
+    kernels' records, each path's K7 and K8 tally)."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import encode as host_encode
@@ -1462,6 +1589,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
                                             ltp_synth, ltp_synth_plain)
 
     launches: dict = {}
+    tallies: dict = {}
     err10 = err9 = 0
     k10_main = k9_main = None
     for path, V in LTP_PATHS:
@@ -1474,8 +1602,8 @@ def phase_ltp_encode(torch, np, dev, music, card):
         blocks = encode_groups(music, param, stream)
         n_measure, n_encode = expected_calls(spans, blocks)
         enc = SRLAEncoder(param, dev)
-        data, got = counted(torch, all_wrappers(),
-                            lambda: enc.encode_whole(music))
+        data, got = counted(torch, all_wrappers(), lambda: without_plain(
+            lambda: enc.encode_whole(music)))
         require(data == stream, f"-V {V} -P 3 encode differs from the host "
                                 f"exact stream")
         s = enc.stats
@@ -1490,8 +1618,9 @@ def phase_ltp_encode(torch, np, dev, music, card):
                                   f"{handled} of {ncomp} COMPRESS blocks")
         calls = n_measure + n_encode
         want = {"ltp_analyze": calls, "fir_predict": calls,
-                "rice_search": calls, "pack_residual_sections": n_encode,
-                "bitpack": 0}
+                "rice_search": calls, "lpc_analyze": calls,
+                "autocorr": 2 * calls,        # the pitch lags, the LPC lags
+                "pack_residual_sections": n_encode, "bitpack": 0}
         for name, count in want.items():
             require(got[name] == count, f"-V {V} -P 3: {name} launched "
                                         f"{got[name]} times, expected {count}")
@@ -1504,9 +1633,9 @@ def phase_ltp_encode(torch, np, dev, music, card):
             require(dec_got[name] > 0, f"{name} was not launched by the -V "
                                        f"{V} -P 3 decode")
         launches[path] = {"encode": got, "decode": dec_got}
-        on, checked = 0, []
-        for what, lags in ltp_analysis_calls(torch, dev, music, param, spans,
-                                             blocks):
+        on, checked, tally = 0, [], new_tally()
+        for what, args, pre, work, lags in ltp_analysis_calls(
+                torch, dev, music, param, spans, blocks):
             got10 = ltp_analyze(lags, 3)
             want10 = ltp_analyze_plain(lags, 3)
             torch.cuda.synchronize()
@@ -1515,11 +1644,15 @@ def phase_ltp_encode(torch, np, dev, music, card):
                             f"max abs err {e})")
             err10 = max(err10, e)
             on += int((got10[0] > 0).sum())
+            analysis_checks(torch, what, pre, work, args, tally)
             checked.append(f"{lags.shape[0]}x{what.split()[-1]}")
             if V == 0 and (k10_main is None
                            or lags.shape[0] > k10_main.shape[0]):
                 k10_main = lags
         require(on > 0, f"-V {V} -P 3: no analysis row has LTP on")
+        require(tally["k7_flag_diff"] == 0, f"-V {V} -P 3: K7 and its plain "
+                f"version flag {tally['k7_flag_diff']} rows apart")
+        tallies[path] = tally
         groups = ltp_synth_groups(torch, dev, data)
         err9 = max(err9, check_ltp_synth(torch, f"-V {V} -P 3", groups))
         if V == 0:
@@ -1541,7 +1674,9 @@ def phase_ltp_encode(torch, np, dev, music, card):
               f"{n_encode} encode groups; launches {got}; analysis rows with "
               f"LTP on: {on}; K10 bit-equal to plain on every call (rows x n "
               f"{checked}); decode on the card lossless, launches "
-              f"{ {k: dec_got[k] for k in dec_names} }, K9 bit-equal to plain on its {len(groups)} LTP groups; warm "
+              f"{ {k: dec_got[k] for k in dec_names} }, K9 bit-equal to "
+              f"plain on its {len(groups)} LTP groups; {tally_text(tally)}; "
+              f"warm "
               f"best of 3: encode {enc_best * 1e3:.1f} ms = "
               f"{MAIN_SECONDS / enc_best:.1f}x realtime, decode "
               f"{dec_best * 1e3:.1f} ms = {MAIN_SECONDS / dec_best:.1f}x "
@@ -1597,7 +1732,413 @@ def phase_ltp_encode(torch, np, dev, music, card):
                  replaces="srla_tpu/kernels/exact.py:950",
                  max_abs_err=err10, ms=ms, plain_ms=plain_ms, **b10,
                  library_ms=None, device_ms=dev_ms)]
-    return launches, recs
+    return launches, recs, tallies
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the encode's f64 analysis
+# ---------------------------------------------------------------------------
+
+K7_MOVE = 2.0 ** -42             # the lag error the K7 margins allow for
+
+
+def moved(np, lags):
+    """lags with every entry moved by K7_MOVE, up and down in turns: the
+    lag error the order choice's and the quantization's margins are sized
+    for (kernels/levinson.py, above _EPS_SILENT)."""
+    signs = np.where(np.arange(lags.size) % 2 == 0, 1.0, -1.0)
+    return lags * (1.0 + K7_MOVE * signs.reshape(lags.shape))
+
+
+def host_lpc(np, lags, n: int, bps: int, M: int, max_fixed: bool):
+    """The host's decisions on lags (V, M + 1) f64 with the ridge on lag 0:
+    its Levinson recursion, order choice on the window-corrected error
+    variances and quantization (host_encoder.SRLAEncoder._analyze_channel's
+    chain). Returns (orders, rshifts, intc (V, M) left-aligned)."""
+    from srla_tpu_torch.constants import (LPC_COEFFICIENT_BITWIDTH,
+                                          RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+    from srla_tpu_torch.dsp.levinson import (levinson_coefs_at,
+                                             levinson_error_vars)
+    from srla_tpu_torch.dsp.quantize import quantize_coefficients
+    from srla_tpu_torch.dsp.window import welch_inverse_squared_sum
+    from srla_tpu_torch.host_encoder import EncodeParameter, SRLAEncoder
+    ev, _ = levinson_error_vars(lags, M)
+    if max_fixed:
+        orders = np.full(lags.shape[0], M, np.int32)
+    else:
+        param = EncodeParameter(num_channels=1, bits_per_sample=bps,
+                                sampling_rate=SAMPLE_RATE, preset=4,
+                                min_num_samples_per_block=n,
+                                max_num_samples_per_block=n,
+                                num_lookahead_samples=n)
+        orders = SRLAEncoder(param)._select_order(
+            ev * welch_inverse_squared_sum(n), n, M)
+    coefs = levinson_coefs_at(lags, M, orders)
+    intc, rshifts = quantize_coefficients(
+        coefs, orders, LPC_COEFFICIENT_BITWIDTH,
+        1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+    return np.asarray(orders), np.asarray(rshifts), np.asarray(intc)
+
+
+def lags_from_reflections(np, r0, refl):
+    """Lags (V, M + 1) on which the Levinson recursion of
+    kernels/levinson.py (a1 = -r1 / r0, then gamma = sum_j a[j] r[m - j] /
+    -ev) meets the reflection coefficients refl (V, M): the step-up
+    recursion, in f64."""
+    V, M = refl.shape
+    r = np.zeros((V, M + 1))
+    a = np.zeros((V, M + 1))
+    r[:, 0] = r0
+    r[:, 1] = -refl[:, 0] * r0
+    a[:, 0], a[:, 1] = 1.0, refl[:, 0]
+    ev = r0 * (1.0 - refl[:, 0] ** 2)
+    for m in range(2, M + 1):
+        g = refl[:, m - 1]
+        r[:, m] = -g * ev - (a[:, 1:m] * r[:, m - 1:0:-1]).sum(axis=1)
+        ev = ev * (1.0 - g * g)
+        a[:, :m + 1] = a[:, :m + 1] + g[:, None] * a[:, m::-1]
+    return r
+
+
+def reflections_from_coefs(np, coefs):
+    """The reflection coefficients (V, p) of the order-p coefficient
+    vectors coefs (V, p) (levinson.py's a[1..p]): the step-down
+    recursion."""
+    V, p = coefs.shape
+    a = np.concatenate([np.ones((V, 1)), coefs], axis=1)
+    refl = np.zeros((V, p))
+    for m in range(p, 1, -1):
+        g = a[:, m].copy()
+        refl[:, m - 1] = g
+        a = (a[:, :m + 1] - g[:, None] * a[:, m::-1]) / (1.0 - g * g)[:, None]
+        a = a[:, :m]
+    refl[:, 0] = a[:, 1]
+    return refl
+
+
+def k7_order_tie_case(np):
+    """Lags (n 4096, 16 bits, M 32) whose best order is 9 and whose
+    runner-up, 17, is longer on the host by each of the gaps below (bisection
+    on the reflection coefficient that makes order 17, the host's lengths
+    computed by the host's own Levinson on the lags)."""
+    from srla_tpu_torch.dsp.levinson import levinson_error_vars
+    from srla_tpu_torch.dsp.window import welch_inverse_squared_sum
+    n, bps, M = 4096, 16, 32
+    gaps = np.array([0.0, 1e-9, -1e-9, 1e-7, -1e-7, 5e-7, -5e-7, 1e-3,
+                     -1e-3, 0.5, -0.5])
+    rng = np.random.RandomState(5)
+    g2 = np.tile(rng.uniform(0.0, 0.002, M), (gaps.size, 1))
+    g2[:, 8] = 0.3                              # a real gain at order 9
+
+    def lengths(g2):
+        lags = lags_from_reflections(np, 0.02, np.sqrt(g2))
+        ev = levinson_error_vars(lags, M)[0] * welch_inverse_squared_sum(n)
+        mabse = 2.0 * np.sqrt(ev[:, 1:] / 2.0)
+        rho = 1.0 / (1.0 + mabse * float(1 << (bps - 1)))
+        ent = -((1.0 - rho) * np.log2(1.0 - rho) + rho * np.log2(rho)) / rho
+        return lags, ent * n + 8.0 * np.arange(1, M + 1)
+
+    lo, hi = np.zeros(gaps.size), np.full(gaps.size, 0.2)
+    for _ in range(80):
+        g2[:, 16] = 0.5 * (lo + hi)
+        _, ln = lengths(g2)
+        longer = ln[:, 16] - ln[:, 8] > gaps
+        lo = np.where(longer, g2[:, 16], lo)
+        hi = np.where(longer, hi, g2[:, 16])
+    g2[:, 16] = hi
+    lags, _ = lengths(g2)
+    gap = np.abs(gaps)
+    return "order tie", lags, n, bps, M, False, gap <= 5e-7, gap >= 1e-3
+
+
+def k7_quantize_case(np):
+    """Lags (M 4, the order fixed) whose order-4 coefficients are the
+    quantization rows of tests/test_torch_encode_margins.py: max |coef|
+    0.88, one coefficient on a rounding half, a few ulps, 1e-9, 1e-5 and
+    0.17 steps beside it; max |coef| at the frexp edge 0.5 and below it;
+    the smallest representable step and its neighbours; and rows away
+    from every edge."""
+    step = 2.0 ** -7
+    rows, flag, clear = [], [], []
+    for off in (0.0, 2.0 ** -45, -2.0 ** -45, 1e-9, -1e-9, 1e-5, -1e-5,
+                0.17, -0.17):
+        for half in (20.5, -37.5):
+            rows.append([0.88, 0.25, (half + off) * step, 12 * step])
+            flag.append(abs(off) <= 1e-9)
+            clear.append(abs(off) >= 1e-5)
+    for top in (0.5, np.nextafter(0.5, 0.0), 0.5 * (1 - 1e-8), step,
+                np.nextafter(step, 1.0), np.nextafter(step, 0.0)):
+        rows.append([top, 0.3 * top, -0.2 * top, 0.1 * top])
+        flag.append(True)
+        clear.append(False)
+    for top in (0.7, 0.3, 100 * step):
+        rows.append([top, 0.3 * top, -0.21 * top, 0.13 * top])
+        flag.append(False)
+        clear.append(False)
+    refl = reflections_from_coefs(np, np.asarray(rows))
+    return ("quantization half and shift edges",
+            lags_from_reflections(np, 1.0, refl), 4096, 16, 4, True,
+            np.asarray(flag), np.asarray(clear))
+
+
+def k7_silent_case(np):
+    """Lags (M 8) of an order-1 process whose r0 sits on the silent
+    threshold FLT_EPSILON, 1e-9, 5e-7, 1e-3 and 0.5 (relative) beside it."""
+    from srla_tpu_torch.kernels.levinson import FLT_EPSILON
+    rel = np.array([0.0, 1e-9, -1e-9, 5e-7, -5e-7, 1e-3, -1e-3, 0.5, -0.5])
+    lags = (FLT_EPSILON * (1.0 + rel))[:, None] * 0.9 ** np.arange(9)
+    return ("silent threshold", lags, 4096, 16, 8, False,
+            np.abs(rel) <= 5e-7, np.abs(rel) >= 1e-3)
+
+
+def k7_boundary_cases(np) -> list:
+    """[(name, lags, n, bps, M, max_fixed, must_flag, must_not_flag)]: lag
+    rows that drive K7's decisions to their boundaries."""
+    return [k7_order_tie_case(np), k7_quantize_case(np), k7_silent_case(np)]
+
+
+def check_flag_contract(np, what: str, port, host, risky, must_flag=None,
+                        must_not_flag=None) -> None:
+    """port == host on every row the port does not flag; the rows on a
+    boundary are flagged, the rows well away from one are not. port and
+    host are (orders, rshifts, intc) triples."""
+    differs = np.zeros(len(risky), bool)
+    for p, h in zip(port, host):
+        d = np.asarray(p) != np.asarray(h)
+        differs |= d.reshape(len(risky), -1).any(axis=1)
+    require(not (differs & ~risky).any(), f"{what}: rows "
+            f"{np.flatnonzero(differs & ~risky)[:8]} differ from the host "
+            f"unflagged")
+    if must_flag is not None:
+        require(risky[must_flag].all(), f"{what}: boundary rows "
+                f"{np.flatnonzero(must_flag & ~risky)} are not flagged")
+    if must_not_flag is not None:
+        require(not risky[must_not_flag].any(), f"{what}: rows "
+                f"{np.flatnonzero(must_not_flag & risky)} far from a "
+                f"boundary are flagged")
+
+
+def exact_lag_errors(np, work, got, n: int, bps: int, F: int, lags):
+    """The largest distance, in r0, of the lags ``got`` (R, L) of the rows
+    work (R, n) from the exact rational circular autocorrelation."""
+    from fractions import Fraction
+
+    from srla_tpu_torch.kernels.autocorr import scaled_window
+    worst = 0.0
+    win = scaled_window(n, bps)
+    for r in range(work.shape[0]):
+        d = [Fraction(float(v)) for v in work[r].astype(np.float64) * win]
+        r0 = sum(v * v for v in d) * Fraction(F, n)
+        for k in lags:
+            want = sum(d[i] * d[(i + k) % F] for i in range(n)
+                       if (i + k) % F < n) * Fraction(F, n)
+            worst = max(worst, float(abs(Fraction(float(got[r, k])) - want)
+                                     / r0))
+    return worst
+
+
+def exact_rows(np, n: int, bps: int):
+    """Two rows of n samples: full-scale noise and a loud sine."""
+    rng = np.random.RandomState(n)
+    hi = 1 << (bps - 1)
+    return np.stack([rng.randint(-hi, hi, n),
+                     np.round(np.sin(np.arange(n) * 0.031) * (hi - 1))]
+                    ).astype(np.int32)
+
+
+def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
+    """Phase 10, K8 and K7 on the card. On phase 6's two analysis calls
+    (the main path's 1291-block group and 1-block tail group) K8 and K7
+    against their plain versions (analysis_checks), no flag changed by K7;
+    K8 within 2^-46 r0 of the exact rational sum on rows of 16384 samples at
+    24 bits, 4064, 333 and 20000 (two stages) at lags 0, 1, 7, 64 and 262;
+    K7 at M 255 on the main group's lags against the host and its plain
+    version, and on the boundary rows (k7_boundary_cases, lags moved by
+    2^-42) against the host: every row whose decisions differ is flagged.
+    Times K8 at 65 lags (the LPC lags) and 263 (the pitch lags) beside its
+    plain version and the cuFFT route (rfft, |X|^2, irfft), K7 at M 64
+    beside its plain version and its serial floor, both at the tail
+    group's shape too. Returns the two kernels' records."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.dsp.fft import round_up_pow2
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.autocorr import (autocorr, autocorr_plain,
+                                                 scaled_window)
+    from srla_tpu_torch.kernels.levinson import lpc_analyze, lpc_analyze_plain
+    from srla_tpu_torch.kernels.ltp import LTP_LAGS
+
+    tally = new_tally()
+    groups = []
+    for tail in (False, True):
+        blocks, B, args, _ = main_group(torch, np, dev, pcm, tail=tail)
+        _, _, core = exact.variant_analysis(blocks, 0, **args)
+        analysis_checks(torch, f"encode group, {B} of {args['n']}", None,
+                        core["work"], args, tally)
+        groups.append((core["work"], args))
+    require(tally["k7_flag_diff"] == 0, f"phase 6's calls: K7 and its plain "
+            f"version flag {tally['k7_flag_diff']} rows apart")
+    tallies["music120_V0"] = tally
+    (work, args), (tail_work, tail_args) = groups
+    V, n = work.shape
+    bps, F, M = args["bps"], args["fft_size"], args["max_params"]
+
+    # K8: the LPC lags and the pitch lags of the main group, the tail's.
+    k8 = {}
+    for L in (M + 1, LTP_LAGS):
+        def run(L=L):
+            return autocorr(work, n, bps, L, F)
+
+        win = torch.from_numpy(scaled_window(n, bps).copy()).to(dev)
+
+        def cufft(L=L):
+            spec = torch.fft.rfft(work.double() * win, n=F)
+            return torch.fft.irfft(spec.real ** 2 + spec.imag ** 2,
+                                   n=F)[:, :L] * (float(F) / float(n))
+
+        want = autocorr_plain(work, n, bps, L, F)
+        fft_err = float(((cufft() - want).abs()
+                         / want[:, :1].abs().clamp(min=1e-300)).max())
+        # Read the samples and the window once, write the lags once; per
+        # row and lag the products whose two samples are both inside the
+        # row (n - k linear, k - (F - n) wrapped), a multiply and an add
+        # each, in f64.
+        pairs = sum((n - k) + max(0, k - (F - n)) for k in range(L))
+        b = bound(nbytes(work) + n * 8 + V * L * 8, 2 * V * pairs,
+                  F64_OPS_PER_S)
+        k8[L] = dict(lags=L, ms=cuda_ms(torch, run, 10),
+                     device_ms=device_ms(torch, run, 10),
+                     plain_ms=cuda_ms(torch, lambda L=L: autocorr_plain(
+                         work, n, bps, L, F), 1),
+                     library_ms=cuda_ms(torch, cufft, 10),
+                     library_err_r0=fft_err, **b)
+    tail_n, tail_F = tail_args["n"], tail_args["fft_size"]
+    k8_tail = device_ms(torch, lambda: autocorr(tail_work, tail_n, bps, M + 1,
+                                                tail_F), 20)
+    exact_err, exact_checked = 0.0, []
+    for en, ebps in ((16384, 24), (4064, 16), (333, 16), (20000, 24)):
+        rows = exact_rows(np, en, ebps)
+        eF = round_up_pow2(en)
+        t = torch.from_numpy(rows).to(dev)
+        got = autocorr(t, en, ebps, LTP_LAGS, eF)
+        want = autocorr_plain(t, en, ebps, LTP_LAGS, eF)
+        torch.cuda.synchronize()
+        require(bool(((got - want).abs() <= want[:, :1].abs()
+                      * 2.0 ** -45).all()),
+                f"K8 is more than 2^-45 r0 from its plain version at n {en}")
+        e = exact_lag_errors(np, rows, got.cpu().numpy(), en, ebps, eF,
+                             (0, 1, 7, 64, 262))
+        require(e <= 2.0 ** -46, f"K8 is {e:.3g} r0 from the exact sum at "
+                                 f"n {en} (limit 2^-46)")
+        exact_err = max(exact_err, e)
+        exact_checked.append(en)
+    m = k8[M + 1]
+    p = k8[LTP_LAGS]
+    print(f"phase 10 K8 autocorr at V={V} n={n}: {M + 1} lags kernel "
+          f"{m['ms']:.4f} ms, device time {m['device_ms']:.4f} ms, plain "
+          f"{m['plain_ms']:.2f} ms, cuFFT route {m['library_ms']:.4f} ms "
+          f"(within {m['library_err_r0']:.3g} r0), bound {m['bound_ms']:.4f} "
+          f"ms ({m['bound_by']}); {LTP_LAGS} lags kernel {p['ms']:.4f} ms, "
+          f"device time {p['device_ms']:.4f} ms, plain {p['plain_ms']:.2f} "
+          f"ms, cuFFT route {p['library_ms']:.4f} ms (within "
+          f"{p['library_err_r0']:.3g} r0), bound {p['bound_ms']:.4f} ms "
+          f"({p['bound_by']}); tail V={tail_work.shape[0]} n={tail_n}: "
+          f"device time {k8_tail:.4f} ms; within {exact_err:.3g} r0 of the "
+          f"exact sum at n {exact_checked} [{card}]")
+
+    # K7: the main group's ridged K8 lags, at M 64 and 255.
+    def ridged(L, rows=work, rn=n, rF=F):
+        ac = autocorr(rows, rn, bps, L, rF)
+        ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
+        return ac
+
+    ac, tail_ac = ridged(M + 1), ridged(M + 1, tail_work, tail_n, tail_F)
+    fixed = args["max_fixed"]
+
+    def run7():
+        return lpc_analyze(ac, n, bps, M, fixed)
+
+    orders = run7()[0].long()
+    ms7 = cuda_ms(torch, run7, 20)
+    dev7 = device_ms(torch, run7, 20)
+    plain7 = cuda_ms(torch, lambda: lpc_analyze_plain(ac, n, bps, M, fixed),
+                     1)
+    tail7 = device_ms(torch, lambda: lpc_analyze(tail_ac, tail_n, bps, M,
+                                                  fixed), 20)
+    step = chain_step_ms(torch, 2)
+    # Read the lags once, write orders, shifts, coefficients and the flag
+    # once; per row the first recursion (a sum of m products and the
+    # update of m + 1 coefficients, each a multiply and an add, and some
+    # five operations, m = 2..M), the order choice (~30 operations an
+    # order, the logarithms counted as 20), the replay to the chosen order
+    # p and the quantization (~8 an order), in f64.
+    mm = torch.arange(2, M + 1, dtype=torch.float64)
+    first = float((4 * mm + 7).sum())
+    replay = (orders.double() + 2) * (orders.double() - 1)
+    ops7 = V * (first + 30 * M) + float((replay + 8 * orders).sum())
+    b7 = bound(nbytes(ac) + V * (4 + 4 + 4 * M + 1), ops7, F64_OPS_PER_S)
+    floor7 = (M - 1) * step
+    ac255 = ridged(256)
+    got = [t.cpu().numpy() for t in lpc_analyze(ac255, n, bps, 255, False)]
+    plain = [t.cpu().numpy()
+             for t in lpc_analyze_plain(ac255, n, bps, 255, False)]
+    host = host_lpc(np, ac255.cpu().numpy(), n, bps, 255, False)
+    check_flag_contract(np, "K7 at M 255", got[:3], host, got[3])
+    both = ~got[3] & ~plain[3]
+    require(all((g[both] == w[both]).all() for g, w in zip(got, plain)),
+            "K7 at M 255 differs from its plain version on a row neither "
+            "flags")
+    diff255 = int((got[3] != plain[3]).sum())
+    bnames = []
+    for name, lags, bn, bb, bM, bfixed, must, must_not in \
+            k7_boundary_cases(np):
+        port = [t.cpu().numpy() for t in lpc_analyze(
+            torch.from_numpy(moved(np, lags)).to(dev), bn, bb, bM, bfixed)]
+        check_flag_contract(np, f"K7 on the {name} rows", port[:3],
+                            host_lpc(np, lags, bn, bb, bM, bfixed), port[3],
+                            must, must_not)
+        bnames.append(f"{name} ({int(port[3].sum())} of {len(lags)} "
+                      f"flagged)")
+    print(f"phase 10 K7 lpc_analyze at V={V} M={M} (orders up to "
+          f"{int(orders.max())}): kernel {ms7:.4f} ms, device time "
+          f"{dev7:.4f} ms, plain {plain7:.2f} ms, bound {b7['bound_ms']:.4f} "
+          f"ms ({b7['bound_by']}), serial floor {floor7:.4f} ms ({M - 1} "
+          f"steps of {step * 1e3:.3f} us); tail V={tail_ac.shape[0]}: device "
+          f"time {tail7:.4f} ms; at M 255 on the same rows every decision "
+          f"that differs from the host's flagged ({int(got[3].sum())} "
+          f"flagged), equal to plain where neither flags, flags apart from "
+          f"plain on {diff255} rows; boundary rows against the host: "
+          f"{'; '.join(bnames)} [{card}]")
+
+    err8 = max(t["k8_err"] for t in tallies.values())
+    err8_r0 = max(t["k8_err_r0"] for t in tallies.values())
+    flags7 = sum(t["k7_flag_diff"] for t in tallies.values())
+    flags8 = sum(t["k8_flag_diff"] for t in tallies.values())
+    print(f"phase 10 K8 and K7 against their plain versions on every "
+          f"analysis call of phases 6, 8 and 9: K8 within {err8_r0:.3g} r0 "
+          f"(max abs {err8:.3g}); rows whose flag K7 changes "
+          f"{flags7}, whose flag K8's lags change {flags8}; by path "
+          + json.dumps({k: {f: t[f] for f in ("calls", "rows",
+                                              "k7_flag_diff",
+                                              "k8_flag_diff")}
+                        for k, t in tallies.items()}))
+    lpc, pitch = k8[M + 1], k8[LTP_LAGS]
+    return [dict(name="autocorr", route="cuda",
+                 source="srla_tpu_torch/kernels/csrc/autocorr.cu",
+                 replaces="srla_tpu/kernels/exact.py:108",
+                 max_abs_err=err8, max_err_r0=err8_r0,
+                 exact_err_r0=exact_err, ms=lpc["ms"],
+                 plain_ms=lpc["plain_ms"], bound_ms=lpc["bound_ms"],
+                 bound_by=lpc["bound_by"], ops_ms=lpc["ops_ms"],
+                 library_ms=lpc["library_ms"], device_ms=lpc["device_ms"],
+                 tail_device_ms=k8_tail, flag_changes=flags8,
+                 pitch_lags=pitch),
+            dict(name="lpc_analyze", route="cuda",
+                 source="srla_tpu_torch/kernels/csrc/lpc_analyze.cu",
+                 replaces="srla_tpu/kernels/exact.py:150",
+                 max_abs_err=0, flag_changes=flags7, ms=ms7,
+                 plain_ms=plain7, **b7, library_ms=None, device_ms=dev7,
+                 tail_device_ms=tail7, serial_floor_ms=floor7,
+                 flag_changes_m255=diff255)]
 
 
 def main() -> int:
@@ -1682,10 +2223,13 @@ def main() -> int:
     k6_records, k6_launches = phase_bitfield(torch, np, dev)
     records += k6_records
     launches.update(k6_launches)
-    var_launches, var_errs, generic = phase_variable(torch, np, dev, pcm,
-                                                     card)
-    ltp_launches, ltp_records = phase_ltp_encode(torch, np, dev, pcm, card)
+    var_launches, var_errs, generic, tallies = phase_variable(
+        torch, np, dev, pcm, card)
+    ltp_launches, ltp_records, ltp_tallies = phase_ltp_encode(
+        torch, np, dev, pcm, card)
     records += ltp_records
+    tallies.update(ltp_tallies)
+    records += phase_analysis(torch, np, dev, pcm, card, tallies)
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]

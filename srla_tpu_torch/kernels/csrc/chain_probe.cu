@@ -12,10 +12,14 @@
 //   kind 1, a K2 codeword: p += clz(funnel(w1, w0, p)) + k + 1
 //           (the 32 bits at the bit position, their leading zeros, the
 //           next position)
+//   kind 2, a K7 Levinson step: a warp's f64 sum of one term a lane (an
+//           xor-butterfly of five shuffles and adds), then the division by
+//           the error variance that gives the next step's term
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
-// codewords: the kernel's serial floor on this card.
+// codewords (K7: the recursion's steps): the kernel's serial floor on this
+// card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,11 +34,21 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
 #pragma unroll 16
         for (int i = 0; i < steps; ++i)
             y = b - (uint32_t)((int32_t)(y * a + b) >> r);
-    } else {
+    } else if (kind == 1) {
         const uint32_t k1 = (b & 15u) + 1u;
 #pragma unroll 16
         for (int i = 0; i < steps; ++i)
             y += (uint32_t)__clz(__funnelshift_l(b, a, y)) + k1;
+    } else {
+        double v = 1.0 / (double)(y | 1u);
+        for (int i = 0; i < steps; ++i) {
+            double s = v;
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1)
+                s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+            v = __ddiv_rn(s, -__dadd_rn(fabs(s), 1.0));   // |v| < 1
+        }
+        y = (uint32_t)__double2hiint(v);
     }
     out[threadIdx.x] = y;
 }

@@ -11,11 +11,13 @@ threshold) the distance to the nearest decision boundary is computed; a
 variant closer than the margin is flagged ``risky`` and its block is
 re-derived on the exact host path. The margins are the JAX package's,
 unchanged (``exact.py:46-57``): f64 rounding error sits below df64's, so an
-unflagged decision equals the host's f64 decision. Long-term prediction
-(``-P``) runs its pitch search and solve in kernel K10
-(``ltp.ltp_analyze``, its margins beside it in ``ltp.py``). The residual and
-all bit math are exact integer code, partly in the kernels K3
-(``predict``), K4 (``rice_search``) and K5
+unflagged decision equals the host's f64 decision. The lags come from kernel
+K8 (``autocorr.autocorr``), the Levinson recursion, order choice and
+quantization from K7 (``levinson.lpc_analyze``, its margins beside it in
+``levinson.py``). Long-term prediction (``-P``) runs its pitch search and
+solve in kernel K10 (``ltp.ltp_analyze``, its margins beside it in
+``ltp.py``). The residual and all bit math are exact integer code, partly in
+the kernels K3 (``predict``), K4 (``rice_search``) and K5
 (``bitpack.pack_residual_sections``).
 
 Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
@@ -35,49 +37,53 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
-                         CODER_RICE_PARAMETER_BITS, LPC_COEFFICIENT_BITWIDTH,
+                         CODER_RICE_PARAMETER_BITS,
                          LPC_COEFFICIENT_ORDER_BITWIDTH,
                          LPC_RIDGE_REGULARIZATION_PARAMETER,
                          LTP_COEFFICIENT_BITWIDTH, LTP_ORDER_BITWIDTH,
                          LTP_PERIOD_BITWIDTH, PREEMPHASIS_COEF_SHIFT,
                          RSHIFT_LPC_COEFFICIENT_BITWIDTH)
-from ..dsp.window import welch_inverse_squared_sum, welch_window
 from ..huffman import parameter_codebook, sum_parameter_codebook
-from ..rice import _INV_LOGE2, _LOG_OPTX, MLNOPTX
+from ..rice import _LOG_OPTX, MLNOPTX
+from .autocorr import autocorr, autocorr_plain  # noqa: F401 (re-exported)
 from .bitpack import (pack_residual_sections, section_stream, zigzag,
                       zigzag32)
+from .levinson import (_dist_to_half, _round_half_away,  # noqa: F401
+                       levinson, lpc_analyze, quantize_exact,
+                       select_order_exact)
 from .lpc import wrap32
 from .ltp import LTP_COLS, LTP_LAGS, ltp_analyze, ltp_predict
 from .predict import predict, reverse_coefs
 from .rice_search import rice_sums
 
-FLT_EPSILON = 1.1920928955078125e-07
-
 # Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
 # errors are smaller, so they hold a fortiori). The f64 error they rest on,
-# with u = 2^-53 and n <= 16384 terms a sum:
+# with u = 2^-53 and n <= 16384 terms a sum (the order choice's and the
+# quantization's margins stand beside K7 in levinson.py, the LTP margins
+# beside K10 in ltp.py):
 #
 # - Pre-emphasis: r0 and r1 are exact integer sums on both sides while they
 #   stay below 2^53, and then 16 * r1 / r0 is the same two roundings: the
 #   distance is 0. Above 2^53 (24-bit blocks can reach 2^60) the host sums
 #   sequentially in f64, off by at most n * u = 2^-39 of r0 in each sum:
 #   |16 * r1 / r0| moves by under 16 * 2^-38 = 6e-11 < _EPS_PREEMPH.
-# - Autocorrelation: torch sums the n lag products in a tree (strips of a
-#   few terms, then pairwise), off by at most (log2 n + strip) * u of r0;
-#   measured <= 2^-52 * r0. The host takes the same lags from a real FFT of
-#   round_up_pow2(n) points, off by a few log2(n) * u of r0 in every lag;
-#   measured <= 2^-43 * r0 at n = 16384. Together under 2^-42 * r0, which
-#   tests/test_torch_encode_margins.py pins. A kernel that sums the products
-#   in another order must stay under that: a strictly sequential sum
-#   (n * u = 2^-39) would not.
-# - Levinson carries a relative error d of the lags into kappa * d of the
-#   error variances and coefficients to first order (kappa = r0 / min |ev|).
-#   The order choice compares lengths of n * entropy(ev) bits, which move
-#   by at most n * kappa * d / ln 2; its margin is n * kappa * 2^-40 bits
-#   (_KAPPA_SCALE), four times n * kappa * 2^-42, and never below the
-#   host's own tie-repair trigger of 1e-6 bits. Quantization rounds
-#   coef * 2^rshift with |coef * 2^rshift| <= 2 * qmax; its margin is
-#   2 * qmax * kappa * 2^-40, the same factor of four, never below 1e-7.
+# - Autocorrelation: the plain version (autocorr_plain) sums the n lag
+#   products in torch's tree (strips of a few terms, then pairwise), off by
+#   at most (log2 n + strip) * u of r0; measured <= 2^-52 * r0. K8
+#   (csrc/autocorr.cu) sums strips of 64 products in order, each product
+#   and add rounded once, then a fixed tree over the strips, stages of
+#   16384 samples in order and one multiply by fft_size / n: off by at most
+#   (64 + log2(n / 64) + stages) * u of r0 = 73 u = 2^-46.8 r0 at n = 16384
+#   (tests/test_torch_autocorr.py emulates that order and pins it). The
+#   host takes the same lags from a real FFT of round_up_pow2(n) points,
+#   off by a few log2(n) * u of r0 in every lag; measured <= 2^-43 * r0 at
+#   n = 16384. Either side together with the host stays under 2^-42 * r0
+#   (2^-43 + 2^-46.8 < 2^-42), which tests/test_torch_encode_margins.py
+#   pins and on which the Levinson and LTP margins rest. A strictly
+#   sequential sum (n * u = 2^-39) would not.
+# - Levinson, order choice and quantization (K7): levinson.py, above
+#   _EPS_SILENT, carries the lag error d <= 2^-42 into the kappa-scaled
+#   margins and bounds K7's order of gamma's sum.
 # - Rice: the partition means are exact leaf sums divided once and halved
 #   pairwise, the same operations in the same order as the host's: the
 #   distance is 0. The host's plain k comes from a chain of libm calls, each
@@ -90,24 +96,8 @@ _EPS_PREEMPH = 1e-8          # |16*r1/r0| distance to rounding half-boundary
 _EPS_RICE_LOG = 1e-8         # |log2v| distance to round-half boundary
 _EPS_RICE_TRUNC = 1e-9       # relative distance to k2 truncation boundary
 _EPS_RICE_MEAN2 = 1e-9       # |mean - 2| recursive/plain selection
-_EPS_SILENT = 1e-6           # relative |r0| distance to FLT_EPSILON
-_EPS_ORDER_BASE = 1e-6       # bits; matches the host tie-repair trigger
-_EPS_QUANT_BASE = 1e-7       # quantized-units distance to rounding boundary
-_KAPPA_SCALE = 2.0 ** -40    # conditioning amplification allowance
 
 _F64 = torch.float64
-
-
-def _round_half_away(x: torch.Tensor) -> torch.Tensor:
-    """C round(): floor(|x| + 0.5) with x's sign, in f64 as the host does."""
-    r = torch.floor(x.abs() + 0.5)
-    return torch.where(x < 0, -r, r)
-
-
-def _dist_to_half(x: torch.Tensor) -> torch.Tensor:
-    """Distance of x to the nearest k + 0.5 (round-half boundaries)."""
-    ax = x.abs()
-    return ((ax - torch.floor(ax)) - 0.5).abs()
 
 
 # ---------------------------------------------------------------------------
@@ -134,26 +124,6 @@ def preemphasis_exact(sig: torch.Tensor):
     return work, coef.to(torch.int32), risky
 
 
-def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
-             fft_size: int) -> torch.Tensor:
-    """work (V, n) int32 -> (V, order) f64 windowed autocorrelation, direct
-    lag by lag and circular over the zero-padded fft_size buffer, scaled by
-    fft_size / n: the value the host's FFT path computes. The window times
-    2^-(bps-1) is exact, so the windowed samples equal the host's. Odd n:
-    the Welch window's unwritten middle sample is taken as 0."""
-    win = welch_window(n).copy()
-    if n & 1:
-        win[n // 2] = 0.0
-    w = torch.from_numpy(win * 2.0 ** (-(bps - 1))).to(work.device)
-    d = F.pad(work.to(_F64) * w, (0, fft_size - n))
-    d2 = torch.cat([d, d[:, :order]], dim=1)
-    norm = float(fft_size) / float(n)
-    ac = torch.empty((work.shape[0], order), dtype=_F64, device=work.device)
-    for k in range(order):
-        ac[:, k] = (d * d2[:, k:k + fft_size]).sum(dim=1) * norm
-    return ac
-
-
 def ltp_lags(work: torch.Tensor, n: int, bps: int,
              fft_size: int) -> torch.Tensor:
     """The pitch autocorrelation of work (V, n) int32: lags 0..262 by
@@ -165,133 +135,6 @@ def ltp_lags(work: torch.Tensor, n: int, bps: int,
                          f"least {LTP_LAGS}, got {fft_size}")
     return F.pad(autocorr(work, n, bps, LTP_LAGS, fft_size),
                  (0, LTP_COLS - LTP_LAGS))
-
-
-def levinson(ac: torch.Tensor, max_order: int, orders=None):
-    """Levinson-Durbin recursion. ac (V, M+1) f64 with the ridge on lag 0.
-    Returns (error_vars (V, M+1), coefs (V, M) at per-row ``orders`` or None,
-    silent (V,), risky (V,), kappa (V,)). risky: r0 near the silent
-    threshold, or a non-finite error variance on a non-silent row."""
-    V = ac.shape[0]
-    M = max_order
-    r0 = ac[:, 0]
-    sr0 = torch.where(r0 == 0, 1.0, r0)
-    a = torch.zeros((V, M + 2), dtype=_F64, device=ac.device)
-    a[:, 0] = 1.0
-    a1 = -ac[:, 1] / sr0
-    a[:, 1] = a1
-    ev = torch.zeros((V, M + 1), dtype=_F64, device=ac.device)
-    ev[:, 0] = r0
-    ev[:, 1] = r0 + ac[:, 1] * a1
-    collected = None
-    if orders is not None:
-        collected = torch.zeros((V, M), dtype=_F64, device=ac.device)
-        collected[:, 0] = torch.where(orders == 1, a1, 0.0)
-    for k in range(M - 1):
-        # gamma = sum_{j <= k+1} a[j] * ac[k+2-j]
-        gamma = (a[:, :k + 2] * ac[:, 1:k + 3].flip(1)).sum(dim=1)
-        evk = ev[:, k + 1]
-        gamma = gamma / -torch.where(evk == 0, 1.0, evk)
-        ev[:, k + 2] = evk * (1.0 - gamma * gamma)
-        a_new = a[:, :k + 3] + gamma[:, None] * a[:, :k + 3].flip(1)
-        a[:, :k + 3] = a_new
-        if collected is not None:
-            sel = (orders == k + 2)[:, None]
-            collected[:, :k + 2] = torch.where(sel, a_new[:, 1:],
-                                               collected[:, :k + 2])
-    absr0 = r0.abs()
-    silent = absr0 < FLT_EPSILON
-    risky = (absr0 - FLT_EPSILON).abs() < _EPS_SILENT * FLT_EPSILON
-    evs = torch.where(silent[:, None], r0[:, None], ev)
-    if collected is not None:
-        collected = torch.where(silent[:, None], 0.0, collected)
-    # Conditioning estimate: r0 / min |ev| over the recursion.
-    ev_abs = evs.abs()
-    min_ev = torch.where(ev_abs > 0, ev_abs, math.inf).min(dim=1).values
-    ok = torch.isfinite(min_ev) & (min_ev > 0)
-    kappa = torch.where(silent, 1.0,
-                        absr0 / torch.where(ok, min_ev, 1.0))
-    kappa = torch.where(torch.isfinite(kappa) & (kappa >= 1.0), kappa,
-                        math.inf)
-    nonfinite = ~torch.isfinite(evs).all(dim=1)
-    risky = risky | (nonfinite & ~silent)
-    return evs, collected, silent, risky, kappa
-
-
-def select_order_exact(ev: torch.Tensor, n: int, bps: int, max_params: int,
-                       max_fixed: bool, kappa: torch.Tensor):
-    """BRUTEFORCE_ESTIMATION order choice from the window-corrected error
-    variances ev (V, M+1). Returns (orders (V,) int64, risky (V,)); the first
-    strict minimum of the estimated code length wins, as np.argmin."""
-    V = ev.shape[0]
-    if max_fixed:
-        return (torch.full((V,), max_params, dtype=torch.int64,
-                           device=ev.device),
-                torch.zeros(V, dtype=torch.bool, device=ev.device))
-    M = max_params
-    evo = ev[:, 1:M + 1]
-    neg_ev = evo < 0
-    mabse = 2.0 * torch.sqrt(torch.where(neg_ev, 0.0, evo) * 0.5)
-    intmean = mabse * float(1 << (bps - 1))
-    rho = 1.0 / (1.0 + intmean)
-    invrho = 1.0 - rho
-    z = mabse < 1e-16
-    t1 = invrho * (torch.log(torch.where(invrho <= 0, 0.5, invrho))
-                   * _INV_LOGE2)
-    t2 = rho * (torch.log(torch.where(rho <= 0, 0.5, rho)) * _INV_LOGE2)
-    ent = torch.where(z, 0.0, -(t1 + t2) / rho)
-    coef_bits = LPC_COEFFICIENT_BITWIDTH * torch.arange(
-        1, M + 1, dtype=_F64, device=ev.device)[None, :]
-    length = ent * float(n) + coef_bits
-    risky = (~neg_ev & ((mabse - 1e-16).abs() < 1e-17)).any(dim=1)
-    bad = neg_ev | ~torch.isfinite(length)
-    length = torch.where(bad, math.inf, length)
-    idx = length.argmin(dim=1)          # the first minimal index
-    best = length.gather(1, idx[:, None])[:, 0]
-    orders = idx + 1
-    others = length.scatter(1, idx[:, None], math.inf)
-    gap = others.min(dim=1).values - best
-    eps = torch.clamp(float(n) * kappa * _KAPPA_SCALE, min=_EPS_ORDER_BASE)
-    risky = risky | ~torch.isfinite(best) | (torch.isfinite(gap)
-                                             & (gap < eps))
-    return orders, risky
-
-
-def quantize_exact(coefs: torch.Tensor, orders: torch.Tensor, nbits: int,
-                   max_bits: int, kappa: torch.Tensor):
-    """coefs (V, M) f64 left-aligned. Backward error-feedback quantization.
-    Returns (int coefs (V, M) int64, rshift (V,) int64, risky (V,))."""
-    V, M = coefs.shape
-    dev = coefs.device
-    qmax = 1 << (nbits - 1)
-    mask = torch.arange(M, device=dev)[None, :] < orders[:, None]
-    maxabs = torch.where(mask, coefs.abs(), 0.0).max(dim=1).values
-    eps_k = torch.clamp(float(2 * qmax) * kappa * _KAPPA_SCALE,
-                        min=_EPS_QUANT_BASE)
-    tiny_thresh = 2.0 ** (-(nbits - 1))
-    tiny = maxabs <= tiny_thresh
-    risky = (maxabs - tiny_thresh).abs() < tiny_thresh * 1e-6
-    # frexp boundary: maxabs close to a power of two flips ndigit.
-    m, e = torch.frexp(maxabs)
-    risky = risky | (~tiny & (((m - 0.5).abs() < 1e-7) | (m > 1.0 - 1e-7)))
-    ndigit = torch.where(maxabs == 0, 0, e.long())
-    rshift = (nbits - 1) - ndigit
-    rshift = torch.where((rshift >= max_bits) | (rshift < 0), max_bits - 1,
-                         rshift)
-    rshift = torch.where(tiny, nbits, rshift)
-    scale = (torch.ones_like(rshift) << rshift).to(_F64)   # exact 2^rshift
-    qerr = torch.zeros(V, dtype=_F64, device=dev)
-    intc = torch.zeros((V, M), dtype=torch.int64, device=dev)
-    for ordi in range(M - 1, -1, -1):
-        active = orders > ordi
-        qe = qerr + coefs[:, ordi] * scale
-        qt = _round_half_away(qe).clamp(-qmax, qmax - 1)
-        risky = risky | (active & (_dist_to_half(qe) < eps_k))
-        qerr = torch.where(active, qe - qt, qerr)
-        intc[:, ordi] = torch.where(active, qt, 0.0).long()
-    intc = torch.where(tiny[:, None], 0, intc)
-    risky = risky | ~torch.isfinite(maxabs)
-    return intc, rshift, risky
 
 
 @lru_cache(maxsize=None)
@@ -443,32 +286,26 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
     if ltp_order > 0:
         timer("variants + pre-emphasis (torch)")
         lags = ltp_lags(work, n, bps, fft_size)
-        timer("LTP autocorrelation (torch f64)")
+        timer("K8 autocorr (pitch lags)")
         ltp_period, ltp_coefs, r_ltp = ltp_analyze(lags, ltp_order)
         timer("K10 ltp_analyze")
         work = ltp_predict(work, ltp_coefs, ltp_period, ltp_order)
         timer("LTP residual (torch)")
         risky = risky | r_ltp
     if max_params > 0:
+        if ltp_order == 0:
+            timer("variants + pre-emphasis (torch)")
         ac = autocorr(work, n, bps, max_params + 1, fft_size)
+        timer("K8 autocorr (LPC lags)")
         ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
-        timer("LPC autocorrelation (torch f64)" if ltp_order > 0 else
-              "variants + pre-emphasis + autocorrelation (torch f64)")
-        ev, _, _, r_lev, kappa = levinson(ac, max_params)
-        orders, r_ord = select_order_exact(
-            ev * welch_inverse_squared_sum(n), n, bps, max_params,
-            max_fixed, kappa)
-        _, coefs, _, _, _ = levinson(ac, max_params, orders)
-        intc, rshifts, r_q = quantize_exact(
-            coefs, orders, LPC_COEFFICIENT_BITWIDTH,
-            1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH, kappa)
-        orders = orders.to(torch.int32)
-        rshifts = torch.where(orders > 0, rshifts, 0).to(torch.int32)
+        orders, rshifts, intc, r_lpc = lpc_analyze(ac, n, bps, max_params,
+                                                   max_fixed)
+        rshifts = torch.where(orders > 0, rshifts, 0)
         coefs_rev = reverse_coefs(intc, orders)
-        timer("Levinson x2 + order choice + quantization (torch f64)")
+        timer("K7 lpc_analyze + reverse")
         residual = predict(work, coefs_rev, orders, rshifts)
         timer("K3 fir_predict")
-        risky = risky | r_lev | r_ord | r_q
+        risky = risky | r_lpc
     else:
         orders = torch.zeros(V, dtype=torch.int32, device=dev)
         rshifts = torch.zeros(V, dtype=torch.int32, device=dev)

@@ -40,10 +40,11 @@ _LTP_RING = 512                    # > the largest delay (263) + a step
 _LTP_CHUNK = 7                     # the smallest delay - order + 1
 
 # Margins, as in srla_tpu.kernels.exact (:942-947), and the f64 error they
-# must cover. The port's lags come from exact.autocorr (tree sums) and the
-# host's from a real FFT; every lag differs from the exact value by at most
-# 2^-42 of r0 (tests/test_torch_encode_margins.py pins it for the LTP lags
-# too), so port and host lags differ by d <= 2^-41 r0.
+# must cover. The port's lags come from autocorr.autocorr (K8 or its plain
+# version; their sum orders' bounds are in exact.py, above _EPS_PREEMPH) and
+# the host's from a real FFT; every lag differs from the exact value by at
+# most 2^-42 of r0 (tests/test_torch_encode_margins.py pins it for the LTP
+# lags too), so port and host lags differ by d <= 2^-41 r0.
 #
 # - Crossing signs, peak tests, running peaks, the 0.1 * r0 threshold and
 #   the 0.9 * max ratio compare two lags (or a lag and 0, or a lag and a

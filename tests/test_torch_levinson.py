@@ -1,0 +1,169 @@
+"""K7, the encode's LPC analysis of each row (srla_tpu_torch.kernels.
+levinson), against the JAX package and the host.
+
+- lpc_analyze on CPU tensors (its plain version) against JAX's
+  _levinson_dd, _select_order_exact, _levinson_dd at the chosen orders and
+  _quantize_exact on JAX-CPU (traced with the JAX package's pin, as its
+  entry points trace them), and against the host's Levinson, order choice
+  and quantization, on the lags of make_music, noise, a sine, silence and a
+  near-silent row, at M 8, 32 and 255: equal orders, shifts and
+  coefficients on every row that neither side flags.
+- Lag rows driven to the boundaries of K7's decisions (an order tie, a
+  quantization half, the frexp and tiny edges of the shift, the silent
+  threshold; chip_smoke.k7_boundary_cases) with the port's lags moved by
+  2^-42: every row whose decisions differ from the host's is flagged, the
+  rows on a boundary are flagged and the rows far from one are not.
+- The routing: a CPU tensor takes the plain version and leaves
+  lpc_analyze.launches at 0; a meta tensor raises.
+- On the card (marked gpu): the kernel against its plain version on the
+  same rows, equal where neither flags and flagged alike; the boundary
+  contract for the kernel; a CUDA tensor of the wrong dtype raises."""
+
+import functools
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from srla_tpu.kernels import df64 as dd  # noqa: E402
+from srla_tpu.kernels.exact import (_levinson_dd,  # noqa: E402
+                                    _quantize_exact, _select_order_exact)
+from srla_tpu_torch.constants import (  # noqa: E402
+    LPC_COEFFICIENT_BITWIDTH, LPC_RIDGE_REGULARIZATION_PARAMETER,
+    RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+from srla_tpu_torch.dsp.window import welch_inverse_squared_sum  # noqa: E402
+from srla_tpu_torch.kernels import exact  # noqa: E402
+from srla_tpu_torch.kernels.autocorr import autocorr_plain  # noqa: E402
+from srla_tpu_torch.kernels.levinson import (lpc_analyze,  # noqa: E402
+                                             lpc_analyze_plain)
+from srla_tpu_torch.signals import make_music  # noqa: E402
+
+N, BPS = 1024, 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4, 5))
+def _jax_lpc(tok, hi, lo, n, bps, M):
+    """JAX's LPC stages as _analyze_core_exact composes them (:1169-1188)."""
+    with dd.pinned(tok):
+        ac = (hi, lo)
+        ev, _, _, r_lev, kappa = _levinson_dd(ac, M)
+        winv = dd.const(welch_inverse_squared_sum(n))
+        evc = dd.mul(ev, (jnp.broadcast_to(winv[0], ev[0].shape),
+                          jnp.broadcast_to(winv[1], ev[1].shape)))
+        orders, r_ord = _select_order_exact(evc, n, bps, M, False, kappa)
+        _, coefs, _, _, _ = _levinson_dd(ac, M, orders)
+        intc, rshifts, r_q = _quantize_exact(
+            coefs, orders, LPC_COEFFICIENT_BITWIDTH,
+            1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH, kappa)
+        return orders, rshifts, intc, r_lev | r_ord | r_q
+
+
+def _lags(M: int) -> np.ndarray:
+    """Ridged lags (V, M + 1) of pre-emphasised rows of N samples: 12 blocks
+    of make_music's two channels, white noise, a sine, silence and a row
+    whose r0 is near the silent threshold."""
+    music = make_music(6 * N / 44100 + 0.01)
+    rows = [music[c, k * N:(k + 1) * N] for c in range(2) for k in range(6)]
+    rng = np.random.RandomState(M)
+    t = np.arange(N)
+    rows += [rng.randint(-30000, 30000, N), np.sin(t * 0.05) * 20000,
+             np.zeros(N), np.where(t % 97 == 0, 1, 0)]
+    work, _, _ = exact.preemphasis_exact(
+        torch.from_numpy(np.stack(rows).astype(np.int32)))
+    ac = autocorr_plain(work, N, BPS, M + 1, N)
+    ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
+    return ac.numpy()
+
+
+@pytest.mark.parametrize("M", [8, 32, 255])
+def test_lpc_analyze_matches_jax_and_host(M):
+    lags = _lags(M)
+    orders, rshifts, intc, risky = (
+        t.numpy() for t in lpc_analyze(torch.from_numpy(lags), N, BPS, M,
+                                       False))
+    hi, lo = dd.split_f64(lags)
+    jo, jr, jc, jrisky = (np.asarray(a) for a in jax.device_get(
+        _jax_lpc(np.int32(0), hi, lo, N, BPS, M)))
+    ho, hr, hc = chip_smoke.host_lpc(np, lags, N, BPS, M, False)
+    ok = ~risky & ~jrisky
+    assert ok.mean() > 0.75, ok.mean()
+    for port, jax_, host, what in ((orders, jo, ho, "orders"),
+                                   (rshifts, jr, hr, "rshifts"),
+                                   (intc, jc, hc, "coefficients")):
+        np.testing.assert_array_equal(port[ok], jax_[ok], err_msg=what)
+        np.testing.assert_array_equal(port[~risky], host[~risky],
+                                      err_msg=what)
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_boundary_rows_are_flagged(case):
+    name, lags, n, bps, M, fixed, must, must_not = \
+        chip_smoke.k7_boundary_cases(np)[case]
+    port = lpc_analyze(torch.from_numpy(chip_smoke.moved(np, lags)), n, bps,
+                       M, fixed)
+    chip_smoke.check_flag_contract(
+        np, name, [t.numpy() for t in port[:3]],
+        chip_smoke.host_lpc(np, lags, n, bps, M, fixed), port[3].numpy(),
+        must, must_not)
+
+
+def test_routing_cpu_plain_meta_raises():
+    ac = torch.from_numpy(_lags(8))
+    before = lpc_analyze.launches
+    got = lpc_analyze(ac, N, BPS, 8, False)
+    assert lpc_analyze.launches == before
+    for g, w in zip(got, lpc_analyze_plain(ac, N, BPS, 8, False)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        lpc_analyze(torch.empty((2, 9), dtype=torch.float64, device="meta"),
+                    N, BPS, 8, False)
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 32, 255])
+def test_lpc_analyze_kernel_matches_plain_on_card(cuda, M):
+    ac = torch.from_numpy(_lags(M)).to(cuda)
+    before = lpc_analyze.launches
+    got = lpc_analyze(ac, N, BPS, M, False)
+    want = lpc_analyze_plain(ac, N, BPS, M, False)
+    torch.cuda.synchronize()
+    assert lpc_analyze.launches == before + 1
+    assert torch.equal(got[3], want[3])
+    ok = ~got[3]
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g[ok], w[ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(3))
+def test_boundary_rows_are_flagged_on_card(cuda, case):
+    name, lags, n, bps, M, fixed, must, must_not = \
+        chip_smoke.k7_boundary_cases(np)[case]
+    port = lpc_analyze(torch.from_numpy(chip_smoke.moved(np, lags)).to(cuda),
+                       n, bps, M, fixed)
+    chip_smoke.check_flag_contract(
+        np, name, [t.cpu().numpy() for t in port[:3]],
+        chip_smoke.host_lpc(np, lags, n, bps, M, fixed),
+        port[3].cpu().numpy(), must, must_not)
+
+
+@pytest.mark.gpu
+def test_lpc_analyze_wrong_dtype_raises_on_card(cuda):
+    with pytest.raises(ValueError):
+        lpc_analyze(torch.zeros((2, 9), dtype=torch.float32, device=cuda),
+                    N, BPS, 8, False)

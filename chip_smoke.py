@@ -4,9 +4,10 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the ten CUDA libraries of csrc/ (thirteen kernels) and the
-serial-chain probe (csrc/chain_probe.cu, a measurement aid) with concurrent
-nvcc, then:
+Builds the ten CUDA libraries of csrc/ (thirteen kernels) and three
+measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
+designs of K8 and K7, csrc/autocorr_v1.cu and csrc/lpc_analyze_v1.cu, which
+nothing in the port calls) with concurrent nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
@@ -108,10 +109,11 @@ nvcc, then:
      one and not the other. Prints each encode's and decode's warm
      best of 3 and the encode's step split, and K10's (at the -V 0 encode's
      5164 rows) and K9's (at its stream's 2582 rows x 4096) times beside
-     their plain versions' and bounds.
+     their plain versions' and bounds, and each one's device time at the
+     tail (K10's 4-row call, K9's 1-block group).
  10. K8 and K7 (the encode's f64 analysis): on phase 6's two analysis calls
      as in phase 8; K8 within 2^-46 r0 of the exact rational sum on rows
-     of 16384 samples at 24 bits, 4064, 333 (odd) and 20000 (two
+     of 16384 samples at 24 bits, 4064, 333 (odd) and 20000 (five
      shared-memory stages) at lags 0, 1, 7, 64 and 262; K7 at M 255 on the
      main group's lags and on rows built on its decision boundaries (an
      order tie, a quantization half, the shift's frexp and tiny edges, the
@@ -121,7 +123,8 @@ nvcc, then:
      pitch lags) beside its plain version and the cuFFT route (rfft, |X|^2,
      irfft: the library yardstick, which the port never calls) and K7 at M
      64 beside its plain version and its serial floor, both also at the
-     tail group's 4 rows.
+     tail group's 4 rows, and both beside their first designs
+     (csrc/*_v1.cu) on the same inputs and card.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -140,10 +143,11 @@ two. K1 and K2 are recurrences, so each also gets a serial floor: its
 samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
-K7's, K8's and K10's operations are f64, over the H100's 34 TFLOP/s
-outside the tensor cores. K7 also gets a serial floor: the first
-recursion's M - 1 steps of the shortest dependent chain of one step
-(chain_probe.cu's f64 case).
+K7's and K10's operations are f64, over the H100's 34 TFLOP/s outside the
+tensor cores; K8's run on the f64 tensor cores, 67 TFLOP/s. K7 also gets a
+serial floor: the recursion's M - 1 steps of the shortest dependent chain
+of one step (chain_probe.cu's kind 3: an 8-lane butterfly and the
+division, K7's step at M <= 64).
 K3, K4, K5, K6, K9 and K10 also get a device time (device_ms): at their smaller
 shapes the host needs longer to enqueue a call than the card to run it, so
 the calls are captured into one CUDA graph and the replay is timed. K3 and
@@ -170,8 +174,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 # logic and multiply-add (compute capability 9.0), 1.98 GHz boost clock.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # H100 SXM f64 outside the tensor cores: 34 TFLOP/s (data sheet), a fused
-# multiply-add counted as two.
+# multiply-add counted as two; on the f64 tensor cores (DMMA), 67 TFLOP/s.
 F64_OPS_PER_S = 34e12
+F64_TENSOR_OPS_PER_S = 67e12
 K6_ROWS = 4096
 
 
@@ -289,8 +294,9 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
 def chain_step_ms(torch, kind: int) -> float:
     """Milliseconds one warp needs for one step of a serial chain alone
     (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
-    a K7 Levinson step): the difference of two chain lengths over their
-    difference, CUDA events."""
+    the Levinson step of K7's first design, kind 3 K7's step at M <= 64):
+    the difference of two chain lengths over their difference, CUDA
+    events."""
     import ctypes
 
     from srla_tpu_torch.kernels import build
@@ -455,7 +461,8 @@ def profile_decode(torch, decode, stream: bytes, dev) -> None:
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
              "autocorr", "lpc_analyze")
-PROBES = ("chain_probe",)        # measurement only: the serial floors
+# Measurement only: the serial floors, and K8's and K7's first designs.
+PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1")
 
 
 def main_param():
@@ -1591,7 +1598,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
     launches: dict = {}
     tallies: dict = {}
     err10 = err9 = 0
-    k10_main = k9_main = None
+    k10_main = k10_tail = k9_main = k9_tail = None
     for path, V in LTP_PATHS:
         param = ltp_param(V)
         t0 = time.perf_counter()
@@ -1649,6 +1656,9 @@ def phase_ltp_encode(torch, np, dev, music, card):
             if V == 0 and (k10_main is None
                            or lags.shape[0] > k10_main.shape[0]):
                 k10_main = lags
+            if V == 0 and (k10_tail is None
+                           or lags.shape[0] < k10_tail.shape[0]):
+                k10_tail = lags
         require(on > 0, f"-V {V} -P 3: no analysis row has LTP on")
         require(tally["k7_flag_diff"] == 0, f"-V {V} -P 3: K7 and its plain "
                 f"version flag {tally['k7_flag_diff']} rows apart")
@@ -1657,6 +1667,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
         err9 = max(err9, check_ltp_synth(torch, f"-V {V} -P 3", groups))
         if V == 0:
             k9_main = max(groups, key=lambda g: g[0])[2]
+            k9_tail = min(groups, key=lambda g: g[0])[2]
         enc_best = best_of(torch, lambda: SRLAEncoder(param, dev).encode_whole(
             music))
         dec_best = best_of(torch, lambda: decode(data, device=dev))
@@ -1690,6 +1701,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
     V10 = k10_main.shape[0]
     ms = cuda_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
     dev_ms = device_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
+    tail10 = device_ms(torch, lambda: ltp_analyze(k10_tail, 3), 20)
     plain_ms = cuda_ms(torch, lambda: ltp_analyze_plain(k10_main, 3), 1)
     # Read the lags once, write period, three coefficients and the flag
     # once; at least the two zero tests and the crossing's two compares at
@@ -1700,11 +1712,13 @@ def phase_ltp_encode(torch, np, dev, music, card):
     print(f"phase 9 K10 ltp_analyze at V={V10} x {k10_main.shape[1]} lags, "
           f"order 3: kernel {ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA "
           f"graph), plain {plain_ms:.2f} ms, bound {b10['bound_ms']:.4f} ms "
-          f"({b10['bound_by']}; operations {b10['ops_ms']:.6f} ms) [{card}]")
+          f"({b10['bound_by']}; operations {b10['ops_ms']:.6f} ms); tail "
+          f"V={k10_tail.shape[0]}: device time {tail10:.4f} ms [{card}]")
     # K9 at the -V 0 -P 3 stream's 1291-block group.
     v, lo, lp, lc, n = k9_main
     ms9 = cuda_ms(torch, lambda: ltp_synth(*k9_main), 20)
     dev9 = device_ms(torch, lambda: ltp_synth(*k9_main), 20)
+    tail9 = device_ms(torch, lambda: ltp_synth(*k9_tail), 20)
     plain9 = cuda_ms(torch, lambda: ltp_synth_plain(*k9_main), 1)
     on_rows = (lp > 0) & (lo > 0)
     delay = lp.long() + (lo.long() >> 1)
@@ -1721,17 +1735,20 @@ def phase_ltp_encode(torch, np, dev, music, card):
           f"row): kernel {ms9:.4f} ms, device time {dev9:.4f} ms (CUDA "
           f"graph), plain (before: the torch loop of ceil(n / 7) steps) "
           f"{plain9:.2f} ms, bound {b9['bound_ms']:.4f} ms "
-          f"({b9['bound_by']}; operations {b9['ops_ms']:.4f} ms) [{card}]")
+          f"({b9['bound_by']}; operations {b9['ops_ms']:.4f} ms); tail "
+          f"R={k9_tail[0].shape[0]} n={k9_tail[4]}: device time {tail9:.4f} "
+          f"ms [{card}]")
     recs = [dict(name="ltp_synth", route="cuda",
                  source="srla_tpu_torch/kernels/csrc/ltp_synth.cu",
                  replaces="srla_tpu/kernels/decode2.py:613",
                  max_abs_err=err9, ms=ms9, plain_ms=plain9, **b9,
-                 library_ms=None, device_ms=dev9, max_steps=steps9),
+                 library_ms=None, device_ms=dev9, tail_device_ms=tail9,
+                 max_steps=steps9),
             dict(name="ltp_analyze", route="cuda",
                  source="srla_tpu_torch/kernels/csrc/ltp_analyze.cu",
                  replaces="srla_tpu/kernels/exact.py:950",
                  max_abs_err=err10, ms=ms, plain_ms=plain_ms, **b10,
-                 library_ms=None, device_ms=dev_ms)]
+                 library_ms=None, device_ms=dev_ms, tail_device_ms=tail10)]
     return launches, recs, tallies
 
 
@@ -1946,19 +1963,87 @@ def exact_rows(np, n: int, bps: int):
                     ).astype(np.int32)
 
 
+def k8_first_design(torch, work, n: int, bps: int, L: int, F: int):
+    """fn() -> (V, L) lags of work by K8's first design (csrc/
+    autocorr_v1.cu, a measurement aid nothing in the port calls), on the
+    same inputs as autocorr. fn takes the current stream at each call, so a
+    CUDA graph can capture it."""
+    import ctypes
+
+    from srla_tpu_torch.kernels import build
+    from srla_tpu_torch.kernels.autocorr import scaled_window
+    fn = build.load("autocorr_v1").srla_autocorr_v1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    win = torch.from_numpy(scaled_window(n, bps).copy()).to(work.device)
+    out = torch.empty((work.shape[0], L), dtype=torch.float64,
+                      device=work.device)
+
+    def run():
+        err = fn(work.data_ptr(), win.data_ptr(), out.data_ptr(),
+                 work.shape[0], n, L, F,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K8's first design failed to launch ({err})")
+        return out
+    return run
+
+
+def k7_first_design(torch, ac, n: int, bps: int, M: int, fixed: bool):
+    """fn() -> (orders, rshifts, intc, risky) of K7's first design (csrc/
+    lpc_analyze_v1.cu, a measurement aid nothing in the port
+    calls), on the same inputs as lpc_analyze."""
+    import ctypes
+
+    from srla_tpu_torch.constants import (LPC_COEFFICIENT_BITWIDTH,
+                                          RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+    from srla_tpu_torch.dsp.window import welch_inverse_squared_sum
+    from srla_tpu_torch.kernels import build
+    fn = build.load("lpc_analyze_v1").srla_lpc_analyze_v1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    V, dev = ac.shape[0], ac.device
+    outs = (torch.empty(V, dtype=torch.int32, device=dev),
+            torch.empty(V, dtype=torch.int32, device=dev),
+            torch.empty((V, M), dtype=torch.int32, device=dev),
+            torch.empty(V, dtype=torch.bool, device=dev))
+
+    def run():
+        err = fn(ac.data_ptr(), *(t.data_ptr() for t in outs), V, n, bps, M,
+                 int(fixed), LPC_COEFFICIENT_BITWIDTH,
+                 1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH,
+                 welch_inverse_squared_sum(n),
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K7's first design failed to launch ({err})")
+        return outs
+    return run
+
+
+def in_turns(torch, old, new, reps: int) -> tuple:
+    """Device times (CUDA graph replay) of two versions of a kernel in
+    turns, old, new, new, old: ((old, old), (new, new)) ms."""
+    a = device_ms(torch, old, reps)
+    b = device_ms(torch, new, reps)
+    c = device_ms(torch, new, reps)
+    d = device_ms(torch, old, reps)
+    return (a, d), (b, c)
+
+
 def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
     """Phase 10, K8 and K7 on the card. On phase 6's two analysis calls
     (the main path's 1291-block group and 1-block tail group) K8 and K7
     against their plain versions (analysis_checks), no flag changed by K7;
     K8 within 2^-46 r0 of the exact rational sum on rows of 16384 samples at
-    24 bits, 4064, 333 and 20000 (two stages) at lags 0, 1, 7, 64 and 262;
+    24 bits, 4064, 333 and 20000 (five stages) at lags 0, 1, 7, 64 and 262;
     K7 at M 255 on the main group's lags against the host and its plain
     version, and on the boundary rows (k7_boundary_cases, lags moved by
     2^-42) against the host: every row whose decisions differ is flagged.
     Times K8 at 65 lags (the LPC lags) and 263 (the pitch lags) beside its
     plain version and the cuFFT route (rfft, |X|^2, irfft), K7 at M 64
     beside its plain version and its serial floor, both at the tail
-    group's shape too. Returns the two kernels' records."""
+    group's shape too, and both beside their first designs (csrc/*_v1.cu)
+    in turns on the same inputs. Returns the two kernels' records."""
     from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
     from srla_tpu_torch.dsp.fft import round_up_pow2
     from srla_tpu_torch.kernels import exact
@@ -2004,16 +2089,26 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
         # each, in f64.
         pairs = sum((n - k) + max(0, k - (F - n)) for k in range(L))
         b = bound(nbytes(work) + n * 8 + V * L * 8, 2 * V * pairs,
-                  F64_OPS_PER_S)
+                  F64_TENSOR_OPS_PER_S)
+        v1 = k8_first_design(torch, work, n, bps, L, F)
+        require(bool(((v1() - want).abs() <= want[:, :1].abs()
+                      * 2.0 ** -45).all()),
+                f"K8's first design is off its plain version at {L} lags")
+        (v1_a, v1_b), (dev_a, dev_b) = in_turns(torch, v1, run, 10)
         k8[L] = dict(lags=L, ms=cuda_ms(torch, run, 10),
-                     device_ms=device_ms(torch, run, 10),
+                     device_ms=min(dev_a, dev_b), device_ms_turns=[
+                         v1_a, dev_a, dev_b, v1_b],
+                     v1_device_ms=min(v1_a, v1_b),
                      plain_ms=cuda_ms(torch, lambda L=L: autocorr_plain(
                          work, n, bps, L, F), 1),
                      library_ms=cuda_ms(torch, cufft, 10),
-                     library_err_r0=fft_err, **b)
+                     library_err_r0=fft_err,
+                     vector_bound_ms=2 * V * pairs / F64_OPS_PER_S * 1e3, **b)
     tail_n, tail_F = tail_args["n"], tail_args["fft_size"]
-    k8_tail = device_ms(torch, lambda: autocorr(tail_work, tail_n, bps, M + 1,
-                                                tail_F), 20)
+    (v1_t, v1_t2), (k8_t, k8_t2) = in_turns(
+        torch, k8_first_design(torch, tail_work, tail_n, bps, M + 1, tail_F),
+        lambda: autocorr(tail_work, tail_n, bps, M + 1, tail_F), 20)
+    k8_tail, k8_tail_v1 = min(k8_t, k8_t2), min(v1_t, v1_t2)
     exact_err, exact_checked = 0.0, []
     for en, ebps in ((16384, 24), (4064, 16), (333, 16), (20000, 24)):
         rows = exact_rows(np, en, ebps)
@@ -2044,6 +2139,14 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
           f"({p['bound_by']}); tail V={tail_work.shape[0]} n={tail_n}: "
           f"device time {k8_tail:.4f} ms; within {exact_err:.3g} r0 of the "
           f"exact sum at n {exact_checked} [{card}]")
+    print(f"phase 10 K8 first design (csrc/autocorr_v1.cu) against "
+          f"now, device time in turns old, new, new, old: {M + 1} lags "
+          f"{m['device_ms_turns']}, {LTP_LAGS} lags "
+          f"{p['device_ms_turns']}, tail {[v1_t, k8_t, k8_t2, v1_t2]} ms; "
+          f"bounds on the f64 tensor cores {m['bound_ms']:.4f} and "
+          f"{p['bound_ms']:.4f} ms, on the f64 vector pipe "
+          f"{m['vector_bound_ms']:.4f} and {p['vector_bound_ms']:.4f} ms "
+          f"[{card}]")
 
     # K7: the main group's ridged K8 lags, at M 64 and 255.
     def ridged(L, rows=work, rn=n, rF=F):
@@ -2058,23 +2161,33 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
         return lpc_analyze(ac, n, bps, M, fixed)
 
     orders = run7()[0].long()
+    v1_7 = k7_first_design(torch, ac, n, bps, M, fixed)
+    old7, new7 = v1_7(), run7()
+    same = ~old7[3] & ~new7[3]
+    require(torch.equal(old7[3], new7[3])
+            and all(torch.equal(a[same], b[same])
+                    for a, b in zip(old7[:3], new7[:3])),
+            "K7's first design and K7 differ on the main group")
     ms7 = cuda_ms(torch, run7, 20)
-    dev7 = device_ms(torch, run7, 20)
+    (v1_a, v1_b), (dev_a, dev_b) = in_turns(torch, v1_7, run7, 20)
+    dev7, dev7_v1 = min(dev_a, dev_b), min(v1_a, v1_b)
     plain7 = cuda_ms(torch, lambda: lpc_analyze_plain(ac, n, bps, M, fixed),
                      1)
-    tail7 = device_ms(torch, lambda: lpc_analyze(tail_ac, tail_n, bps, M,
-                                                  fixed), 20)
-    step = chain_step_ms(torch, 2)
+    (tv1_a, tv1_b), (t_a, t_b) = in_turns(
+        torch, k7_first_design(torch, tail_ac, tail_n, bps, M, fixed),
+        lambda: lpc_analyze(tail_ac, tail_n, bps, M, fixed), 20)
+    tail7, tail7_v1 = min(t_a, t_b), min(tv1_a, tv1_b)
+    step = chain_step_ms(torch, 3)
+    step_v1 = chain_step_ms(torch, 2)
     # Read the lags once, write orders, shifts, coefficients and the flag
     # once; per row the first recursion (a sum of m products and the
     # update of m + 1 coefficients, each a multiply and an add, and some
     # five operations, m = 2..M), the order choice (~30 operations an
-    # order, the logarithms counted as 20), the replay to the chosen order
-    # p and the quantization (~8 an order), in f64.
+    # order, the logarithms counted as 20) and the quantization (~8 an
+    # order), in f64.
     mm = torch.arange(2, M + 1, dtype=torch.float64)
     first = float((4 * mm + 7).sum())
-    replay = (orders.double() + 2) * (orders.double() - 1)
-    ops7 = V * (first + 30 * M) + float((replay + 8 * orders).sum())
+    ops7 = V * (first + 30 * M) + float((8 * orders).sum())
     b7 = bound(nbytes(ac) + V * (4 + 4 + 4 * M + 1), ops7, F64_OPS_PER_S)
     floor7 = (M - 1) * step
     ac255 = ridged(256)
@@ -2103,7 +2216,12 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
           f"{dev7:.4f} ms, plain {plain7:.2f} ms, bound {b7['bound_ms']:.4f} "
           f"ms ({b7['bound_by']}), serial floor {floor7:.4f} ms ({M - 1} "
           f"steps of {step * 1e3:.3f} us); tail V={tail_ac.shape[0]}: device "
-          f"time {tail7:.4f} ms; at M 255 on the same rows every decision "
+          f"time {tail7:.4f} ms; first design (csrc/lpc_analyze_v1.cu"
+          f", equal outputs) in turns old, new, new, old: main "
+          f"{[v1_a, dev_a, dev_b, v1_b]}, tail {[tv1_a, t_a, t_b, tv1_b]} "
+          f"ms, its serial floor {(M - 1) * step_v1:.4f} ms "
+          f"({step_v1 * 1e3:.3f} us a step); at M 255 on the same rows "
+          f"every decision "
           f"that differs from the host's flagged ({int(got[3].sum())} "
           f"flagged), equal to plain where neither flags, flags apart from "
           f"plain on {diff255} rows; boundary rows against the host: "
@@ -2130,7 +2248,8 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
                  plain_ms=lpc["plain_ms"], bound_ms=lpc["bound_ms"],
                  bound_by=lpc["bound_by"], ops_ms=lpc["ops_ms"],
                  library_ms=lpc["library_ms"], device_ms=lpc["device_ms"],
-                 tail_device_ms=k8_tail, flag_changes=flags8,
+                 tail_device_ms=k8_tail, v1_device_ms=lpc["v1_device_ms"],
+                 v1_tail_device_ms=k8_tail_v1, flag_changes=flags8,
                  pitch_lags=pitch),
             dict(name="lpc_analyze", route="cuda",
                  source="srla_tpu_torch/kernels/csrc/lpc_analyze.cu",
@@ -2138,6 +2257,8 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
                  max_abs_err=0, flag_changes=flags7, ms=ms7,
                  plain_ms=plain7, **b7, library_ms=None, device_ms=dev7,
                  tail_device_ms=tail7, serial_floor_ms=floor7,
+                 v1_device_ms=dev7_v1, v1_tail_device_ms=tail7_v1,
+                 v1_serial_floor_ms=(M - 1) * step_v1,
                  flag_changes_m255=diff255)]
 
 

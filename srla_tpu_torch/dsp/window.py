@@ -17,13 +17,20 @@ from functools import lru_cache
 import numpy as np
 
 
+def welch_divisor(num_samples: int) -> float:
+    """The Welch window's scale 4 / (n - 1)^2 as the reference computes it:
+    sample k < n / 2 (and its mirror n - 1 - k) is (divisor * k) * (n - 1 -
+    k). C pow(0.0, -2.0) is +inf (n == 1: no sample uses it, the lone sample
+    is the "unwritten middle"); Python's math.pow raises."""
+    n = num_samples
+    return math.inf if n == 1 else 4.0 * math.pow(n - 1, -2.0)
+
+
 @lru_cache(maxsize=None)
 def welch_window(num_samples: int) -> np.ndarray:
     n = num_samples
     w = np.full(n, np.nan)
-    # C pow(0.0, -2.0) is +inf (n == 1: the loop below is empty anyway, the
-    # lone sample is the "unwritten middle"); Python's math.pow raises.
-    divisor = math.inf if n == 1 else 4.0 * math.pow(n - 1, -2.0)
+    divisor = welch_divisor(n)
     for smpl in range(n >> 1):
         weight = (divisor * smpl) * (n - 1 - smpl)
         w[smpl] = weight

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..dsp.window import welch_window
+from ..dsp.window import welch_divisor, welch_window
 from . import build
 
 _F64 = torch.float64
@@ -61,11 +61,6 @@ def autocorr_plain(work: torch.Tensor, n: int, bps: int, order: int,
     return ac
 
 
-@lru_cache(maxsize=None)
-def _device_window(n: int, bps: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(scaled_window(n, bps).copy()).to(device)
-
-
 def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
              fft_size: int) -> torch.Tensor:
     """work (V, n) int32 -> (V, order) f64 lags 0..order-1 (``order`` lags,
@@ -87,16 +82,17 @@ def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
     out = torch.empty((V, order), dtype=_F64, device=work.device)
     if V == 0:
         return out
-    win = _device_window(n, bps, str(work.device))
     lib = build.load("autocorr")
     fn = lib.srla_autocorr
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+            + [ctypes.c_double] * 2 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream(work.device).cuda_stream
-    err = fn(work.data_ptr(), win.data_ptr(), out.data_ptr(), V, n, order,
-             fft_size, stream)
+    # The kernel makes scaled_window's samples itself from the same two
+    # numbers: welch_window's divisor and the exact 2^-(bps-1).
+    err = fn(work.data_ptr(), out.data_ptr(), V, n, order, fft_size,
+             welch_divisor(n), 2.0 ** -(bps - 1), stream)
     build.check(err, "autocorr")
     autocorr.launches += 1
     return out

@@ -1,4 +1,5 @@
-// K8: the encode's windowed circular autocorrelation.
+// K8: the encode's windowed circular autocorrelation, on the f64 tensor
+// cores.
 //
 // Replaces the XLA program srla_tpu/kernels/exact.py:_autocorr_dd (lag loop
 // :143, body :130), which the encode runs for the LPC lags of every analysis
@@ -14,165 +15,296 @@
 // j mod F >= n), never the linear autocorrelation. Its plain version is
 // kernels/autocorr.py:autocorr_plain.
 //
+// A Gram product. Read the row as X[p][q] = d[16p + q] (rows of 16
+// samples). For a lag tile c = 0, 8, 16, ... the 16 x 8 product with entry
+// (m, j) = sum_p X[p][m] * ext[16p + c + j] (depth: the rows p) is the sum
+// over i = m (mod 16), i < n, of d[i] * ext[i + c + j - m]. Lag l takes one
+// entry a residue m, from tile c = 8 floor((l + m) / 8), column j = (l + m)
+// mod 8, and the sum of those 16 entries is the lag: (L + 14) / 8 + 1
+// tiles give L lags (10 for 65 lags, 35 for 263).
+//
+// On the tensor cores: mma.sync.aligned.m16n8k4.row.col.f64 (DMMA)
+// computes D = A B + C with A 16 x 4, B 4 x 8; with A[m][k] = X[p + k][m]
+// and B[k][j] = ext[16 (p + k) + c + j] it adds 4 depth rows of tile c. (On
+// an H100 it runs at the f64 tensor rate, 67 TFLOP/s; m8n8k4 runs at half
+// that.) Lane l (g = l >> 2, t = l & 3) holds A's (g, t) and (g + 8, t),
+// B's (t, g) and C's (g, 2t + {0, 1}) and (g + 8, 2t + {0, 1}), so its A
+// values are samples 16 (p + t) + g (+ 8) and its B value of tile c is
+// sample 16 (p + t) + g + c: the B value of the tile 8 tiles on is the
+// same tile's one step (4 rows) later. A warp item owns a run of TW <= 10
+// consecutive tiles and one chunk of 64 depth rows: it keeps a window of
+// TW B values in registers, slides it a step with at most 8 shared loads
+// plus 2 for A (padded: no bank conflict), and issues TW DMMAs a step into
+// TW independent accumulators.
+//
 // The sum order is part of the contract, because the lags feed the
-// Levinson and LTP margins (kernels/exact.py, above _EPS_PREEMPH): each
-// thread sums one strip of 64 consecutive products in order, every product
-// and every add rounded once (__dmul_rn, __dadd_rn: no multiply-add
-// contraction, so tests/test_torch_autocorr.py emulates the order exactly
-// in torch); the 32 strips of a warp are combined by an xor-butterfly tree,
-// the warps' groups of 2048 samples by a pairwise tree, stages of 16384
-// samples in order, then one multiply by F / n. The error is at most
-// (64 + log2(strips) + stages) u of r0, u = 2^-53: 73 u = 2^-46.8 r0 at
-// n = 16384.
+// Levinson and LTP margins (kernels/exact.py, above _EPS_PREEMPH). An
+// accumulator takes one chunk's 16 DMMAs (64 products) in order, whatever
+// order a DMMA keeps inside; a stage's (up to) 4 chunks are combined by a
+// pairwise tree, per entry; then a lag's 16 residue entries by a pairwise
+// tree; stages of 4096 samples in order; then one multiply by F / n. A
+// product passes at most 5 roundings in its own DMMA and 4 in each of the
+// 15 after it, so at most 65 + 2 + 4 + (stages - 1) + 1 roundings: 75 u of
+// r0 at n = 16384 (u = 2^-53; 2^-46.8), the bound exact.py states and
+// tests/test_torch_autocorr.py pins with an exact emulation of this order
+// (on an H100 the DMMA is a chain of fused multiply-adds in depth order,
+// and the kernel equals the emulation bit for bit).
 //
-// What bounds it on an H100: L * n multiply-adds a row in f64, at the
-// encode's main path 5164 rows x 4096 x 65 lags (1.4 G) or x 263 (5.6 G),
-// against 85 MB of int32 samples read once: the f64 pipe (34 TFLOP/s, 0.33
-// ms for the 263 lags, counting the multiply and the add as the two flops
-// of a fused multiply-add), not the bytes (0.025 ms). Without contraction
-// the multiply and the add take a slot each, so this design's floor is
-// twice that bound.
-//
-// Design: a CTA per row stages the windowed row once in shared memory as
-// f64 (one device read a sample) in a padded layout (a spare word after
-// every 64, so 32 lanes on 32 strips hit 32 banks), with a halo of the
-// padded lag count past the stage, taken circularly. A warp item is 8
-// consecutive lags x one group of 32 strips: each lane keeps its strip's 8
-// lags' products as a sliding window of 8 samples in registers, so a step
-// of 8 multiply-adds costs two shared loads and the f64 pipe sets the
-// pace. Rows longer than a stage (16384 samples, 154 KB of dynamic shared
-// memory) are staged in turns, each stage with its own halo.
+// What bounds it on an H100: L * n multiply-adds a row in f64 on the
+// tensor cores (67 TFLOP/s, twice the vector pipe's 34), at the encode's
+// main path 5164 rows x 4096 x 65 lags (0.041 ms of useful work; this
+// design computes 80 lags' worth, 0.051 ms) or x 263 (0.165 ms; 320
+// computed) against 85 MB of int32 samples read once (0.025 ms). Rows of
+// up to 4096 samples fill one stage (16-byte loads, the Welch window
+// computed in place); longer rows are staged in turns. A CTA has a warp
+// for each chunk of a stage and each run; lags past what one CTA's two
+// runs hold go to further CTAs of the row (grid y), each over its own
+// tiles: a pass of 20 tiles owns 144 lags and shares two tiles with the
+// next pass.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kStrip = 64;                 // products one thread sums in order
-constexpr int kGroup = 32 * kStrip;        // samples of one warp's 32 strips
-constexpr int kLags = 8;                   // consecutive lags of one thread
-constexpr int kStageGroups = 8;            // groups staged at once
-constexpr int kThreads = 256;
+constexpr int kStage = 4096;                    // samples staged at once
+constexpr int kStageRows = kStage / 16;         // rows of X in a stage
+constexpr int kChunkRows = 64;                  // depth rows an accumulator
+constexpr int kChunkSteps = kChunkRows / 4;     // DMMAs an accumulator
+constexpr int kChunks = kStageRows / kChunkRows;
+constexpr int kMaxRun = 10;                     // tiles a warp holds
 constexpr int kMaxLags = 1024;
 
-// Shared-memory index of extended-row sample j of a stage: a spare word
-// after every 64.
-__host__ __device__ __forceinline__ int padded(int j) { return j + (j >> 6); }
+// How a launch cuts L lags: runs of TW tiles, `runs` of them a CTA (the
+// CTA's TP = TW * runs tiles, a warp for each run and chunk), passes (CTAs
+// a row), each pass starting Q = TP - 2 tiles after the last.
+struct Plan {
+    int TW, runs, TP, Q, passes;
+};
 
-__host__ __device__ __forceinline__ int pad_lags(int L) {
-    return (L + kLags - 1) / kLags * kLags;
+__host__ __device__ inline Plan make_plan(int L) {
+    Plan p;
+    const int tiles = (L + 14) / 8 + 1;
+    p.TW = tiles <= kMaxRun ? tiles : kMaxRun;
+    p.runs = tiles <= kMaxRun ? 1 : 2;
+    p.TP = p.TW * p.runs;
+    p.Q = p.TP - 2;
+    p.passes = tiles <= kMaxRun ? 1 : (L - 1 + 8 * p.Q - 1) / (8 * p.Q);
+    return p;
 }
 
-// Doubles of dynamic shared memory: the staged samples with their halo, a
-// partial sum per group and padded lag, and the row's running sums.
-__host__ __device__ __forceinline__ int smem_doubles(int stage_groups,
-                                                     int L) {
-    const int Lp = pad_lags(L);
-    return padded(stage_groups * kGroup + Lp) + 1 + stage_groups * Lp + Lp;
+// Shared-memory index of staged sample j: 4 spare words after every 16, so
+// a load (lane l at 16 (l & 3) + (l >> 2) + const) meets no bank twice in
+// a half-warp.
+__host__ __device__ __forceinline__ int padded(int j) {
+    return j + 4 * (j >> 4);
 }
 
-__global__ void __launch_bounds__(kThreads)
-autocorr_kernel(const int32_t* __restrict__ work,
-                const double* __restrict__ win, double* __restrict__ out,
-                int n, int L, int F, double norm) {
+// Samples a stage of `rows` rows stages for a pass from tile T0: its rows
+// rounded to a step and the B halo of the pass's tiles.
+__host__ __device__ __forceinline__ int stage_span(int rows, int T0,
+                                                  const Plan& p) {
+    return 16 * ((rows + 3) & ~3) + 8 * (T0 + p.TP) + 48;
+}
+
+// Doubles of dynamic shared memory: the stage (its space reused for the
+// chunks' tile sums once the products are done), the pass's running lags.
+__host__ __device__ inline int smem_doubles(const Plan& p) {
+    const int stage = padded(stage_span(kStageRows, p.Q * (p.passes - 1),
+                                        p)) + 1;
+    const int part = kChunks * p.TP * 128;
+    return (stage > part ? stage : part) + 8 * p.Q + 1;
+}
+
+// The scaled window's sample i (kernels/autocorr.py:scaled_window, from
+// dsp/window.py:welch_window): (divisor * k) * (n - 1 - k) with k the
+// sample's distance from the nearer end, 0 in the middle of an odd row,
+// times scale = 2^-(bps-1); every product rounded as numpy rounds it.
+__device__ __forceinline__ double window(int i, int n, double divisor,
+                                         double scale) {
+    const int half = n >> 1;
+    if ((n & 1) && i == half) return 0.0;
+    const int k = i < half ? i : n - 1 - i;
+    return __dmul_rn(__dmul_rn(__dmul_rn(divisor, (double)k),
+                               (double)(n - 1 - k)), scale);
+}
+
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[2],
+                                     double b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+// One warp item: tiles tile0 .. tile0 + TW - 1 over the stage's depth rows
+// row0 .. row0 + 4 * steps - 1, A masked to the live samples, into acc.
+template <int TW>
+__device__ __forceinline__ void item(const double* __restrict__ buf,
+                                     double (&acc)[TW][4], int tile0,
+                                     int row0, int steps, int live,
+                                     int lane) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    double w[TW];
+#pragma unroll
+    for (int u = 0; u < TW; ++u)
+        w[u] = buf[padded(16 * (row0 + t) + 8 * (tile0 + u) + g)];
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+        const int r = row0 + 4 * s;
+        const int i0 = 16 * (r + t) + g;
+        const double a[2] = {i0 < live ? buf[padded(i0)] : 0.0,
+                             i0 + 8 < live ? buf[padded(i0 + 8)] : 0.0};
+#pragma unroll
+        for (int u = 0; u < TW; ++u) dmma(acc[u], a, w[u]);
+#pragma unroll
+        for (int u = 0; u < TW; ++u)
+            w[u] = u + 8 < TW
+                ? w[u + 8]
+                : buf[padded(16 * (r + 4 + t) + 8 * (tile0 + u) + g)];
+    }
+}
+
+template <int TW>
+__global__ void __launch_bounds__(32 * kChunks * 2, 2)
+autocorr_kernel(const int32_t* __restrict__ work, double* __restrict__ out,
+                int n, int L, int F, double norm, double divisor,
+                double scale) {
     extern __shared__ double smem[];
-    const int Lp = pad_lags(L);
-    const int LT = Lp / kLags;
-    const int groups = (n + kGroup - 1) / kGroup;
-    const int stage_groups = min(groups, kStageGroups);
+    const Plan p = make_plan(L);
+    const int T0 = p.Q * blockIdx.y;               // the pass's first tile
+    const int lo = blockIdx.y == 0 ? 0 : 8 * T0 + 1;
+    const int hi = min(L - 1, 8 * (T0 + p.Q));     // its lags lo .. hi
     double* buf = smem;
-    double* part = buf + padded(stage_groups * kGroup + Lp) + 1;
-    double* total = part + stage_groups * Lp;
+    double* part = smem;                           // after the products
+    double* total = smem + smem_doubles(p) - (8 * p.Q + 1);
     const int32_t* x = work + (size_t)blockIdx.x * n;
+    const bool aligned = (n & 3) == 0
+        && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int nwarps = blockDim.x >> 5;
+    const int run = warp / kChunks;
+    const int k = warp % kChunks;                  // the warp's chunk
 
-    for (int g0 = 0; g0 < groups; g0 += kStageGroups) {
-        const int ng = min(kStageGroups, groups - g0);
-        const int start = g0 * kGroup;
-        const int span = ng * kGroup + Lp;
-        __syncthreads();                   // the last stage's reads are done
-        for (int j = threadIdx.x; j < span; j += blockDim.x) {
-            const int m = (start + j) % F;
-            buf[padded(j)] = m < n ? __dmul_rn((double)x[m], win[m]) : 0.0;
-        }
-        __syncthreads();
-        for (int item = warp; item < LT * ng; item += nwarps) {
-            const int c = (item % LT) * kLags;       // the item's first lag
-            const int g = item / LT;
-            const int i0 = (g * 32 + lane) * kStrip;  // the lane's strip
-            const int live = n - (start + i0);        // its samples below n
-            const double* xs = buf + padded(i0);
-            double w[kLags], acc[kLags];
-#pragma unroll
-            for (int r = 0; r < kLags; ++r) {
-                w[r] = buf[padded(i0 + c + r)];
-                acc[r] = 0.0;
-            }
-#pragma unroll
-            for (int t = 0; t < kStrip; ++t) {
-                const double xv = t < live ? xs[t] : 0.0;
-#pragma unroll
-                for (int r = 0; r < kLags; ++r)
-                    acc[r] = __dadd_rn(acc[r], __dmul_rn(xv, w[r]));
-                if (t + 1 < kStrip) {
-#pragma unroll
-                    for (int r = 0; r + 1 < kLags; ++r) w[r] = w[r + 1];
-                    w[kLags - 1] = buf[padded(i0 + c + t + kLags)];
-                }
-            }
-            // The group's 32 strips: a pairwise tree over the lanes; every
-            // lane ends with the same sums (addition commutes bit for bit).
-#pragma unroll
-            for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-                for (int r = 0; r < kLags; ++r)
-                    acc[r] = __dadd_rn(acc[r],
-                                       __shfl_xor_sync(0xffffffffu, acc[r],
-                                                       off));
-            }
-            if (lane < kLags) {
-                double v = acc[0];
-#pragma unroll
-                for (int r = 1; r < kLags; ++r)
-                    if (lane == r) v = acc[r];
-                part[g * Lp + c + lane] = v;
+    for (int s0 = 0; s0 < n; s0 += kStage) {
+        const int live = n - s0;
+        const int rows = min(kStageRows, (live + 15) / 16);
+        const int chunks = (rows + kChunkRows - 1) / kChunkRows;
+        const int span = stage_span(rows, T0, p);
+        __syncthreads();                   // the last stage's lags are read
+        // The live samples (below n: no wrap) four at a time where the row
+        // allows 16-byte loads, then the rest and the circular halo.
+        int body = 0;
+        if (aligned) {
+            body = min(span, live) & ~3;
+            const int4* x4 = reinterpret_cast<const int4*>(x + s0);
+#pragma unroll 8
+            for (int q = threadIdx.x; q < body / 4; q += blockDim.x) {
+                const int4 v = x4[q];
+                const int i = s0 + 4 * q;
+                double* d = buf + padded(4 * q);
+                d[0] = __dmul_rn((double)v.x, window(i, n, divisor, scale));
+                d[1] = __dmul_rn((double)v.y,
+                                 window(i + 1, n, divisor, scale));
+                d[2] = __dmul_rn((double)v.z,
+                                 window(i + 2, n, divisor, scale));
+                d[3] = __dmul_rn((double)v.w,
+                                 window(i + 3, n, divisor, scale));
             }
         }
+        for (int j = body + threadIdx.x; j < span; j += blockDim.x) {
+            int m = s0 + j;
+            if (m >= F) m %= F;
+            buf[padded(j)] = m < n
+                ? __dmul_rn((double)x[m], window(m, n, divisor, scale))
+                : 0.0;
+        }
         __syncthreads();
-        // The stage's groups: a pairwise tree; stages add up in order.
-        for (int k = threadIdx.x; k < Lp; k += blockDim.x) {
-            for (int s = 1; s < ng; s <<= 1)
-                for (int g = 0; g + s < ng; g += 2 * s)
-                    part[g * Lp + k] = __dadd_rn(part[g * Lp + k],
-                                                 part[(g + s) * Lp + k]);
-            total[k] = g0 == 0 ? part[k] : __dadd_rn(total[k], part[k]);
+        double acc[TW][4];
+#pragma unroll
+        for (int u = 0; u < TW; ++u)
+            acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0;
+        if (k < chunks)
+            item<TW>(buf, acc, T0 + run * TW, k * kChunkRows,
+                     min(kChunkSteps, (rows - k * kChunkRows + 3) / 4),
+                     live, lane);
+        __syncthreads();                   // the stage is read: reuse it
+        if (k < chunks) {
+            double* dst = part + (k * p.TP + run * TW) * 128
+                + 8 * (lane >> 2) + 2 * (lane & 3);
+#pragma unroll
+            for (int u = 0; u < TW; ++u) {
+                *reinterpret_cast<double2*>(dst + u * 128) =
+                    make_double2(acc[u][0], acc[u][1]);
+                *reinterpret_cast<double2*>(dst + u * 128 + 64) =
+                    make_double2(acc[u][2], acc[u][3]);
+            }
+        }
+        __syncthreads();
+        // A lag's 16 residue entries, each the pairwise tree of its
+        // chunks; then the pairwise tree of the residues; stages add up in
+        // order.
+        for (int l = lo + threadIdx.x; l <= hi; l += blockDim.x) {
+            double v[16];
+#pragma unroll
+            for (int m = 0; m < 16; ++m) {
+                const int e = (((l + m) >> 3) - T0) * 128 + m * 8
+                    + ((l + m) & 7);
+                double c4[kChunks];
+#pragma unroll
+                for (int c = 0; c < kChunks; ++c)
+                    c4[c] = c < chunks ? part[c * p.TP * 128 + e] : 0.0;
+#pragma unroll
+                for (int s = 1; s < kChunks; s <<= 1)
+#pragma unroll
+                    for (int c = 0; c + s < kChunks; c += 2 * s)
+                        if (c + s < chunks)
+                            c4[c] = __dadd_rn(c4[c], c4[c + s]);
+                v[m] = c4[0];
+            }
+#pragma unroll
+            for (int s = 1; s < 16; s <<= 1)
+#pragma unroll
+                for (int m = 0; m < 16; m += 2 * s)
+                    v[m] = __dadd_rn(v[m], v[m + s]);
+            total[l - lo] = s0 == 0 ? v[0] : __dadd_rn(total[l - lo], v[0]);
         }
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < L; k += blockDim.x)
-        out[(size_t)blockIdx.x * L + k] = __dmul_rn(total[k], norm);
+    for (int l = lo + threadIdx.x; l <= hi; l += blockDim.x)
+        out[(size_t)blockIdx.x * L + l] = __dmul_rn(total[l - lo], norm);
+}
+
+template <int TW>
+int launch(const void* work, void* out, int V, int n, int L, int F,
+           double divisor, double scale, cudaStream_t stream) {
+    const Plan p = make_plan(L);
+    const int bytes = (int)sizeof(double) * smem_doubles(p);
+    cudaError_t e = cudaFuncSetAttribute(
+        autocorr_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+    autocorr_kernel<TW><<<dim3(V, p.passes), 32 * kChunks * p.runs, bytes,
+                          stream>>>(
+        (const int32_t*)work, (double*)out, n, L, F, (double)F / (double)n,
+        divisor, scale);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// work (V, n) int32, win (n,) f64, out (V, L) f64; 1 <= L <= 1024, F a
-// power of two >= n.
-extern "C" int srla_autocorr(const void* work, const void* win, void* out,
-                             int V, int n, int L, int F, void* stream) {
+// work (V, n) int32, out (V, L) f64; 1 <= L <= 1024, F a power of two
+// >= n; divisor and scale make the window (window() above).
+extern "C" int srla_autocorr(const void* work, void* out, int V, int n,
+                             int L, int F, double divisor, double scale,
+                             void* stream) {
     if (L < 1 || L > kMaxLags || n < 1 || F < n)
         return (int)cudaErrorInvalidValue;
-    const int groups = (n + kGroup - 1) / kGroup;
-    const size_t bytes = sizeof(double)
-        * (size_t)smem_doubles(groups < kStageGroups ? groups : kStageGroups,
-                               L);
-    cudaError_t e = cudaFuncSetAttribute(
-        autocorr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(double) * (size_t)smem_doubles(kStageGroups, kMaxLags)));
-    if (e != cudaSuccess) return (int)e;
-    autocorr_kernel<<<V, kThreads, bytes, (cudaStream_t)stream>>>(
-        (const int32_t*)work, (const double*)win, (double*)out, n, L, F,
-        (double)F / (double)n);
-    return (int)cudaGetLastError();
+    using Launch = int (*)(const void*, void*, int, int, int, int, double,
+                           double, cudaStream_t);
+    static const Launch kLaunch[kMaxRun + 1] = {
+        nullptr, nullptr, launch<2>, launch<3>, launch<4>, launch<5>,
+        launch<6>, launch<7>, launch<8>, launch<9>, launch<10>};
+    return kLaunch[make_plan(L).TW](work, out, V, n, L, F, divisor, scale,
+                                    (cudaStream_t)stream);
 }

@@ -12,9 +12,12 @@
 //   kind 1, a K2 codeword: p += clz(funnel(w1, w0, p)) + k + 1
 //           (the 32 bits at the bit position, their leading zeros, the
 //           next position)
-//   kind 2, a K7 Levinson step: a warp's f64 sum of one term a lane (an
-//           xor-butterfly of five shuffles and adds), then the division by
-//           the error variance that gives the next step's term
+//   kind 2, K7's first design's Levinson step: a warp's f64 sum of one
+//           term a lane (an xor-butterfly of five shuffles and adds), then
+//           the division by the error variance that gives the next step's
+//           term
+//   kind 3, K7's Levinson step at M <= 64: the same over a row's group of
+//           8 lanes (three shuffles and adds), then the division
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
@@ -25,6 +28,21 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+// A Levinson step's chain over a group of W lanes: the butterfly, then
+// the division.
+template <int W>
+__device__ uint32_t f64_chain(uint32_t y, int steps) {
+    double v = 1.0 / (double)(y | 1u);
+    for (int i = 0; i < steps; ++i) {
+        double s = v;
+#pragma unroll
+        for (int off = 1; off < W; off <<= 1)
+            s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off, W));
+        v = __ddiv_rn(s, -__dadd_rn(fabs(s), 1.0));   // |v| < 1
+    }
+    return (uint32_t)__double2hiint(v);
+}
 
 __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
                                    uint32_t b, uint32_t* out) {
@@ -40,15 +58,7 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
         for (int i = 0; i < steps; ++i)
             y += (uint32_t)__clz(__funnelshift_l(b, a, y)) + k1;
     } else {
-        double v = 1.0 / (double)(y | 1u);
-        for (int i = 0; i < steps; ++i) {
-            double s = v;
-#pragma unroll
-            for (int off = 1; off < 32; off <<= 1)
-                s = __dadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
-            v = __ddiv_rn(s, -__dadd_rn(fabs(s), 1.0));   // |v| < 1
-        }
-        y = (uint32_t)__double2hiint(v);
+        y = kind == 2 ? f64_chain<32>(y, steps) : f64_chain<8>(y, steps);
     }
     out[threadIdx.x] = y;
 }

@@ -12,9 +12,11 @@
 //      = r0 / min |ev| and the non-finite flag;
 //   2. the code-length argmin over orders 1..M of the window-corrected
 //      error variances (the first strict minimum wins, as argmin) with its
-//      tie flag;
-//   3. a second recursion that stops at the chosen order, replaying the
-//      first one's reflection coefficients, and keeps its coefficients;
+//      tie flag, kept as a running minimum and runner-up;
+//   3. the coefficients at the chosen order: a copy of the recursion's own
+//      vector at that order, so the same reflection coefficients and the
+//      same updates as the plain version's second recursion, with no
+//      replay;
 //   4. the backward error-feedback quantization with its frexp, tiny and
 //      rounding flags.
 //
@@ -23,26 +25,34 @@
 // __ddiv_rn and __dsqrt_rn, so no multiply-add is contracted and the build
 // keeps nvcc's default flags (log() is then the same libdevice function as
 // torch's). The one intended difference is the order of gamma's sum: each
-// lane sums the terms j = lane, lane + 32, ... in order, then an
-// xor-butterfly tree combines the 32 lanes; kernels/levinson.py (above
-// _EPS_SILENT) shows that the margins cover any order.
+// of a row's G lanes sums the terms j = lane, lane + G, ... in order, then
+// an xor-butterfly of log2 G levels combines the G lanes;
+// kernels/levinson.py (above _EPS_SILENT) shows that the margins cover any
+// order.
 //
 // What bounds it on an H100: nothing the card is rated by. The bytes are
 // the (V, M + 1) lags in and (V, M) coefficients out, 4 MB at the main
 // path's 5164 rows x 65 lags (0.001 ms), the f64 operations ~V (2 M^2 +
 // 30 M) (0.002 ms). Each row is a chain of M - 1 dependent steps (a sum
-// over the row's coefficients, a division, the update), so the kernel is
-// latency-bound: its floor is the first recursion's M - 1 steps of a
-// warp's f64 reduction plus a division (csrc/chain_probe.cu times that
-// step: 0.010 ms at M 64 on an H100 80GB HBM3 at 700 W).
+// over the row's coefficients, a G-lane butterfly, a division, the
+// update), so the kernel is latency-bound: its floor is M - 1 such steps
+// (csrc/chain_probe.cu, kind 3, times the step of M <= 64 on the card).
 //
-// Design: a warp per row, four rows a CTA. The lags, the coefficients, the
-// error variances, the reflection coefficients and the code lengths sit in
-// shared memory (5 M + 4 doubles a row, 10 KB at M 255); gamma is a
-// warp-shuffle reduction in a fixed order; the update gives each lane the
-// pairs (j, m - j), so it needs no second buffer; every lane computes the
-// row's scalars, so nothing diverges; the quantization is a serial loop
-// that every lane runs, and lane o mod 32 stores coefficient o.
+// Design: a group of G lanes per row (G = 8 at M <= 64, 16 at M <= 128, 32
+// above), so a warp serves 32 / G rows and each scalar instruction of a
+// step (the division, the error variance, the flags, the quantization
+// chain) serves them all. The recursion writes each order's coefficients
+// out of place into a ring of 8 vectors in shared memory, so the last 8
+// orders' vectors are all there: after every 8th order the group's first 8
+// lanes compute those 8 orders' code lengths at once (two logarithms, a
+// square root and two divisions a lane, in parallel instead of once a
+// step on the recursion's chain), merge them into the running argmin and
+// runner-up, and copy the vector of a new best order out of the ring. The
+// lags, the best vector and the ring sit in shared memory (10 M + 19
+// doubles a row, 41-42 KB a CTA at any M); every lane of a group computes the
+// row's scalars, so nothing diverges inside a group; rows past V are
+// computed on the last row and not stored, so every mask is the full
+// warp.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,7 +60,13 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 2;
+constexpr int kBatch = 8;                  // orders a batch of code lengths
+// A lane's terms of gamma's sum (j = lane + G i < m) and pairs of the
+// update (j <= m / 2): G * kTerms >= M and G * kPairs > M / 2 for every G
+// (and G * (kTerms + 1) > M: a vector's M + 1 entries).
+constexpr int kTerms = 8;
+constexpr int kPairs = 5;
 constexpr unsigned kFull = 0xffffffffu;
 // The plain version's constants (kernels/levinson.py, rice.py).
 constexpr double kFltEpsilon = 1.1920928955078125e-07;
@@ -61,18 +77,9 @@ constexpr double kKappaScale = 1.0 / 1099511627776.0;  // 2^-40
 constexpr double kInvLoge2 = 1.4426950408889634;     // _INV_LOGE2
 constexpr double kFrexpTop = 1.0 - 1e-7;
 
-__device__ __forceinline__ double warp_sum(double s) {
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1)
-        s = __dadd_rn(s, __shfl_xor_sync(kFull, s, off));
-    return s;
-}
-
-__device__ __forceinline__ double warp_min(double v) {
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1)
-        v = fmin(v, __shfl_xor_sync(kFull, v, off));
-    return v;
+// Doubles a row: the lags, the best order's vector, the ring.
+__host__ __device__ constexpr int row_doubles(int M) {
+    return (M + 1) + (kBatch + 1) * (M + 2);
 }
 
 // torch.max: a NaN wins.
@@ -80,24 +87,36 @@ __device__ __forceinline__ double nan_max(double a, double b) {
     return a != a ? a : (b != b ? b : (b > a ? b : a));
 }
 
-// a <- a + g * flip(a[0..m]): lane-owned pairs (j, m - j), j <= m / 2.
-__device__ __forceinline__ void update(double* a, int m, double g,
-                                       int lane) {
-    for (int j = lane; 2 * j <= m; j += 32) {
-        const double aj = a[j];
-        const double am = a[m - j];
-        a[j] = __dadd_rn(aj, __dmul_rn(g, am));
-        if (m - j != j) a[m - j] = __dadd_rn(am, __dmul_rn(g, aj));
-    }
+// |e| where it is positive, else inf: an entry of min |ev|.
+__device__ __forceinline__ double pos_abs(double e) {
+    const double ea = fabs(e);
+    return ea > 0.0 ? ea : CUDART_INF;
 }
 
-__device__ __forceinline__ void reset(double* a, double a1, int M,
-                                      int lane) {
-    for (int j = lane; j < M + 2; j += 32)
-        a[j] = j == 0 ? 1.0 : (j == 1 ? a1 : 0.0);
-    __syncwarp();
+// The estimated code length of an order from its window-corrected error
+// variance e (levinson.py:select_order_exact); `near` is its mabse flag.
+__device__ __forceinline__ double code_length(double e, int order, int n,
+                                              int nbits, double intscale,
+                                              bool& near) {
+    const bool neg = e < 0.0;
+    const double mabse = __dmul_rn(
+        2.0, __dsqrt_rn(__dmul_rn(neg ? 0.0 : e, 0.5)));
+    const double rho = __ddiv_rn(
+        1.0, __dadd_rn(1.0, __dmul_rn(mabse, intscale)));
+    const double invrho = __dsub_rn(1.0, rho);
+    const double t1 = __dmul_rn(
+        invrho, __dmul_rn(log(invrho <= 0.0 ? 0.5 : invrho), kInvLoge2));
+    const double t2 = __dmul_rn(
+        rho, __dmul_rn(log(rho <= 0.0 ? 0.5 : rho), kInvLoge2));
+    const double ent = mabse < 1e-16
+        ? 0.0 : __ddiv_rn(-__dadd_rn(t1, t2), rho);
+    const double length = __dadd_rn(__dmul_rn(ent, (double)n),
+                                    (double)(nbits * order));
+    near |= !neg && fabs(__dsub_rn(mabse, 1e-16)) < 1e-17;
+    return neg || !isfinite(length) ? CUDART_INF : length;
 }
 
+template <int G>
 __global__ void __launch_bounds__(kWarps * 32)
 lpc_analyze_kernel(const double* __restrict__ lags,
                    int32_t* __restrict__ orders_out,
@@ -106,132 +125,150 @@ lpc_analyze_kernel(const double* __restrict__ lags,
                    uint8_t* __restrict__ risky_out, int V, int n, int bps,
                    int M, int max_fixed, int nbits, int max_bits,
                    double wiss) {
+    constexpr int R = 32 / G;              // rows a warp
     extern __shared__ double smem[];
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarps + warp;
-    if (row >= V) return;                 // whole warps leave together
-    double* ac = smem + warp * (5 * M + 4);
-    double* a = ac + (M + 1);
-    double* ev = a + (M + 2);
-    double* gam = ev + (M + 1);
-    double* len = gam + M;
+    const int gl = lane & (G - 1);         // the lane within its row's group
+    const int slot = lane / G;
+    const int first = (blockIdx.x * kWarps + warp) * R;
+    if (first >= V) return;                // whole warps leave together
+    const bool stored = first + slot < V;
+    const int row = stored ? first + slot : V - 1;
+    double* ac = smem + (warp * R + slot) * row_doubles(M);
+    double* best = ac + (M + 1);           // the best order's coefficients
+    double* ring = best + (M + 2);         // order o's in slot o % kBatch
+    const int stride = M + 2;
     const double* src = lags + (size_t)row * (M + 1);
-    for (int j = lane; j <= M; j += 32) ac[j] = src[j];
+    for (int j = gl; j <= M; j += G) ac[j] = src[j];
+    for (int j = gl; j < kBatch * stride; j += G) ring[j] = 0.0;
     __syncwarp();
 
-    // 1. Levinson to M (levinson.py:levinson).
+    // 1. Levinson to M (levinson.py:levinson), with 2. the order choice
+    //    (levinson.py:select_order_exact) a batch of orders at a time.
     const double r0 = ac[0];
     const double a1 = __ddiv_rn(-ac[1], r0 == 0.0 ? 1.0 : r0);
     double evk = __dadd_rn(r0, __dmul_rn(ac[1], a1));
-    reset(a, a1, M, lane);
-    if (lane == 0) {
-        ev[0] = r0;
-        ev[1] = evk;
-    }
-    __syncwarp();
-    for (int k = 0; k + 1 < M; ++k) {
-        const int m = k + 2;
-        double s = 0.0;
-        for (int j = lane; j < m; j += 32)
-            s = __dadd_rn(s, __dmul_rn(a[j], ac[m - j]));
-        const double g = __ddiv_rn(warp_sum(s), -(evk == 0.0 ? 1.0 : evk));
-        evk = __dmul_rn(evk, __dsub_rn(1.0, __dmul_rn(g, g)));
-        __syncwarp();                      // every lane has read a
-        update(a, m, g, lane);
-        if (lane == 0) {
-            ev[m] = evk;
-            gam[k] = g;
-        }
-        __syncwarp();
+    if (gl == 0) {
+        ring[stride] = 1.0;
+        ring[stride + 1] = a1;
     }
     const double absr0 = fabs(r0);
     const bool silent = absr0 < kFltEpsilon;
-    bool risky = fabs(__dsub_rn(absr0, kFltEpsilon)) < kEpsSilent;
-    double min_ev = CUDART_INF;
-    bool nonfinite = false;
-    for (int j = lane; j <= M; j += 32) {
-        const double e = silent ? r0 : ev[j];
-        const double ea = fabs(e);
-        min_ev = fmin(min_ev, ea > 0.0 ? ea : CUDART_INF);
-        nonfinite |= !isfinite(e);
+    double min_ev = fmin(pos_abs(r0), pos_abs(evk));
+    bool nonfinite = !isfinite(r0) || !isfinite(evk);
+    const double intscale = (double)(1 << (bps - 1));
+    double my_ev = evk;      // lane l: order o's, o = l + 1 (mod kBatch)
+    double best_len = CUDART_INF;
+    double second = CUDART_INF;            // the least length of the others
+    int bi = -1;
+    bool near = false;
+    __syncwarp();
+    for (int m = 1; m <= M; ++m) {
+        if (m >= 2) {
+            const double* prev = ring + ((m - 1) % kBatch) * stride;
+            double* cur = ring + (m % kBatch) * stride;
+            // The step's loads first: the lane's terms j = gl + G i < m
+            // and its pairs' far ends m - j, j <= m / 2.
+            double aj[kTerms], am[kPairs];
+#pragma unroll
+            for (int i = 0; i < kTerms; ++i) {
+                const int j = gl + G * i;
+                aj[i] = j < m ? prev[j] : 0.0;
+                if (i < kPairs) am[i] = 2 * j <= m ? prev[m - j] : 0.0;
+            }
+            double s = 0.0;
+#pragma unroll
+            for (int i = 0; i < kTerms; ++i) {
+                const int j = gl + G * i;
+                if (j < m) s = __dadd_rn(s, __dmul_rn(aj[i], ac[m - j]));
+            }
+#pragma unroll
+            for (int off = 1; off < G; off <<= 1)
+                s = __dadd_rn(s, __shfl_xor_sync(kFull, s, off, G));
+            const double g = __ddiv_rn(s, -(evk == 0.0 ? 1.0 : evk));
+            evk = __dmul_rn(evk, __dsub_rn(1.0, __dmul_rn(g, g)));
+            // cur = prev + g * flip(prev[0..m]) over the pairs (j, m - j),
+            // without a branch: a store with nothing to store goes to slot
+            // M + 1, which nothing reads.
+#pragma unroll
+            for (int i = 0; i < kPairs; ++i) {
+                const int j = gl + G * i;
+                const bool pair = 2 * j <= m;
+                cur[pair ? j : M + 1] = __dadd_rn(aj[i], __dmul_rn(g, am[i]));
+                cur[pair && m - j != j ? m - j : M + 1] =
+                    __dadd_rn(am[i], __dmul_rn(g, aj[i]));
+            }
+            min_ev = fmin(min_ev, pos_abs(evk));
+            nonfinite |= !isfinite(evk);
+            if (gl == (m - 1) % kBatch) my_ev = evk;
+            __syncwarp();
+        }
+        if (m % kBatch != 0 && m != M) continue;
+        // The batch of orders o0 .. m, order o0 + l on lane l.
+        const int o0 = m - (m - 1) % kBatch;
+        const int o = o0 + gl;
+        const double len = o <= m
+            ? code_length(__dmul_rn(silent ? r0 : my_ev, wiss), o, n, nbits,
+                          intscale, near)
+            : CUDART_INF;
+        double bmin = len;                 // the batch's first minimum
+        int bo = o;
+#pragma unroll
+        for (int off = 1; off < G; off <<= 1) {
+            const double ol = __shfl_xor_sync(kFull, bmin, off, G);
+            const int oo = __shfl_xor_sync(kFull, bo, off, G);
+            if (ol < bmin || (ol == bmin && oo < bo)) {
+                bmin = ol;
+                bo = oo;
+            }
+        }
+        double bsec = o == bo ? CUDART_INF : len;
+#pragma unroll
+        for (int off = 1; off < G; off <<= 1)
+            bsec = fmin(bsec, __shfl_xor_sync(kFull, bsec, off, G));
+        if (bi < 0 || bmin < best_len) {
+            second = fmin(fmin(second, best_len), bsec);
+            best_len = bmin;
+            bi = bo - 1;
+            const double* v = ring + (bo % kBatch) * stride;
+#pragma unroll
+            for (int i = 0; i <= kTerms; ++i)
+                if (gl + G * i <= bo) best[gl + G * i] = v[gl + G * i];
+        } else {
+            second = fmin(second, bmin);
+        }
+        __syncwarp();
     }
-    min_ev = warp_min(min_ev);
-    nonfinite = __any_sync(kFull, nonfinite);
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+        near |= __shfl_xor_sync(kFull, (int)near, off, G) != 0;
+    if (silent) min_ev = pos_abs(r0);
     const bool ok = isfinite(min_ev) && min_ev > 0.0;
     double kappa = silent ? 1.0 : __ddiv_rn(absr0, ok ? min_ev : 1.0);
     if (!(isfinite(kappa) && kappa >= 1.0)) kappa = CUDART_INF;
+    bool risky = fabs(__dsub_rn(absr0, kFltEpsilon)) < kEpsSilent;
     risky |= nonfinite && !silent;
-
-    // 2. The order (levinson.py:select_order_exact).
     int order = M;
     if (!max_fixed) {
-        const double intscale = (double)(1 << (bps - 1));
-        double best = CUDART_INF;
-        int bi = 0x7fffffff;
-        bool near = false;
-        for (int o = lane; o < M; o += 32) {
-            const double e = __dmul_rn(silent ? r0 : ev[o + 1], wiss);
-            const bool neg = e < 0.0;
-            const double mabse = __dmul_rn(
-                2.0, __dsqrt_rn(__dmul_rn(neg ? 0.0 : e, 0.5)));
-            const double rho = __ddiv_rn(
-                1.0, __dadd_rn(1.0, __dmul_rn(mabse, intscale)));
-            const double invrho = __dsub_rn(1.0, rho);
-            const double t1 = __dmul_rn(
-                invrho, __dmul_rn(log(invrho <= 0.0 ? 0.5 : invrho),
-                                  kInvLoge2));
-            const double t2 = __dmul_rn(
-                rho, __dmul_rn(log(rho <= 0.0 ? 0.5 : rho), kInvLoge2));
-            const double ent = mabse < 1e-16
-                ? 0.0 : __ddiv_rn(-__dadd_rn(t1, t2), rho);
-            double length = __dadd_rn(__dmul_rn(ent, (double)n),
-                                      (double)(nbits * (o + 1)));
-            near |= !neg && fabs(__dsub_rn(mabse, 1e-16)) < 1e-17;
-            if (neg || !isfinite(length)) length = CUDART_INF;
-            len[o] = length;
-            if (bi == 0x7fffffff || length < best) {
-                best = length;
-                bi = o;
-            }
-        }
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-            const double ob = __shfl_xor_sync(kFull, best, off);
-            const int oi = __shfl_xor_sync(kFull, bi, off);
-            if (ob < best || (ob == best && oi < bi)) {
-                best = ob;
-                bi = oi;
-            }
-        }
-        __syncwarp();                      // len is written
-        double second = CUDART_INF;
-        for (int o = lane; o < M; o += 32)
-            if (o != bi) second = fmin(second, len[o]);
-        const double gap = __dsub_rn(warp_min(second), best);
+        const double gap = __dsub_rn(second, best_len);
         const double eps = fmax(
             __dmul_rn(__dmul_rn((double)n, kappa), kKappaScale),
             kEpsOrderBase);
-        risky |= __any_sync(kFull, near) || !isfinite(best)
+        risky |= near || !isfinite(best_len)
             || (isfinite(gap) && gap < eps);
         order = bi + 1;
     }
-
-    // 3. The coefficients at the chosen order: the first recursion's
-    //    updates replayed (levinson(ac, M, orders)).
-    reset(a, a1, M, lane);
-    for (int k = 0; k + 2 <= order; ++k) {
-        update(a, k + 2, gam[k], lane);
-        __syncwarp();
-    }
+    // 3. The chosen order's coefficients.
+    const double* coef = max_fixed ? ring + (M % kBatch) * stride : best;
 
     // 4. Quantization (levinson.py:quantize_exact).
     double maxabs = 0.0;
-    for (int j = lane; j < order; j += 32)
-        maxabs = nan_max(maxabs, silent ? 0.0 : fabs(a[j + 1]));
+    for (int j = gl; j < order; j += G)
+        maxabs = nan_max(maxabs, silent ? 0.0 : fabs(coef[j + 1]));
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1)
-        maxabs = nan_max(maxabs, __shfl_xor_sync(kFull, maxabs, off));
+    for (int off = 1; off < G; off <<= 1)
+        maxabs = nan_max(maxabs, __shfl_xor_sync(kFull, maxabs, off, G));
     const double qmax = (double)(1 << (nbits - 1));
     const double eps_k = fmax(
         __dmul_rn(__dmul_rn(2.0 * qmax, kappa), kKappaScale), kEpsQuantBase);
@@ -249,24 +286,41 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     const double scale = ldexp(1.0, rshift);
     int32_t* intc = intc_out + (size_t)row * M;
     double qerr = 0.0;
+#pragma unroll 4
     for (int o = order - 1; o >= 0; --o) {
-        const double qe = __dadd_rn(qerr, __dmul_rn(silent ? 0.0 : a[o + 1],
-                                                    scale));
+        const double qe = __dadd_rn(qerr, __dmul_rn(
+            silent ? 0.0 : coef[o + 1], scale));
         const double ax = fabs(qe);
         const double r = floor(__dadd_rn(ax, 0.5));
         double qt = qe < 0.0 ? -r : r;
         qt = qt < -qmax ? -qmax : (qt > qmax - 1.0 ? qmax - 1.0 : qt);
         risky |= fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5)) < eps_k;
         qerr = __dsub_rn(qe, qt);
-        if (lane == (o & 31)) intc[o] = tiny ? 0 : (int32_t)qt;
+        ac[o] = tiny ? 0.0 : qt;           // the lags are no longer needed
     }
-    for (int o = order + lane; o < M; o += 32) intc[o] = 0;
+    __syncwarp();
+    if (!stored) return;
+    for (int o = gl; o < M; o += G) intc[o] = o < order ? (int32_t)ac[o] : 0;
     risky |= !isfinite(maxabs);
-    if (lane == 0) {
+    if (gl == 0) {
         orders_out[row] = order;
         rshifts_out[row] = rshift;
         risky_out[row] = risky ? 1 : 0;
     }
+}
+
+template <int G>
+int launch(const void* lags, void* orders, void* rshifts, void* intc,
+           void* risky, int V, int n, int bps, int M, int max_fixed,
+           int nbits, int max_bits, double wiss, cudaStream_t stream) {
+    constexpr int rows = kWarps * (32 / G);
+    const size_t bytes = sizeof(double) * (size_t)rows * row_doubles(M);
+    const int blocks = (V + rows - 1) / rows;
+    lpc_analyze_kernel<G><<<blocks, kWarps * 32, bytes, stream>>>(
+        (const double*)lags, (int32_t*)orders, (int32_t*)rshifts,
+        (int32_t*)intc, (uint8_t*)risky, V, n, bps, M, max_fixed, nbits,
+        max_bits, wiss);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -281,11 +335,13 @@ extern "C" int srla_lpc_analyze(const void* lags, void* orders,
                                 void* stream) {
     if (M < 1 || M > 255 || bps < 1 || bps > 31 || nbits < 1 || nbits > 31)
         return (int)cudaErrorInvalidValue;
-    const size_t bytes = sizeof(double) * (size_t)kWarps * (5 * M + 4);
-    const int blocks = (V + kWarps - 1) / kWarps;
-    lpc_analyze_kernel<<<blocks, kWarps * 32, bytes, (cudaStream_t)stream>>>(
-        (const double*)lags, (int32_t*)orders, (int32_t*)rshifts,
-        (int32_t*)intc, (uint8_t*)risky, V, n, bps, M, max_fixed, nbits,
-        max_bits, wiss);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (M <= 64)
+        return launch<8>(lags, orders, rshifts, intc, risky, V, n, bps, M,
+                         max_fixed, nbits, max_bits, wiss, s);
+    if (M <= 128)
+        return launch<16>(lags, orders, rshifts, intc, risky, V, n, bps, M,
+                          max_fixed, nbits, max_bits, wiss, s);
+    return launch<32>(lags, orders, rshifts, intc, risky, V, n, bps, M,
+                      max_fixed, nbits, max_bits, wiss, s);
 }

@@ -70,11 +70,16 @@ from .rice_search import rice_sums
 # - Autocorrelation: the plain version (autocorr_plain) sums the n lag
 #   products in torch's tree (strips of a few terms, then pairwise), off by
 #   at most (log2 n + strip) * u of r0; measured <= 2^-52 * r0. K8
-#   (csrc/autocorr.cu) sums strips of 64 products in order, each product
-#   and add rounded once, then a fixed tree over the strips, stages of
-#   16384 samples in order and one multiply by fft_size / n: off by at most
-#   (64 + log2(n / 64) + stages) * u of r0 = 73 u = 2^-46.8 r0 at n = 16384
-#   (tests/test_torch_autocorr.py emulates that order and pins it). The
+#   (csrc/autocorr.cu) sums on the f64 tensor cores: an accumulator takes
+#   16 DMMAs of 4 depth rows (64 products), then a pairwise tree over a
+#   stage's up to 4 chunks, a pairwise tree over a lag's 16 residues,
+#   stages of 4096 samples in order and one multiply by fft_size / n.
+#   Whatever order a DMMA keeps inside, a product passes at most 5
+#   roundings in its own DMMA and 4 in each of the 15 after it: at most
+#   (65 + 2 + 4 + (stages - 1) + 1) * u of r0, 75 u = 2^-46.8 r0 at n =
+#   16384 (tests/test_torch_autocorr.py emulates that order exactly, with
+#   either order inside a DMMA, and pins the bound; on an H100 the DMMA is
+#   a chain of fused multiply-adds and the kernel equals the emulation). The
 #   host takes the same lags from a real FFT of round_up_pow2(n) points,
 #   off by a few log2(n) * u of r0 in every lag; measured <= 2^-43 * r0 at
 #   n = 16384. Either side together with the host stays under 2^-42 * r0

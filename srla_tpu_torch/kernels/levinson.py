@@ -46,8 +46,9 @@ MAX_ORDER = 255                  # the largest preset's (-m 6)
 #   below 1e-7.
 # - The order of gamma's sum. Step k sums m = k + 2 <= M <= 255 products
 #   a[j] * r[m - j]: the host in order, the plain version in torch's tree,
-#   K7 in its own (each lane the terms j = lane, lane + 32, ... in order,
-#   then an xor-butterfly tree over the 32 lanes: at most 8 + 5 roundings
+#   K7 in its own (each of the row's G lanes, G = 8 at M <= 64, 16 at M <=
+#   128 and 32 above, the terms j = lane, lane + G, ... in order, then an
+#   xor-butterfly over the G lanes: at most 8 + log2 G <= 13 roundings
 #   after the product's). Any order is within gamma_m = m u / (1 - m u) of
 #   sum |a[j] r[m - j]| of the exact sum, so the computed gamma is the exact
 #   gamma of lags moved by at most 255 u < 2^-45 relative (a backward

@@ -20,6 +20,7 @@ levinson), against the JAX package and the host.
   contract for the kernel; a CUDA tensor of the wrong dtype raises."""
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -52,8 +53,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@functools.partial(jax.jit, static_argnums=(3, 4, 5))
-def _jax_lpc(tok, hi, lo, n, bps, M):
+@functools.partial(jax.jit, static_argnums=(3, 4, 5, 6))
+def _jax_lpc(tok, hi, lo, n, bps, M, max_fixed):
     """JAX's LPC stages as _analyze_core_exact composes them (:1169-1188)."""
     with dd.pinned(tok):
         ac = (hi, lo)
@@ -61,7 +62,8 @@ def _jax_lpc(tok, hi, lo, n, bps, M):
         winv = dd.const(welch_inverse_squared_sum(n))
         evc = dd.mul(ev, (jnp.broadcast_to(winv[0], ev[0].shape),
                           jnp.broadcast_to(winv[1], ev[1].shape)))
-        orders, r_ord = _select_order_exact(evc, n, bps, M, False, kappa)
+        orders, r_ord = _select_order_exact(evc, n, bps, M, max_fixed,
+                                            kappa)
         _, coefs, _, _, _ = _levinson_dd(ac, M, orders)
         intc, rshifts, r_q = _quantize_exact(
             coefs, orders, LPC_COEFFICIENT_BITWIDTH,
@@ -94,7 +96,7 @@ def test_lpc_analyze_matches_jax_and_host(M):
                                        False))
     hi, lo = dd.split_f64(lags)
     jo, jr, jc, jrisky = (np.asarray(a) for a in jax.device_get(
-        _jax_lpc(np.int32(0), hi, lo, N, BPS, M)))
+        _jax_lpc(np.int32(0), hi, lo, N, BPS, M, False)))
     ho, hr, hc = chip_smoke.host_lpc(np, lags, N, BPS, M, False)
     ok = ~risky & ~jrisky
     assert ok.mean() > 0.75, ok.mean()
@@ -104,6 +106,74 @@ def test_lpc_analyze_matches_jax_and_host(M):
         np.testing.assert_array_equal(port[ok], jax_[ok], err_msg=what)
         np.testing.assert_array_equal(port[~risky], host[~risky],
                                       err_msg=what)
+
+
+def _edge_lags(M: int) -> np.ndarray:
+    """Lag rows (2, M + 1) on which the recursion meets given reflection
+    coefficients (chip_smoke.lags_from_reflections' step-up recursion, in
+    exact rationals, so the rows stay well-conditioned at high orders):
+    one gain of 0.45 at order 1 and none after (the argmin at order 1), and
+    +-5/32 in turns at every order (each order saves more than its 8 bits
+    at N samples: the argmin at M)."""
+    rows = []
+    for refl in ([Fraction(0.45)] + [Fraction(0)] * (M - 1),
+                 [Fraction(5 * (-1) ** m, 32) for m in range(M)]):
+        r, a, ev = [Fraction(1)], [Fraction(1)], Fraction(1)
+        for m in range(1, M + 1):
+            g = refl[m - 1]
+            r.append(-g * ev - sum(a[j] * r[m - j] for j in range(1, m)))
+            a = [x + g * y for x, y in zip(a + [Fraction(0)],
+                                           [Fraction(0)] + a[::-1])]
+            ev *= 1 - g * g
+        rows.append([float(v) for v in r])
+    return np.asarray(rows)
+
+
+def _check_against_jax_and_host(lags, M: int, max_fixed: bool,
+                                jax_rows: int):
+    """lpc_analyze on CPU tensors equal to the host on every row it does
+    not flag, and to JAX on the first jax_rows rows where neither flags."""
+    orders, rshifts, intc, risky = (
+        t.numpy() for t in lpc_analyze(torch.from_numpy(lags), N, BPS, M,
+                                       max_fixed))
+    hi, lo = dd.split_f64(lags)
+    jo, jr, jc, jrisky = (np.asarray(a) for a in jax.device_get(
+        _jax_lpc(np.int32(0), hi, lo, N, BPS, M, max_fixed)))
+    ho, hr, hc = chip_smoke.host_lpc(np, lags, N, BPS, M, max_fixed)
+    ok = ~risky & ~jrisky
+    ok[jax_rows:] = False
+    assert ok.mean() > 0.6, ok.mean()
+    for port, jax_, host, what in ((orders, jo, ho, "orders"),
+                                   (rshifts, jr, hr, "rshifts"),
+                                   (intc, jc, hc, "coefficients")):
+        np.testing.assert_array_equal(port[ok], jax_[ok], err_msg=what)
+        np.testing.assert_array_equal(port[~risky], host[~risky],
+                                      err_msg=what)
+    return orders, risky
+
+
+@pytest.mark.parametrize("M", [7, 31, 63, 64, 127, 128])
+def test_lpc_analyze_at_group_widths_matches_jax_and_host(M):
+    """M on both sides of each change of K7's group width G (8 up to M 64,
+    16 up to 128, 32 above; 8, 32 and 255 above): the plain version equal
+    to JAX and the host on every row neither flags, on the rows of _lags
+    (silence and a near-silent row among them), and to the host on two rows
+    whose argmin is order 1 and order M. Those two are not held against
+    JAX: its df64 recursion drifts on the second (at M 127 its error
+    variance at order 100 is ~1e-3 relative from the f64 one, unflagged,
+    and it picks order 123 where the host and the port pick 127)."""
+    base = _lags(M)
+    lags = np.concatenate([base, _edge_lags(M)])
+    orders, risky = _check_against_jax_and_host(lags, M, False, len(base))
+    assert orders[-2] == 1 and orders[-1] == M and not risky[-2:].any()
+
+
+def test_lpc_analyze_max_fixed_matches_jax_and_host():
+    """The order fixed at M (no order choice): equal to JAX and the host
+    on every row neither flags."""
+    lags = np.concatenate([_lags(32), _edge_lags(32)])
+    orders, _ = _check_against_jax_and_host(lags, 32, True, len(lags))
+    assert (orders == 32).all()
 
 
 @pytest.mark.parametrize("case", range(3))
@@ -143,6 +213,29 @@ def test_lpc_analyze_kernel_matches_plain_on_card(cuda, M):
     want = lpc_analyze_plain(ac, N, BPS, M, False)
     torch.cuda.synchronize()
     assert lpc_analyze.launches == before + 1
+    assert torch.equal(got[3], want[3])
+    ok = ~got[3]
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g[ok], w[ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64, 100, 128, 255])
+def test_lpc_analyze_partial_warps_on_card(cuda, M):
+    """13 rows, not a multiple of K7's rows a warp (32 / G: 4 at M <= 64,
+    2 at M <= 128): every row equal to the plain version where neither
+    flags and flagged alike, the rows past V in the last warp not stored.
+    The edge rows' argmin-at-M row is left out at M 255: there the host,
+    the plain version and K7 each pick another order, hundreds of bits
+    apart, and none flags (the margins' conditioning estimate r0 / min |ev|
+    misses the growth of the coefficients, to ~1e10; ROADMAP section 3)."""
+    edge = _edge_lags(M)
+    lags = np.concatenate([_lags(M)[:11], edge] if M <= 128
+                          else [_lags(M)[:12], edge[:1]])
+    ac = torch.from_numpy(lags).to(cuda)
+    got = lpc_analyze(ac, N, BPS, M, False)
+    want = lpc_analyze_plain(ac, N, BPS, M, False)
+    torch.cuda.synchronize()
     assert torch.equal(got[3], want[3])
     ok = ~got[3]
     for g, w in zip(got[:3], want[:3]):

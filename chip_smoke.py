@@ -4,10 +4,11 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the ten CUDA libraries of csrc/ (thirteen kernels) and three
+Builds the ten CUDA libraries of csrc/ (thirteen kernels) and five
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
-designs of K8 and K7, csrc/autocorr_v1.cu and csrc/lpc_analyze_v1.cu, which
-nothing in the port calls) with concurrent nvcc, then:
+designs of K8, K7, K9 and K10, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
+ltp_synth_v1.cu and ltp_analyze_v1.cu, which nothing in the port calls) with
+concurrent nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
@@ -28,9 +29,11 @@ nothing in the port calls) with concurrent nvcc, then:
   4. A 120 s -m 6 -P 3 stream from the same host encoder (long-term
      prediction; LPC orders up to 93 on this signal) decoded on the card,
      counted: lossless, K9 (LTP synthesis, csrc/ltp_synth.cu) launched once
-     per LTP group; then K9 against its plain version on every LTP group
-     and at edge shapes (delay 9 at order 3, order 1, period and order 0,
-     period 262, wrapping values, n 300 and 4064): bit-equal; warm speed.
+     per LTP group; then K9 against its plain version on every LTP group,
+     at edge shapes (delay 9 at order 3, order 1, period and order 0,
+     period 262, wrapping values, n 300 and 4064) and on 37 hard rows
+     (k9_hard_args: periods 8, 31, 32, 33 and 262, off rows between) at n
+     16384, 4064 and 333: bit-equal; warm speed.
   5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
      csrc/rice_search.cu) and K5 (csrc/bitpack.cu: pack_residual_sections,
      residuals to packed sections in one kernel, the entry the encode runs,
@@ -105,12 +108,15 @@ nothing in the port calls) with concurrent nvcc, then:
      losslessly on the card with K9 launched. Then K10 against its plain
      version on the inputs of every analysis call (the pitch lags of every
      measurement call and encode group) and K9 on every LTP decode group:
-     bit-equal; K8 (both lag sets) and K7 as in phase 8, no row flagged by
-     one and not the other. Prints each encode's and decode's warm
-     best of 3 and the encode's step split, and K10's (at the -V 0 encode's
-     5164 rows) and K9's (at its stream's 2582 rows x 4096) times beside
-     their plain versions' and bounds, and each one's device time at the
-     tail (K10's 4-row call, K9's 1-block group).
+     bit-equal; K10 also on constructed and seeded rows at orders 1 and 3
+     (k10_edge_lags, k10_random_lags); K8 (both lag sets) and K7 as in
+     phase 8, no row flagged by one and not the other. Prints each encode's
+     and decode's warm best of 3 and the encode's step split, and K10's (at
+     the -V 0 encode's 5164 rows) and K9's (at its stream's 2582 rows x
+     4096) times beside their plain versions', bounds and serial floors
+     (chain_probe.cu kinds 5 and 4), and the device times of each and of
+     its first design (csrc/*_v1.cu, equal outputs) in turns, at those
+     shapes and at the tail (K10's 4-row call, K9's 1-block group).
  10. K8 and K7 (the encode's f64 analysis): on phase 6's two analysis calls
      as in phase 8; K8 within 2^-46 r0 of the exact rational sum on rows
      of 16384 samples at 24 bits, 4064, 333 (odd) and 20000 (five
@@ -124,7 +130,17 @@ nothing in the port calls) with concurrent nvcc, then:
      irfft: the library yardstick, which the port never calls) and K7 at M
      64 beside its plain version and its serial floor, both also at the
      tail group's 4 rows, and both beside their first designs
-     (csrc/*_v1.cu) on the same inputs and card.
+     (csrc/*_v1.cu) on the same inputs and card. K7 also on the +-5/32
+     coefficient-growth rows at M 64, 128 and 255 (k7_growth_case), lags
+     moved by 2^-42: flagged where the order moves (M 128, 255), as its
+     plain version flags them.
+ 11. (Run before phase 10, whose tally it joins.) -P at shapes the card
+     had not run: 20 s of make_music shifted to 24 bits at -m 4 -B 8192 -V
+     0 -P 3 and 16-bit at -m 6 -B 16384 -V 0 -P 1, encoded on the card:
+     byte-identical to the host exact encoder, repaired blocks counted, K10,
+     K7, K3, K4 and K5 once per encode group and K8 twice, the decode
+     lossless with K9 once per LTP group; K9 and K10 against their plain
+     versions on every group, K8 and K7 as in phase 8.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -133,7 +149,7 @@ that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
 -V 0 encode, K8's and K7's on phase 6's; ``launches_variable`` on each of
 phase 8's three paths,
-``launches_ltp`` on phase 4's and phase 9's, encode and decode apart) and,
+``launches_ltp`` on phase 4's, 9's and 11's, encode and decode apart) and,
 last, the device JSON line. A kernel's bound is the
 larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
 instructions its inputs need (a multiply-add is one) over the H100's INT32
@@ -148,6 +164,9 @@ tensor cores; K8's run on the f64 tensor cores, 67 TFLOP/s. K7 also gets a
 serial floor: the recursion's M - 1 steps of the shortest dependent chain
 of one step (chain_probe.cu's kind 3: an 8-lane butterfly and the
 division, K7's step at M <= 64).
+K9 gets a serial floor too: the steps of its row with the most (ceil((n -
+delay - 1) / w)) times one K9 step alone (chain_probe.cu's kind 4), and
+K10 one solve's chain (kind 5).
 K3, K4, K5, K6, K9 and K10 also get a device time (device_ms): at their smaller
 shapes the host needs longer to enqueue a call than the card to run it, so
 the calls are captured into one CUDA graph and the replay is timed. K3 and
@@ -294,7 +313,8 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
 def chain_step_ms(torch, kind: int) -> float:
     """Milliseconds one warp needs for one step of a serial chain alone
     (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
-    the Levinson step of K7's first design, kind 3 K7's step at M <= 64):
+    the Levinson step of K7's first design, kind 3 K7's step at M <= 64,
+    kind 4 a K9 step, kind 5 K10's solve):
     the difference of two chain lengths over their difference, CUDA
     events."""
     import ctypes
@@ -461,8 +481,10 @@ def profile_decode(torch, decode, stream: bytes, dev) -> None:
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
              "autocorr", "lpc_analyze")
-# Measurement only: the serial floors, and K8's and K7's first designs.
-PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1")
+# Measurement only: the serial floors, and the first designs of K8, K7, K9
+# and K10.
+PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
+          "ltp_analyze_v1")
 
 
 def main_param():
@@ -1493,12 +1515,175 @@ def ltp_edge_args(torch, np, dev, R: int, n: int, seed: int):
     return (t(v), t(lorders), t(lperiods), t(lcoefs), n)
 
 
+def k9_hard_args(torch, np, dev, R: int, n: int, seed: int):
+    """K9 arguments that stress the new design: the shortest valid step (w =
+    delay - taps + 1 = 7: order 3 at period 8), periods 8, 31, 32, 33 and
+    262 at orders 1 and 3 (w at, below and above a warp), off rows (period
+    0, order 0) between on rows, wrapping samples and extreme
+    coefficients, R rows."""
+    rng = np.random.RandomState(seed)
+    v = rng.randint(-(1 << 20), 1 << 20, (R, n))
+    v[::5] = rng.randint(-(1 << 31), 1 << 31, (len(v[::5]), n))
+    pattern = [(3, 8), (1, 8), (0, 100), (3, 31), (1, 31), (3, 0), (3, 32),
+               (1, 32), (1, 0), (3, 33), (1, 33), (0, 0), (3, 262),
+               (1, 262), (3, 200)]
+    lorders = np.array([pattern[r % len(pattern)][0] for r in range(R)])
+    lperiods = np.array([pattern[r % len(pattern)][1] for r in range(R)])
+    lcoefs = rng.randint(-32, 32, (R, 3))
+    lcoefs[::4] = (31, -32, 31)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    return (t(v), t(lorders), t(lperiods), t(lcoefs), n)
+
+
+def k10_random_lags(np, V: int, seed: int):
+    """(V, 266) pitch lag rows, r0 = 1, of six kinds in turns: uniform in
+    [-1, 1] (many short segments: the cap of 20 binds), values from a small
+    set with zeros (equal peaks and lags at 0, flagged), a noisy cosine of
+    period 5..300, thirds (equal peaks), +-0.1 / 0.45 / 0.5 steps, and a
+    fast cosine (up to ~65 segments); zeros past lag 262."""
+    rng = np.random.RandomState(seed)
+    k = np.arange(263)
+    rows = np.zeros((V, 266))
+    for i in range(V):
+        kind = i % 6
+        if kind == 0:
+            r = rng.uniform(-1, 1, 263)
+        elif kind == 1:
+            r = rng.choice([-0.3, -0.1, 0.0, 0.2, 0.5, 0.5], 263)
+        elif kind == 2:
+            r = (np.cos(2 * np.pi * k / rng.uniform(5, 300))
+                 * rng.uniform(0.2, 1) + rng.normal(0, 0.05, 263))
+        elif kind == 3:
+            r = np.round(rng.uniform(-1, 1, 263) * 3) / 3
+        elif kind == 4:
+            r = (np.sign(rng.uniform(-1, 1, 263))
+                 * rng.choice([0.1, 0.09, 0.45, 0.5], 263))
+        else:
+            r = 0.5 * np.cos(2 * np.pi * k / rng.uniform(2, 8))
+        rows[i, :263] = r
+        rows[i, 0] = 1.0
+    return rows
+
+
+def k10_edge_lags(np):
+    """(26, 266) constructed pitch lag rows: more than 20 segments (the cap
+    binds; equal neighbours in the 21st segment, which the cap keeps shut,
+    flag nothing), a segment that opens at 261 and one that opens at 262
+    (no segment open after the scan), two equal peaks in one segment and
+    the same peak in two segments, a singular second pivot (r1 = r2 = r0
+    (1 + ridge)), cosines, and 24-bit magnitudes (r0 ~ 2^47) of 11; 26
+    rows, no multiple of 4, the rows a CTA."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    k = np.arange(266)
+    head = [1.0, 0.5, 0.2, 0.1, 0.0, -0.1, -0.2, -0.3]
+
+    def base():
+        r = np.full(266, -0.3)
+        r[:8] = head
+        return r
+
+    rows = []
+    r = base()                              # 42 segments of 3: the cap
+    r[8:262] = np.where((k[8:262] // 3) % 2 == 0, -0.3,
+                        0.2 + 0.001 * k[8:262])
+    rows.append(r)
+    r = r.copy()                            # a tie in the 21st, kept shut
+    r[130] = r[129]
+    rows.append(r)
+    r = base()                              # a segment opens at 261
+    r[100:110], r[105] = 0.2, 0.6
+    r[261], r[262] = 0.3, 0.5
+    rows.append(r)
+    r = base()                              # one opens at 262
+    r[100:110], r[105] = 0.2, 0.6
+    r[261], r[262] = -0.2, 0.58
+    rows.append(r)
+    r = base()                              # a segment closes at 260
+    r[250:261], r[255] = 0.2, 0.61
+    r[262] = 0.4
+    rows.append(r)
+    r = base()                              # equal peaks in one segment
+    r[60:80], r[64], r[72] = 0.2, 0.5, 0.5
+    rows.append(r)
+    r = base()                              # the same peak in two segments
+    r[60:70], r[150:160], r[64], r[154] = 0.2, 0.2, 0.5, 0.5
+    rows.append(r)
+    r = base()                              # 0.9 of the largest: equal
+    r[60:70], r[150:160], r[64], r[154] = 0.2, 0.2, 0.45, 0.5
+    rows.append(r)
+    r = base()                              # a singular second pivot
+    r[100:110], r[105] = 0.2, 0.6
+    r[1] = r[2] = 1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER
+    rows.append(r)
+    r = base()                              # a peak right at the cap's edge
+    r[8:200] = np.where((k[8:200] // 4) % 2 == 0, -0.3, 0.25)
+    r[8 + 4 * 2 * 19 + 5] = 0.7
+    rows.append(r)
+    rows += [0.9 * np.cos(2 * np.pi * k / p) for p in (9.0, 40.5, 262.0)]
+    rows += [np.where(k % 2 == 0, 1.0, -0.5), np.zeros(266)]
+    scaled = [r * 2.0 ** 47 for r in rows[:11]]   # 24-bit magnitudes
+    lags = np.stack(rows + scaled)
+    lags[:, 263:] = 0.0
+    return lags
+
+
 def check_ltp_synth(torch, what: str, groups: list) -> int:
     """K9 against its plain version on each (blocks, n, args) group."""
     from srla_tpu_torch.kernels.ltp import ltp_synth, ltp_synth_plain
     return max([0] + [check(torch, f"K9 ({what}, {B} blocks of {n})",
                             ltp_synth, ltp_synth_plain, args)
                       for B, n, args in groups])
+
+
+def k9_first_design(torch, args):
+    """fn() -> (R, n) outputs of K9's first design (csrc/ltp_synth_v1.cu, a
+    measurement aid nothing in the port calls) on ltp_synth's arguments;
+    fn takes the current stream at each call, so a CUDA graph can capture
+    it."""
+    import ctypes
+
+    from srla_tpu_torch.kernels import build
+    fn = build.load("ltp_synth_v1").srla_ltp_synth_v1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    v, lo, lp, lc, n = args
+    out = torch.empty_like(v)
+
+    def run():
+        err = fn(v.data_ptr(), lo.data_ptr(), lp.data_ptr(), lc.data_ptr(),
+                 out.data_ptr(), v.shape[0], n, lc.shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K9's first design failed to launch ({err})")
+        return out
+    return run
+
+
+def k10_first_design(torch, ac, order: int):
+    """fn() -> (period, coefs, risky) of K10's first design (csrc/
+    ltp_analyze_v1.cu, a measurement aid nothing in the port calls) on
+    ltp_analyze's arguments."""
+    import ctypes
+
+    from srla_tpu_torch.kernels import build
+    fn = build.load("ltp_analyze_v1").srla_ltp_analyze_v1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    V, dev = ac.shape[0], ac.device
+    outs = (torch.empty(V, dtype=torch.int32, device=dev),
+            torch.empty((V, order), dtype=torch.int32, device=dev),
+            torch.empty(V, dtype=torch.bool, device=dev))
+
+    def run():
+        err = fn(ac.data_ptr(), *(t.data_ptr() for t in outs), V, order,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K10's first design failed to launch ({err})")
+        return outs
+    return run
 
 
 def phase_ltp_decode(torch, np, dev, card):
@@ -1527,14 +1712,20 @@ def phase_ltp_decode(torch, np, dev, card):
         err = max(err, check(torch, f"K9 at the edges (n={n})", ltp_synth,
                              ltp_synth_plain,
                              ltp_edge_args(torch, np, dev, 70, n, n)))
+    for n in (16384, 4064, 333):
+        err = max(err, check(torch, f"K9 on the hard rows (n={n})",
+                             ltp_synth, ltp_synth_plain,
+                             k9_hard_args(torch, np, dev, 37, n, n + 7)))
     t = best_of(torch, lambda: decode(stream4, device=dev))
     print(f"phase 4 decode -m 6 -P 3 {LTP_SECONDS:.0f} s stereo: lossless, "
           f"{len(groups)} LTP groups, launches "
           f"{ {k: got[k] for k in ('rice_decode', 'lpc_synth', 'ltp_synth')} }"
           f"; K9 bit-equal to plain on every LTP group (blocks x n "
-          f"{[(B, n) for B, n, _ in groups]}) and at the edges (70 rows of "
+          f"{[(B, n) for B, n, _ in groups]}), at the edges (70 rows of "
           f"300 and 4064: delay 9 at order 3, order 1, period 0, order 0, "
-          f"period 262, wrapping values); warm best of 3 {t * 1e3:.1f} ms = "
+          f"period 262, wrapping values) and on the hard rows (37 rows of "
+          f"16384, 4064 and 333: periods 8, 31, 32, 33, 262, off rows "
+          f"between); warm best of 3 {t * 1e3:.1f} ms = "
           f"{LTP_SECONDS / t:.1f}x realtime [{card}]")
     return got, err
 
@@ -1697,28 +1888,69 @@ def phase_ltp_encode(torch, np, dev, music, card):
               + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
               + f"; total {sum(steps.values()) * 1e3:.2f}")
 
-    # K10 at the -V 0 encode's largest call (the 1291-block group).
+    # K10 on the constructed and seeded rows (the cap, lag 262, equal
+    # peaks, a singular pivot, 24-bit magnitudes; V no multiple of 4).
+    hard = torch.from_numpy(np.concatenate(
+        [k10_edge_lags(np), k10_random_lags(np, 61, 11)])).to(dev)
+    for order in (1, 3):
+        got10, want10 = ltp_analyze(hard, order), ltp_analyze_plain(hard,
+                                                                    order)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(torch, g, w) for g, w in zip(got10, want10))
+        require(e == 0, f"K10 differs from its plain version on the hard "
+                        f"rows (order {order}, max abs err {e})")
+
+    # K10 at the -V 0 encode's largest call (the 1291-block group) and its
+    # smallest, the first design (csrc/ltp_analyze_v1.cu) beside it in turns.
     V10 = k10_main.shape[0]
+    for lags in (k10_main, k10_tail):
+        old = k10_first_design(torch, lags, 3)()
+        new = ltp_analyze(lags, 3)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(old, new)),
+                "K10's first design and K10 differ")
     ms = cuda_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
-    dev_ms = device_ms(torch, lambda: ltp_analyze(k10_main, 3), 20)
-    tail10 = device_ms(torch, lambda: ltp_analyze(k10_tail, 3), 20)
+    (v1_a, v1_b), (dev_a, dev_b) = in_turns(
+        torch, k10_first_design(torch, k10_main, 3),
+        lambda: ltp_analyze(k10_main, 3), 20)
+    (tv1_a, tv1_b), (t_a, t_b) = in_turns(
+        torch, k10_first_design(torch, k10_tail, 3),
+        lambda: ltp_analyze(k10_tail, 3), 20)
+    dev_ms, tail10 = min(dev_a, dev_b), min(t_a, t_b)
     plain_ms = cuda_ms(torch, lambda: ltp_analyze_plain(k10_main, 3), 1)
+    step10 = chain_step_ms(torch, 5)
     # Read the lags once, write period, three coefficients and the flag
     # once; at least the two zero tests and the crossing's two compares at
     # each of the 255 lags, and some 60 operations of solve and rounding,
-    # in f64.
+    # in f64. The serial floor: one solve's chain (the scans add to it).
     b10 = bound(nbytes(k10_main) + V10 * (4 + 12 + 1), V10 * (255 * 4 + 60),
                 F64_OPS_PER_S)
     print(f"phase 9 K10 ltp_analyze at V={V10} x {k10_main.shape[1]} lags, "
           f"order 3: kernel {ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA "
           f"graph), plain {plain_ms:.2f} ms, bound {b10['bound_ms']:.4f} ms "
-          f"({b10['bound_by']}; operations {b10['ops_ms']:.6f} ms); tail "
-          f"V={k10_tail.shape[0]}: device time {tail10:.4f} ms [{card}]")
-    # K9 at the -V 0 -P 3 stream's 1291-block group.
+          f"({b10['bound_by']}; operations {b10['ops_ms']:.6f} ms), serial "
+          f"floor {step10:.4f} ms (one solve's chain); tail "
+          f"V={k10_tail.shape[0]}: device time {tail10:.4f} ms; first design "
+          f"(csrc/ltp_analyze_v1.cu, equal outputs) in turns old, new, new, "
+          f"old: main {[v1_a, dev_a, dev_b, v1_b]}, tail "
+          f"{[tv1_a, t_a, t_b, tv1_b]} ms; equal to plain on the "
+          f"{hard.shape[0]} hard rows at orders 1 and 3 [{card}]")
+    # K9 at the -V 0 -P 3 stream's 1291-block group and its 1-block group,
+    # the first design (csrc/ltp_synth_v1.cu) beside it in turns.
     v, lo, lp, lc, n = k9_main
+    for args in (k9_main, k9_tail):
+        old = k9_first_design(torch, args)()
+        new = ltp_synth(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(old, new), "K9's first design and K9 differ")
     ms9 = cuda_ms(torch, lambda: ltp_synth(*k9_main), 20)
-    dev9 = device_ms(torch, lambda: ltp_synth(*k9_main), 20)
-    tail9 = device_ms(torch, lambda: ltp_synth(*k9_tail), 20)
+    (o9_a, o9_b), (d9_a, d9_b) = in_turns(
+        torch, k9_first_design(torch, k9_main), lambda: ltp_synth(*k9_main),
+        20)
+    (to9_a, to9_b), (t9_a, t9_b) = in_turns(
+        torch, k9_first_design(torch, k9_tail), lambda: ltp_synth(*k9_tail),
+        20)
+    dev9, tail9 = min(d9_a, d9_b), min(t9_a, t9_b)
     plain9 = cuda_ms(torch, lambda: ltp_synth_plain(*k9_main), 1)
     on_rows = (lp > 0) & (lo > 0)
     delay = lp.long() + (lo.long() >> 1)
@@ -1729,27 +1961,131 @@ def phase_ltp_encode(torch, np, dev, music, card):
     ops9 = int(torch.where(on_rows, samples * (taps + 3), 0).sum())
     b9 = bound(2 * nbytes(v) + nbytes(lo, lp, lc), ops9)
     w = (delay - taps + 1).clamp(1, 32)
-    steps9 = int(torch.where(on_rows, -(-n // w), 0).max())
+    steps9 = int(torch.where(on_rows, -(-samples // w), 0).max())
+    step9 = chain_step_ms(torch, 4)
+    floor9 = steps9 * step9
     print(f"phase 9 K9 ltp_synth at R={v.shape[0]} n={n} "
           f"({int(on_rows.sum())} rows with LTP on, at most {steps9} steps a "
           f"row): kernel {ms9:.4f} ms, device time {dev9:.4f} ms (CUDA "
-          f"graph), plain (before: the torch loop of ceil(n / 7) steps) "
+          f"graph), plain (the torch loop of ceil(n / 7) steps) "
           f"{plain9:.2f} ms, bound {b9['bound_ms']:.4f} ms "
-          f"({b9['bound_by']}; operations {b9['ops_ms']:.4f} ms); tail "
-          f"R={k9_tail[0].shape[0]} n={k9_tail[4]}: device time {tail9:.4f} "
-          f"ms [{card}]")
+          f"({b9['bound_by']}; operations {b9['ops_ms']:.4f} ms), serial "
+          f"floor {floor9:.4f} ms ({steps9} steps of {step9 * 1e6:.1f} ns); "
+          f"tail R={k9_tail[0].shape[0]} n={k9_tail[4]}: device time "
+          f"{tail9:.4f} ms; first design (csrc/ltp_synth_v1.cu, equal "
+          f"outputs) in turns old, new, new, old: main "
+          f"{[o9_a, d9_a, d9_b, o9_b]}, tail {[to9_a, t9_a, t9_b, to9_b]} ms "
+          f"[{card}]")
     recs = [dict(name="ltp_synth", route="cuda",
                  source="srla_tpu_torch/kernels/csrc/ltp_synth.cu",
                  replaces="srla_tpu/kernels/decode2.py:613",
                  max_abs_err=err9, ms=ms9, plain_ms=plain9, **b9,
                  library_ms=None, device_ms=dev9, tail_device_ms=tail9,
-                 max_steps=steps9),
+                 max_steps=steps9, serial_floor_ms=floor9,
+                 v1_device_ms=min(o9_a, o9_b),
+                 v1_tail_device_ms=min(to9_a, to9_b)),
             dict(name="ltp_analyze", route="cuda",
                  source="srla_tpu_torch/kernels/csrc/ltp_analyze.cu",
                  replaces="srla_tpu/kernels/exact.py:950",
                  max_abs_err=err10, ms=ms, plain_ms=plain_ms, **b10,
-                 library_ms=None, device_ms=dev_ms, tail_device_ms=tail10)]
+                 library_ms=None, device_ms=dev_ms, tail_device_ms=tail10,
+                 serial_floor_ms=step10, v1_device_ms=min(v1_a, v1_b),
+                 v1_tail_device_ms=min(tv1_a, tv1_b))]
     return launches, recs, tallies
+
+
+# -P at shapes the card had not run before: 24 bits with -B 8192, and -m 6
+# (max order 255) with -B 16384 (K8's rows of four 4096-sample stages).
+SHAPE_SECONDS = 20.0
+LTP_SHAPES = (("music20_24bit_m4_B8192_P3", 24, 4, 8192, 3),
+              ("music20_m6_B16384_P1", 16, 6, 16384, 1))
+
+
+def phase_ltp_shapes(torch, np, dev, card, tallies: dict):
+    """Phase 11 (run before phase 10, whose tally it joins): SHAPE_SECONDS
+    of make_music shifted to 24 bits at -m 4 -B 8192 -V 0 -P 3, and 16-bit
+    at -m 6 -B 16384 -V 0 -P 1, each encoded by SRLAEncoder(device="cuda"),
+    counted: byte-identical to the host exact encoder, block accounting
+    (repaired blocks counted), K10, K7, K3, K4 and K5 once per encode group
+    and K8 twice, the stream decoded losslessly on the card with K9 launched
+    once per LTP group; K9 against its plain version on every LTP group,
+    K10 on every encode group's pitch lags, K8 and K7 as in phase 8.
+    Returns (each path's launches, K9's and K10's max_abs_err)."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.host_encoder import encode as host_encode
+    from srla_tpu_torch.host_encoder import make_parameter
+    from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_analyze_plain
+    from srla_tpu_torch.signals import make_music
+
+    music = make_music(SHAPE_SECONDS)
+    launches: dict = {}
+    err9 = err10 = 0
+    for path, bps, preset, B, P in LTP_SHAPES:
+        pcm = music.astype(np.int32) << (bps - 16)
+        param = make_parameter(2, bps, SAMPLE_RATE, preset, B, 0, 4, P)
+        t0 = time.perf_counter()
+        stream = host_encode(pcm, bps, SAMPLE_RATE, preset=preset,
+                             max_block=B, ltp_order=P)
+        host_s = time.perf_counter() - t0
+        blocks = encode_groups(pcm, param, stream)
+        _, calls = expected_calls({}, blocks)
+        enc = SRLAEncoder(param, dev)
+        data, got = counted(torch, all_wrappers(), lambda: without_plain(
+            lambda: enc.encode_whole(pcm)))
+        require(data == stream, f"{path}: the encode differs from the host "
+                                f"exact stream")
+        st = enc.stats
+        ncomp = compress_blocks(stream)
+        handled = (st["device_blocks"] + st["repaired_blocks"]
+                   + st["w_overflow_blocks"])
+        require(handled == ncomp, f"{path}: block accounting {st}: "
+                                  f"{handled} of {ncomp} COMPRESS blocks")
+        want = {"ltp_analyze": calls, "fir_predict": calls,
+                "rice_search": calls, "lpc_analyze": calls,
+                "autocorr": 2 * calls, "pack_residual_sections": calls,
+                "bitpack": 0}
+        for name, count in want.items():
+            require(got[name] == count, f"{path}: {name} launched "
+                                        f"{got[name]} times, expected {count}")
+        (_, out), dec_got = counted(torch, all_wrappers(),
+                                    lambda: decode(data, device=dev))
+        require(np.array_equal(out, pcm), f"{path}: decode is not lossless")
+        groups = ltp_synth_groups(torch, dev, data)
+        require(groups and dec_got["ltp_synth"] == len(groups),
+                f"{path}: K9 launched {dec_got['ltp_synth']} times by the "
+                f"decode, expected one per LTP group ({len(groups)})")
+        err9 = max(err9, check_ltp_synth(torch, path, groups))
+        launches[path] = {"encode": got, "decode": dec_got}
+        on, checked, tally = 0, [], new_tally()
+        for what, args, pre, work, lags in ltp_analysis_calls(
+                torch, dev, pcm, param, {}, blocks):
+            got10 = ltp_analyze(lags, P)
+            want10 = ltp_analyze_plain(lags, P)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(torch, g, w) for g, w in zip(got10, want10))
+            require(e == 0, f"K10 differs from its plain version ({path}, "
+                            f"{what}, max abs err {e})")
+            err10 = max(err10, e)
+            on += int((got10[0] > 0).sum())
+            analysis_checks(torch, what, pre, work, args, tally)
+            checked.append(f"{lags.shape[0]}x{what.split()[-1]}")
+        require(on > 0, f"{path}: no analysis row has LTP on")
+        require(tally["k7_flag_diff"] == 0, f"{path}: K7 and its plain "
+                f"version flag {tally['k7_flag_diff']} rows apart")
+        tallies[path] = tally
+        print(f"phase 11 encode {SHAPE_SECONDS:.0f} s stereo {bps}-bit -m "
+              f"{preset} -B {B} -V 0 -P {P} on the card: byte-identical to "
+              f"the host exact stream ({host_s:.2f} s on the host), "
+              f"{st['device_blocks']} device / {st['repaired_blocks']} "
+              f"repaired / {st['w_overflow_blocks']} overflow of {ncomp} "
+              f"COMPRESS blocks; {calls} encode groups; launches {got}; "
+              f"analysis rows with LTP on: {on}; K10 bit-equal to plain on "
+              f"every call (rows x n {checked}); decode on the card lossless, "
+              f"K9 launched once per LTP group ({len(groups)}) and bit-equal "
+              f"to plain on each (blocks x n "
+              f"{[(b, n) for b, n, _ in groups]}); {tally_text(tally)} "
+              f"[{card}]")
+    return launches, err9, err10
 
 
 # ---------------------------------------------------------------------------
@@ -1906,6 +2242,28 @@ def k7_silent_case(np):
     lags = (FLT_EPSILON * (1.0 + rel))[:, None] * 0.9 ** np.arange(9)
     return ("silent threshold", lags, 4096, 16, 8, False,
             np.abs(rel) <= 5e-7, np.abs(rel) >= 1e-3)
+
+
+def k7_growth_case(np, M: int):
+    """Lags (1, M + 1) on which the recursion meets the reflection
+    coefficient +-5/32 at every order (the step-up recursion in exact
+    rationals): each order saves more than its 8 bits at n 1024, so the
+    argmin is at M, and the coefficients grow to sum |a| ~ 1.6e3, 1.2e7 and
+    3.3e9 at M 64, 128 and 255. The widened conditioning estimate
+    (kernels/levinson.py, above _EPS_SILENT) must flag the row at M >= 128,
+    where lags moved by 2^-42 change the order by tens, and leave it alone at
+    M 64, where they change nothing."""
+    from fractions import Fraction
+    r, a, ev = [Fraction(1)], [Fraction(1)], Fraction(1)
+    for m in range(1, M + 1):
+        g = Fraction(5 * (-1) ** (m - 1), 32)
+        r.append(-g * ev - sum(a[j] * r[m - j] for j in range(1, m)))
+        a = [x + g * y for x, y in zip(a + [Fraction(0)],
+                                       [Fraction(0)] + a[::-1])]
+        ev *= 1 - g * g
+    lags = np.asarray([[float(v) for v in r]])
+    return (f"coefficient growth at M {M}", lags, 1024, 16, M, False,
+            np.asarray([M >= 128]), np.asarray([M <= 64]))
 
 
 def k7_boundary_cases(np) -> list:
@@ -2211,6 +2569,21 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
                             must, must_not)
         bnames.append(f"{name} ({int(port[3].sum())} of {len(lags)} "
                       f"flagged)")
+    for gM in (64, 128, 255):
+        name, lags, bn, bb, bM, bfixed, must, must_not = \
+            k7_growth_case(np, gM)
+        ac_g = torch.from_numpy(moved(np, lags))
+        port = [t.cpu().numpy() for t in lpc_analyze(ac_g.to(dev), bn, bb,
+                                                     bM, bfixed)]
+        plain_g = lpc_analyze_plain(ac_g, bn, bb, bM, bfixed)
+        require(bool((plain_g[3].numpy() == port[3]).all()),
+                f"K7 and its plain version flag the {name} row apart")
+        check_flag_contract(np, f"K7 on the {name} row", port[:3],
+                            host_lpc(np, lags, bn, bb, bM, bfixed), port[3],
+                            must, must_not)
+        bnames.append(f"{name} (order {int(port[0][0])}, host "
+                      f"{int(host_lpc(np, lags, bn, bb, bM, bfixed)[0][0])}"
+                      f", flagged {bool(port[3][0])})")
     print(f"phase 10 K7 lpc_analyze at V={V} M={M} (orders up to "
           f"{int(orders.max())}): kernel {ms7:.4f} ms, device time "
           f"{dev7:.4f} ms, plain {plain7:.2f} ms, bound {b7['bound_ms']:.4f} "
@@ -2350,13 +2723,17 @@ def main() -> int:
         torch, np, dev, pcm, card)
     records += ltp_records
     tallies.update(ltp_tallies)
+    shape_launches, k9_shape_err, k10_shape_err = phase_ltp_shapes(
+        torch, np, dev, card, tallies)
+    ltp_launches.update(shape_launches)
     records += phase_analysis(torch, np, dev, pcm, card, tallies)
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
     launches["ltp_analyze"] = ltp_launches["music120_V0_P3"]["encode"][
         "ltp_analyze"]
-    var_errs["ltp_synth"] = k9_err
+    var_errs["ltp_synth"] = max(k9_err, k9_shape_err)
+    var_errs["ltp_analyze"] = k10_shape_err
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "srla_tpu", "bench"))

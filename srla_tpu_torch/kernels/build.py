@@ -29,10 +29,11 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Flags of one library on top of NVCC_FLAGS. K10's f64 decisions feed
-# margin flags that must equal its plain version's: no multiply-add
-# contraction.
-EXTRA_FLAGS = {"ltp_analyze": ("-fmad=false",)}
+# Flags of one library on top of NVCC_FLAGS. K10's f64 decisions (and its
+# first design's) feed margin flags that must equal its plain version's: no
+# multiply-add contraction.
+EXTRA_FLAGS = {"ltp_analyze": ("-fmad=false",),
+               "ltp_analyze_v1": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

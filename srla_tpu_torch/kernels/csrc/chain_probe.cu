@@ -18,11 +18,20 @@
 //           term
 //   kind 3, K7's Levinson step at M <= 64: the same over a row's group of
 //           8 lanes (three shuffles and adds), then the division
+//   kind 4, a K9 step: a lane's sample reads three ring slots in shared
+//           memory that the step before wrote (delay 34, three taps: w =
+//           32), three wrapping multiply-adds, the shift, the add to its own
+//           staged slot, the store, __syncwarp
+//   kind 5, K10's solve chain: the order-3 ridge Cholesky (three
+//           __dsqrt_rn and the divisions), the solves, the trace, the
+//           rounding margin and one coefficient's quantization, each step's
+//           input the last step's output
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
-// codewords (K7: the recursion's steps): the kernel's serial floor on this
-// card.
+// codewords (K7: the recursion's steps; K9: the steps of its row with the
+// most; K10: one solve a row, to which its scans add): the kernel's serial
+// floor on this card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,6 +53,69 @@ __device__ uint32_t f64_chain(uint32_t y, int steps) {
     return (uint32_t)__double2hiint(v);
 }
 
+// K9's step (ltp_synth.cu) on a ring of 2048 samples.
+__device__ uint32_t k9_chain(uint32_t y, int steps, uint32_t a, uint32_t b) {
+    __shared__ uint32_t ring[2048];
+    const int lane = threadIdx.x & 31;
+    for (int k = lane; k < 2048; k += 32) ring[k] = y + (uint32_t)k;
+    __syncwarp();
+    const uint32_t c[3] = {a, b, a ^ b};
+    const int delay = 34;
+    int s = 64 + lane;
+    for (int i = 0; i < steps; ++i) {
+        const int base = s - delay;
+        uint32_t acc = 16u;
+#pragma unroll
+        for (int t = 0; t < 3; ++t) acc += c[t] * ring[(base + t) & 2047];
+        ring[s & 2047] += (uint32_t)((int32_t)acc >> 5);
+        __syncwarp();
+        s += 32;
+    }
+    return ring[(s - 32) & 2047];
+}
+
+// K10's solve (ltp_analyze.cu after the scans) at order 3.
+__device__ uint32_t k10_chain(uint32_t y, int steps) {
+    double r = 1.0 + (double)(y & 7u) * 1e-3;
+    for (int i = 0; i < steps; ++i) {
+        const double a0r = __dmul_rn(r, 1.0 + 1e-5);
+        const double r1 = __dmul_rn(r, 0.5), r2 = __dmul_rn(r, 0.25);
+        const double b0 = __dmul_rn(r, 0.4), b1 = __dmul_rn(r, 0.3);
+        const double b2 = __dmul_rn(r, 0.2);
+        const double d0 = __ddiv_rn(1.0, __dsqrt_rn(a0r));
+        const double l10 = __dmul_rn(r1, d0), l20 = __dmul_rn(r2, d0);
+        const double s1 = __dsub_rn(a0r, __dmul_rn(l10, l10));
+        const double d1 = __ddiv_rn(1.0, __dsqrt_rn(s1));
+        const double l21 = __dmul_rn(__dsub_rn(r1, __dmul_rn(l10, l20)), d1);
+        const double s2 = __dsub_rn(__dsub_rn(a0r, __dmul_rn(l21, l21)),
+                                    __dmul_rn(l20, l20));
+        const double d2 = __ddiv_rn(1.0, __dsqrt_rn(s2));
+        const double y0 = __dmul_rn(b0, d0);
+        const double y1 = __dmul_rn(__dsub_rn(b1, __dmul_rn(l10, y0)), d1);
+        const double y2 = __dmul_rn(__dsub_rn(__dsub_rn(b2, __dmul_rn(l21, y1)),
+                                              __dmul_rn(l20, y0)), d2);
+        const double x2 = __dmul_rn(y2, d2);
+        const double x1 = __dmul_rn(__dsub_rn(y1, __dmul_rn(l21, x2)), d1);
+        const double x0 = __dmul_rn(__dsub_rn(__dsub_rn(y0, __dmul_rn(l10, x1)),
+                                              __dmul_rn(l20, x2)), d0);
+        const double m10 = __dmul_rn(__dmul_rn(l10, d0), d1);
+        const double m21 = __dmul_rn(__dmul_rn(l21, d1), d2);
+        const double tr = __dadd_rn(__dadd_rn(__dadd_rn(__dmul_rn(d0, d0),
+                                                        __dmul_rn(m10, m10)),
+                                              __dmul_rn(d1, d1)),
+                                    __dmul_rn(m21, m21));
+        const double sx = __dadd_rn(__dadd_rn(fabs(x0), fabs(x1)), fabs(x2));
+        const double eps_q = __dmul_rn(__dmul_rn(__dmul_rn(32.0, tr), r),
+                                       __dadd_rn(2.0, __dmul_rn(3.0, sx)));
+        const double ax = fabs(__dmul_rn(x0, 32.0));
+        const double q = floor(__dadd_rn(ax, 0.5));
+        const bool near = fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5))
+            < eps_q;
+        r = __dadd_rn(1.0, __dmul_rn(__dadd_rn(q, near ? 1.0 : 0.0), 1e-9));
+    }
+    return (uint32_t)__double2hiint(r);
+}
+
 __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
                                    uint32_t b, uint32_t* out) {
     uint32_t y = a ^ threadIdx.x;
@@ -57,6 +129,10 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
 #pragma unroll 16
         for (int i = 0; i < steps; ++i)
             y += (uint32_t)__clz(__funnelshift_l(b, a, y)) + k1;
+    } else if (kind == 4) {
+        y = k9_chain(y, steps, a, b);
+    } else if (kind == 5) {
+        y = k10_chain(y, steps);
     } else {
         y = kind == 2 ? f64_chain<32>(y, steps) : f64_chain<8>(y, steps);
     }

@@ -8,8 +8,10 @@
 // must equal, is kernels/levinson.py:lpc_analyze_plain. Per row:
 //
 //   1. the Levinson-Durbin recursion to order M (<= 255) on the lags (the
-//      ridge already on lag 0): the error variances, the silent test, kappa
-//      = r0 / min |ev| and the non-finite flag;
+//      ridge already on lag 0): the error variances, the silent test, the
+//      conditioning estimate kappa' = r0 / min |ev| times the square of
+//      the largest sum_j |a[j]| of the recursion's vectors (levinson.py,
+//      above _EPS_SILENT) and the non-finite flag;
 //   2. the code-length argmin over orders 1..M of the window-corrected
 //      error variances (the first strict minimum wins, as argmin) with its
 //      tie flag, kept as a running minimum and runner-up;
@@ -158,6 +160,7 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     double min_ev = fmin(pos_abs(r0), pos_abs(evk));
     bool nonfinite = !isfinite(r0) || !isfinite(evk);
     const double intscale = (double)(1 << (bps - 1));
+    double growth = 1.0;     // the largest sum_j |a[j]| of a vector so far
     double my_ev = evk;      // lane l: order o's, o = l + 1 (mod kBatch)
     double best_len = CUDART_INF;
     double second = CUDART_INF;            // the least length of the others
@@ -183,9 +186,17 @@ lpc_analyze_kernel(const double* __restrict__ lags,
                 const int j = gl + G * i;
                 if (j < m) s = __dadd_rn(s, __dmul_rn(aj[i], ac[m - j]));
             }
+            // The growth of the order m - 1 vector: its |a[j]| summed in
+            // the order levinson.py:group_abs_sum emulates.
+            double sa = 0.0;
 #pragma unroll
-            for (int off = 1; off < G; off <<= 1)
+            for (int i = 0; i < kTerms; ++i) sa = __dadd_rn(sa, fabs(aj[i]));
+#pragma unroll
+            for (int off = 1; off < G; off <<= 1) {
                 s = __dadd_rn(s, __shfl_xor_sync(kFull, s, off, G));
+                sa = __dadd_rn(sa, __shfl_xor_sync(kFull, sa, off, G));
+            }
+            growth = fmax(growth, sa);
             const double g = __ddiv_rn(s, -(evk == 0.0 ? 1.0 : evk));
             evk = __dmul_rn(evk, __dsub_rn(1.0, __dmul_rn(g, g)));
             // cur = prev + g * flip(prev[0..m]) over the pairs (j, m - j),
@@ -247,6 +258,7 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     const bool ok = isfinite(min_ev) && min_ev > 0.0;
     double kappa = silent ? 1.0 : __ddiv_rn(absr0, ok ? min_ev : 1.0);
     if (!(isfinite(kappa) && kappa >= 1.0)) kappa = CUDART_INF;
+    if (!silent) kappa = __dmul_rn(__dmul_rn(kappa, growth), growth);
     bool risky = fabs(__dsub_rn(absr0, kFltEpsilon)) < kEpsSilent;
     risky |= nonfinite && !silent;
     int order = M;

@@ -34,15 +34,34 @@ MAX_ORDER = 255                  # the largest preset's (-m 6)
 # srla_tpu.kernels.exact (sized there for df64; f64 errors are smaller, so
 # they hold a fortiori), and the f64 error they must cover, u = 2^-53:
 #
-# - Levinson carries a relative error d of the lags into kappa * d of the
-#   error variances and coefficients to first order (kappa = r0 / min |ev|).
+# - Levinson carries a relative error d of the lags into the error
+#   variances: ev[m] is the least a^T T_m a over monic vectors a (T_m the
+#   lags' Toeplitz matrix), so to first order a change dT of T_m changes it
+#   by a^T dT a at the recursion's own a, and |a^T dT a| <= (sum_j |a[j]|)^2
+#   d r0: |d ev[m]| / ev[m] <= A^2 kappa d, kappa = r0 / min |ev| and A the
+#   largest sum_j |a[j]| of the recursion's vectors (a[0] = 1, so A >= 1).
+#   The margins below scale with that widened estimate, kappa' = kappa A^2
+#   (kappa for a silent row, whose decisions do not use the recursion); the
+#   coefficients, which the quantization rounds, are taken to move by the
+#   same relative amount. kappa alone (before the repair) assumed A ~ 1: on
+#   lags built from the reflection coefficient +-5/32 at every order, A
+#   reaches 1.6e3, 1.2e7 and 3.3e9 at orders 64, 128 and 255 while kappa
+#   stays 4.9, 23 and 503, and at M 128 and 255 lags moved by 2^-42 change
+#   the chosen order by tens, which kappa alone left unflagged.
+#   tests/test_torch_encode_margins.py holds those rows to the contract.
+#   On make_music's rows they flag nothing (chip_smoke.py's encodes repair
+#   no block and re-measure no span). A is summed in K7's order (each of
+#   the G lanes of a row, G = _group_width(M), sums |a[j]| for j = lane,
+#   lane + G, ... in order, then an xor-butterfly over the G lanes;
+#   group_abs_sum), so K7 and this version take A from their vectors with
+#   the same operations.
 #   The lags are within d <= 2^-42 of the host's (exact.py, above
 #   _EPS_PREEMPH). The order choice compares lengths of n * entropy(ev)
-#   bits, which move by at most n * kappa * d / ln 2; its margin is n *
-#   kappa * 2^-40 bits (_KAPPA_SCALE), four times n * kappa * 2^-42, and
+#   bits, which move by at most n * kappa' * d / ln 2; its margin is n *
+#   kappa' * 2^-40 bits (_KAPPA_SCALE), four times n * kappa' * 2^-42, and
 #   never below the host's own tie-repair trigger of 1e-6 bits.
 #   Quantization rounds coef * 2^rshift with |coef * 2^rshift| <= 2 * qmax;
-#   its margin is 2 * qmax * kappa * 2^-40, the same factor of four, never
+#   its margin is 2 * qmax * kappa' * 2^-40, the same factor of four, never
 #   below 1e-7.
 # - The order of gamma's sum. Step k sums m = k + 2 <= M <= 255 products
 #   a[j] * r[m - j]: the host in order, the plain version in torch's tree,
@@ -53,8 +72,8 @@ MAX_ORDER = 255                  # the largest preset's (-m 6)
 #   sum |a[j] r[m - j]| of the exact sum, so the computed gamma is the exact
 #   gamma of lags moved by at most 255 u < 2^-45 relative (a backward
 #   error, step by step). That adds d' < 2^-45 to the lag error d: d + d' <
-#   1.125 * 2^-42, which the factor of four above (n * kappa * 2^-40 and 2 *
-#   qmax * kappa * 2^-40 allow d up to 2^-40) still covers.
+#   1.125 * 2^-42, which the factor of four above (n * kappa' * 2^-40 and 2 *
+#   qmax * kappa' * 2^-40 allow d up to 2^-40) still covers.
 #   tests/test_torch_encode_margins.py drives both decisions to their
 #   boundaries at d = 2^-42.
 _EPS_SILENT = 1e-6           # relative |r0| distance to FLT_EPSILON
@@ -77,11 +96,36 @@ def _dist_to_half(x: torch.Tensor) -> torch.Tensor:
     return ((ax - torch.floor(ax)) - 0.5).abs()
 
 
+def _group_width(M: int) -> int:
+    """K7's lanes a row at max order M (lpc_analyze.cu's dispatch)."""
+    return 8 if M <= 64 else (16 if M <= 128 else 32)
+
+
+def group_abs_sum(a: torch.Tensor, m: int, G: int) -> torch.Tensor:
+    """sum_{j < m} |a[:, j]| in K7's order: lane l of G sums j = l, l + G,
+    ... (8 terms, the missing ones 0) in order, then an xor-butterfly over
+    the G lanes. a (V, >= m) f64; returns (V,)."""
+    V = a.shape[0]
+    x = torch.zeros((V, 8 * G), dtype=_F64, device=a.device)
+    x[:, :m] = a[:, :m].abs()
+    x = x.view(V, 8, G)
+    s = x[:, 0]
+    for i in range(1, 8):
+        s = s + x[:, i]
+    lane = torch.arange(G, device=a.device)
+    off = 1
+    while off < G:
+        s = s + s[:, lane ^ off]
+        off <<= 1
+    return s[:, 0]
+
+
 def levinson(ac: torch.Tensor, max_order: int, orders=None):
     """Levinson-Durbin recursion. ac (V, M+1) f64 with the ridge on lag 0.
     Returns (error_vars (V, M+1), coefs (V, M) at per-row ``orders`` or None,
     silent (V,), risky (V,), kappa (V,)). risky: r0 near the silent
-    threshold, or a non-finite error variance on a non-silent row."""
+    threshold, or a non-finite error variance on a non-silent row. kappa is
+    the widened conditioning estimate kappa' of the margins' comment."""
     V = ac.shape[0]
     M = max_order
     r0 = ac[:, 0]
@@ -97,7 +141,11 @@ def levinson(ac: torch.Tensor, max_order: int, orders=None):
     if orders is not None:
         collected = torch.zeros((V, M), dtype=_F64, device=ac.device)
         collected[:, 0] = torch.where(orders == 1, a1, 0.0)
+    G = _group_width(M)
+    growth = torch.ones(V, dtype=_F64, device=ac.device)   # |a| at order 0
     for k in range(M - 1):
+        # The growth of the order k + 1 vector, the one this step uses.
+        growth = torch.fmax(growth, group_abs_sum(a, k + 2, G))
         # gamma = sum_{j <= k+1} a[j] * ac[k+2-j]
         gamma = (a[:, :k + 2] * ac[:, 1:k + 3].flip(1)).sum(dim=1)
         evk = ev[:, k + 1]
@@ -115,7 +163,8 @@ def levinson(ac: torch.Tensor, max_order: int, orders=None):
     evs = torch.where(silent[:, None], r0[:, None], ev)
     if collected is not None:
         collected = torch.where(silent[:, None], 0.0, collected)
-    # Conditioning estimate: r0 / min |ev| over the recursion.
+    # Conditioning estimate: r0 / min |ev| over the recursion, times the
+    # coefficients' growth.
     ev_abs = evs.abs()
     min_ev = torch.where(ev_abs > 0, ev_abs, math.inf).min(dim=1).values
     ok = torch.isfinite(min_ev) & (min_ev > 0)
@@ -123,6 +172,7 @@ def levinson(ac: torch.Tensor, max_order: int, orders=None):
                         absr0 / torch.where(ok, min_ev, 1.0))
     kappa = torch.where(torch.isfinite(kappa) & (kappa >= 1.0), kappa,
                         math.inf)
+    kappa = torch.where(silent, kappa, (kappa * growth) * growth)
     nonfinite = ~torch.isfinite(evs).all(dim=1)
     risky = risky | (nonfinite & ~silent)
     return evs, collected, silent, risky, kappa

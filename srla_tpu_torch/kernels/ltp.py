@@ -82,12 +82,13 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0, -r, r)
 
 
-def ltp_analyze_plain(ac: torch.Tensor, order: int):
-    """Plain PyTorch version of K10: the lag scan as a Python loop over the
-    lags, vectorised over rows, every comparison with its margin flag
-    (``_ltp_exact:983-1125``), in f64. ac (V, LTP_COLS) f64: lags 0..262,
-    then zeros. Returns (periods (V,) int32, 0 = off; coefs (V, order)
-    int32 in emission (reversed) order; risky (V,) bool)."""
+def pitch_scan_plain(ac: torch.Tensor):
+    """The pitch search of K10's plain version (``_ltp_exact:983-1062``):
+    the lag scan as a Python loop over the lags, vectorised over rows, then
+    the 0.1 * r0 threshold and the first candidate at 0.9 of the largest
+    peak, every comparison with its margin flag, in f64. ac (V, LTP_COLS)
+    f64. Returns (periods (V,) int64 before the r0 and order guards, 0 =
+    none; risky (V,) bool)."""
     V = ac.shape[0]
     dev = ac.device
     ac0 = ac[:, 0]
@@ -160,6 +161,18 @@ def ltp_analyze_plain(ac: torch.Tensor, order: int):
     first = qual.to(torch.uint8).argmax(dim=1)
     period = torch.where(ok & qual.any(dim=1),
                          cands.gather(1, first[:, None])[:, 0], 0)
+    return period, risky
+
+
+def ltp_solve_plain(ac: torch.Tensor, period: torch.Tensor, order: int,
+                    risky: torch.Tensor):
+    """The rest of K10's plain version (``_ltp_exact:1063-1125``): the r0
+    and short-period guards, the ridge Cholesky of order 1 or 3 and the
+    quantization, every decision with its margin flag, in f64. period (V,)
+    int64 from pitch_scan_plain. Returns (periods (V,) int32, 0 = off; coefs
+    (V, order) int32 in emission (reversed) order; risky (V,) bool)."""
+    ac0 = ac[:, 0]
+    zero_b = torch.zeros_like(risky)
     # |r0| <= FLT_MIN and the short-period guard.
     risky = risky | ((ac0.abs() - _FLT_MIN).abs() < 1e-38)
     period = torch.where(ac0.abs() <= _FLT_MIN, 0, period)
@@ -223,6 +236,15 @@ def ltp_analyze_plain(ac: torch.Tensor, order: int):
                              0.0))
     coefs = torch.stack(q[::-1], dim=1).to(torch.int32)
     return period.to(torch.int32), coefs, risky
+
+
+def ltp_analyze_plain(ac: torch.Tensor, order: int):
+    """Plain PyTorch version of K10 (``_ltp_exact:983-1125``): the pitch
+    search, then the solve and quantization. ac (V, LTP_COLS) f64: lags
+    0..262, then zeros. Returns (periods (V,) int32, 0 = off; coefs (V,
+    order) int32 in emission (reversed) order; risky (V,) bool)."""
+    period, risky = pitch_scan_plain(ac)
+    return ltp_solve_plain(ac, period, order, risky)
 
 
 def ltp_analyze(ac: torch.Tensor, order: int):

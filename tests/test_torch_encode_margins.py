@@ -234,6 +234,32 @@ def test_quantization_half_and_shift_edges_are_flagged():
                           must_not_flag)
 
 
+@pytest.mark.parametrize("M", [64, 128, 255])
+def test_coefficient_growth_is_flagged(M):
+    """Lags built from the reflection coefficient +-5/32 at every order
+    (chip_smoke.k7_growth_case): the port's lags moved by 2^-42 change the
+    chosen order by tens at M 128 and 255 (the coefficients grow to sum |a|
+    ~ 1.2e7 and 3.3e9 while r0 / min |ev| stays 23 and 503), so the widened
+    conditioning estimate must flag the row there; at M 64 (sum |a| ~ 1.6e3)
+    nothing moves and nothing is flagged."""
+    import chip_smoke
+    name, lags, n, bps, M, fixed, must, must_not = \
+        chip_smoke.k7_growth_case(np, M)
+    from srla_tpu_torch.kernels.levinson import lpc_analyze_plain
+    port = lpc_analyze_plain(torch.from_numpy(_moved(lags)), n, bps, M,
+                             fixed)
+    host = chip_smoke.host_lpc(np, lags, n, bps, M, fixed)
+    _assert_flag_contract(
+        np.concatenate([port[0].numpy()[:, None], port[1].numpy()[:, None],
+                        port[2].numpy()], axis=1),
+        np.concatenate([np.asarray(host[0])[:, None],
+                        np.asarray(host[1])[:, None], np.asarray(host[2])],
+                       axis=1),
+        port[3].numpy(), must, must_not)
+    # Not vacuous: at M >= 128 the moved lags do change the decisions.
+    assert (int(port[0][0]) != int(host[0][0])) == (M >= 128)
+
+
 # ---------------------------------------------------------------------------
 # Rice parameters: partition means at the boundaries of both chains
 # ---------------------------------------------------------------------------

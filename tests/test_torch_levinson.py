@@ -111,10 +111,11 @@ def test_lpc_analyze_matches_jax_and_host(M):
 def _edge_lags(M: int) -> np.ndarray:
     """Lag rows (2, M + 1) on which the recursion meets given reflection
     coefficients (chip_smoke.lags_from_reflections' step-up recursion, in
-    exact rationals, so the rows stay well-conditioned at high orders):
-    one gain of 0.45 at order 1 and none after (the argmin at order 1), and
-    +-5/32 in turns at every order (each order saves more than its 8 bits
-    at N samples: the argmin at M)."""
+    exact rationals): one gain of 0.45 at order 1 and none after (the
+    argmin at order 1), and +-5/32 in turns at every order (each order saves
+    more than its 8 bits at N samples: the argmin at M; the coefficients
+    grow to sum |a| ~ 1.2e7 at M 128, so the widened conditioning estimate
+    flags that row from M 127 on)."""
     rows = []
     for refl in ([Fraction(0.45)] + [Fraction(0)] * (M - 1),
                  [Fraction(5 * (-1) ** m, 32) for m in range(M)]):
@@ -161,11 +162,14 @@ def test_lpc_analyze_at_group_widths_matches_jax_and_host(M):
     whose argmin is order 1 and order M. Those two are not held against
     JAX: its df64 recursion drifts on the second (at M 127 its error
     variance at order 100 is ~1e-3 relative from the f64 one, unflagged,
-    and it picks order 123 where the host and the port pick 127)."""
+    and it picks order 123 where the host and the port pick 127). The
+    second is flagged from M 127 on, where its coefficients' growth widens
+    the margins (kernels/levinson.py, above _EPS_SILENT), and not below."""
     base = _lags(M)
     lags = np.concatenate([base, _edge_lags(M)])
     orders, risky = _check_against_jax_and_host(lags, M, False, len(base))
-    assert orders[-2] == 1 and orders[-1] == M and not risky[-2:].any()
+    assert orders[-2] == 1 and orders[-1] == M and not risky[-2]
+    assert risky[-1] == (M > 64)
 
 
 def test_lpc_analyze_max_fixed_matches_jax_and_host():
@@ -224,14 +228,8 @@ def test_lpc_analyze_kernel_matches_plain_on_card(cuda, M):
 def test_lpc_analyze_partial_warps_on_card(cuda, M):
     """13 rows, not a multiple of K7's rows a warp (32 / G: 4 at M <= 64,
     2 at M <= 128): every row equal to the plain version where neither
-    flags and flagged alike, the rows past V in the last warp not stored.
-    The edge rows' argmin-at-M row is left out at M 255: there the host,
-    the plain version and K7 each pick another order, hundreds of bits
-    apart, and none flags (the margins' conditioning estimate r0 / min |ev|
-    misses the growth of the coefficients, to ~1e10; ROADMAP section 3)."""
-    edge = _edge_lags(M)
-    lags = np.concatenate([_lags(M)[:11], edge] if M <= 128
-                          else [_lags(M)[:12], edge[:1]])
+    flags and flagged alike, the rows past V in the last warp not stored."""
+    lags = np.concatenate([_lags(M)[:11], _edge_lags(M)])
     ac = torch.from_numpy(lags).to(cuda)
     got = lpc_analyze(ac, N, BPS, M, False)
     want = lpc_analyze_plain(ac, N, BPS, M, False)
@@ -249,6 +247,24 @@ def test_boundary_rows_are_flagged_on_card(cuda, case):
         chip_smoke.k7_boundary_cases(np)[case]
     port = lpc_analyze(torch.from_numpy(chip_smoke.moved(np, lags)).to(cuda),
                        n, bps, M, fixed)
+    chip_smoke.check_flag_contract(
+        np, name, [t.cpu().numpy() for t in port[:3]],
+        chip_smoke.host_lpc(np, lags, n, bps, M, fixed),
+        port[3].cpu().numpy(), must, must_not)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [64, 128, 255])
+def test_coefficient_growth_rows_on_card(cuda, M):
+    """K7 on the +-5/32 growth row (chip_smoke.k7_growth_case), its lags
+    moved by 2^-42: flagged at M 128 and 255, where the moved lags change
+    the order, as the plain version flags it; not at M 64."""
+    name, lags, n, bps, M, fixed, must, must_not = \
+        chip_smoke.k7_growth_case(np, M)
+    ac = torch.from_numpy(chip_smoke.moved(np, lags))
+    port = lpc_analyze(ac.to(cuda), n, bps, M, fixed)
+    plain = lpc_analyze_plain(ac, n, bps, M, fixed)
+    assert torch.equal(port[3].cpu(), plain[3])
     chip_smoke.check_flag_contract(
         np, name, [t.cpu().numpy() for t in port[:3]],
         chip_smoke.host_lpc(np, lags, n, bps, M, fixed),

@@ -19,7 +19,10 @@ encode around it) against the JAX package and the host.
   and stereo, 16 and 24 bits, -m 4 and 6, spans under 512 samples measured
   on the host and counted; the CLI's -e -P 3 at its defaults against
   srla_tpu.cli.
-- On the card (marked gpu): K9 and K10 against their plain versions.
+- On the card (marked gpu): K9 and K10 against their plain versions, on
+  these rows and on chip_smoke's hard rows (K9: the shortest step, periods
+  around a warp, off rows between, n 16384, 4064 and 333; K10: the cap,
+  lag 262, equal peaks, a singular pivot, 24-bit magnitudes).
 
 Integers compare exactly; periods and coefficients are integers too."""
 
@@ -30,6 +33,7 @@ jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402
 import signals  # noqa: E402
 from srla_tpu import encode as jax_encode  # noqa: E402
 from srla_tpu.kernels.decode2 import _ltp_pass  # noqa: E402
@@ -322,6 +326,37 @@ def test_ltp_synth_kernel_matches_plain_on_card(cuda, n):
     torch.cuda.synchronize()
     assert ltp.ltp_synth.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16384, 4064, 333])
+def test_ltp_synth_kernel_hard_rows_on_card(cuda, n):
+    """37 rows: the shortest valid step (w = 7), periods 8, 31, 32, 33 and
+    262 at orders 1 and 3 (w below, at and above a warp), off rows between
+    on rows (chip_smoke.k9_hard_args), at n 16384, 4064 and 333."""
+    args = chip_smoke.k9_hard_args(torch, np, cuda, 37, n, seed=n)
+    got = ltp.ltp_synth(*args)
+    want = ltp.ltp_synth_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 3])
+def test_ltp_analyze_kernel_hard_rows_on_card(cuda, order):
+    """_edge_lags, chip_smoke.k10_edge_lags (the cap of 20 binding, a
+    segment opening at 261 and at 262, equal peaks, a singular pivot,
+    24-bit magnitudes) and 61 seeded rows of k10_random_lags: period,
+    coefficients and flag equal to the plain version's."""
+    lags = np.concatenate([_edge_lags()[0], chip_smoke.k10_edge_lags(np),
+                           chip_smoke.k10_random_lags(np, 61, order)])
+    assert lags.shape[0] % 4 != 0
+    ac = torch.from_numpy(lags).to(cuda)
+    got = ltp.ltp_analyze(ac, order)
+    want = ltp.ltp_analyze_plain(ac, order)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the ten CUDA libraries of csrc/ (thirteen kernels) and five
+Builds the twelve CUDA libraries of csrc/ (fifteen kernels) and five
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9 and K10, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu and ltp_analyze_v1.cu, which nothing in the port calls) with
@@ -141,15 +141,41 @@ concurrent nvcc, then:
      K7, K3, K4 and K5 once per encode group and K8 twice, the decode
      lossless with K9 once per LTP group; K9 and K10 against their plain
      versions on every group, K8 and K7 as in phase 8.
+ 12. SVR refinement (--svr-filter-learning-iteration 2): make_music at -m 4
+     -B 4096 -V 0 (5 s), the same with -P 3 (5 s), the CLI's -V 1 -L 4 (1.5
+     s) and -m 6 -B 16384 -V 0 (1 s: M 255, K12's factor in its global
+     scratch), each encoded by SRLAEncoder(device="cuda"), counted:
+     byte-identical to the host exact encoder (its time printed), span and
+     block accounting, K7's coefficient and quantization entries, K11
+     (csrc/svr_cov.cu) and K12 (csrc/svr_refine.cu) once per analysis call
+     and K7's fused entry never, no plain version reached, the decode on
+     the card lossless; K11, K12 and K7's quantization entry bit-equal to
+     their plain versions (flags and iterations too) on the M 255 path's
+     tail group, and K7's coefficient entry held to its plain version there
+     (flags equal, orders equal where unflagged, coefficients within 4
+     kappa' 2^-42 max|c| and kappa' within (2M + 1) kappa' 2^-42 relative:
+     the two sum in different orders, k7_coefs_check). Then phase 3's 120 s
+     at -m 4 -B 4096 -V 0 --svr 2: counted, decoded losslessly, the repair
+     rate (a warning above 5 %), warm best of 3 with its step split, K11,
+     K12 and K7's two SVR entries against their plain versions on every row
+     of both analysis calls, and K11 and K12 timed at the
+     main call (CUDA events, device time) beside their plain versions,
+     bounds (f64 instructions over 17 T/s), serial floors (chain_probe.cu
+     kind 6, a dependent f64 add) and library yardsticks (a batched DGEMM
+     Gram for K11; cholesky_ex and cholesky_solve for K12), which the port
+     never calls.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
 version's, its bound and, where one PyTorch call computes the same function,
 that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
--V 0 encode, K8's and K7's on phase 6's; ``launches_variable`` on each of
-phase 8's three paths,
-``launches_ltp`` on phase 4's, 9's and 11's, encode and decode apart) and,
+-V 0 encode, K8's and K7's on phase 6's, K11's and K12's on phase 12's
+full-width encode; ``launches_variable`` on each of phase 8's three paths,
+``launches_ltp`` on phase 4's, 9's and 11's, ``launches_svr`` on phase
+12's five, encode and decode apart; K7's record also carries its SVR
+entries' launches on phase 12's full-width encode and the coefficient
+entry's agreement with its plain version) and,
 last, the device JSON line. A kernel's bound is the
 larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
 instructions its inputs need (a multiply-add is one) over the H100's INT32
@@ -160,7 +186,9 @@ samples (K1, per row) or codewords
 (K2, per block; C * n, one per sample) times the time one warp takes for
 the shortest dependent step alone, measured in the same run.
 K7's and K10's operations are f64, over the H100's 34 TFLOP/s outside the
-tensor cores; K8's run on the f64 tensor cores, 67 TFLOP/s. K7 also gets a
+tensor cores; K8's run on the f64 tensor cores, 67 TFLOP/s; K11's and
+K12's are counted as f64 instructions (unfused multiplies and adds, one
+issue slot each) over 17 T/s. K7 also gets a
 serial floor: the recursion's M - 1 steps of the shortest dependent chain
 of one step (chain_probe.cu's kind 3: an 8-lane butterfly and the
 division, K7's step at M <= 64).
@@ -314,7 +342,7 @@ def chain_step_ms(torch, kind: int) -> float:
     """Milliseconds one warp needs for one step of a serial chain alone
     (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
     the Levinson step of K7's first design, kind 3 K7's step at M <= 64,
-    kind 4 a K9 step, kind 5 K10's solve):
+    kind 4 a K9 step, kind 5 K10's solve, kind 6 a K12 chain's f64 add):
     the difference of two chain lengths over their difference, CUDA
     events."""
     import ctypes
@@ -480,7 +508,7 @@ def profile_decode(torch, decode, stream: bytes, dev) -> None:
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
-             "autocorr", "lpc_analyze")
+             "autocorr", "lpc_analyze", "svr_cov", "svr_refine")
 # Measurement only: the serial floors, and the first designs of K8, K7, K9
 # and K10.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
@@ -1119,34 +1147,43 @@ def all_wrappers() -> dict:
     """Every kernel wrapper of the codec's paths, by record name."""
     from srla_tpu_torch.kernels.autocorr import autocorr
     from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
-    from srla_tpu_torch.kernels.levinson import lpc_analyze
+    from srla_tpu_torch.kernels.levinson import (lpc_analyze, lpc_coefs,
+                                                 lpc_quantize)
     from srla_tpu_torch.kernels.lpc import lpc_scan
     from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
     from srla_tpu_torch.kernels.predict import predict
     from srla_tpu_torch.kernels.rice_decode import rice_decode
     from srla_tpu_torch.kernels.rice_search import rice_sums
+    from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
     return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
             "fir_predict": predict, "rice_search": rice_sums,
             "pack_residual_sections": pack_residual_sections,
             "bitpack": pack, "ltp_synth": ltp_synth,
             "ltp_analyze": ltp_analyze, "autocorr": autocorr,
-            "lpc_analyze": lpc_analyze}
+            "lpc_analyze": lpc_analyze, "lpc_coefs": lpc_coefs,
+            "lpc_quantize": lpc_quantize, "svr_cov": svr_cov,
+            "svr_refine": svr_refine}
 
 
 def without_plain(fn):
-    """fn() with the plain versions of K7 and K8 (and the torch loops they
-    compose) replaced by tripwires: an encode on the card that reached one
-    of them raises."""
+    """fn() with the plain versions of K7, K8, K11 and K12 (and the torch
+    loops they compose) replaced by tripwires: an encode on the card that
+    reached one of them raises."""
     from srla_tpu_torch.kernels import autocorr as k8
     from srla_tpu_torch.kernels import levinson as k7
+    from srla_tpu_torch.kernels import svr as k12
     names = ((k8, "autocorr_plain"), (k7, "lpc_analyze_plain"),
              (k7, "levinson"), (k7, "select_order_exact"),
-             (k7, "quantize_exact"))
+             (k7, "quantize_exact"), (k7, "lpc_coefs_plain"),
+             (k7, "lpc_quantize_plain"), (k12, "svr_cov_plain"),
+             (k12, "svr_refine_plain"), (k12, "cholesky_plain"),
+             (k12, "cholesky_solve_plain"), (k12, "inverse_diag_max_plain"),
+             (k12, "rgr_mean_code_length"))
     saved = [getattr(m, name) for m, name in names]
 
     def tripwire(*_a, **_k):
-        raise RuntimeError("a plain version of K7 or K8 ran on the encode's "
-                           "path")
+        raise RuntimeError("a plain version of K7, K8, K11 or K12 ran on the "
+                           "encode's path")
 
     for m, name in names:
         setattr(m, name, tripwire)
@@ -2635,6 +2672,414 @@ def phase_analysis(torch, np, dev, pcm, card, tallies: dict):
                  flag_changes_m255=diff255)]
 
 
+# ---------------------------------------------------------------------------
+# K11 and K12: SVR refinement (--svr-filter-learning-iteration)
+# ---------------------------------------------------------------------------
+
+SVR_ITER = 2                     # the step runs from 2 iterations on
+# (path, seconds, preset, max block, -V, -P): byte identity against the
+# host exact encoder, whose SVR takes seconds per second of audio.
+SVR_CASES = (("music5_m4_svr2", 5.0, 4, 4096, 0, 0),
+             ("music5_m4_P3_svr2", 5.0, 4, 4096, 0, 3),
+             ("music1.5_V1_svr2", 1.5, 4, 4096, 1, 0),
+             ("music1_m6_B16384_svr2", 1.0, 6, 16384, 0, 0))
+SVR_REPAIR_WARN = 0.05           # repair rate above which phase 12 warns
+# The H100's f64 instructions a second outside the tensor cores: a
+# multiply, an add or a fused multiply-add each take one issue slot of the
+# 34 TFLOP/s (counted as two operations a multiply-add).
+F64_INSTR_PER_S = F64_OPS_PER_S / 2
+
+
+def svr_param(preset: int, B: int, V: int, P: int):
+    from srla_tpu_torch.host_encoder import make_parameter
+    return make_parameter(2, 16, SAMPLE_RATE, preset, B, V, 4, P, SVR_ITER)
+
+
+def svr_want(calls: int, n_encode: int, ltp: bool) -> dict:
+    """The launches of an SVR encode of ``calls`` analysis calls, of which
+    ``n_encode`` encode groups: K7's coefficient and quantization entries,
+    K11, K12, K3 and K4 once a call, K8 once (twice with -P), K5's fused
+    entry once a group; K7's fused entry and the generic pack never."""
+    return {"lpc_coefs": calls, "svr_cov": calls, "svr_refine": calls,
+            "lpc_quantize": calls, "lpc_analyze": 0, "fir_predict": calls,
+            "rice_search": calls, "autocorr": calls * (2 if ltp else 1),
+            "ltp_analyze": calls if ltp else 0,
+            "pack_residual_sections": n_encode, "bitpack": 0}
+
+
+def new_k7_coefs_tally() -> dict:
+    return {"calls": 0, "rows": 0, "flagged": 0, "bit_equal_rows": 0,
+            "max_abs_err": 0.0, "err_over_allowance": 0.0,
+            "kappa_rel_err": 0.0, "kappa_over_allowance": 0.0}
+
+
+def k7_coefs_check(torch, what: str, got, want, M: int, tally: dict) -> None:
+    """K7's coefficient entry (``lpc_coefs``) against its plain version on
+    the same lags. The two sum gamma in different orders (levinson.py, the
+    margins' comment), each the exact gamma of lags moved by less than
+    2^-45, so to first order they differ as lags moved by d = 2^-44 would
+    make them differ:
+    - the flags are equal, and so are the orders on the rows neither flags;
+    - each coefficient lies within 2 kappa' 2^-45 max|c| of the other's
+      (the quantization margin's normwise reading); the check allows rho
+      max|c|, rho = 4 kappa' 2^-42 (svr.py's premise (a)), 16 times that;
+    - kappa' = kappa A^2 moves with min |ev| (kappa' d relative) and with
+      A^2 (each recursion vector within kappa' d max|a| a coefficient, so
+      A within M kappa' d A): (2M + 1) kappa' d relative in all; the check
+      allows four times that, (2M + 1) kappa' 2^-42.
+    got, want: (orders, coefs, kappa', flags). Adds to ``tally``."""
+    go, gc, gk, gr = got
+    wo, wc, wk, wr = want
+    require(torch.equal(gr, wr), f"K7's coefficient entry flags other rows "
+                                 f"than its plain version ({what})")
+    ok = ~wr
+    require(torch.equal(go[ok], wo[ok]), f"K7's coefficient entry changes "
+                                         f"an unflagged order ({what})")
+    allow = 4.0 * 2.0 ** -42 * wk * wc.abs().max(dim=1).values
+    err = (gc - wc).abs().max(dim=1).values
+    require(bool((err[ok] <= allow[ok]).all()),
+            f"K7's coefficients are more than 4 kappa' 2^-42 max|c| from "
+            f"its plain version's on an unflagged row ({what})")
+    krel = (gk - wk).abs() / wk
+    kallow = (2 * M + 1) * wk * 2.0 ** -42
+    require(bool((krel[ok] <= kallow[ok]).all()),
+            f"K7's kappa' is more than (2M + 1) kappa' 2^-42 from its plain "
+            f"version's on an unflagged row ({what})")
+    tally["calls"] += 1
+    tally["rows"] += int(wr.numel())
+    tally["flagged"] += int(wr.sum())
+    tally["bit_equal_rows"] += int((torch.eq(gc, wc).all(dim=1) & ok).sum())
+    if bool(ok.any()):
+        tally["max_abs_err"] = max(tally["max_abs_err"], float(err[ok].max()))
+        tally["err_over_allowance"] = max(tally["err_over_allowance"], float(
+            (err[ok] / torch.where(allow[ok] > 0, allow[ok], 1.0)).max()))
+        tally["kappa_rel_err"] = max(tally["kappa_rel_err"],
+                                     float(krel[ok].max()))
+        tally["kappa_over_allowance"] = max(tally["kappa_over_allowance"],
+                                            float((krel[ok] / kallow[ok]).max()))
+
+
+def svr_inputs(torch, enc, file, lshift: int, offs, n: int, what: str,
+               k7: dict):
+    """What one analysis call of the SVR encode hands K11 and K12 (no -P):
+    the pre-emphasised rows of the blocks at ``offs`` and K7's orders,
+    coefficients and kappa' on their K8 lags, K7's coefficient entry held
+    to its plain version on those lags (``k7_coefs_check``, into ``k7``)."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.autocorr import autocorr
+    from srla_tpu_torch.kernels.levinson import lpc_coefs, lpc_coefs_plain
+    a = enc._host._device_args(n)
+    rows = exact.variant_stack(exact.cut_spans(file, offs, n), lshift)
+    work, _, _ = exact.preemphasis_exact(rows)
+    ac = autocorr(work, n, a["bps"], a["max_params"] + 1, a["fft_size"])
+    ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
+    kw = (n, a["bps"], a["max_params"], a["max_fixed"])
+    got = lpc_coefs(ac, *kw)
+    k7_coefs_check(torch, what, got, lpc_coefs_plain(ac, *kw),
+                   a["max_params"], k7)
+    orders, coefs, kappa, _ = got
+    return work, orders, coefs, kappa, a
+
+
+def svr_check(torch, what: str, work, orders, coefs, kappa, a) -> tuple:
+    """K11, K12 and K7's quantization entry against their plain versions
+    on one call's inputs: bit-equal, flags too. Returns (K11's output,
+    K12's outputs, the plain versions' wall ms: K11's, K12's)."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels.levinson import (lpc_quantize,
+                                                 lpc_quantize_plain)
+    from srla_tpu_torch.kernels.svr import (svr_cov, svr_cov_plain,
+                                            svr_refine, svr_refine_plain)
+    ridge = LPC_RIDGE_REGULARIZATION_PARAMETER
+    n, bps, M = a["n"], a["bps"], a["max_params"]
+    cov = svr_cov(work, orders, n, bps, M, ridge)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = svr_cov_plain(work, orders, n, bps, M, ridge)
+    torch.cuda.synchronize()
+    plain11 = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(cov, want), f"K11 differs from its plain version "
+                                    f"({what})")
+    kw = (n, bps, a["svr_iter"], a["margins"], ridge, kappa)
+    got = svr_refine(work, cov, coefs, orders, *kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = svr_refine_plain(work, cov, coefs, orders, *kw)
+    torch.cuda.synchronize()
+    plain12 = (time.perf_counter() - t0) * 1e3
+    for name, g, w in zip(("coefficients", "cerr", "flags", "iterations"),
+                          got, want):
+        require(torch.equal(g, w), f"K12 differs from its plain version in "
+                                   f"its {name} ({what})")
+    q = lpc_quantize(got[0], orders, kappa, got[1])
+    qp = lpc_quantize_plain(got[0], orders, kappa, got[1])
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(q, qp)),
+            f"K7's quantization entry differs from its plain version "
+            f"({what})")
+    return cov, got, (plain11, plain12)
+
+
+def svr_encode_case(torch, np, dev, case, card) -> dict:
+    """One byte-identity case of phase 12: the host exact stream (timed),
+    the card's counted encode, block and span accounting, the launches,
+    the lossless decode on the card. Returns the path's launches."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.host_encoder import encode as host_encode
+    from srla_tpu_torch.signals import make_music
+    path, secs, preset, B, V, P = case
+    pcm = make_music(secs)
+    param = svr_param(preset, B, V, P)
+    t0 = time.perf_counter()
+    stream = host_encode(pcm, 16, SAMPLE_RATE, preset=preset, max_block=B,
+                         variable_divisions=V, ltp_order=P,
+                         svr_iterations=SVR_ITER)
+    host_s = time.perf_counter() - t0
+    spans = span_groups(pcm, param) if V else {}
+    blocks = encode_groups(pcm, param, stream)
+    n_measure, n_encode = expected_calls(spans, blocks)
+    enc = SRLAEncoder(param, dev)
+    t0 = time.perf_counter()
+    data, got = counted(torch, all_wrappers(), lambda: without_plain(
+        lambda: enc.encode_whole(pcm)))
+    card_s = time.perf_counter() - t0
+    require(data == stream, f"{path}: the encode differs from the host "
+                            f"exact stream")
+    st = enc.stats
+    nspans = sum(len(o) for o in spans.values())
+    require(st["device_spans"] + st["remeasured_spans"] == nspans
+            and st["host_spans"] == 0,
+            f"{path}: span accounting {st}: {nspans} spans measured by "
+            f"analysis, none on the host")
+    ncomp = compress_blocks(stream)
+    handled = (st["device_blocks"] + st["repaired_blocks"]
+               + st["w_overflow_blocks"])
+    require(handled == ncomp, f"{path}: block accounting {st}: {handled} "
+                              f"of {ncomp} COMPRESS blocks")
+    for name, count in svr_want(n_measure + n_encode, n_encode,
+                                P > 0).items():
+        require(got[name] == count, f"{path}: {name} launched {got[name]} "
+                                    f"times, expected {count}")
+    (_, out), dec_got = counted(torch, all_wrappers(),
+                                lambda: decode(data, device=dev))
+    require(np.array_equal(out, pcm), f"{path}: decode is not lossless")
+    print(f"phase 12 encode {secs:g} s stereo -m {preset} -B {B} -V {V}"
+          f"{f' -P {P}' if P else ''} --svr {SVR_ITER} on the card: "
+          f"byte-identical to the host exact stream (host {host_s:.2f} s, "
+          f"card {card_s:.2f} s cold), {st['device_blocks']} device / "
+          f"{st['repaired_blocks']} repaired / {st['w_overflow_blocks']} "
+          f"overflow of {ncomp} COMPRESS blocks, {st['device_spans']} device "
+          f"/ {st['remeasured_spans']} re-measured of {nspans} spans; "
+          f"{n_measure} measurement calls + {n_encode} encode groups; "
+          f"launches {got}; decode on the card lossless [{card}]")
+    return {"encode": got, "decode": dec_got, "host_s": host_s}
+
+
+def phase_svr(torch, np, dev, music, card):
+    """Phase 12, SVR refinement on the card (K11 svr_cov.cu, K12
+    svr_refine.cu, K7's coefficient and quantization entries). Returns
+    (each path's launches, the records of K11 and K12, the tallies of K7's
+    coefficient entry against its plain version)."""
+    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.host_encoder import _compute_offset_lshift
+    from srla_tpu_torch.kernels.svr import svr_cov_plain, svr_refine_plain
+
+    launches: dict = {}
+    for case in SVR_CASES:
+        launches[case[0]] = svr_encode_case(torch, np, dev, case, card)
+    # K11 and K12 against plain on the M 255 path's tail group (its rows
+    # keep the factor in the global scratch).
+    path, secs, preset, B, V, P = SVR_CASES[-1]
+    from srla_tpu_torch.signals import make_music
+    pcm = make_music(secs)
+    enc = SRLAEncoder(svr_param(preset, B, V, P), dev)
+    file = enc._upload(pcm)
+    tail = pcm.shape[1] - (pcm.shape[1] // B) * B
+    t0 = time.perf_counter()
+    k7 = new_k7_coefs_tally()
+    inp = svr_inputs(torch, enc, file, _compute_offset_lshift(pcm),
+                     [pcm.shape[1] - tail], tail, f"{path} tail group", k7)
+    svr_check(torch, f"{path} tail group", *inp)
+    print(f"phase 12 K11 and K12 at M 255 ({path}'s tail group, "
+          f"{inp[0].shape[0]} rows x {tail}, orders up to "
+          f"{int(inp[1].max())}): bit-equal to their plain versions, flags "
+          f"and K7's quantization entry too; K7's coefficient entry: "
+          f"{k7_coefs_text(k7)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    # Full width: phase 3's 120 s at -m 4 -B 4096 -V 0 --svr 2.
+    param = svr_param(4, 4096, 0, 0)
+    enc = SRLAEncoder(param, dev)
+    data, got = counted(torch, all_wrappers(), lambda: without_plain(
+        lambda: enc.encode_whole(music)))
+    st = dict(enc.stats)
+    ncomp = st["device_blocks"] + st["repaired_blocks"] \
+        + st["w_overflow_blocks"]
+    require(ncomp == compress_blocks(data), f"full width: block accounting "
+                                            f"{st}")
+    (_, out), dec_got = counted(torch, all_wrappers(),
+                                lambda: decode(data, device=dev))
+    require(np.array_equal(out, music), "full width: decode is not "
+                                        "lossless")
+    launches["music120_m4_svr2"] = {"encode": got, "decode": dec_got}
+    rate = st["repaired_blocks"] / max(ncomp, 1)
+    best = best_of(torch, lambda: SRLAEncoder(param, dev).encode_whole(
+        music))
+    enc = SRLAEncoder(param, dev)
+    enc.timer = StepTimer(dev)
+    enc.encode_whole(music)
+    steps = enc.timer.seconds
+    print(f"phase 12 encode {MAIN_SECONDS:.0f} s stereo -m 4 -B 4096 -V 0 "
+          f"--svr {SVR_ITER} on the card: {st['device_blocks']} device / "
+          f"{st['repaired_blocks']} repaired / {st['w_overflow_blocks']} "
+          f"overflow of {ncomp} COMPRESS blocks (repair rate "
+          f"{100 * rate:.2f} %{', ABOVE 5 %' if rate > SVR_REPAIR_WARN else ''}"
+          f"), launches {got}, decode on the card lossless; warm best of 3 "
+          f"{best * 1e3:.1f} ms = {MAIN_SECONDS / best:.1f}x realtime "
+          f"[{card}]")
+    if rate > SVR_REPAIR_WARN:
+        print(f"phase 12 WARNING: {100 * rate:.2f} % of the blocks were "
+              f"repaired on the host", file=sys.stderr)
+    print("phase 12 encode breakdown (host clock, synchronised per step, "
+          "ms): " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
+          + f"; total {sum(steps.values()) * 1e3:.2f}")
+
+    # K11 and K12 against plain on every row of both analysis calls.
+    lshift = _compute_offset_lshift(music)
+    file = enc._upload(music)
+    groups = encode_groups(music, param, data)
+    main_inp = None
+    rows = 0
+    k7_full = new_k7_coefs_tally()
+    for n, offs in sorted(groups.items(), key=lambda g: -len(g[1])):
+        what = f"full width, {len(offs)} of {n}"
+        inp = svr_inputs(torch, enc, file, lshift, offs, n, what, k7_full)
+        cov, out12, plain = svr_check(torch, what, *inp)
+        rows += inp[0].shape[0]
+        if main_inp is None:
+            main_inp, main_cov, main_out, main_plain = inp, cov, out12, plain
+    work, orders, coefs, kappa, a = main_inp
+    flagged = int(main_out[2].sum())
+    print(f"phase 12 K11 and K12 on both analysis calls of the full-width "
+          f"encode ({rows} rows): bit-equal to their plain versions, flags "
+          f"and iterations too; main call: {flagged} of {work.shape[0]} rows "
+          f"flagged by K12, iterations a row "
+          f"{int(main_out[3].min())}..{int(main_out[3].max())}; K7's "
+          f"coefficient entry: {k7_coefs_text(k7_full)} [{card}]")
+    k7_tallies = {"m255_tail": k7, "full_width": k7_full}
+    return launches, svr_records(torch, dev, main_inp, main_cov, main_out,
+                                 main_plain, card), k7_tallies
+
+
+def k7_coefs_text(t: dict) -> str:
+    return (f"{t['rows']} rows of {t['calls']} calls, {t['flagged']} flagged "
+            f"alike by both, orders equal where unflagged, "
+            f"{t['bit_equal_rows']} unflagged rows bit-equal to plain, the "
+            f"largest coefficient difference {t['max_abs_err']:.3g} "
+            f"({t['err_over_allowance']:.3g} of its allowance 4 kappa' 2^-42 "
+            f"max|c|), kappa' within {t['kappa_rel_err']:.3g} relative "
+            f"({t['kappa_over_allowance']:.3g} of (2M + 1) kappa' 2^-42)")
+
+
+def svr_records(torch, dev, inp, cov, out12, plain, card):
+    """Times of K11 and K12 on the main call's inputs (5164 rows x 4096),
+    each beside its plain version, its bound, its library yardstick and its
+    serial floor; their records for the kernels line."""
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
+    ridge = LPC_RIDGE_REGULARIZATION_PARAMETER
+    work, orders, coefs, kappa, a = inp
+    V = work.shape[0]
+    n, bps, M = a["n"], a["bps"], a["max_params"]
+    o = orders.long()
+    of = o.to(torch.float64)
+
+    def k11():
+        return svr_cov(work, orders, n, bps, M, ridge)
+
+    kw = (n, bps, a["svr_iter"], a["margins"], ridge, kappa)
+
+    def k12():
+        return svr_refine(work, cov, coefs, orders, *kw)
+
+    ms11 = cuda_ms(torch, k11, 5)
+    dev11 = device_ms(torch, k11, 3)
+    ms12 = cuda_ms(torch, k12, 5)
+    dev12 = device_ms(torch, k12, 3)
+    plain11, plain12 = plain           # svr_check's runs of the same call
+    # K11's work: each element of the o x o triangle a chain of n - o
+    # products and adds; bytes: the rows in, the matrices out.
+    ops11 = float((of * (of + 1) / 2 * (n - of) * 2).sum())
+    b11 = bound(nbytes(work, orders) + V * M * M * 8, ops11,
+                F64_INSTR_PER_S)
+    # K12's work for the iterations this data ran: per iteration the
+    # residual (o products and adds a sample) and the o r-vector chains
+    # (a product and an add each), 4 o (n - o) instructions, with the
+    # mean-abs chain, the |th| sum and the two solves (2 o^2), and once
+    # the factor (~o^3 / 3 products and adds). Bytes: the rows, the
+    # matrices, the coefficients in, the coefficients and flags out.
+    it = out12[3].to(torch.float64)
+    ops12 = float((it * (4 * of * (n - of) + 2 * (n - of) + 4 * of * of)
+                   + 2 * of ** 3 / 3).sum())
+    b12 = bound(nbytes(work, cov, coefs, orders, kappa)
+                + V * (M * 8 + 8 + 8 + 1 + 4), ops12, F64_INSTR_PER_S)
+    # Library yardsticks, timed and never on the path: the Gram matrix of
+    # each row's lag windows by batched DGEMM (the f64 tensor cores), in
+    # chunks of rows; and torch.linalg.cholesky_ex and cholesky_solve for
+    # K12's factor and a solve per iteration run.
+    d = work.to(torch.float64) * 2.0 ** -(bps - 1)
+    chunk = 256
+
+    def gram():
+        for lo in range(0, V, chunk):
+            x = d[lo:lo + chunk].unfold(1, M, 1)       # (c, n - M + 1, M)
+            torch.bmm(x.transpose(1, 2), x)
+
+    lib11 = cuda_ms(torch, gram, 2)
+    eye = torch.eye(M, dtype=torch.float64, device=dev)
+    act = torch.arange(M, device=dev)[None, :] < o[:, None]
+    spd = cov + eye * (~act)[:, :, None]
+    rhs = torch.ones((V, M, 1), dtype=torch.float64, device=dev)
+    solves = max(1, round(float(it.mean())))
+
+    def chol():
+        L, _ = torch.linalg.cholesky_ex(spd)
+        for _ in range(solves):
+            torch.cholesky_solve(rhs, L)
+
+    lib12 = cuda_ms(torch, chol, 3)
+    step = chain_step_ms(torch, 6)
+    floor11 = float((n - of).max()) * step
+    longest = int(out12[3].max())
+    floor12 = longest * (n + M * M) * step
+    print(f"phase 12 K11 svr_cov at V={V} n={n} M={M} (orders up to "
+          f"{int(o.max())}): kernel {ms11:.4f} ms, device time {dev11:.4f} "
+          f"ms, plain {plain11:.1f} ms, bound {b11['bound_ms']:.4f} ms "
+          f"({b11['bound_by']}: {ops11 / 1e9:.1f} G f64 instructions), "
+          f"DGEMM Gram (unfold + bmm, {chunk}-row chunks) {lib11:.4f} ms, "
+          f"serial floor {floor11:.4f} ms ({int((n - of).max())} adds of "
+          f"{step * 1e6:.2f} ns) [{card}]")
+    print(f"phase 12 K12 svr_refine at V={V} n={n} M={M}, {longest} "
+          f"iterations at most ({float(it.mean()):.2f} a row): kernel "
+          f"{ms12:.4f} ms, device time {dev12:.4f} ms, plain {plain12:.1f} "
+          f"ms, bound {b12['bound_ms']:.4f} ms ({b12['bound_by']}: "
+          f"{ops12 / 1e9:.1f} G f64 instructions), cholesky_ex + "
+          f"{solves} cholesky_solve {lib12:.4f} ms, serial floor "
+          f"{floor12:.4f} ms ({longest} x (n + M^2) adds) [{card}]")
+    common = dict(route="cuda", max_abs_err=0)
+    return [dict(name="svr_cov",
+                 source="srla_tpu_torch/kernels/csrc/svr_cov.cu",
+                 replaces="srla_tpu/kernels/exact.py:589", ms=ms11,
+                 plain_ms=plain11, **b11, library_ms=lib11,
+                 device_ms=dev11, serial_floor_ms=floor11, **common),
+            dict(name="svr_refine",
+                 source="srla_tpu_torch/kernels/csrc/svr_refine.cu",
+                 replaces="srla_tpu/kernels/exact.py:775", ms=ms12,
+                 plain_ms=plain12, **b12, library_ms=lib12,
+                 device_ms=dev12, serial_floor_ms=floor12, **common)]
+
+
 def main() -> int:
     try:
         import torch
@@ -2727,6 +3172,11 @@ def main() -> int:
         torch, np, dev, card, tallies)
     ltp_launches.update(shape_launches)
     records += phase_analysis(torch, np, dev, pcm, card, tallies)
+    svr_launches, svr_recs, k7_svr = phase_svr(torch, np, dev, pcm, card)
+    records += svr_recs
+    # K11's and K12's path is phase 12's full-width encode.
+    for name in ("svr_cov", "svr_refine"):
+        launches[name] = svr_launches["music120_m4_svr2"]["encode"][name]
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
@@ -2748,10 +3198,22 @@ def main() -> int:
         rec["launches_ltp"] = {
             path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
             for path, runs in ltp_launches.items()}
+        # Phase 12: each SVR path's launches.
+        rec["launches_svr"] = {
+            path: {run: runs[run].get(rec["name"], 0)
+                   for run in ("encode", "decode")}
+            for path, runs in svr_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":
             rec["generic_3072"] = generic
+        if rec["name"] == "lpc_analyze":
+            # K7's SVR entries: their launches on phase 12's full-width
+            # encode and the coefficient entry against its plain version.
+            full = svr_launches["music120_m4_svr2"]["encode"]
+            rec["launches_lpc_coefs"] = full["lpc_coefs"]
+            rec["launches_lpc_quantize"] = full["lpc_quantize"]
+            rec["lpc_coefs_vs_plain"] = k7_svr
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

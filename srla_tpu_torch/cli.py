@@ -9,8 +9,8 @@ cpu runs the kernels' plain versions). The flags and their defaults are
 ``srla_tpu/cli.py:18``), with --device in place of --backend: at the
 defaults (-m 4 -B 4096 -V 1 -L 4) -e writes the bytes of
 ``python -m srla_tpu.cli -e``, and so it does with -P 1 or -P 3 (long-term
-prediction, on --device too). There is no SVR yet:
---svr-filter-learning-iteration exits 1 instead of running on the host.
+prediction) and --svr-filter-learning-iteration N (SVR refinement of the
+LPC coefficients), both on --device too.
 """
 
 from __future__ import annotations

@@ -24,7 +24,12 @@ window's partition on the host. The chosen spans are then encoded as above.
 Long-term prediction (-P 1 or 3) runs inside the same calls: the pitch
 autocorrelation (torch f64), the pitch search and LTP solve (kernel K10)
 and the LTP residual come before the LPC analysis of every row, and the
-assembly writes the periods and coefficients.
+assembly writes the periods and coefficients. So does SVR refinement
+(``--svr-filter-learning-iteration``): K7 stops at the f64 coefficients,
+K11 forms each row's covariance, K12 refines the coefficients and K7
+quantizes them; rows whose refinement decisions come near a boundary are
+flagged and repaired on the host like any other. At -m 0 there is no LPC
+analysis and nothing to refine.
 
 Odd-size blocks and the odd-length last lookahead window need the
 reference's stale work-buffer emulation and stay on the host, as in
@@ -33,8 +38,7 @@ LTP groups and spans under 512 samples (``srla_tpu``'s
 ``_device_size_ok``), encoded in a counted host batch (``host_blocks``) or
 measured on the host (``host_spans``). The output is byte-identical to the
 port's exact host encoder (``host_encoder.encode``) and so to
-``srla_tpu.encode(..., backend="exact")``. SVR refinement is not ported yet
-and raises ``ValueError``.
+``srla_tpu.encode(..., backend="exact")``.
 """
 
 from __future__ import annotations
@@ -52,11 +56,6 @@ from .host_encoder import (EncodeParameter, _compute_offset_lshift,
                            make_parameter)
 from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
 
-_NOT_PORTED = {
-    "num_svr_filter_learning_iteration":
-        "SVR refinement is not ported to the device yet (ROADMAP.md queue "
-        "1, item 9)",
-}
 # The smallest LTP group the device analyses (srla_tpu/encoder.py:1209).
 LTP_MIN_DEVICE_SIZE = 512
 
@@ -106,9 +105,6 @@ class SRLAEncoder:
         held ``host_encoder.SRLAEncoder``, whose ``stats`` dict this encoder
         shares."""
         parameter.validate()
-        for field, why in _NOT_PORTED.items():
-            if getattr(parameter, field) > 0:
-                raise ValueError(why)
         self.p = parameter
         self.device = torch.device(device)
         self._host = host_encoder.SRLAEncoder(parameter)
@@ -440,11 +436,11 @@ class SRLAEncoder:
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            device, preset: int = 4, max_block: int = 4096,
            variable_divisions: int = 0, lookahead_factor: int = 4,
-           ltp_order: int = 0) -> bytes:
+           ltp_order: int = 0, svr_iterations: int = 0) -> bytes:
     """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
-    ``srla_tpu.encode``'s) result for the same arguments (no SVR)."""
+    ``srla_tpu.encode``'s) result for the same arguments."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
-                           lookahead_factor, ltp_order)
+                           lookahead_factor, ltp_order, svr_iterations)
     return SRLAEncoder(param, device).encode_whole(pcm)

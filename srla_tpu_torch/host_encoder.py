@@ -14,8 +14,9 @@ for what it encodes or measures on the host (odd sizes, the odd last
 lookahead window, RAW and SILENT blocks, flagged repairs), and ``encode`` is
 the byte reference of the port's tests and ``chip_smoke.py``: the tests hold
 it byte-equal to ``srla_tpu.encode(..., backend="exact")``, which is
-byte-exact with the C reference. Not copied: the device backends, the host
-worker process and SVR refinement, which raises.
+byte-exact with the C reference, SVR refinement
+(``--svr-filter-learning-iteration``, ``dsp/svr.py``) included. Not copied:
+the device backends and the host worker process.
 
 API parity targets: SRLAEncoder_* in libs/srla_encoder/src/srla_encoder.c.
 """
@@ -47,6 +48,7 @@ from .dsp.levinson import levinson_coefs_at, levinson_error_vars
 from .dsp.pitch import calculate_ltp_coefficients
 from .dsp.predict import lpc_predict, ltp_predict
 from .dsp.quantize import quantize_coefficients
+from .dsp.svr import svr_refine_batch
 from .dsp.window import welch_inverse_squared_sum, welch_window
 from .format import StreamHeader, encode_header, frame_block
 from .huffman import parameter_codebook, sum_parameter_codebook
@@ -121,9 +123,6 @@ def _slice_params(p: _ChannelParams, lo: int, hi: int) -> _ChannelParams:
 class SRLAEncoder:
     def __init__(self, parameter: EncodeParameter):
         parameter.validate()
-        if parameter.num_svr_filter_learning_iteration > 0:
-            raise ValueError("SVR refinement is not in the port's host "
-                             "encoder (ROADMAP.md queue 1, item 9)")
         self.p = parameter
         # Per-encode accounting, with srla_tpu's keys: COMPRESS blocks
         # emitted from the device, blocks encoded on the host, flagged
@@ -250,6 +249,7 @@ class SRLAEncoder:
         if max_params > 0:
             norm = 2.0 ** (-(bps - 1))
             win = welch_window(n)
+            dbl = None
             if native_decoder.available():
                 # Fused native path: normalize+window+pad+FFT in one pass.
                 mid = 0.0 if state is None else float(state[n // 2])
@@ -288,6 +288,17 @@ class SRLAEncoder:
             error_vars = error_vars * welch_inverse_squared_sum(n)
             orders = self._select_order(error_vars, n, max_params)
             coefs_f = levinson_coefs_at(ac, max_params, orders)
+            if self.p.num_svr_filter_learning_iteration > 0:
+                if dbl is None:
+                    dbl = work.astype(np.float64) * norm
+                coefs_f, svr_bufs = self._svr_refine(dbl, coefs_f, orders, n)
+                if want_state and svr_bufs[0] is not None:
+                    # The reference's SVR writes its soft-thresholded
+                    # residuals into the persistent work buffer; thread it.
+                    ns = (state.copy() if state is not None
+                          else np.zeros(max(n, 2)))
+                    ns[:n] = svr_bufs[0]
+                    state = ns
             int_coefs, rshifts = quantize_coefficients(
                 coefs_f, orders, LPC_COEFFICIENT_BITWIDTH,
                 1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH)
@@ -414,6 +425,16 @@ class SRLAEncoder:
                 if best > 0:
                     orders[b] = best
         return orders
+
+    def _svr_refine(self, dbl, coefs_f, orders, n):
+        """SVR refinement of each row's Levinson coefficients
+        (``srla_tpu/encoder.py:486``). Returns (coefs, per-row work-buffer
+        contents or None)."""
+        return svr_refine_batch(dbl, coefs_f, orders, n,
+                                self.p.num_svr_filter_learning_iteration,
+                                self.p.bits_per_sample,
+                                LPC_RIDGE_REGULARIZATION_PARAMETER,
+                                self.preset.margin_list)
 
     def _compute_coefficients(self, blocks: np.ndarray, n: int,
                               offset_lshift: int, stale_state=None,
@@ -1004,9 +1025,9 @@ class SRLAEncoder:
         return bits
 
     def _device_args(self, n: int):
-        """The shape arguments of the device analysis of a group of
-        n-sample blocks (``kernels.exact.encode_blocks``), the LTP order
-        among them."""
+        """The arguments of the device analysis of a group of n-sample
+        blocks (``kernels.exact.encode_blocks``): the shapes, the LTP order,
+        and SVR's iterations and the preset's margin list."""
         max_porder = 0
         while n % (1 << (max_porder + 1)) == 0 and max_porder < 10:
             max_porder += 1
@@ -1015,7 +1036,9 @@ class SRLAEncoder:
             max_params=self.preset.max_num_parameters,
             max_fixed=self.preset.lpc_order_tactics == OrderTactics.MAX_FIXED,
             fft_size=round_up_pow2(n), max_porder=max_porder,
-            ltp_order=self.p.ltp_order)
+            ltp_order=self.p.ltp_order,
+            svr_iter=self.p.num_svr_filter_learning_iteration,
+            margins=tuple(self.preset.margin_list))
 
     def _params_header_bits(self, small, method, B, bi, row_of, C):
         """Method + per-channel parameter fields (everything except the
@@ -1127,8 +1150,8 @@ def _compute_offset_lshift(pcm: np.ndarray) -> int:
 def make_parameter(num_channels: int, bits_per_sample: int,
                    sampling_rate: int, preset: int = 4,
                    max_block: int = 4096, variable_divisions: int = 0,
-                   lookahead_factor: int = 4,
-                   ltp_order: int = 0) -> EncodeParameter:
+                   lookahead_factor: int = 4, ltp_order: int = 0,
+                   svr_iterations: int = 0) -> EncodeParameter:
     """The EncodeParameter of ``srla_tpu.encode`` for these arguments (its
     defaults: fixed blocks, -V 0)."""
     return EncodeParameter(
@@ -1137,16 +1160,18 @@ def make_parameter(num_channels: int, bits_per_sample: int,
         max_num_samples_per_block=max_block,
         min_num_samples_per_block=max_block >> variable_divisions,
         num_lookahead_samples=lookahead_factor * max_block,
-        ltp_order=ltp_order)
+        ltp_order=ltp_order,
+        num_svr_filter_learning_iteration=svr_iterations)
 
 
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            preset: int = 4, max_block: int = 4096, variable_divisions: int = 0,
-           lookahead_factor: int = 4, ltp_order: int = 0) -> bytes:
+           lookahead_factor: int = 4, ltp_order: int = 0,
+           svr_iterations: int = 0) -> bytes:
     """One-shot exact host encode: the bytes of ``srla_tpu.encode(...,
-    backend="exact")`` for the same arguments (no SVR)."""
+    backend="exact")`` for the same arguments."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
-                           lookahead_factor, ltp_order)
+                           lookahead_factor, ltp_order, svr_iterations)
     return SRLAEncoder(param).encode_whole(pcm)

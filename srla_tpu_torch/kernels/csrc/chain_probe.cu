@@ -26,6 +26,10 @@
 //           __dsqrt_rn and the divisions), the solves, the trace, the
 //           rounding margin and one coefficient's quantization, each step's
 //           input the last step's output
+//   kind 6, a K12 chain step: one f64 add on the running sum, its other
+//           operand read from shared memory independently of the sum (the
+//           mean-abs sum and each r-vector entry of SVR's refinement are
+//           such chains over the samples)
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
@@ -51,6 +55,18 @@ __device__ uint32_t f64_chain(uint32_t y, int steps) {
         v = __ddiv_rn(s, -__dadd_rn(fabs(s), 1.0));   // |v| < 1
     }
     return (uint32_t)__double2hiint(v);
+}
+
+// K12's chain: dependent f64 adds of values from shared memory.
+__device__ uint32_t add_chain(uint32_t y, int steps) {
+    __shared__ double vals[256];
+    const int lane = threadIdx.x & 31;
+    for (int k = lane; k < 256; k += 32) vals[k] = 1.0 / (double)(k + 3);
+    __syncwarp();
+    double acc = (double)(y & 255u);
+#pragma unroll 16
+    for (int i = 0; i < steps; ++i) acc = __dadd_rn(acc, vals[i & 255]);
+    return (uint32_t)__double2hiint(acc);
 }
 
 // K9's step (ltp_synth.cu) on a ring of 2048 samples.
@@ -133,6 +149,8 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
         y = k9_chain(y, steps, a, b);
     } else if (kind == 5) {
         y = k10_chain(y, steps);
+    } else if (kind == 6) {
+        y = add_chain(y, steps);
     } else {
         y = kind == 2 ? f64_chain<32>(y, steps) : f64_chain<8>(y, steps);
     }

@@ -22,6 +22,14 @@
 //   4. the backward error-feedback quantization with its frexp, tiny and
 //      rounding flags.
 //
+// With SVR (--svr-filter-learning-iteration) the encode needs the f64
+// coefficients between steps 3 and 4: the entry srla_lpc_coefs runs steps
+// 1-3 and writes the coefficients at the chosen order, kappa' and the flags
+// of steps 1-2 (kernels/levinson.py:lpc_coefs_plain), and srla_lpc_quantize
+// runs step 4 alone, a thread a row, on the refined coefficients with its
+// rounding margin widened by SVR's error bound
+// (levinson.py:lpc_quantize_plain, kernels/svr.py for the bound).
+//
 // f64 throughout, every operation written as the plain version writes it
 // and rounded as a torch op rounds it: __dmul_rn, __dadd_rn, __dsub_rn,
 // __ddiv_rn and __dsqrt_rn, so no multiply-add is contracted and the build
@@ -78,6 +86,7 @@ constexpr double kEpsQuantBase = 1e-7;               // _EPS_QUANT_BASE
 constexpr double kKappaScale = 1.0 / 1099511627776.0;  // 2^-40
 constexpr double kInvLoge2 = 1.4426950408889634;     // _INV_LOGE2
 constexpr double kFrexpTop = 1.0 - 1e-7;
+constexpr double kSvrQuantScale = 4.0;               // SVR_QUANT_SCALE
 
 // Doubles a row: the lags, the best order's vector, the ring.
 __host__ __device__ constexpr int row_doubles(int M) {
@@ -118,13 +127,66 @@ __device__ __forceinline__ double code_length(double e, int order, int n,
     return neg || !isfinite(length) ? CUDART_INF : length;
 }
 
-template <int G>
+// The rounding margin of the quantization, in quantized units
+// (levinson.py:quantize_exact): K7's own, widened by SVR's coefficient
+// error bound cerr where one is given.
+__device__ __forceinline__ double quant_eps(double qmax, double kappa,
+                                            double scale, double cerr) {
+    const double eps = fmax(
+        __dmul_rn(__dmul_rn(2.0 * qmax, kappa), kKappaScale), kEpsQuantBase);
+    return cerr < 0.0 ? eps
+                      : fmax(eps, __dmul_rn(__dmul_rn(kSvrQuantScale, scale),
+                                            cerr));
+}
+
+// Step 4 on the coefficients coef[1 .. order] (coef[0] unused) of largest
+// magnitude maxabs, cerr < 0 for K7's own margin: writes the quantized
+// values to q[0 .. order - 1] and the shift to rshift, returns the flags.
+template <typename T>
+__device__ __forceinline__ bool quantize_row(const double* coef, int order,
+                                             bool silent, double maxabs,
+                                             double kappa, double cerr,
+                                             int nbits, int max_bits,
+                                             int& rshift, T* q) {
+    const double qmax = (double)(1 << (nbits - 1));
+    const double tiny_thresh = ldexp(1.0, -(nbits - 1));
+    const bool tiny = maxabs <= tiny_thresh;
+    bool risky = fabs(__dsub_rn(maxabs, tiny_thresh))
+        < __dmul_rn(tiny_thresh, 1e-6);
+    int e2 = 0;
+    const double mant = frexp(maxabs, &e2);
+    risky |= !tiny && (fabs(__dsub_rn(mant, 0.5)) < 1e-7
+                       || mant > kFrexpTop);
+    rshift = (nbits - 1) - (maxabs == 0.0 ? 0 : e2);
+    if (rshift >= max_bits || rshift < 0) rshift = max_bits - 1;
+    if (tiny) rshift = nbits;
+    const double scale = ldexp(1.0, rshift);
+    const double eps_k = quant_eps(qmax, kappa, scale, cerr);
+    double qerr = 0.0;
+#pragma unroll 4
+    for (int o = order - 1; o >= 0; --o) {
+        const double qe = __dadd_rn(qerr, __dmul_rn(
+            silent ? 0.0 : coef[o + 1], scale));
+        const double ax = fabs(qe);
+        const double r = floor(__dadd_rn(ax, 0.5));
+        double qt = qe < 0.0 ? -r : r;
+        qt = qt < -qmax ? -qmax : (qt > qmax - 1.0 ? qmax - 1.0 : qt);
+        risky |= fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5)) < eps_k;
+        qerr = __dsub_rn(qe, qt);
+        q[o] = (T)(tiny ? 0.0 : qt);
+    }
+    return risky || !isfinite(maxabs);
+}
+
+template <int G, bool kCoefsOnly>
 __global__ void __launch_bounds__(kWarps * 32)
 lpc_analyze_kernel(const double* __restrict__ lags,
                    int32_t* __restrict__ orders_out,
                    int32_t* __restrict__ rshifts_out,
                    int32_t* __restrict__ intc_out,
-                   uint8_t* __restrict__ risky_out, int V, int n, int bps,
+                   uint8_t* __restrict__ risky_out,
+                   double* __restrict__ coefs_out,
+                   double* __restrict__ kappa_out, int V, int n, int bps,
                    int M, int max_fixed, int nbits, int max_bits,
                    double wiss) {
     constexpr int R = 32 / G;              // rows a warp
@@ -273,6 +335,18 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     }
     // 3. The chosen order's coefficients.
     const double* coef = max_fixed ? ring + (M % kBatch) * stride : best;
+    if (kCoefsOnly) {                      // srla_lpc_coefs stops here
+        if (!stored) return;
+        double* out = coefs_out + (size_t)row * M;
+        for (int j = gl; j < M; j += G)
+            out[j] = j < order && !silent ? coef[j + 1] : 0.0;
+        if (gl == 0) {
+            orders_out[row] = order;
+            kappa_out[row] = kappa;
+            risky_out[row] = risky ? 1 : 0;
+        }
+        return;
+    }
 
     // 4. Quantization (levinson.py:quantize_exact).
     double maxabs = 0.0;
@@ -281,39 +355,14 @@ lpc_analyze_kernel(const double* __restrict__ lags,
 #pragma unroll
     for (int off = 1; off < G; off <<= 1)
         maxabs = nan_max(maxabs, __shfl_xor_sync(kFull, maxabs, off, G));
-    const double qmax = (double)(1 << (nbits - 1));
-    const double eps_k = fmax(
-        __dmul_rn(__dmul_rn(2.0 * qmax, kappa), kKappaScale), kEpsQuantBase);
-    const double tiny_thresh = ldexp(1.0, -(nbits - 1));
-    const bool tiny = maxabs <= tiny_thresh;
-    risky |= fabs(__dsub_rn(maxabs, tiny_thresh))
-        < __dmul_rn(tiny_thresh, 1e-6);
-    int e2 = 0;
-    const double mant = frexp(maxabs, &e2);
-    risky |= !tiny && (fabs(__dsub_rn(mant, 0.5)) < 1e-7
-                       || mant > kFrexpTop);
-    int rshift = (nbits - 1) - (maxabs == 0.0 ? 0 : e2);
-    if (rshift >= max_bits || rshift < 0) rshift = max_bits - 1;
-    if (tiny) rshift = nbits;
-    const double scale = ldexp(1.0, rshift);
-    int32_t* intc = intc_out + (size_t)row * M;
-    double qerr = 0.0;
-#pragma unroll 4
-    for (int o = order - 1; o >= 0; --o) {
-        const double qe = __dadd_rn(qerr, __dmul_rn(
-            silent ? 0.0 : coef[o + 1], scale));
-        const double ax = fabs(qe);
-        const double r = floor(__dadd_rn(ax, 0.5));
-        double qt = qe < 0.0 ? -r : r;
-        qt = qt < -qmax ? -qmax : (qt > qmax - 1.0 ? qmax - 1.0 : qt);
-        risky |= fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5)) < eps_k;
-        qerr = __dsub_rn(qe, qt);
-        ac[o] = tiny ? 0.0 : qt;           // the lags are no longer needed
-    }
+    int rshift = 0;
+    // The quantized values overwrite the lags, no longer needed.
+    risky |= quantize_row(coef, order, silent, maxabs, kappa, -1.0, nbits,
+                          max_bits, rshift, ac);
     __syncwarp();
     if (!stored) return;
+    int32_t* intc = intc_out + (size_t)row * M;
     for (int o = gl; o < M; o += G) intc[o] = o < order ? (int32_t)ac[o] : 0;
-    risky |= !isfinite(maxabs);
     if (gl == 0) {
         orders_out[row] = order;
         rshifts_out[row] = rshift;
@@ -321,18 +370,66 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     }
 }
 
-template <int G>
+// srla_lpc_quantize: step 4 of each row on given coefficients, a thread
+// a row (the chain of step 4 is serial; SVR's refinement costs far more).
+__global__ void __launch_bounds__(128)
+lpc_quantize_kernel(const double* __restrict__ coefs,
+                    const int32_t* __restrict__ orders,
+                    const double* __restrict__ kappa,
+                    const double* __restrict__ cerr,
+                    int32_t* __restrict__ rshifts_out,
+                    int32_t* __restrict__ intc_out,
+                    uint8_t* __restrict__ risky_out, int V, int M, int nbits,
+                    int max_bits) {
+    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    if (row >= V) return;
+    const double* c = coefs + (size_t)row * M - 1;   // c[1 .. M]
+    const int order = orders[row];
+    double maxabs = 0.0;
+    for (int j = 1; j <= order; ++j) maxabs = nan_max(maxabs, fabs(c[j]));
+    int32_t* intc = intc_out + (size_t)row * M;
+    for (int o = order; o < M; ++o) intc[o] = 0;
+    int rshift = 0;
+    const bool risky = quantize_row(c, order, false, maxabs, kappa[row],
+                                    cerr[row], nbits, max_bits, rshift, intc);
+    rshifts_out[row] = rshift;
+    risky_out[row] = risky ? 1 : 0;
+}
+
+template <int G, bool kCoefsOnly>
 int launch(const void* lags, void* orders, void* rshifts, void* intc,
-           void* risky, int V, int n, int bps, int M, int max_fixed,
-           int nbits, int max_bits, double wiss, cudaStream_t stream) {
+           void* risky, void* coefs, void* kappa, int V, int n, int bps,
+           int M, int max_fixed, int nbits, int max_bits, double wiss,
+           cudaStream_t stream) {
     constexpr int rows = kWarps * (32 / G);
     const size_t bytes = sizeof(double) * (size_t)rows * row_doubles(M);
     const int blocks = (V + rows - 1) / rows;
-    lpc_analyze_kernel<G><<<blocks, kWarps * 32, bytes, stream>>>(
+    lpc_analyze_kernel<G, kCoefsOnly><<<blocks, kWarps * 32, bytes, stream>>>(
         (const double*)lags, (int32_t*)orders, (int32_t*)rshifts,
-        (int32_t*)intc, (uint8_t*)risky, V, n, bps, M, max_fixed, nbits,
-        max_bits, wiss);
+        (int32_t*)intc, (uint8_t*)risky, (double*)coefs, (double*)kappa, V, n,
+        bps, M, max_fixed, nbits, max_bits, wiss);
     return (int)cudaGetLastError();
+}
+
+template <bool kCoefsOnly>
+int dispatch(const void* lags, void* orders, void* rshifts, void* intc,
+             void* risky, void* coefs, void* kappa, int V, int n, int bps,
+             int M, int max_fixed, int nbits, int max_bits, double wiss,
+             void* stream) {
+    if (M < 1 || M > 255 || bps < 1 || bps > 31 || nbits < 1 || nbits > 31)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (M <= 64)
+        return launch<8, kCoefsOnly>(lags, orders, rshifts, intc, risky,
+                                     coefs, kappa, V, n, bps, M, max_fixed,
+                                     nbits, max_bits, wiss, s);
+    if (M <= 128)
+        return launch<16, kCoefsOnly>(lags, orders, rshifts, intc, risky,
+                                      coefs, kappa, V, n, bps, M, max_fixed,
+                                      nbits, max_bits, wiss, s);
+    return launch<32, kCoefsOnly>(lags, orders, rshifts, intc, risky, coefs,
+                                  kappa, V, n, bps, M, max_fixed, nbits,
+                                  max_bits, wiss, s);
 }
 
 }  // namespace
@@ -345,15 +442,38 @@ extern "C" int srla_lpc_analyze(const void* lags, void* orders,
                                 int V, int n, int bps, int M, int max_fixed,
                                 int nbits, int max_bits, double wiss,
                                 void* stream) {
-    if (M < 1 || M > 255 || bps < 1 || bps > 31 || nbits < 1 || nbits > 31)
+    return dispatch<false>(lags, orders, rshifts, intc, risky, nullptr,
+                           nullptr, V, n, bps, M, max_fixed, nbits, max_bits,
+                           wiss, stream);
+}
+
+// Steps 1-3 (srla_lpc_coefs): orders (V,) int32, coefs (V, M) f64
+// left-aligned (0 past the order and on silent rows), kappa (V,) f64, risky
+// (V,) bool with the flags of steps 1 and 2.
+extern "C" int srla_lpc_coefs(const void* lags, void* orders, void* coefs,
+                              void* kappa, void* risky, int V, int n,
+                              int bps, int M, int max_fixed, double wiss,
+                              void* stream) {
+    return dispatch<true>(lags, orders, nullptr, nullptr, risky, coefs,
+                          kappa, V, n, bps, M, max_fixed, 8, 16, wiss,
+                          stream);
+}
+
+// Step 4 (srla_lpc_quantize): coefs (V, M) f64 left-aligned, orders (V,)
+// int32, kappa and cerr (V,) f64; rshifts (V,) int32, intc (V, M) int32,
+// risky (V,) bool.
+extern "C" int srla_lpc_quantize(const void* coefs, const void* orders,
+                                 const void* kappa, const void* cerr,
+                                 void* rshifts, void* intc, void* risky,
+                                 int V, int M, int nbits, int max_bits,
+                                 void* stream) {
+    if (M < 1 || M > 255 || nbits < 1 || nbits > 31)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (M <= 64)
-        return launch<8>(lags, orders, rshifts, intc, risky, V, n, bps, M,
-                         max_fixed, nbits, max_bits, wiss, s);
-    if (M <= 128)
-        return launch<16>(lags, orders, rshifts, intc, risky, V, n, bps, M,
-                          max_fixed, nbits, max_bits, wiss, s);
-    return launch<32>(lags, orders, rshifts, intc, risky, V, n, bps, M,
-                      max_fixed, nbits, max_bits, wiss, s);
+    const int threads = 128;
+    lpc_quantize_kernel<<<(V + threads - 1) / threads, threads, 0,
+                          (cudaStream_t)stream>>>(
+        (const double*)coefs, (const int32_t*)orders, (const double*)kappa,
+        (const double*)cerr, (int32_t*)rshifts, (int32_t*)intc,
+        (uint8_t*)risky, V, M, nbits, max_bits);
+    return (int)cudaGetLastError();
 }

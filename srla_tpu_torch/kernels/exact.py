@@ -1,8 +1,8 @@
 """Exact device encode analysis in f64 with decision-boundary flags, and the
 fused encode of one equal-size block group.
 
-Twin of ``srla_tpu.kernels.exact`` at the flags the port runs (LTP, no
-SVR). The JAX package computes its analysis in df64 (two-f32) arithmetic
+Twin of ``srla_tpu.kernels.exact`` at every flag (LTP and SVR among
+them). The JAX package computes its analysis in df64 (two-f32) arithmetic
 because the TPU has no fast f64; the H100 has, so every float here is a
 torch f64. For every discrete decision the floats feed (pre-emphasis
 coefficient rounding, LPC order argmin, coefficient quantization and its
@@ -16,9 +16,12 @@ K8 (``autocorr.autocorr``), the Levinson recursion, order choice and
 quantization from K7 (``levinson.lpc_analyze``, its margins beside it in
 ``levinson.py``). Long-term prediction (``-P``) runs its pitch search and
 solve in kernel K10 (``ltp.ltp_analyze``, its margins beside it in
-``ltp.py``). The residual and all bit math are exact integer code, partly in
-the kernels K3 (``predict``), K4 (``rice_search``) and K5
-(``bitpack.pack_residual_sections``).
+``ltp.py``). SVR refinement (``--svr-filter-learning-iteration``) runs
+between K7's coefficients and their quantization: the covariance in kernel
+K11 (``svr.svr_cov``), the refinement loop in K12 (``svr.svr_refine``),
+their margins beside them in ``svr.py``. The residual and all bit math
+are exact integer code, partly in the kernels K3 (``predict``), K4
+(``rice_search``) and K5 (``bitpack.pack_residual_sections``).
 
 Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
 (autocorr + Levinson), :535-570, :1341-1405 (quantize),
@@ -49,12 +52,13 @@ from .autocorr import autocorr, autocorr_plain  # noqa: F401 (re-exported)
 from .bitpack import (pack_residual_sections, section_stream, zigzag,
                       zigzag32)
 from .levinson import (_dist_to_half, _round_half_away,  # noqa: F401
-                       levinson, lpc_analyze, quantize_exact,
-                       select_order_exact)
+                       levinson, lpc_analyze, lpc_coefs, lpc_quantize,
+                       quantize_exact, select_order_exact)
 from .lpc import wrap32
 from .ltp import LTP_COLS, LTP_LAGS, ltp_analyze, ltp_predict
 from .predict import predict, reverse_coefs
 from .rice_search import rice_sums
+from .svr import svr_cov, svr_refine
 
 # Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
 # errors are smaller, so they hold a fortiori). The f64 error they rest on,
@@ -106,7 +110,7 @@ _F64 = torch.float64
 
 
 # ---------------------------------------------------------------------------
-# Analysis stages (``_analyze_core_exact`` without SVR)
+# Analysis stages (``_analyze_core_exact``)
 # ---------------------------------------------------------------------------
 
 def preemphasis_exact(sig: torch.Tensor):
@@ -276,12 +280,15 @@ def rice_exact(residual: torch.Tensor, n: int, max_porder: int,
 
 def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
                  max_fixed: bool, fft_size: int, max_porder: int,
-                 ltp_order: int = 0, timer=no_timer) -> dict:
+                 ltp_order: int = 0, svr_iter: int = 0, margins=(),
+                 timer=no_timer) -> dict:
     """The exact analysis of each variant row of sig (V, n) int32: the twin
-    of ``_analyze_core_exact`` without SVR. Returns a dict of per-row
-    tensors, ``work`` (the pre-emphasised rows, LTP-filtered at ltp_order >
-    0: the input of K3) among them. ``timer`` is called with a step name
-    after each step."""
+    of ``_analyze_core_exact``. Returns a dict of per-row tensors, ``work``
+    (the pre-emphasised rows, LTP-filtered at ltp_order > 0: the input of
+    K3) among them. With svr_iter > 0 the LPC coefficients are refined by
+    SVR over ``margins`` before they are quantized: K8, K7's coefficient
+    entry, K11, K12, K7's quantization entry, then K3. ``timer`` is called
+    with a step name after each step."""
     V = sig.shape[0]
     dev = sig.device
     work, pre_coef, risky = preemphasis_exact(sig)
@@ -303,11 +310,27 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
         ac = autocorr(work, n, bps, max_params + 1, fft_size)
         timer("K8 autocorr (LPC lags)")
         ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
-        orders, rshifts, intc, r_lpc = lpc_analyze(ac, n, bps, max_params,
-                                                   max_fixed)
+        if svr_iter > 0:
+            orders, coefs, kappa, r_lpc = lpc_coefs(ac, n, bps, max_params,
+                                                    max_fixed)
+            timer("K7 lpc_coefs")
+            cov = svr_cov(work, orders, n, bps, max_params,
+                          LPC_RIDGE_REGULARIZATION_PARAMETER)
+            timer("K11 svr_cov")
+            coefs, cerr, r_svr, _ = svr_refine(
+                work, cov, coefs, orders, n, bps, svr_iter, margins,
+                LPC_RIDGE_REGULARIZATION_PARAMETER, kappa)
+            timer("K12 svr_refine")
+            rshifts, intc, r_q = lpc_quantize(coefs, orders, kappa, cerr)
+            r_lpc = r_lpc | r_svr | r_q
+            step = "K7 lpc_quantize + reverse"
+        else:
+            orders, rshifts, intc, r_lpc = lpc_analyze(ac, n, bps,
+                                                       max_params, max_fixed)
+            step = "K7 lpc_analyze + reverse"
         rshifts = torch.where(orders > 0, rshifts, 0)
         coefs_rev = reverse_coefs(intc, orders)
-        timer("K7 lpc_analyze + reverse")
+        timer(step)
         residual = predict(work, coefs_rev, orders, rshifts)
         timer("K3 fir_predict")
         risky = risky | r_lpc
@@ -364,7 +387,8 @@ def _small(core: dict) -> dict:
 
 def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                      max_params: int, max_fixed: bool, fft_size: int,
-                     max_porder: int, ltp_order: int = 0, timer=no_timer):
+                     max_porder: int, ltp_order: int = 0, svr_iter: int = 0,
+                     margins=(), timer=no_timer):
     """Stack the stereo variants and analyse them. Returns (small, big,
     core): ``small`` and ``big`` hold what ``srla_tpu.kernels.exact.
     analyze_blocks_exact`` returns (per-row parameters and risky flags; the
@@ -373,7 +397,8 @@ def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, timer=timer)
+                        ltp_order=ltp_order, svr_iter=svr_iter,
+                        margins=margins, timer=timer)
     big = dict(u=zigzag(core["residual"]), code_type=core["code_type"],
                porder=core["porder"], ks=core["ks"])
     return _small(core), big, core
@@ -523,9 +548,9 @@ def chosen_stream(big: dict, sel: dict, n: int):
 def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                   max_params: int, max_fixed: bool, fft_size: int,
                   max_porder: int, C: int, W: int, ltp_order: int = 0,
-                  timer=no_timer):
+                  svr_iter: int = 0, margins=(), timer=no_timer):
     """Fused exact encode of one equal-size block group (the twin of
-    ``srla_tpu.kernels.exact.encode_blocks_exact`` without SVR).
+    ``srla_tpu.kernels.exact.encode_blocks_exact``).
 
     blocks (B, C, n) int16/int32 samples on the device. Returns (small,
     flat): ``small`` holds the per-variant parameters plus the per-block
@@ -540,7 +565,8 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, timer=timer)
+                        ltp_order=ltp_order, svr_iter=svr_iter,
+                        margins=margins, timer=timer)
     small = _small(core)
     sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
                       max_params=max_params)
@@ -564,9 +590,9 @@ def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
 def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
                   bps: int, max_params: int, max_fixed: bool, fft_size: int,
                   max_porder: int, C: int, ltp_order: int = 0,
-                  timer=no_timer) -> dict:
+                  svr_iter: int = 0, margins=(), timer=no_timer) -> dict:
     """Span measurement of the -V partition search: the twin of
-    ``srla_tpu.kernels.exact.measure_spans_exact`` (no SVR).
+    ``srla_tpu.kernels.exact.measure_spans_exact``.
 
     file: the (C, N) int16 (int32 above 16 bits) samples, resident on the
     device; offsets: (B,) host offsets with offset + n <= N. The spans are
@@ -581,7 +607,8 @@ def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
     core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
                         max_params=max_params, max_fixed=max_fixed,
                         fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, timer=timer)
+                        ltp_order=ltp_order, svr_iter=svr_iter,
+                        margins=margins, timer=timer)
     small = {k: v for k, v in _small(core).items()
              if k in ("section_bits", "orders", "coefs", "risky",
                       "ltp_period", "ltp_coefs")}

@@ -9,6 +9,12 @@ whole analysis, on a CPU tensor it runs ``lpc_analyze_plain``, which
 composes the four functions below (``levinson``, ``select_order_exact``,
 ``levinson`` at the chosen orders, ``quantize_exact``).
 
+With SVR the analysis stops after the coefficients (``lpc_coefs``, the same
+kernel's ``srla_lpc_coefs`` entry: orders, f64 coefficients, kappa' and the
+flags), SVR refines them (``svr.py``) and ``lpc_quantize`` (entry
+``srla_lpc_quantize``) quantizes the result with the margin widened by
+SVR's error bound.
+
 Parity targets: libs/lpc/src/lpc.c:379-441 (Levinson), :535-570 (order
 choice), :1341-1405 (quantize); the host's ``dsp.levinson``,
 ``host_encoder.SRLAEncoder._select_order`` and ``dsp.quantize``.
@@ -80,6 +86,9 @@ _EPS_SILENT = 1e-6           # relative |r0| distance to FLT_EPSILON
 _EPS_ORDER_BASE = 1e-6       # bits; matches the host tie-repair trigger
 _EPS_QUANT_BASE = 1e-7       # quantized-units distance to rounding boundary
 _KAPPA_SCALE = 2.0 ** -40    # conditioning amplification allowance
+# The factor of the quantization margin of SVR's refined coefficients over
+# their error bound (svr.py, the margins' comment).
+SVR_QUANT_SCALE = 4.0
 
 _F64 = torch.float64
 
@@ -218,9 +227,13 @@ def select_order_exact(ev: torch.Tensor, n: int, bps: int, max_params: int,
 
 
 def quantize_exact(coefs: torch.Tensor, orders: torch.Tensor, nbits: int,
-                   max_bits: int, kappa: torch.Tensor):
+                   max_bits: int, kappa: torch.Tensor, cerr=None):
     """coefs (V, M) f64 left-aligned. Backward error-feedback quantization.
-    Returns (int coefs (V, M) int64, rshift (V,) int64, risky (V,))."""
+    cerr (V,) f64, where given: a bound on the coefficients' distance to
+    the host's beyond K7's (SVR's refined vectors, svr.py's margins), which
+    widens the rounding margin to SVR_QUANT_SCALE * 2^rshift * cerr
+    quantized units where that is larger. Returns (int coefs (V, M) int64,
+    rshift (V,) int64, risky (V,))."""
     V, M = coefs.shape
     dev = coefs.device
     qmax = 1 << (nbits - 1)
@@ -240,6 +253,8 @@ def quantize_exact(coefs: torch.Tensor, orders: torch.Tensor, nbits: int,
                          rshift)
     rshift = torch.where(tiny, nbits, rshift)
     scale = (torch.ones_like(rshift) << rshift).to(_F64)   # exact 2^rshift
+    if cerr is not None:
+        eps_k = torch.fmax(eps_k, (SVR_QUANT_SCALE * scale) * cerr)
     qerr = torch.zeros(V, dtype=_F64, device=dev)
     intc = torch.zeros((V, M), dtype=torch.int64, device=dev)
     for ordi in range(M - 1, -1, -1):
@@ -273,6 +288,131 @@ def lpc_analyze_plain(ac: torch.Tensor, n: int, bps: int, max_params: int,
             intc.to(torch.int32), r_lev | r_ord | r_q)
 
 
+def lpc_coefs_plain(ac: torch.Tensor, n: int, bps: int, max_params: int,
+                    max_fixed: bool):
+    """Plain PyTorch version of K7's first half (``lpc_coefs``): Levinson,
+    the order choice and the f64 coefficients at the chosen orders, as
+    lpc_analyze_plain computes them before it quantizes. Returns (orders
+    (V,) int32, coefs (V, max_params) f64 left-aligned, 0 past the order,
+    kappa (V,) f64 the conditioning estimate kappa', risky (V,) bool)."""
+    ev, _, _, r_lev, kappa = levinson(ac, max_params)
+    orders, r_ord = select_order_exact(
+        ev * welch_inverse_squared_sum(n), n, bps, max_params, max_fixed,
+        kappa)
+    _, coefs, _, _, _ = levinson(ac, max_params, orders)
+    return orders.to(torch.int32), coefs, kappa, r_lev | r_ord
+
+
+def lpc_quantize_plain(coefs: torch.Tensor, orders: torch.Tensor,
+                       kappa: torch.Tensor, cerr: torch.Tensor):
+    """Plain PyTorch version of K7's quantization entry (``lpc_quantize``):
+    ``quantize_exact`` of given f64 coefficients with its margin widened by
+    cerr. Returns (rshifts (V,) int32, intc (V, M) int32 left-aligned, risky
+    (V,) bool)."""
+    intc, rshifts, risky = quantize_exact(
+        coefs, orders.long(), LPC_COEFFICIENT_BITWIDTH,
+        1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH, kappa, cerr)
+    return rshifts.to(torch.int32), intc.to(torch.int32), risky
+
+
+def _k7_entry(name: str, argtypes):
+    """K7's C entry ``name``, its ctypes signature set at first use."""
+    fn = getattr(build.load("lpc_analyze"), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
+def lpc_coefs(ac: torch.Tensor, n: int, bps: int, max_params: int,
+              max_fixed: bool):
+    """K7 up to the coefficients: Levinson, the order choice and the f64
+    coefficients at the chosen orders, with the flags of those steps, for
+    SVR to refine before ``lpc_quantize``. Arguments as ``lpc_analyze``'s.
+    Returns (orders (V,) int32, coefs (V, max_params) f64 left-aligned,
+    kappa (V,) f64, risky (V,) bool).
+
+    CUDA tensors go through the kernel's ``srla_lpc_coefs`` entry
+    (``lpc_coefs.launches``); CPU tensors through ``lpc_coefs_plain``."""
+    _check_lags("lpc_coefs", ac, max_params)
+    if ac.device.type == "cpu":
+        return lpc_coefs_plain(ac, n, bps, max_params, max_fixed)
+    V = ac.shape[0]
+    dev = ac.device
+    orders = torch.empty(V, dtype=torch.int32, device=dev)
+    coefs = torch.empty((V, max_params), dtype=_F64, device=dev)
+    kappa = torch.empty(V, dtype=_F64, device=dev)
+    risky = torch.empty(V, dtype=torch.bool, device=dev)
+    if V == 0:
+        return orders, coefs, kappa, risky
+    fn = _k7_entry("srla_lpc_coefs", [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_void_p])
+    err = fn(ac.data_ptr(), orders.data_ptr(), coefs.data_ptr(),
+             kappa.data_ptr(), risky.data_ptr(), V, n, bps, max_params,
+             int(max_fixed), welch_inverse_squared_sum(n),
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "lpc_coefs")
+    lpc_coefs.launches += 1
+    return orders, coefs, kappa, risky
+
+
+def lpc_quantize(coefs: torch.Tensor, orders: torch.Tensor,
+                 kappa: torch.Tensor, cerr: torch.Tensor):
+    """K7's quantization of given coefficients (V, M) f64 left-aligned at
+    orders (V,) int32, its margin scaled by kappa (V,) and widened by cerr
+    (V,) (``quantize_exact``). Returns (rshifts (V,) int32, intc (V, M)
+    int32, risky (V,) bool).
+
+    CUDA tensors go through the kernel's ``srla_lpc_quantize`` entry
+    (``lpc_quantize.launches``); CPU tensors through
+    ``lpc_quantize_plain``."""
+    V, M = coefs.shape
+    if coefs.device.type == "cpu":
+        return lpc_quantize_plain(coefs, orders, kappa, cerr)
+    if coefs.device.type != "cuda":
+        raise ValueError(f"lpc_quantize: no kernel for device {coefs.device}")
+    dev = coefs.device
+    build.check_arg("lpc_quantize", "orders", orders, (V,), dev)
+    for name, t, shape in (("coefs", coefs, (V, M)), ("kappa", kappa, (V,)),
+                           ("cerr", cerr, (V,))):
+        if t.dtype != _F64 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"lpc_quantize: {name} must be a contiguous "
+                             f"float64 tensor of shape {shape} on {dev}")
+    rshifts = torch.empty(V, dtype=torch.int32, device=dev)
+    intc = torch.empty((V, M), dtype=torch.int32, device=dev)
+    risky = torch.empty(V, dtype=torch.bool, device=dev)
+    if V == 0:
+        return rshifts, intc, risky
+    fn = _k7_entry("srla_lpc_quantize", [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(coefs.data_ptr(), orders.data_ptr(), kappa.data_ptr(),
+             cerr.data_ptr(), rshifts.data_ptr(), intc.data_ptr(),
+             risky.data_ptr(), V, M, LPC_COEFFICIENT_BITWIDTH,
+             1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "lpc_quantize")
+    lpc_quantize.launches += 1
+    return rshifts, intc, risky
+
+
+def _check_lags(what: str, ac: torch.Tensor, max_params: int) -> None:
+    """Raise unless ac is (V, max_params + 1) lags, 1 <= max_params <= 255,
+    on the CPU or as a contiguous f64 CUDA tensor."""
+    if not 1 <= max_params <= MAX_ORDER:
+        raise ValueError(f"{what}: max_params must be 1..{MAX_ORDER}, "
+                         f"got {max_params}")
+    if ac.dim() != 2 or ac.shape[1] != max_params + 1:
+        raise ValueError(f"{what}: ac must be (V, {max_params + 1}), "
+                         f"got {tuple(ac.shape)}")
+    if ac.device.type == "cpu":
+        return
+    if ac.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {ac.device}")
+    if ac.dtype != _F64 or not ac.is_contiguous():
+        raise ValueError(f"{what}: ac must be a contiguous float64 tensor")
+
+
 def lpc_analyze(ac: torch.Tensor, n: int, bps: int, max_params: int,
                 max_fixed: bool):
     """ac (V, max_params + 1) f64 lags with the ridge on lag 0, 1 <=
@@ -281,19 +421,9 @@ def lpc_analyze(ac: torch.Tensor, n: int, bps: int, max_params: int,
 
     CUDA tensors go through the kernel (``lpc_analyze.launches`` counts its
     launches); CPU tensors go through ``lpc_analyze_plain``."""
-    if not 1 <= max_params <= MAX_ORDER:
-        raise ValueError(f"lpc_analyze: max_params must be 1..{MAX_ORDER}, "
-                         f"got {max_params}")
-    if ac.dim() != 2 or ac.shape[1] != max_params + 1:
-        raise ValueError(f"lpc_analyze: ac must be (V, {max_params + 1}), "
-                         f"got {tuple(ac.shape)}")
+    _check_lags("lpc_analyze", ac, max_params)
     if ac.device.type == "cpu":
         return lpc_analyze_plain(ac, n, bps, max_params, max_fixed)
-    if ac.device.type != "cuda":
-        raise ValueError(f"lpc_analyze: no kernel for device {ac.device}")
-    if ac.dtype != _F64 or not ac.is_contiguous():
-        raise ValueError("lpc_analyze: ac must be a contiguous float64 "
-                         "tensor")
     V = ac.shape[0]
     dev = ac.device
     orders = torch.empty(V, dtype=torch.int32, device=dev)
@@ -302,12 +432,8 @@ def lpc_analyze(ac: torch.Tensor, n: int, bps: int, max_params: int,
     risky = torch.empty(V, dtype=torch.bool, device=dev)
     if V == 0:
         return orders, rshifts, intc, risky
-    lib = build.load("lpc_analyze")
-    fn = lib.srla_lpc_analyze
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
-            + [ctypes.c_double, ctypes.c_void_p]
+    fn = _k7_entry("srla_lpc_analyze", [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 7 + [ctypes.c_double, ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(ac.data_ptr(), orders.data_ptr(), rshifts.data_ptr(),
              intc.data_ptr(), risky.data_ptr(), V, n, bps, max_params,
@@ -320,3 +446,5 @@ def lpc_analyze(ac: torch.Tensor, n: int, bps: int, max_params: int,
 
 
 lpc_analyze.launches = 0
+lpc_coefs.launches = 0
+lpc_quantize.launches = 0

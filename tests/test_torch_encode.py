@@ -4,7 +4,8 @@ host encoder that is byte-exact with the reference: the same bytes over
 mono/stereo, 8/16/24 bit and -m 0/2/4, with SILENT, RAW and odd-size tail
 blocks; the stats invariants; host repair of flagged blocks and of
 over-long sections; the port's own decode of the port's streams; the CLI;
-and the refusal of the flag the port does not run yet (SVR).
+and SVR refinement (--svr-filter-learning-iteration), the last flag
+ported, byte-equal too.
 
 Every comparison is exact (bytes or integers)."""
 
@@ -227,16 +228,25 @@ def test_step_timer_breakdown():
     (dict(num_svr_filter_learning_iteration=2), "SVR"),
 ])
 def test_unported_flags_raise(kw, what):
-    with pytest.raises(ValueError, match=what):
-        SRLAEncoder(_param(2, 16, 4, **kw), "cpu")
-    # -V (min block < max block) and -P are ported: they construct and
-    # encode.
-    param = _param(2, 16, 4, ltp_order=kw.get("ltp_order", 0))
-    param.min_num_samples_per_block = BLOCK // 2
+    """The flags the port once refused (SVR, the last of them) now encode:
+    the same bytes as srla_tpu at -V 0 (the odd tail block reads the SVR
+    work buffer the block before left) and at -V 1. One iteration only
+    scores the initial coefficients (and leaves its soft-thresholded
+    buffer); two take a step."""
+    assert what == "SVR"
+    iters = kw["num_svr_filter_learning_iteration"]
+    ltp = kw.get("ltp_order", 0)
     pcm = _pcm("music", 2, 16)
+    enc = SRLAEncoder(_param(2, 16, 4, **kw), "cpu")
+    assert enc.encode_whole(pcm) == host_encode(
+        pcm, 16, 44100, max_block=BLOCK, ltp_order=ltp,
+        svr_iterations=iters)
+    assert enc.stats["device_blocks"] > 0
+    param = _param(2, 16, 4, **kw)
+    param.min_num_samples_per_block = BLOCK // 2
     assert SRLAEncoder(param, "cpu").encode_whole(pcm) == host_encode(
         pcm, 16, 44100, max_block=BLOCK, variable_divisions=1,
-        ltp_order=param.ltp_order)
+        ltp_order=ltp, svr_iterations=iters)
 
 
 def test_cli_encode_roundtrip(tmp_path):
@@ -252,15 +262,18 @@ def test_cli_encode_roundtrip(tmp_path):
                                            max_block=BLOCK)
     assert main(["-d", "--device", "cpu", str(srl), str(out)]) == 0
     assert out.read_bytes() == wav.read_bytes()
-    # -P runs; SVR exits 1.
+    # -P and SVR run on --device.
     assert main(["-e", "-m", "2", "-B", str(BLOCK), "-V", "0", "-P", "1",
                  "--device", "cpu", str(wav), str(srl)]) == 0
     assert srl.read_bytes() == host_encode(pcm, 16, 44100, preset=2,
                                            max_block=BLOCK, ltp_order=1)
-    for bad in (["-P", "1", "--svr-filter-learning-iteration", "1"],
-                ["--svr-filter-learning-iteration", "1"]):
-        assert main(["-e", "-V", "0", *bad, "--device", "cpu", str(wav),
-                     str(srl)]) == 1
+    for ltp, svr in ((1, 1), (0, 2)):
+        flags = ["-P", str(ltp), "--svr-filter-learning-iteration", str(svr)]
+        assert main(["-e", "-m", "2", "-B", str(BLOCK), "-V", "0", *flags,
+                     "--device", "cpu", str(wav), str(srl)]) == 0
+        assert srl.read_bytes() == host_encode(
+            pcm, 16, 44100, preset=2, max_block=BLOCK, ltp_order=ltp,
+            svr_iterations=svr)
 
 
 @pytest.mark.parametrize("flagged", [False, True],

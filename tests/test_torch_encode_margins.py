@@ -18,6 +18,7 @@ margins rest on. CPU only: a kernel that changes the order of these sums
 has to keep this file passing.
 """
 
+import math
 from fractions import Fraction
 
 import numpy as np
@@ -430,3 +431,180 @@ def test_ltp_decision_boundaries_are_flagged():
                               must_not_flag[sel])
         # Not vacuous: the rows beside a boundary take both outcomes.
         assert len(set(host_p.tolist())) > 1
+
+
+# ---------------------------------------------------------------------------
+# SVR refinement: pivots, objectives, the estimate's k2 and the widened
+# quantization (kernels/svr.py, the margins' comment)
+# ---------------------------------------------------------------------------
+
+def _svr_problem(covs, n=64, seed=5):
+    """Rows of order 2 with the given 2 x 2 ridged covariances (the rows'
+    samples only feed the loop, which the pivot tests stop before)."""
+    from srla_tpu_torch.kernels import svr
+    V = len(covs)
+    cov = torch.zeros((V, 4, 4), dtype=torch.float64)
+    for b, c in enumerate(covs):
+        cov[b, :2, :2] = torch.tensor(c, dtype=torch.float64)
+    work = torch.from_numpy(np.random.RandomState(seed).randint(
+        -1000, 1000, (V, n)).astype(np.int32))
+    coefs = torch.full((V, 4), 0.25, dtype=torch.float64)
+    orders = torch.full((V,), 2, dtype=torch.int32)
+    return svr.svr_refine_plain(work, cov, coefs, orders, n, 16, 2,
+                                (0.0,), LPC_RIDGE_REGULARIZATION_PARAMETER,
+                                torch.zeros(V, dtype=torch.float64))
+
+
+def test_svr_pivot_near_zero_is_flagged():
+    """A second pivot of 1e-12 C_00 (under 2^-36), one of -1e-12 (the
+    host's singular case, which zeroes the row), a well-conditioned block
+    and an all-zero one (exactly singular on both sides: not flagged)."""
+    best, _, risky, _ = _svr_problem([
+        [[1.0, 1.0], [1.0, 1.0 + 1e-12]],
+        [[1.0, 1.0], [1.0, 1.0 - 1e-12]],
+        [[1.0, 0.5], [0.5, 1.0]],
+        [[0.0, 0.0], [0.0, 0.0]]])
+    assert risky.tolist() == [True, True, False, False]
+    assert (best[1] == 0).all() and (best[3] == 0).all()
+    assert (best[2, :2] != 0).all()
+
+
+def _scripted_objectives(monkeypatch, values):
+    """Make the estimate return ``values`` (one list a row) call by call,
+    its k2 flag down: the comparisons after it then see those objectives."""
+    from srla_tpu_torch.kernels import svr
+    calls = iter(zip(*values))
+
+    def scripted(mean, eps):
+        return (torch.tensor(next(calls), dtype=torch.float64),
+                torch.zeros_like(mean, dtype=torch.bool))
+
+    monkeypatch.setattr(svr, "rgr_mean_code_length", scripted)
+
+
+def test_svr_objective_comparisons_on_their_edges_are_flagged(monkeypatch):
+    """Rows of three iterations at one margin, objectives scripted: a
+    change on the 1e-8 convergence edge (and 2e-14 beside it) is flagged,
+    one of 3e-8 or 1e-3 is not (the stop is certain either way), nor is
+    an exact tie (NOTES trap 3); the adopt comparison within the margin of
+    the best so far is flagged (a rise of 1e-15 over it, a fall of 1e-13).
+    The last iteration's stop decides nothing and is never flagged."""
+    from srla_tpu_torch.kernels import svr
+    E = svr.SVR_OBJ_EPSILON
+    rows = [
+        [5.0, 5.0 - E, 4.0],               # |prev - obj| = 1e-8: edge
+        [5.0, 5.0 - E * (1 + 2e-6), 4.0],  # 2e-14 beside it
+        [5.0, 5.0 - 3 * E, 4.0],           # certain: no stop
+        [5.0, 5.0 + 1e-15, 4.0],           # stop, a hair over the best
+        [5.0, 5.0 + 1e-3, 4.0],            # certain: stop
+        [5.0, 5.0, 4.0],                   # exact tie: stop
+        [5.0, 4.0, 4.0 + 1e-13],           # adopt near-tie at iteration 2
+        [5.0, 4.0, 3.0 + E],               # last stop on its edge: moot
+    ]
+    _scripted_objectives(monkeypatch, rows)
+    V = len(rows)
+    n = 64
+    work = torch.from_numpy(np.random.RandomState(6).randint(
+        -1000, 1000, (V, n)).astype(np.int32))
+    cov = torch.zeros((V, 2, 2), dtype=torch.float64)
+    cov[:, 0, 0] = cov[:, 1, 1] = 1.0
+    _, _, risky, iters = svr.svr_refine_plain(
+        work, cov, torch.full((V, 2), 0.1, dtype=torch.float64),
+        torch.full((V,), 2, dtype=torch.int32), n, 16, 3, (0.0,),
+        LPC_RIDGE_REGULARIZATION_PARAMETER,
+        torch.zeros(V, dtype=torch.float64))
+    assert risky.tolist() == [True, True, False, True, False, False, True,
+                              False]
+    assert iters.tolist() == [2, 3, 3, 2, 2, 2, 3, 3]
+
+
+def test_svr_estimate_on_a_k2_integer_is_flagged():
+    """A mean whose log2v is an integer to the last bits is flagged at any
+    margin; one 1e-6 away is not."""
+    from srla_tpu_torch.kernels import svr
+    om = math.exp(svr.LOG_OPTX / 2.0 ** 5)
+    m0 = (1.0 / (1.0 - om) - 1.0) / 65536.0
+    means = torch.tensor([m0, m0 * (1 + 1e-6)], dtype=torch.float64)
+    _, risky = svr.rgr_mean_code_length(
+        means, torch.full((2,), svr._EPS_SVR_LIBM, dtype=torch.float64))
+    assert risky.tolist() == [True, False]
+
+
+def test_svr_widened_quantization_margin():
+    """Refined coefficients within cerr of the host's: a coefficient whose
+    scaled value is 2 * 2^rshift * cerr from a rounding half (inside the
+    widened margin, 4 * 2^rshift * cerr) is flagged, one 8 * 2^rshift *
+    cerr away is not, and with cerr 0 K7's own margin rules."""
+    from srla_tpu_torch.kernels.levinson import lpc_quantize_plain
+    step = 2.0 ** -(NBITS - 1)
+    cerr = 1e-9
+    rows = [[0.88, 0.25, (20.5 + k * cerr / step) * step, 12 * step]
+            for k in (2.0, -2.0, 8.0, -8.0, 2.0)]
+    coefs = torch.tensor(rows, dtype=torch.float64)
+    V = len(rows)
+    _, _, risky = lpc_quantize_plain(
+        coefs, torch.full((V,), 4, dtype=torch.int32),
+        torch.ones(V, dtype=torch.float64),
+        torch.tensor([cerr] * 4 + [0.0], dtype=torch.float64))
+    assert risky.tolist() == [True, True, False, False, False]
+
+
+def _svr_rows_and_host(n, M, preset, iters):
+    import test_torch_svr as tsvr
+    work = tsvr.svr_rows(n)
+    dbl, coefs, orders = tsvr.host_init(work, n, M, preset)
+    refined, _ = host_svr_refine(dbl, coefs, orders, n, iters)
+    host_c, host_r = quantize_coefficients(refined, orders, NBITS, MAX_BITS)
+    return work, dbl, coefs, orders, host_c, host_r
+
+
+def host_svr_refine(dbl, coefs, orders, n, iters):
+    from srla_tpu_torch.constants import SVR_MARGIN_LIST
+    from srla_tpu_torch.dsp.svr import svr_refine_batch
+    return svr_refine_batch(dbl, coefs, orders, n, iters, 16,
+                            LPC_RIDGE_REGULARIZATION_PARAMETER,
+                            SVR_MARGIN_LIST)
+
+
+@pytest.mark.parametrize("n,M,preset", [(1024, 16, 2), (2048, 32, 3)])
+def test_svr_from_initial_coefficients_moved_by_k7_error(n, M, preset):
+    """The refinement from the host's initial coefficients moved by K7's
+    allowance (rho max|c| each, rho = 4 kappa' 2^-42 and kappa' K7's
+    estimate of the row, in alternating directions: a normwise move, so the
+    small tail coefficients move by as much as the largest) against the
+    host's from the unmoved ones, through the widened quantization: every
+    row whose quantized coefficients or shift differ from the host's is
+    flagged. The rows are make_music's variants, a pure sine
+    (ill-conditioned), a near-silent row, white noise and zeros."""
+    from srla_tpu_torch.constants import SVR_MARGIN_LIST
+    from srla_tpu_torch.kernels import svr
+    from srla_tpu_torch.kernels.levinson import (levinson,
+                                                 lpc_quantize_plain)
+    work, dbl, coefs, orders, host_c, host_r = _svr_rows_and_host(
+        n, M, preset, 2)
+    ac = autocorr_fft(dbl * welch_window(n), n, M + 1)
+    ac[:, 0] *= 1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER
+    _, _, _, _, kappa = levinson(torch.from_numpy(ac), M)
+    rho = 4.0 * 2.0 ** -42 * kappa.numpy()
+    signs = np.where(np.arange(M) % 2 == 0, 1.0, -1.0)
+    cmax = np.abs(np.where(np.arange(M)[None, :] < orders[:, None],
+                           coefs[:, :M], 0.0)).max(axis=1)
+    moved = coefs[:, :M] + (rho * cmax)[:, None] * signs[None, :]
+    w = torch.from_numpy(work)
+    o = torch.from_numpy(orders.astype(np.int32))
+    cov = svr.svr_cov_plain(w, o, n, 16, M,
+                            LPC_RIDGE_REGULARIZATION_PARAMETER)
+    best, cerr, r_svr, _ = svr.svr_refine_plain(
+        w, cov, torch.from_numpy(moved), o, n, 16, 2, SVR_MARGIN_LIST,
+        LPC_RIDGE_REGULARIZATION_PARAMETER, kappa)
+    rshift, intc, r_q = lpc_quantize_plain(best, o, kappa, cerr)
+    port = np.concatenate([intc.numpy(), rshift.numpy()[:, None]], axis=1)
+    host = np.concatenate([np.where(np.arange(M)[None, :] < orders[:, None],
+                                    host_c[:, :M], 0),
+                           np.where(orders > 0, host_r, 0)[:, None]], axis=1)
+    port[:, -1] = np.where(orders > 0, port[:, -1], 0)
+    risky = (r_svr | r_q).numpy()
+    none = np.zeros(len(orders), bool)
+    _assert_flag_contract(port, host, risky, none, none)
+    # Not vacuous: the moved vectors are refined (most rows unflagged).
+    assert (~risky).sum() >= len(orders) - 3

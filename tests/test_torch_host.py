@@ -109,7 +109,7 @@ def test_host_encode_without_native_library(monkeypatch, kind, C, bps,
 
 def test_host_encoder_stats_and_progress():
     """Host blocks are counted with srla_tpu's keys; progress reaches the
-    whole file; the flags the copy leaves out raise."""
+    whole file; SVR encodes as srla_tpu does."""
     pcm = _pcm("music", 2, 16)
     param = host_encoder.make_parameter(2, 16, 44100, max_block=BLOCK)
     enc = host_encoder.SRLAEncoder(param)
@@ -122,9 +122,19 @@ def test_host_encoder_stats_and_progress():
                          "device_spans": 0, "remeasured_spans": 0,
                          "host_spans": 0}
     assert seen == [4 * BLOCK]
-    param.num_svr_filter_learning_iteration = 1
-    with pytest.raises(ValueError, match="SVR"):
-        host_encoder.SRLAEncoder(param)
+    # SVR is in the copy: one iteration (the work buffer only) on this
+    # stream, and on an odd-length 24-bit file at -V 1, whose odd last
+    # window reads the buffer SVR left (the shape of
+    # test_golden_exact.py::test_svr_buffer_state_odd_window, smaller).
+    assert host_encoder.encode(pcm, 16, 44100, max_block=BLOCK,
+                               svr_iterations=1) == srla_tpu.encode(
+        pcm, 16, 44100, max_block=BLOCK, svr_iterations=1)
+    odd = signals.chirp(2 * BLOCK + 333, 3, 24)
+    assert host_encoder.encode(odd, 24, 44100, preset=2, max_block=BLOCK,
+                               variable_divisions=1,
+                               svr_iterations=1) == srla_tpu.encode(
+        odd, 24, 44100, preset=2, max_block=BLOCK, variable_divisions=1,
+        svr_iterations=1)
     # -V is ported: the variable-block search runs on the host.
     param = host_encoder.make_parameter(2, 16, 44100, max_block=BLOCK,
                                         variable_divisions=1)

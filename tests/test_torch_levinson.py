@@ -15,9 +15,15 @@ levinson), against the JAX package and the host.
   rows on a boundary are flagged and the rows far from one are not.
 - The routing: a CPU tensor takes the plain version and leaves
   lpc_analyze.launches at 0; a meta tensor raises.
+- The SVR path's two plain entries (lpc_coefs_plain, then
+  lpc_quantize_plain with no widening) equal lpc_analyze_plain bit for
+  bit; chip_smoke.k7_coefs_check, which holds K7's coefficient entry to its
+  plain version, refuses a coefficient moved past its allowance.
 - On the card (marked gpu): the kernel against its plain version on the
-  same rows, equal where neither flags and flagged alike; the boundary
-  contract for the kernel; a CUDA tensor of the wrong dtype raises."""
+  same rows, equal where neither flags and flagged alike; the coefficient
+  entry within k7_coefs_check's allowance of its plain version and the
+  quantization entry equal to its plain version; the boundary contract for
+  the kernel; a CUDA tensor of the wrong dtype raises."""
 
 import functools
 from fractions import Fraction
@@ -39,8 +45,9 @@ from srla_tpu_torch.constants import (  # noqa: E402
 from srla_tpu_torch.dsp.window import welch_inverse_squared_sum  # noqa: E402
 from srla_tpu_torch.kernels import exact  # noqa: E402
 from srla_tpu_torch.kernels.autocorr import autocorr_plain  # noqa: E402
-from srla_tpu_torch.kernels.levinson import (lpc_analyze,  # noqa: E402
-                                             lpc_analyze_plain)
+from srla_tpu_torch.kernels.levinson import (  # noqa: E402
+    lpc_analyze, lpc_analyze_plain, lpc_coefs, lpc_coefs_plain, lpc_quantize,
+    lpc_quantize_plain)
 from srla_tpu_torch.signals import make_music  # noqa: E402
 
 N, BPS = 1024, 16
@@ -204,9 +211,77 @@ def test_routing_cpu_plain_meta_raises():
                     N, BPS, 8, False)
 
 
+@pytest.mark.parametrize("M", [8, 64, 255])
+def test_svr_entries_compose_to_the_fused_analysis(M):
+    """lpc_coefs_plain then lpc_quantize_plain with cerr 0 (an SVR that
+    adopts the initial vector) give lpc_analyze_plain's orders, shifts,
+    coefficients and flags, bit for bit."""
+    ac = torch.from_numpy(_lags(M))
+    orders, coefs, kappa, r_c = lpc_coefs_plain(ac, N, BPS, M, False)
+    rshifts, intc, r_q = lpc_quantize_plain(
+        coefs, orders, kappa, torch.zeros_like(kappa))
+    want = lpc_analyze_plain(ac, N, BPS, M, False)
+    for g, w in zip((orders, rshifts, intc, r_c | r_q), want):
+        assert torch.equal(g, w)
+
+
+def test_k7_coefs_check_refuses_a_move_past_its_allowance():
+    """k7_coefs_check passes the plain version against itself and moved by
+    half its allowance (4 kappa' 2^-42 max|c|, on the smallest coefficient
+    of a row), and refuses a move of twice it, or a changed flag."""
+    ac = torch.from_numpy(_lags(32))
+    want = lpc_coefs_plain(ac, N, BPS, 32, False)
+    orders, coefs, kappa, risky = want
+    row = int(np.flatnonzero((~risky & (orders > 4)).numpy())[0])
+    j = int(coefs[row, :int(orders[row])].abs().argmin())
+    allow = 4.0 * 2.0 ** -42 * float(kappa[row]) \
+        * float(coefs[row].abs().max())
+
+    def check(got):
+        chip_smoke.k7_coefs_check(torch, "test", got, want, 32,
+                                  chip_smoke.new_k7_coefs_tally())
+
+    check(want)
+    for step, ok in ((0.5, True), (2.0, False)):
+        moved = coefs.clone()
+        moved[row, j] += step * allow
+        if ok:
+            check((orders, moved, kappa, risky))
+        else:
+            with pytest.raises(RuntimeError, match="chip_smoke check"):
+                check((orders, moved, kappa, risky))
+    flipped = risky.clone()
+    flipped[row] = True
+    with pytest.raises(RuntimeError, match="chip_smoke check"):
+        check((orders, coefs, kappa, flipped))
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64, 255])
+def test_svr_entries_match_plain_on_card(cuda, M):
+    """K7's coefficient entry within k7_coefs_check's allowance of its plain
+    version (flags equal, orders equal where unflagged), and its
+    quantization entry, given the same coefficients and a widening,
+    bit-equal to its plain version; one launch each."""
+    ac = torch.from_numpy(_lags(M)).to(cuda)
+    before = (lpc_coefs.launches, lpc_quantize.launches)
+    got = lpc_coefs(ac, N, BPS, M, False)
+    want = lpc_coefs_plain(ac, N, BPS, M, False)
+    torch.cuda.synchronize()
+    chip_smoke.k7_coefs_check(torch, f"M {M}", got, want, M,
+                              chip_smoke.new_k7_coefs_tally())
+    orders, coefs, kappa, _ = got
+    cerr = coefs.abs().max(dim=1).values * 1e-9
+    q = lpc_quantize(coefs, orders, kappa, cerr)
+    for g, w in zip(q, lpc_quantize_plain(coefs, orders, kappa, cerr)):
+        assert torch.equal(g, w)
+    assert (lpc_coefs.launches, lpc_quantize.launches) == (
+        before[0] + 1, before[1] + 1)
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [8, 32, 255])

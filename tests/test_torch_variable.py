@@ -211,8 +211,7 @@ def test_measure_spans_matches_jax_and_host(n):
     host = host_encoder.SRLAEncoder(param)
     args = host._device_args(n)
     js = jax.device_get(measure_spans_exact(
-        pcm.astype(np.int16), offs, np.int32(0), C=C, svr_iter=0,
-        margins=tuple(host.preset.margin_list), **args))
+        pcm.astype(np.int16), offs, np.int32(0), C=C, **args))
     ps = texact.measure_spans(torch.from_numpy(pcm.astype(np.int16)), offs,
                               0, C=C, **args)
     ps = {k: v.numpy() for k, v in ps.items()}

@@ -4,11 +4,11 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the twelve CUDA libraries of csrc/ (fifteen kernels) and five
+Builds the twelve CUDA libraries of csrc/ (fifteen kernels) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
-designs of K8, K7, K9 and K10, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
-ltp_synth_v1.cu and ltp_analyze_v1.cu, which nothing in the port calls) with
-concurrent nvcc, then:
+designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
+ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
+the port calls) with concurrent nvcc, then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
@@ -158,25 +158,30 @@ concurrent nvcc, then:
      at -m 4 -B 4096 -V 0 --svr 2: counted, decoded losslessly, the repair
      rate (a warning above 5 %), warm best of 3 with its step split, K11,
      K12 and K7's two SVR entries against their plain versions on every row
-     of both analysis calls, and K11 and K12 timed at the
-     main call (CUDA events, device time) beside their plain versions,
-     bounds (f64 instructions over 17 T/s), serial floors (chain_probe.cu
-     kind 6, a dependent f64 add) and library yardsticks (a batched DGEMM
-     Gram for K11; cholesky_ex and cholesky_solve for K12), which the port
-     never calls.
+     of both analysis calls, and K11, K12 and K7's two SVR entries
+     (srla_lpc_coefs, srla_lpc_quantize) timed at the main call (CUDA
+     events, device time) beside their plain versions, bounds (f64
+     instructions over 17 T/s; K7's f64 operations over 34 T/s), serial
+     floors (chain_probe.cu kind 6, a dependent f64 add) and library
+     yardsticks (a batched DGEMM Gram for K11; cholesky_ex and
+     cholesky_solve for K12, the median of five runs), which the port
+     never calls; K12 also beside its first design (csrc/svr_refine_v1.cu,
+     equal outputs) in turns, device time, with PR 12's operation count
+     and serial floor printed beside the restated ones.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
 version's, its bound and, where one PyTorch call computes the same function,
 that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
--V 0 encode, K8's and K7's on phase 6's, K11's and K12's on phase 12's
-full-width encode; ``launches_variable`` on each of phase 8's three paths,
-``launches_ltp`` on phase 4's, 9's and 11's, ``launches_svr`` on phase
-12's five, encode and decode apart; K7's record also carries its SVR
-entries' launches on phase 12's full-width encode and the coefficient
-entry's agreement with its plain version) and,
-last, the device JSON line. A kernel's bound is the
+-V 0 encode, K8's and K7's on phase 6's, K11's, K12's and K7's two SVR
+entries' (records lpc_coefs and lpc_quantize) on phase 12's full-width
+encode, 0 for K12's first design (svr_refine_v1, a measurement aid);
+``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
+phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five, encode and
+decode apart; K7's record also carries its SVR entries' launches on phase
+12's full-width encode and the coefficient entry's agreement with its
+plain version) and, last, the device JSON line. A kernel's bound is the
 larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
 instructions its inputs need (a multiply-add is one) over the H100's INT32
 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, a quarter of
@@ -512,7 +517,7 @@ LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
 # Measurement only: the serial floors, and the first designs of K8, K7, K9
 # and K10.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
-          "ltp_analyze_v1")
+          "ltp_analyze_v1", "svr_refine_v1")
 
 
 def main_param():
@@ -1144,7 +1149,8 @@ def counted(torch, wrappers: dict, fn):
 
 
 def all_wrappers() -> dict:
-    """Every kernel wrapper of the codec's paths, by record name."""
+    """Every kernel wrapper of the codec's paths, by record name, and the
+    runner of K12's first design, which no path may launch."""
     from srla_tpu_torch.kernels.autocorr import autocorr
     from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
     from srla_tpu_torch.kernels.levinson import (lpc_analyze, lpc_coefs,
@@ -1162,7 +1168,7 @@ def all_wrappers() -> dict:
             "ltp_analyze": ltp_analyze, "autocorr": autocorr,
             "lpc_analyze": lpc_analyze, "lpc_coefs": lpc_coefs,
             "lpc_quantize": lpc_quantize, "svr_cov": svr_cov,
-            "svr_refine": svr_refine}
+            "svr_refine": svr_refine, "svr_refine_v1": k12_first_design}
 
 
 def without_plain(fn):
@@ -1385,7 +1391,8 @@ def phase_variable(torch, np, dev, music, card):
         calls = n_measure + n_encode
         want = {"fir_predict": calls, "rice_search": calls,
                 "autocorr": calls, "lpc_analyze": calls,
-                "pack_residual_sections": n_encode, "bitpack": 0}
+                "pack_residual_sections": n_encode, "bitpack": 0,
+                "svr_refine_v1": 0}
         for name, count in want.items():
             require(got[name] == count, f"-V {V}: {name} launched "
                                         f"{got[name]} times, expected {count}")
@@ -1855,7 +1862,8 @@ def phase_ltp_encode(torch, np, dev, music, card):
         want = {"ltp_analyze": calls, "fir_predict": calls,
                 "rice_search": calls, "lpc_analyze": calls,
                 "autocorr": 2 * calls,        # the pitch lags, the LPC lags
-                "pack_residual_sections": n_encode, "bitpack": 0}
+                "pack_residual_sections": n_encode, "bitpack": 0,
+                "svr_refine_v1": 0}
         for name, count in want.items():
             require(got[name] == count, f"-V {V} -P 3: {name} launched "
                                         f"{got[name]} times, expected {count}")
@@ -2699,12 +2707,14 @@ def svr_want(calls: int, n_encode: int, ltp: bool) -> dict:
     """The launches of an SVR encode of ``calls`` analysis calls, of which
     ``n_encode`` encode groups: K7's coefficient and quantization entries,
     K11, K12, K3 and K4 once a call, K8 once (twice with -P), K5's fused
-    entry once a group; K7's fused entry and the generic pack never."""
+    entry once a group; K7's fused entry, the generic pack and K12's
+    first design never."""
     return {"lpc_coefs": calls, "svr_cov": calls, "svr_refine": calls,
             "lpc_quantize": calls, "lpc_analyze": 0, "fir_predict": calls,
             "rice_search": calls, "autocorr": calls * (2 if ltp else 1),
             "ltp_analyze": calls if ltp else 0,
-            "pack_residual_sections": n_encode, "bitpack": 0}
+            "pack_residual_sections": n_encode, "bitpack": 0,
+            "svr_refine_v1": 0}
 
 
 def new_k7_coefs_tally() -> dict:
@@ -2821,6 +2831,57 @@ def svr_check(torch, what: str, work, orders, coefs, kappa, a) -> tuple:
     return cov, got, (plain11, plain12)
 
 
+def k12_first_design(torch, work, cov, coefs, orders, kappa, a):
+    """fn() -> (best, cerr, risky, iters) of K12's first design (csrc/
+    svr_refine_v1.cu, a measurement aid nothing in the port calls) on
+    svr_refine's arguments; its shared-memory layout is the one it was
+    written for (the row as int32, the residual and six vectors of M, the
+    factor whole: each to global scratch, the factor first, where it does
+    not fit)."""
+    import ctypes
+    import math
+
+    from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels import build, svr
+    fn = build.load("svr_refine_v1").srla_svr_refine_v1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
+        + [ctypes.c_double] * 10 + [ctypes.c_void_p]
+    ridge = LPC_RIDGE_REGULARIZATION_PARAMETER
+    n, bps, M = a["n"], a["bps"], a["max_params"]
+    V, dev = work.shape[0], work.device
+    base = 4 * n + 48 * M
+    a_global = base + 8 * n + 8 * M * M > svr._SMEM_BYTES
+    r_global = base + 8 * n > svr._SMEM_BYTES
+    a_scratch = torch.empty_like(cov) if a_global else None
+    r_scratch = (torch.empty((V, n), dtype=torch.float64, device=dev)
+                 if r_global else None)
+    marg = torch.tensor(a["margins"], dtype=torch.float64, device=dev)
+    outs = (torch.empty((V, M), dtype=torch.float64, device=dev),
+            torch.empty(V, dtype=torch.float64, device=dev),
+            torch.empty(V, dtype=torch.bool, device=dev),
+            torch.empty(V, dtype=torch.int32, device=dev))
+
+    def run():
+        err = fn(work.data_ptr(), cov.data_ptr(), coefs.data_ptr(),
+                 orders.data_ptr(), kappa.data_ptr(), marg.data_ptr(),
+                 None if a_scratch is None else a_scratch.data_ptr(),
+                 None if r_scratch is None else r_scratch.data_ptr(),
+                 *(t.data_ptr() for t in outs), V, n, M, a["svr_iter"],
+                 len(a["margins"]), 2.0 ** -(bps - 1), ridge / (1.0 + ridge),
+                 svr.LOG_OPTX, svr._gamma(n), math.sqrt(n),
+                 svr._EPS_SVR_LIBM, svr._EPS_SVR_PIVOT, svr._SVR_INIT_REL,
+                 svr.SVR_OBJ_EPSILON, svr.SVR_FLT_MAX,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K12's first design failed to launch ({err})")
+        k12_first_design.launches += 1
+        return outs
+    return run
+
+
+k12_first_design.launches = 0
+
+
 def svr_encode_case(torch, np, dev, case, card) -> dict:
     """One byte-identity case of phase 12: the host exact stream (timed),
     the card's counted encode, block and span accounting, the launches,
@@ -2879,8 +2940,9 @@ def svr_encode_case(torch, np, dev, case, card) -> dict:
 def phase_svr(torch, np, dev, music, card):
     """Phase 12, SVR refinement on the card (K11 svr_cov.cu, K12
     svr_refine.cu, K7's coefficient and quantization entries). Returns
-    (each path's launches, the records of K11 and K12, the tallies of K7's
-    coefficient entry against its plain version)."""
+    (each path's launches, the records of K11, K12, K12's first design and
+    K7's two SVR entries, the tallies of K7's coefficient entry against its
+    plain version)."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import _compute_offset_lshift
@@ -2923,6 +2985,12 @@ def phase_svr(torch, np, dev, music, card):
     require(np.array_equal(out, music), "full width: decode is not "
                                         "lossless")
     launches["music120_m4_svr2"] = {"encode": got, "decode": dec_got}
+    groups = encode_groups(music, param, data)
+    n_measure, n_encode = expected_calls({}, groups)
+    for name, count in svr_want(n_measure + n_encode, n_encode,
+                                False).items():
+        require(got[name] == count, f"full width: {name} launched "
+                                    f"{got[name]} times, expected {count}")
     rate = st["repaired_blocks"] / max(ncomp, 1)
     best = best_of(torch, lambda: SRLAEncoder(param, dev).encode_whole(
         music))
@@ -2948,7 +3016,6 @@ def phase_svr(torch, np, dev, music, card):
     # K11 and K12 against plain on every row of both analysis calls.
     lshift = _compute_offset_lshift(music)
     file = enc._upload(music)
-    groups = encode_groups(music, param, data)
     main_inp = None
     rows = 0
     k7_full = new_k7_coefs_tally()
@@ -2983,22 +3050,31 @@ def k7_coefs_text(t: dict) -> str:
 
 
 def svr_records(torch, dev, inp, cov, out12, plain, card):
-    """Times of K11 and K12 on the main call's inputs (5164 rows x 4096),
-    each beside its plain version, its bound, its library yardstick and its
-    serial floor; their records for the kernels line."""
+    """Times of K11, K12 and K7's two SVR entries on the main call's inputs
+    (5164 rows x 4096), each beside its plain version, its bound, its
+    library yardstick and its serial floor, K12 also beside its first
+    design (csrc/svr_refine_v1.cu) in turns; their records for the kernels
+    line, the first design's among them."""
+    import statistics
+
     from srla_tpu_torch.constants import LPC_RIDGE_REGULARIZATION_PARAMETER
+    from srla_tpu_torch.kernels.autocorr import autocorr
+    from srla_tpu_torch.kernels.levinson import (lpc_coefs, lpc_coefs_plain,
+                                                 lpc_quantize,
+                                                 lpc_quantize_plain)
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
     ridge = LPC_RIDGE_REGULARIZATION_PARAMETER
     work, orders, coefs, kappa, a = inp
     V = work.shape[0]
-    n, bps, M = a["n"], a["bps"], a["max_params"]
+    n, bps, M, it_max = a["n"], a["bps"], a["max_params"], a["svr_iter"]
+    K = len(a["margins"])
     o = orders.long()
     of = o.to(torch.float64)
 
     def k11():
         return svr_cov(work, orders, n, bps, M, ridge)
 
-    kw = (n, bps, a["svr_iter"], a["margins"], ridge, kappa)
+    kw = (n, bps, it_max, a["margins"], ridge, kappa)
 
     def k12():
         return svr_refine(work, cov, coefs, orders, *kw)
@@ -3006,28 +3082,51 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
     ms11 = cuda_ms(torch, k11, 5)
     dev11 = device_ms(torch, k11, 3)
     ms12 = cuda_ms(torch, k12, 5)
-    dev12 = device_ms(torch, k12, 3)
+    # K12 and its first design in turns (old, new, new, old), device time;
+    # the first design's outputs equal K12's.
+    v1 = k12_first_design(torch, work, cov, coefs, orders, kappa, a)
+    require(all(torch.equal(g, w) for g, w in zip(v1(), out12)),
+            "K12's first design and K12 differ on the main call")
+    ms12_v1 = cuda_ms(torch, v1, 3)
+    (v1_a, v1_b), (dev_a, dev_b) = in_turns(torch, v1, k12, 3)
+    dev12, dev12_v1 = min(dev_a, dev_b), min(v1_a, v1_b)
     plain11, plain12 = plain           # svr_check's runs of the same call
     # K11's work: each element of the o x o triangle a chain of n - o
     # products and adds; bytes: the rows in, the matrices out.
     ops11 = float((of * (of + 1) / 2 * (n - of) * 2).sum())
     b11 = bound(nbytes(work, orders) + V * M * M * 8, ops11,
                 F64_INSTR_PER_S)
-    # K12's work for the iterations this data ran: per iteration the
-    # residual (o products and adds a sample) and the o r-vector chains
-    # (a product and an add each), 4 o (n - o) instructions, with the
-    # mean-abs chain, the |th| sum and the two solves (2 o^2), and once
-    # the factor (~o^3 / 3 products and adds). Bytes: the rows, the
-    # matrices, the coefficients in, the coefficients and flags out.
+    # K12's work for the iterations this data ran, as the host's order
+    # needs it (f64 instructions, a multiply and an add apiece): the
+    # initial vector's residual once (2 o (n - o)), every later
+    # iteration's residual, the mean-abs chain of every iteration (n - o;
+    # the first once), and on every iteration but the last the r-vector
+    # chains and the |th| sum (2 o (n - o) + (n - o)) and the two solves
+    # (2 o^2); once the factor and max_j (C^-1)_jj (~o^3 / 3 each: o^3 / 6
+    # multiplies and as many adds). A row's iterations are its margins'
+    # (iters); at max_iter 2 every margin's first iteration is the one that
+    # is not last, so the rows' non-last iterations are min(iters, K).
     it = out12[3].to(torch.float64)
-    ops12 = float((it * (4 * of * (n - of) + 2 * (n - of) + 4 * of * of)
-                   + 2 * of ** 3 / 3).sum())
-    b12 = bound(nbytes(work, cov, coefs, orders, kappa)
-                + V * (M * 8 + 8 + 8 + 1 + 4), ops12, F64_INSTR_PER_S)
+    live = it > 0
+    first = torch.clamp(it, max=float(K)) if it_max > 1 \
+        else torch.zeros_like(it)
+    later = torch.where(live, it - K, 0.0)          # margins' it >= 1
+    scored = torch.where(live, 1.0 + later, 0.0)    # residuals, mean-abs
+    ops12 = float((scored * (2 * of * (n - of) + (n - of))
+                   + first * (2 * of * (n - of) + (n - of) + 2 * of * of)
+                   + torch.where(live, 2 * of ** 3 / 3, 0.0)).sum())
+    # PR 12's count: every iteration's residual, r-vector, mean-abs and
+    # |th| chains and solves (4 o^2), the factor (2 o^3 / 3).
+    ops12_pr12 = float((it * (4 * of * (n - of) + 2 * (n - of) + 4 * of * of)
+                        + 2 * of ** 3 / 3).sum())
+    bytes12 = nbytes(work, cov, coefs, orders, kappa) \
+        + V * (M * 8 + 8 + 8 + 1 + 4)
+    b12 = bound(bytes12, ops12, F64_INSTR_PER_S)
+    b12_pr12 = bound(bytes12, ops12_pr12, F64_INSTR_PER_S)
     # Library yardsticks, timed and never on the path: the Gram matrix of
     # each row's lag windows by batched DGEMM (the f64 tensor cores), in
     # chunks of rows; and torch.linalg.cholesky_ex and cholesky_solve for
-    # K12's factor and a solve per iteration run.
+    # K12's factor and a solve per iteration run, five runs.
     d = work.to(torch.float64) * 2.0 ** -(bps - 1)
     chunk = 256
 
@@ -3048,11 +3147,44 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
         for _ in range(solves):
             torch.cholesky_solve(rhs, L)
 
-    lib12 = cuda_ms(torch, chol, 3)
+    chol()
+    lib12_runs = [cuda_ms(torch, chol, 1) for _ in range(5)]
+    lib12 = statistics.median(lib12_runs)
     step = chain_step_ms(torch, 6)
     floor11 = float((n - of).max()) * step
-    longest = int(out12[3].max())
-    floor12 = longest * (n + M * M) * step
+    # What the host's order forces on one margin: each iteration's chains
+    # (n adds), and a solve (M^2 steps) between two; the margins run at
+    # once.
+    floor12 = (it_max * n + (it_max - 1) * M * M) * step
+    floor12_pr12 = int(out12[3].max()) * (n + M * M) * step
+    # K7's SVR entries on the same call: its coefficient entry on the
+    # call's ridged lags, its quantization entry on K12's output.
+    ac = autocorr(work, n, bps, M + 1, a["fft_size"])
+    ac[:, 0] = ac[:, 0] * (1.0 + ridge)
+    fixed = a["max_fixed"]
+
+    def k7c():
+        return lpc_coefs(ac, n, bps, M, fixed)
+
+    def k7q():
+        return lpc_quantize(out12[0], orders, kappa, out12[1])
+
+    ms7c, dev7c = cuda_ms(torch, k7c, 20), device_ms(torch, k7c, 20)
+    ms7q, dev7q = cuda_ms(torch, k7q, 20), device_ms(torch, k7q, 20)
+    plain7c = cuda_ms(torch, lambda: lpc_coefs_plain(ac, n, bps, M, fixed),
+                      1)
+    plain7q = cuda_ms(torch, lambda: lpc_quantize_plain(
+        out12[0], orders, kappa, out12[1]), 1)
+    # K7's operations, as phase 10 counts them: the first recursion and
+    # the order choice for the coefficient entry (its second recursion at
+    # the chosen order is no more than the first), ~8 an order for the
+    # quantization.
+    mm = torch.arange(2, M + 1, dtype=torch.float64)
+    ops7c = V * (2 * float((4 * mm + 7).sum()) + 30 * M)
+    ops7q = float((8 * o).sum())
+    b7c = bound(nbytes(ac) + V * (4 + 8 * M + 8 + 1), ops7c, F64_OPS_PER_S)
+    b7q = bound(V * (8 * M + 4 + 8 + 8) + V * (4 + 4 * M + 1), ops7q,
+                F64_OPS_PER_S)
     print(f"phase 12 K11 svr_cov at V={V} n={n} M={M} (orders up to "
           f"{int(o.max())}): kernel {ms11:.4f} ms, device time {dev11:.4f} "
           f"ms, plain {plain11:.1f} ms, bound {b11['bound_ms']:.4f} ms "
@@ -3060,24 +3192,54 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
           f"DGEMM Gram (unfold + bmm, {chunk}-row chunks) {lib11:.4f} ms, "
           f"serial floor {floor11:.4f} ms ({int((n - of).max())} adds of "
           f"{step * 1e6:.2f} ns) [{card}]")
-    print(f"phase 12 K12 svr_refine at V={V} n={n} M={M}, {longest} "
-          f"iterations at most ({float(it.mean()):.2f} a row): kernel "
-          f"{ms12:.4f} ms, device time {dev12:.4f} ms, plain {plain12:.1f} "
-          f"ms, bound {b12['bound_ms']:.4f} ms ({b12['bound_by']}: "
-          f"{ops12 / 1e9:.1f} G f64 instructions), cholesky_ex + "
-          f"{solves} cholesky_solve {lib12:.4f} ms, serial floor "
-          f"{floor12:.4f} ms ({longest} x (n + M^2) adds) [{card}]")
+    print(f"phase 12 K12 svr_refine at V={V} n={n} M={M}, {it_max} "
+          f"iterations, {K} margins, {float(it.mean()):.2f} margin-"
+          f"iterations a row (orders {float(of.mean()):.1f} on average): "
+          f"kernel {ms12:.4f} ms, device time {dev12:.4f} ms; first design "
+          f"(csrc/svr_refine_v1.cu, equal outputs) kernel {ms12_v1:.4f} ms, "
+          f"in turns old, new, new, old {[v1_a, dev_a, dev_b, v1_b]} ms; "
+          f"plain {plain12:.1f} ms; bound {b12['bound_ms']:.4f} ms "
+          f"({b12['bound_by']}: {ops12 / 1e9:.2f} G f64 instructions; "
+          f"PR 12's count {ops12_pr12 / 1e9:.2f} G, "
+          f"{b12_pr12['bound_ms']:.4f} ms); cholesky_ex + {solves} "
+          f"cholesky_solve median of 5 {lib12:.4f} ms (runs "
+          f"{[round(x, 4) for x in lib12_runs]}); serial floor "
+          f"{floor12:.4f} ms ({it_max} x n + {it_max - 1} x M^2 adds; PR "
+          f"12's {floor12_pr12:.4f} ms) [{card}]")
+    print(f"phase 12 K7's SVR entries at V={V} M={M}: srla_lpc_coefs kernel "
+          f"{ms7c:.4f} ms, device time {dev7c:.4f} ms, plain {plain7c:.2f} "
+          f"ms, bound {b7c['bound_ms']:.4f} ms ({b7c['bound_by']}); "
+          f"srla_lpc_quantize kernel {ms7q:.4f} ms, device time "
+          f"{dev7q:.4f} ms, plain {plain7q:.2f} ms, bound "
+          f"{b7q['bound_ms']:.4f} ms ({b7q['bound_by']}) [{card}]")
     common = dict(route="cuda", max_abs_err=0)
+    k12_src = "srla_tpu_torch/kernels/csrc/svr_refine"
+    k7_src = "srla_tpu_torch/kernels/csrc/lpc_analyze.cu"
     return [dict(name="svr_cov",
                  source="srla_tpu_torch/kernels/csrc/svr_cov.cu",
                  replaces="srla_tpu/kernels/exact.py:589", ms=ms11,
                  plain_ms=plain11, **b11, library_ms=lib11,
                  device_ms=dev11, serial_floor_ms=floor11, **common),
-            dict(name="svr_refine",
-                 source="srla_tpu_torch/kernels/csrc/svr_refine.cu",
+            dict(name="svr_refine", source=f"{k12_src}.cu",
                  replaces="srla_tpu/kernels/exact.py:775", ms=ms12,
                  plain_ms=plain12, **b12, library_ms=lib12,
-                 device_ms=dev12, serial_floor_ms=floor12, **common)]
+                 library_runs_ms=lib12_runs, device_ms=dev12,
+                 serial_floor_ms=floor12, v1_device_ms=dev12_v1,
+                 bound_ms_pr12_count=b12_pr12["bound_ms"],
+                 serial_floor_ms_pr12=floor12_pr12, **common),
+            dict(name="svr_refine_v1", source=f"{k12_src}_v1.cu",
+                 replaces="srla_tpu/kernels/exact.py:775", ms=ms12_v1,
+                 plain_ms=plain12, **b12, library_ms=lib12,
+                 device_ms=dev12_v1, serial_floor_ms=floor12,
+                 measurement_aid=True, **common),
+            dict(name="lpc_coefs", source=k7_src,
+                 replaces="srla_tpu/kernels/exact.py:150", ms=ms7c,
+                 plain_ms=plain7c, **b7c, library_ms=None, device_ms=dev7c,
+                 **common),
+            dict(name="lpc_quantize", source=k7_src,
+                 replaces="srla_tpu/kernels/exact.py:330", ms=ms7q,
+                 plain_ms=plain7q, **b7q, library_ms=None, device_ms=dev7q,
+                 **common)]
 
 
 def main() -> int:
@@ -3174,8 +3336,10 @@ def main() -> int:
     records += phase_analysis(torch, np, dev, pcm, card, tallies)
     svr_launches, svr_recs, k7_svr = phase_svr(torch, np, dev, pcm, card)
     records += svr_recs
-    # K11's and K12's path is phase 12's full-width encode.
-    for name in ("svr_cov", "svr_refine"):
+    # K11's, K12's and K7's SVR entries' path is phase 12's full-width
+    # encode; K12's first design is a measurement aid, counted there too.
+    for name in ("svr_cov", "svr_refine", "lpc_coefs", "lpc_quantize",
+                 "svr_refine_v1"):
         launches[name] = svr_launches["music120_m4_svr2"]["encode"][name]
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.

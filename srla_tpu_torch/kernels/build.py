@@ -29,13 +29,14 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Flags of one library on top of NVCC_FLAGS. The f64 decisions of K10 (and
-# its first design's), K11 and K12 feed margin flags or sums that must equal
-# their plain versions': no multiply-add contraction.
+# Flags of one library on top of NVCC_FLAGS. The f64 decisions of K10 and
+# K12 (and their first designs'), and K11's sums, feed margin flags or sums
+# that must equal their plain versions': no multiply-add contraction.
 EXTRA_FLAGS = {"ltp_analyze": ("-fmad=false",),
                "ltp_analyze_v1": ("-fmad=false",),
                "svr_cov": ("-fmad=false",),
-               "svr_refine": ("-fmad=false",)}
+               "svr_refine": ("-fmad=false",),
+               "svr_refine_v1": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

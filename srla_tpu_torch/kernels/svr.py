@@ -340,6 +340,9 @@ def svr_refine_plain(work: torch.Tensor, cov: torch.Tensor,
         eps_prev = torch.zeros(V, dtype=_F64, device=dev)
         alive = live_row.clone()
         for it in range(max_iter):
+            # The last iteration only scores cur: its r-vector, |th| sum,
+            # solve and step would decide nothing.
+            last = it + 1 == max_iter
             # resid[s] = d[s] + sum_i cur[i] d[s - i - 1], taps in order.
             r = d
             for i in range(omax):
@@ -347,14 +350,17 @@ def svr_refine_plain(work: torch.Tensor, cov: torch.Tensor,
                 r = torch.where(res_on & (i < o)[:, None],
                                 r + cur[:, i:i + 1] * tap, r)
             mag = r.abs()
-            th = torch.where(r > 0, 1.0, torch.where(r < 0, -1.0, 0.0)) \
-                * torch.clamp(mag - margin, min=0.0)
+            if not last:
+                th = torch.where(r > 0, 1.0, torch.where(r < 0, -1.0, 0.0)) \
+                    * torch.clamp(mag - margin, min=0.0)
             mabse = torch.zeros(V, dtype=_F64, device=dev)
             rvec = torch.zeros((V, M), dtype=_F64, device=dev)
             sum_th = torch.zeros(V, dtype=_F64, device=dev)
             for s in range(lo, n):
                 on = s >= o
                 mabse = torch.where(on, mabse + mag[:, s], mabse)
+                if last:
+                    continue
                 win = dpad[:, s:s + M].flip(1)          # d[s - 1 - i]
                 rvec = torch.where(on[:, None] & act,
                                    rvec + th[:, s:s + 1] * win, rvec)
@@ -371,7 +377,6 @@ def svr_refine_plain(work: torch.Tensor, cov: torch.Tensor,
             obj, r_k2 = rgr_mean_code_length(mabse / n, eps)
             iters = iters + alive.to(torch.int32)
             risky = risky | (alive & r_k2)
-            delta = cholesky_solve_plain(A, inv, rvec, o)
             # obj < min_obj: adopt.
             gap = obj - min_obj
             risky = risky | (alive & (gap != 0)
@@ -382,6 +387,8 @@ def svr_refine_plain(work: torch.Tensor, cov: torch.Tensor,
             eps_min = torch.where(adopt, eps, eps_min)
             # The initial vector's own error is K7's quantization margin's.
             cerr = torch.where(adopt, 0.0 if it == 0 else e * sq_cinv, cerr)
+            if last:                   # the last stop decides nothing
+                break
             # prev < obj or |prev - obj| < 1e-8: stop.
             dp = prev - obj
             adp = dp.abs()
@@ -389,10 +396,10 @@ def svr_refine_plain(work: torch.Tensor, cov: torch.Tensor,
             b_unc = (adp - SVR_OBJ_EPSILON).abs() < e2
             a_unc = (dp != 0) & (adp < e2)
             b_true = adp < SVR_OBJ_EPSILON - e2
-            if it + 1 < max_iter:      # the last stop decides nothing
-                risky = risky | (alive & (b_unc | (a_unc & ~b_true)))
+            risky = risky | (alive & (b_unc | (a_unc & ~b_true)))
             stop = (prev < obj) | (adp < SVR_OBJ_EPSILON)
             step = alive & ~stop
+            delta = cholesky_solve_plain(A, inv, rvec, o)
             cur = torch.where(step[:, None] & act, cur + delta, cur)
             dnorm = torch.sqrt(_seq_sum(delta * delta))
             e_next = 2.0 * e + g_r + torch.where(moved, g_rvec * sum_th, 0.0) \
@@ -453,19 +460,36 @@ def svr_cov(work: torch.Tensor, orders: torch.Tensor, n: int, bps: int,
 svr_cov.launches = 0
 _SMEM_BYTES = 227 * 1024 - 1024  # a CTA's, less K12's static variables
 _MARGINS: dict = {}
+_K12_SLOTS = 6                    # margins K12 keeps in flight
+_K12_TILES = 2 * 64 * 12          # doubles: two tiles of 64 samples
+
+
+def _slot_stride(M: int) -> int:
+    """Doubles between two of K12's slot vectors (csrc/svr_refine.cu
+    slot_stride): M rounded up to 16 bytes, padded so that slots 3 apart
+    fall in different shared-memory banks."""
+    S = ((M + 1) & ~1) + 2
+    return S + 2 if (3 * S // 2) % 8 == 0 else S
 
 
 def _layout(n: int, M: int) -> tuple[bool, bool]:
-    """Where K12 keeps a row's factor and residual: (factor in global
-    scratch, residual in global scratch). Shared memory holds the row as
-    int32 and six vectors of M always, the residual (8 n bytes) and the
-    factor (8 M^2) while they fit, the factor leaving first."""
-    base = 4 * n + 48 * M
-    if base + 8 * n + 8 * M * M <= _SMEM_BYTES:
+    """Where K12 keeps a row's factor and samples: (factor in global
+    scratch, row staged as int32). Shared memory holds two tiles and 23
+    vectors of ``_slot_stride(M)`` always, the row as f64 (8 n bytes) and
+    the factor's strict lower triangle (8 M (M - 1) / 2) while they fit;
+    the factor leaves first, then the row shrinks to its int32 samples
+    (scaled on read)."""
+    base = 8 * (_K12_TILES + (5 + 3 * _K12_SLOTS) * _slot_stride(M))
+    factor = 8 * ((M * (M - 1) // 2 + 1) & ~1)
+
+    def row(width):
+        return (width * n + 15) // 16 * 16
+
+    if base + row(8) + factor <= _SMEM_BYTES:
         return False, False
-    if base + 8 * n <= _SMEM_BYTES:
+    if base + row(8) <= _SMEM_BYTES:
         return True, False
-    if base <= _SMEM_BYTES:
+    if base + row(4) <= _SMEM_BYTES:
         return True, True
     raise ValueError(f"svr_refine: a row of {n} samples does not fit the "
                      f"kernel's shared memory")
@@ -505,29 +529,28 @@ def svr_refine(work: torch.Tensor, cov: torch.Tensor, coefs: torch.Tensor,
     _check_f64("svr_refine", "cov", cov, (V, M, M), dev)
     _check_f64("svr_refine", "coefs", coefs, (V, M), dev)
     _check_f64("svr_refine", "kappa", kappa, (V,), dev)
-    a_global, r_global = _layout(n, M)
+    a_global, row_i32 = _layout(n, M)
     best = torch.empty((V, M), dtype=_F64, device=dev)
     cerr = torch.empty(V, dtype=_F64, device=dev)
     risky = torch.empty(V, dtype=torch.bool, device=dev)
     iters = torch.empty(V, dtype=torch.int32, device=dev)
     if V == 0:
         return best, cerr, risky, iters
-    a_scratch = torch.empty_like(cov) if a_global else None
-    r_scratch = (torch.empty((V, n), dtype=_F64, device=dev) if r_global
-                 else None)
+    a_scratch = (torch.empty((V, M * (M - 1) // 2), dtype=_F64, device=dev)
+                 if a_global else None)
+    hist = torch.empty((V, _K12_SLOTS, max_iter, 3), dtype=_F64, device=dev)
     marg = _margins_on(tuple(margins), dev)
     fn = build.load("svr_refine").srla_svr_refine
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
             + [ctypes.c_double] * 10 + [ctypes.c_void_p]
     err = fn(work.data_ptr(), cov.data_ptr(), coefs.data_ptr(),
              orders.data_ptr(), kappa.data_ptr(), marg.data_ptr(),
              None if a_scratch is None else a_scratch.data_ptr(),
-             None if r_scratch is None else r_scratch.data_ptr(),
-             best.data_ptr(), cerr.data_ptr(),
+             hist.data_ptr(), best.data_ptr(), cerr.data_ptr(),
              risky.data_ptr(), iters.data_ptr(), V, n, M, max_iter,
-             len(margins),
+             len(margins), int(row_i32),
              2.0 ** -(bps - 1), ridge / (1.0 + ridge), LOG_OPTX, _gamma(n),
              math.sqrt(n), _EPS_SVR_LIBM, _EPS_SVR_PIVOT, _SVR_INIT_REL,
              SVR_OBJ_EPSILON, SVR_FLT_MAX,

@@ -324,29 +324,35 @@ def test_cli_svr_equals_srla_tpu_cli(tmp_path, flags):
 # ---------------------------------------------------------------------------
 
 def test_k12_shared_memory_layout():
-    """K12 keeps the row, its residual and its factor in shared memory where
-    they fit (the main path's 4096 x M 64), moves the factor to global
-    scratch first (M 255; n 8192 at M 128; n 16384 at M 64), then the
-    residual (n 20000),
-    and refuses a row whose int32 samples alone do not fit."""
+    """K12 keeps the row as f64 and its packed factor in shared memory
+    where they fit (the main path's 4096 x M 64, and n 16384 at M 64, n
+    8192 at M 128, n 20000 at M 16), moves the factor to global scratch
+    first (M 255 at n 16384 and 20000; n 16384 at M 128), then stages the
+    row as int32 (n 28000), and refuses a row whose int32 samples alone do
+    not fit."""
     assert svr._layout(4096, 64) == (False, False)
-    assert svr._layout(16384, 64) == (True, False)
+    assert svr._layout(16384, 64) == (False, False)
     assert svr._layout(16384, 255) == (True, False)
-    assert svr._layout(8192, 128) == (True, False)
-    assert svr._layout(20000, 16) == (True, True)
+    assert svr._layout(20000, 255) == (True, False)
+    assert svr._layout(8192, 128) == (False, False)
+    assert svr._layout(16384, 128) == (True, False)
+    assert svr._layout(20000, 16) == (False, False)
+    assert svr._layout(28000, 16) == (True, True)
     with pytest.raises(ValueError, match="shared memory"):
         svr._layout(60000, 16)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("iters", [1, 2, 3])
 @pytest.mark.parametrize("n,max_params", [(1024, 16), (4096, 64),
                                           (2048, 128), (8192, 128),
-                                          (20000, 16)])
-def test_kernels_bit_equal_to_plain(cuda, n, max_params):
+                                          (20000, 16), (4096, 255),
+                                          (28000, 16)])
+def test_kernels_bit_equal_to_plain(cuda, n, max_params, iters):
     from srla_tpu_torch.kernels.levinson import (lpc_quantize,
                                                  lpc_quantize_plain)
     work = torch.from_numpy(svr_rows(n)).to(cuda)
-    preset = {16: 2, 64: 4, 128: 5}[max_params]
+    preset = {16: 2, 64: 4, 128: 5, 255: 6}[max_params]
     _, coefs, orders = host_init(work.cpu().numpy(), n, max_params, preset)
     o = torch.from_numpy(orders.astype(np.int32)).to(cuda)
     c = torch.from_numpy(coefs[:, :max_params]).to(cuda).contiguous()
@@ -355,10 +361,10 @@ def test_kernels_bit_equal_to_plain(cuda, n, max_params):
     cov = svr.svr_cov(work, o, n, BPS, max_params, RIDGE)
     assert torch.equal(cov, svr.svr_cov_plain(work, o, n, BPS, max_params,
                                               RIDGE))
-    got = svr.svr_refine(work, cov, c, o, n, BPS, 2, SVR_MARGIN_LIST, RIDGE,
-                         kappa)
-    want = svr.svr_refine_plain(work, cov, c, o, n, BPS, 2, SVR_MARGIN_LIST,
-                                RIDGE, kappa)
+    got = svr.svr_refine(work, cov, c, o, n, BPS, iters, SVR_MARGIN_LIST,
+                         RIDGE, kappa)
+    want = svr.svr_refine_plain(work, cov, c, o, n, BPS, iters,
+                                SVR_MARGIN_LIST, RIDGE, kappa)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     q = lpc_quantize(got[0], o, kappa, got[1])

@@ -166,8 +166,31 @@ the port calls) with concurrent nvcc, then:
      yardsticks (a batched DGEMM Gram for K11; cholesky_ex and
      cholesky_solve for K12, the median of five runs), which the port
      never calls; K12 also beside its first design (csrc/svr_refine_v1.cu,
-     equal outputs) in turns, device time, with PR 12's operation count
-     and serial floor printed beside the restated ones.
+     equal outputs) in turns, device time.
+ 13. The corpus and block paths (phase_corpus): eight 24-bit 96 kHz stereo
+     files of make_music << 8 (60, 45, 30, 20, 10, 5 and 1 s and 3001
+     samples) at -m 4 -B 8192 -V 0, and 64 16-bit 44.1 kHz files of 1-8 s
+     (make_music and make_segmented, distinct seeds; 8 mono, 4 << 1) at -m
+     4 -B 4096 -V 0, each corpus encoded by encode_files(device="cuda"),
+     counted: every stream byte-identical to host_encoder.encode of its
+     file, K8, K7, K3, K4 and K5's pack_residual_sections once per batched
+     group and call as derived here from the file list, fewer than the
+     per-file encodes would make, and the block accounting over the
+     corpus; decoded by decode_corpus_sharded([cuda]), counted: lossless,
+     K2 once and K1 once per fused group (and K1 and K9 once more per
+     group with LTP). Both again with devices=[cuda:0, cuda:0] (and with
+     make_devices() where more than one card is visible): streams and PCM
+     identical, shard_rows printed. The encode's host synchronisations are
+     listed by source line (torch.cuda.set_sync_debug_mode). Then the block
+     API: encode_block on 16 blocks of phase 3's audio (silent, RAW-sized,
+     odd-length and raw-fallback noise among them) equal to the host's
+     one-span encode; decode_block over every block of phase 3's and phase
+     4's streams and StreamingDecoder over phase 4's (seek and resume):
+     lossless, K2 and K1 once per COMPRESS block and K9 (with K1 once more)
+     once per LTP block; the player (srla_tpu_torch.tools.srla_player
+     --sink null --device cuda) once, counted. Prints the warm best of 3
+     of both corpus encodes and decodes beside a loop of per-file
+     encode_whole and decode, and the block paths' blocks per second.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -178,11 +201,12 @@ counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
 entries' (records lpc_coefs and lpc_quantize) on phase 12's full-width
 encode, 0 for K12's first design (svr_refine_v1, a measurement aid);
 ``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
-phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five, encode and
-decode apart; K7's record also carries its SVR entries' launches on phase
-12's full-width encode and the coefficient entry's agreement with its
-plain version) and, last, the device JSON line. A kernel's bound is the
-larger of the bytes it must move over 3.35 TB/s and the 32-bit integer
+phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
+``launches_corpus`` on phase 13's paths, encode and decode apart; K7's
+record also carries its SVR entries' launches on phase 12's full-width
+encode and the coefficient entry's agreement with its plain version)
+and, last, the device JSON line. A kernel's bound is the larger of the
+bytes it must move over 3.35 TB/s and the 32-bit integer
 instructions its inputs need (a multiply-add is one) over the H100's INT32
 issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz = 16.7 T/s, a quarter of
 the 67 T/s non-tensor float32 rate, which counts a fused multiply-add as
@@ -1283,7 +1307,7 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
     from srla_tpu_torch.kernels.rice_search import (rice_sums,
                                                     rice_sums_plain)
     enc = SRLAEncoder(param, dev)
-    file = enc._upload(pcm)
+    file = enc._upload(pcm)[enc.device]
     lshift = _compute_offset_lshift(pcm)
     err = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
     checked, timed_k4 = [], None
@@ -1771,7 +1795,7 @@ def phase_ltp_decode(torch, np, dev, card):
           f"16384, 4064 and 333: periods 8, 31, 32, 33, 262, off rows "
           f"between); warm best of 3 {t * 1e3:.1f} ms = "
           f"{LTP_SECONDS / t:.1f}x realtime [{card}]")
-    return got, err
+    return got, err, pcm4, stream4
 
 
 def ltp_param(V: int):
@@ -1791,7 +1815,7 @@ def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
     from srla_tpu_torch.host_encoder import _compute_offset_lshift
     from srla_tpu_torch.kernels import exact
     enc = SRLAEncoder(param, dev)
-    file = enc._upload(pcm)
+    file = enc._upload(pcm)[enc.device]
     lshift = _compute_offset_lshift(pcm)
     calls = []
     for kind, groups in (("measurement call", spans),
@@ -2957,7 +2981,7 @@ def phase_svr(torch, np, dev, music, card):
     from srla_tpu_torch.signals import make_music
     pcm = make_music(secs)
     enc = SRLAEncoder(svr_param(preset, B, V, P), dev)
-    file = enc._upload(pcm)
+    file = enc._upload(pcm)[enc.device]
     tail = pcm.shape[1] - (pcm.shape[1] // B) * B
     t0 = time.perf_counter()
     k7 = new_k7_coefs_tally()
@@ -3015,7 +3039,7 @@ def phase_svr(torch, np, dev, music, card):
 
     # K11 and K12 against plain on every row of both analysis calls.
     lshift = _compute_offset_lshift(music)
-    file = enc._upload(music)
+    file = enc._upload(music)[enc.device]
     main_inp = None
     rows = 0
     k7_full = new_k7_coefs_tally()
@@ -3115,14 +3139,9 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
     ops12 = float((scored * (2 * of * (n - of) + (n - of))
                    + first * (2 * of * (n - of) + (n - of) + 2 * of * of)
                    + torch.where(live, 2 * of ** 3 / 3, 0.0)).sum())
-    # PR 12's count: every iteration's residual, r-vector, mean-abs and
-    # |th| chains and solves (4 o^2), the factor (2 o^3 / 3).
-    ops12_pr12 = float((it * (4 * of * (n - of) + 2 * (n - of) + 4 * of * of)
-                        + 2 * of ** 3 / 3).sum())
     bytes12 = nbytes(work, cov, coefs, orders, kappa) \
         + V * (M * 8 + 8 + 8 + 1 + 4)
     b12 = bound(bytes12, ops12, F64_INSTR_PER_S)
-    b12_pr12 = bound(bytes12, ops12_pr12, F64_INSTR_PER_S)
     # Library yardsticks, timed and never on the path: the Gram matrix of
     # each row's lag windows by batched DGEMM (the f64 tensor cores), in
     # chunks of rows; and torch.linalg.cholesky_ex and cholesky_solve for
@@ -3156,7 +3175,6 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
     # (n adds), and a solve (M^2 steps) between two; the margins run at
     # once.
     floor12 = (it_max * n + (it_max - 1) * M * M) * step
-    floor12_pr12 = int(out12[3].max()) * (n + M * M) * step
     # K7's SVR entries on the same call: its coefficient entry on the
     # call's ridged lags, its quantization entry on K12's output.
     ac = autocorr(work, n, bps, M + 1, a["fft_size"])
@@ -3199,13 +3217,12 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
           f"(csrc/svr_refine_v1.cu, equal outputs) kernel {ms12_v1:.4f} ms, "
           f"in turns old, new, new, old {[v1_a, dev_a, dev_b, v1_b]} ms; "
           f"plain {plain12:.1f} ms; bound {b12['bound_ms']:.4f} ms "
-          f"({b12['bound_by']}: {ops12 / 1e9:.2f} G f64 instructions; "
-          f"PR 12's count {ops12_pr12 / 1e9:.2f} G, "
-          f"{b12_pr12['bound_ms']:.4f} ms); cholesky_ex + {solves} "
+          f"({b12['bound_by']}: {ops12 / 1e9:.2f} G f64 instructions); "
+          f"cholesky_ex + {solves} "
           f"cholesky_solve median of 5 {lib12:.4f} ms (runs "
           f"{[round(x, 4) for x in lib12_runs]}); serial floor "
-          f"{floor12:.4f} ms ({it_max} x n + {it_max - 1} x M^2 adds; PR "
-          f"12's {floor12_pr12:.4f} ms) [{card}]")
+          f"{floor12:.4f} ms ({it_max} x n + {it_max - 1} x M^2 adds) "
+          f"[{card}]")
     print(f"phase 12 K7's SVR entries at V={V} M={M}: srla_lpc_coefs kernel "
           f"{ms7c:.4f} ms, device time {dev7c:.4f} ms, plain {plain7c:.2f} "
           f"ms, bound {b7c['bound_ms']:.4f} ms ({b7c['bound_by']}); "
@@ -3224,9 +3241,7 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
                  replaces="srla_tpu/kernels/exact.py:775", ms=ms12,
                  plain_ms=plain12, **b12, library_ms=lib12,
                  library_runs_ms=lib12_runs, device_ms=dev12,
-                 serial_floor_ms=floor12, v1_device_ms=dev12_v1,
-                 bound_ms_pr12_count=b12_pr12["bound_ms"],
-                 serial_floor_ms_pr12=floor12_pr12, **common),
+                 serial_floor_ms=floor12, v1_device_ms=dev12_v1, **common),
             dict(name="svr_refine_v1", source=f"{k12_src}_v1.cu",
                  replaces="srla_tpu/kernels/exact.py:775", ms=ms12_v1,
                  plain_ms=plain12, **b12, library_ms=lib12,
@@ -3240,6 +3255,394 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
                  replaces="srla_tpu/kernels/exact.py:330", ms=ms7q,
                  plain_ms=plain7q, **b7q, library_ms=None, device_ms=dev7q,
                  **common)]
+
+
+HIRES_SECONDS = (60.0, 45.0, 30.0, 20.0, 10.0, 5.0, 1.0)
+HIRES_TAIL = 3001                # the last hi-res file: one odd block
+HIRES_RATE = 96000
+SHORT_FILES = 64
+
+
+def hires_corpus(np) -> list:
+    """BASELINE.json's fifth config at the repo's own signal: 24-bit 96 kHz
+    stereo files of make_music << 8, one a length and seed."""
+    from srla_tpu_torch.signals import make_music
+    files = [make_music(sec, HIRES_RATE, 100 + k) << 8
+             for k, sec in enumerate(HIRES_SECONDS)]
+    tail = make_music(1.0, HIRES_RATE, 199)[:, :HIRES_TAIL] << 8
+    return files + [np.ascontiguousarray(tail)]
+
+
+def short_corpus(np) -> list:
+    """SHORT_FILES 16-bit 44.1 kHz files of 1-8 s (lengths drawn from a
+    seed), make_music and make_segmented in turns, distinct seeds: 8 mono,
+    4 with every sample's lowest bit clear (offset_lshift 1)."""
+    from srla_tpu_torch.signals import make_music, make_segmented
+    rng = np.random.RandomState(13)
+    files = []
+    for k in range(SHORT_FILES):
+        n = int(rng.randint(SAMPLE_RATE, 8 * SAMPLE_RATE + 1))
+        make = make_music if k % 2 == 0 else make_segmented
+        x = make(n / SAMPLE_RATE + 0.01, SAMPLE_RATE, 200 + k)[:, :n]
+        if k % 8 == 1:
+            x = x[:1]
+        elif k % 16 == 2:
+            x = (x >> 1) << 1
+        files.append(np.ascontiguousarray(x))
+    return files
+
+
+def corpus_calls(files, max_block: int, limit: int) -> dict:
+    """The device calls of encode_files at -V 0 over files, derived from
+    the file list: a call per block length of each (channels,
+    offset_lshift) group (MAX_CALL_BLOCKS blocks at most), even-length
+    COMPRESS-typed blocks only (odd ones are encoded on the host);
+    "batched" one launch a call, "split" a launch a shard of two,
+    "per_file" the calls of each file's own encode."""
+    from srla_tpu_torch import SRLAEncoder
+    from srla_tpu_torch.host_encoder import _compute_offset_lshift
+
+    def sizes(x) -> dict:
+        out: dict = {}
+        for o in range(0, x.shape[1], max_block):
+            n = min(max_block, x.shape[1] - o)
+            if n > limit and n % 2 == 0 and x[:, o:o + n].any():
+                out[n] = out.get(n, 0) + 1
+        return out
+
+    def calls(counts: dict) -> list:
+        per = SRLAEncoder.MAX_CALL_BLOCKS
+        return [min(per, c - lo) for c in counts.values()
+                for lo in range(0, c, per)]
+
+    groups: dict = {}
+    for x in files:
+        merged = groups.setdefault((x.shape[0], _compute_offset_lshift(x)),
+                                   {})
+        for n, c in sizes(x).items():
+            merged[n] = merged.get(n, 0) + c
+    batched = [b for merged in groups.values() for b in calls(merged)]
+    return dict(batched=len(batched),
+                split=sum(min(2, b) for b in batched),
+                per_file=sum(len(calls(sizes(x))) for x in files))
+
+
+def fused_groups(streams) -> tuple[int, int]:
+    """(groups, groups of two or more blocks) of the fused decode: one
+    group per COMPRESS block length of each header-compatible set of
+    streams."""
+    from srla_tpu_torch.constants import BlockDataType
+    from srla_tpu_torch.format import decode_header
+    sets: dict = {}
+    for s in streams:
+        h = decode_header(s)
+        key = (h.num_channels, h.bits_per_sample, h.offset_lshift,
+               h.max_num_samples_per_block, h.preset, h.sampling_rate)
+        sizes = sets.setdefault(key, {})
+        for t, n in stream_blocks(s):
+            if t == BlockDataType.COMPRESS:
+                sizes[n] = sizes.get(n, 0) + 1
+    counts = [c for sizes in sets.values() for c in sizes.values()]
+    return len(counts), sum(c > 1 for c in counts)
+
+
+ENCODE_KERNELS = ("autocorr", "lpc_analyze", "fir_predict", "rice_search",
+                  "pack_residual_sections")
+
+
+def sync_sites(torch, fn) -> dict:
+    """The host synchronisations fn() makes with the card, as {"file:line":
+    count} (torch.cuda.set_sync_debug_mode), the repo's own lines."""
+    import collections
+    import warnings
+    sites: collections.Counter = collections.Counter()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            path = w.filename.replace("\\", "/")
+            cut = path.rfind("srla_tpu_torch/")
+            sites[f"{path[cut:] if cut >= 0 else path}:{w.lineno}"] += 1
+    return dict(sites.most_common())
+
+
+def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
+                block: int, card: str, timing: bool) -> dict:
+    """One corpus: encode_files on the card against host_encoder.encode per
+    file, counted; the fused decode, counted; both again split over two
+    shards on this card (and over every card where more than one is
+    visible). Returns {run: launches}."""
+    from srla_tpu_torch import SRLAEncoder, decode, encode_files
+    from srla_tpu_torch.constants import PARAMETER_PRESETS, BlockDataType
+    from srla_tpu_torch.host_encoder import encode, make_parameter
+    from srla_tpu_torch.parallel import decode_corpus_sharded, make_devices
+
+    t0 = time.perf_counter()
+    want = [encode(x, bps, rate, preset=4, max_block=block) for x in files]
+    t_host = time.perf_counter() - t0
+    limit = PARAMETER_PRESETS[4].max_num_parameters
+    plan = corpus_calls(files, block, limit)
+    wrappers = all_wrappers()
+    stats: dict = {}
+    got, enc_l = counted(torch, wrappers, lambda: encode_files(
+        files, bps, rate, dev, preset=4, max_block=block, stats_out=stats))
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    require(not bad, f"{what}: encode_files differs from host_encoder.encode "
+                     f"on files {bad[:8]}")
+    for name in ENCODE_KERNELS:
+        require(enc_l[name] == plan["batched"],
+                f"{what}: {name} launched {enc_l[name]} times by "
+                f"encode_files, expected {plan['batched']} (one a batched "
+                f"call)")
+    require(plan["batched"] < plan["per_file"],
+            f"{what}: {plan['batched']} batched calls, not fewer than the "
+            f"per-file {plan['per_file']}")
+    # Every even-length COMPRESS block from the device or a counted repair
+    # or overflow (odd-length ones are encoded on the host).
+    even = sum(1 for w in want for t, n in stream_blocks(w)
+               if n % 2 == 0 and t == BlockDataType.COMPRESS)
+    handled = (stats["device_blocks"] + stats["repaired_blocks"]
+               + stats["w_overflow_blocks"])
+    require(handled == even, f"{what}: block accounting {stats}, {even} "
+                             f"even-length COMPRESS blocks")
+    groups, multi = fused_groups(want)
+    (pcms, dec_l) = counted(torch, wrappers, lambda: decode_corpus_sharded(
+        [dev], want))
+    require(all(np.array_equal(p, x) for p, x in zip(pcms, files)),
+            f"{what}: the fused decode is not lossless")
+    for name in ("rice_decode", "lpc_synth"):
+        require(dec_l[name] == groups,
+                f"{what}: {name} launched {dec_l[name]} times by the fused "
+                f"decode, expected {groups} (one a fused group)")
+    runs = {"encode": enc_l, "decode": dec_l}
+    splits = [("split", [dev, dev])]
+    if torch.cuda.device_count() > 1:
+        splits.append(("cards", make_devices()))
+    for tag, devices in splits:
+        st: dict = {}
+        split, runs[f"encode_{tag}"] = counted(
+            torch, wrappers, lambda: encode_files(
+                files, bps, rate, dev, preset=4, max_block=block,
+                devices=devices, stats_out=st))
+        require(split == got, f"{what}: the {tag} encode differs from the "
+                              f"unsplit one")
+        ds: dict = {}
+        back, runs[f"decode_{tag}"] = counted(
+            torch, wrappers, lambda: decode_corpus_sharded(
+                devices, want, stats_out=ds))
+        require(all(np.array_equal(p, q) for p, q in zip(back, pcms)),
+                f"{what}: the {tag} decode differs from the unsplit one")
+        if tag == "split":
+            require(runs["encode_split"]["fir_predict"] == plan["split"],
+                    f"{what}: K3 launched "
+                    f"{runs['encode_split']['fir_predict']} times split, "
+                    f"expected {plan['split']}")
+            require(runs["decode_split"]["rice_decode"] == groups + multi,
+                    f"{what}: K2 launched "
+                    f"{runs['decode_split']['rice_decode']} times split, "
+                    f"expected {groups + multi}")
+        print(f"phase 13 {what} over {len(devices)} shards ({tag}): "
+              f"streams and PCM identical to the unsplit run; shard_rows "
+              f"{st['shard_rows']} (encode) and {ds['shard_rows']} "
+              f"(decode), the last group's; the largest groups' "
+              f"shard_cuts: encode {sorted(st['shard_cuts'], key=sum)[-3:]}"
+              f", decode {sorted(ds['shard_cuts'], key=sum)[-3:]}")
+    seconds = sum(x.shape[1] for x in files) / rate
+    print(f"phase 13 {what}: {len(files)} files, {seconds:.2f} s of audio; "
+          f"encode_files byte-identical to host_encoder.encode on every file "
+          f"(host {t_host:.2f} s), {plan['batched']} device calls batched "
+          f"against {plan['per_file']} per file, launches "
+          f"{ {k: enc_l[k] for k in ENCODE_KERNELS} }, stats {stats}; "
+          f"the fused decode lossless, {groups} groups, launches "
+          f"{ {k: dec_l[k] for k in ('rice_decode', 'lpc_synth')} } [{card}]")
+    if timing:
+        params = {C: make_parameter(C, bps, rate, 4, block) for C in (1, 2)}
+        t_files = best_of(torch, lambda: encode_files(
+            files, bps, rate, dev, preset=4, max_block=block))
+        t_loop = best_of(torch, lambda: [
+            SRLAEncoder(params[x.shape[0]], dev).encode_whole(x)
+            for x in files])
+        t_fused = best_of(torch, lambda: decode_corpus_sharded([dev], want))
+        t_dec = best_of(torch, lambda: [decode(w, device=dev) for w in want])
+        print(f"phase 13 {what} warm best of 3: encode_files "
+              f"{t_files * 1e3:.1f} ms ({seconds / t_files:.1f}x realtime), "
+              f"a loop of encode_whole {t_loop * 1e3:.1f} ms "
+              f"({seconds / t_loop:.1f}x); fused decode {t_fused * 1e3:.1f} "
+              f"ms ({seconds / t_fused:.1f}x), a loop of decode "
+              f"{t_dec * 1e3:.1f} ms ({seconds / t_dec:.1f}x) [{card}]")
+        enc_sync = sync_sites(torch, lambda: encode_files(
+            files, bps, rate, dev, preset=4, max_block=block))
+        dec_sync = sync_sites(torch, lambda: decode_corpus_sharded(
+            [dev], want))
+        print(f"phase 13 {what} host synchronisations by line: encode_files "
+              f"{enc_sync}; fused decode {dec_sync}")
+    return runs
+
+
+def ltp_blocks(np, dev, stream: bytes) -> int:
+    """Blocks of a stream with LTP on in some channel, from the decode's
+    packed parameters."""
+    from srla_tpu_torch import SRLADecoder
+    from srla_tpu_torch.constants import MAX_LTP_ORDER
+    from srla_tpu_torch.kernels.decode2 import meta_cols
+    header, _, groups = SRLADecoder(dev).plan(stream)
+    count = 0
+    for g in groups:
+        o, w = meta_cols(header.num_channels, g.M, MAX_LTP_ORDER)[0][
+            "ltp_periods"]
+        count += int((g.meta[:, o:o + w] > 0).any(axis=1).sum())
+    return count
+
+
+def walk_blocks(np, dec, stream: bytes):
+    """Every block of a stream through dec.decode_block, in order; the PCM
+    joined and the blocks decoded."""
+    from srla_tpu_torch.constants import HEADER_SIZE
+    from srla_tpu_torch.format import decode_header
+    header = decode_header(stream)
+    off, out = HEADER_SIZE, []
+    while off < len(stream) and sum(b.shape[1] for b in out) \
+            < header.num_samples:
+        pcm, used = dec.decode_block(stream, header, off)
+        out.append(pcm)
+        off += used
+    return np.concatenate(out, axis=1), len(out)
+
+
+def phase_block_api(torch, np, dev, pcm, stream, pcm4, stream4, hires,
+                    card) -> dict:
+    """encode_block against the host's one-span encode; decode_block over
+    every block of phase 3's and 4's streams, the hi-res corpus's odd file
+    and a -B 16384 stream; StreamingDecoder with seek and resume; the
+    player once. Counted. Returns {run: launches}."""
+    import os
+    import tempfile
+
+    from srla_tpu_torch import SRLADecoder, SRLAEncoder
+    from srla_tpu_torch import host_encoder
+    from srla_tpu_torch.streaming import StreamingDecoder
+    from srla_tpu_torch.tools import srla_player
+
+    wrappers = all_wrappers()
+    runs: dict = {}
+    param = main_param()
+    rng = np.random.RandomState(17)
+    blocks = [pcm[:, o:o + 4096]
+              for o in np.linspace(0, pcm.shape[1] - 4096, 12).astype(int)]
+    blocks += [np.zeros((2, 4096), np.int32), pcm[:, 7000:7020],
+               pcm[:, 9000:12001],
+               rng.randint(-2 ** 15, 2 ** 15, (2, 4096)).astype(np.int32)]
+    host = host_encoder.SRLAEncoder(param)
+    want = [host._encode_spans(b, [(0, b.shape[1])], 0)[0] for b in blocks]
+    enc = SRLAEncoder(param, dev)
+    got, runs["encode_block"] = counted(
+        torch, wrappers, lambda: [enc.encode_block(b) for b in blocks])
+    require(got == want, "encode_block on the card differs from the host's "
+                         "one-span encode")
+    # 12 music blocks and the noise block are analysed on the card; the
+    # silent, RAW-sized and odd-length ones are not.
+    require(runs["encode_block"]["fir_predict"] == 13,
+            f"encode_block launched K3 {runs['encode_block']['fir_predict']}"
+            f" times, expected 13")
+    # K2 and K1 once a COMPRESS block, K9 and K1 again once an LTP block.
+    per_block = {}
+    for src in (stream, stream4):
+        ncomp, nltp = compress_blocks(src), ltp_blocks(np, dev, src)
+        per_block[src] = {"rice_decode": ncomp, "lpc_synth": ncomp + nltp,
+                          "ltp_synth": nltp}
+
+    def block_launches(tag: str, src: bytes) -> dict:
+        got_l = {k: runs[tag][k] for k in per_block[src]}
+        require(got_l == per_block[src], f"{tag}: launches {got_l}, "
+                                         f"expected {per_block[src]}")
+        return got_l
+
+    lines = []
+    for tag, src, ref in (("decode_block_m4", stream, pcm),
+                          ("decode_block_m6_P3", stream4, pcm4)):
+        dec = SRLADecoder(dev)
+        t0 = time.perf_counter()
+        (out, nblk), runs[tag] = counted(
+            torch, wrappers, lambda: walk_blocks(np, dec, src))
+        dt = time.perf_counter() - t0
+        require(np.array_equal(out, ref), f"{tag}: not lossless")
+        got_l = block_launches(tag, src)
+        require(dec.stats["device_blocks"] == got_l["rice_decode"],
+                f"{tag}: block routing {dec.stats}")
+        lines.append(f"{tag} {nblk} blocks lossless, launches {got_l}, "
+                     f"{nblk / dt:.0f} blocks/s")
+    # Blocks of B = 1 at an odd length and at 16384.
+    from srla_tpu_torch.signals import make_music
+    one = make_music(1.0)
+    b16 = host_encoder.encode(one, 16, SAMPLE_RATE, preset=4,
+                              max_block=16384)
+    for tag, src, ref in (("odd_3001", host_encoder.encode(
+            hires[-1], 24, HIRES_RATE, preset=4, max_block=8192),
+            hires[-1]), ("B16384", b16, one)):
+        out, _ = walk_blocks(np, SRLADecoder(dev), src)
+        require(np.array_equal(out, ref), f"decode_block {tag}: not "
+                                          f"lossless")
+    lines.append("decode_block at n 3001 and 16384 lossless")
+    sdec = StreamingDecoder(stream4, dev)
+    marks, parts = [], []
+    t0 = time.perf_counter()
+
+    def stream_all():
+        while not sdec.exhausted:
+            marks.append(sdec.tell())
+            parts.append(sdec.decode_block())
+
+    _, runs["streaming_m6_P3"] = counted(torch, wrappers, stream_all)
+    dt = time.perf_counter() - t0
+    require(np.array_equal(np.concatenate(parts, axis=1), pcm4),
+            "StreamingDecoder: not lossless")
+    block_launches("streaming_m6_P3", stream4)
+    half = len(marks) // 2
+    again = StreamingDecoder(stream4, dev)
+    again.seek_to_block(*marks[half])
+    rest = list(again.blocks())
+    require(len(rest) == len(parts) - half and all(
+        np.array_equal(a, b) for a, b in zip(rest, parts[half:])),
+        "StreamingDecoder: the resumed PCM differs")
+    lines.append(f"StreamingDecoder {len(parts)} blocks lossless, resumed at "
+                 f"block {half} equal, {len(parts) / dt:.0f} blocks/s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m6_P3.srl")
+        with open(path, "wb") as f:
+            f.write(stream4)
+        t0 = time.perf_counter()
+        rc, runs["player_m6_P3"] = counted(torch, wrappers, lambda: (
+            srla_player.main([path, "--sink", "null", "--device", str(dev)])))
+        dt = time.perf_counter() - t0
+    require(rc == 0, "the player failed")
+    block_launches("player_m6_P3", stream4)
+    lines.append(f"player --sink null {len(parts) / dt:.0f} blocks/s")
+    print(f"phase 13 block API: encode_block on {len(blocks)} blocks equal "
+          f"to the host's one-span encode, launches "
+          f"{ {k: runs['encode_block'][k] for k in ENCODE_KERNELS} }; "
+          + "; ".join(lines) + f" [{card}]")
+    return runs
+
+
+def phase_corpus(torch, np, dev, pcm, stream, pcm4, stream4, card) -> dict:
+    """Phase 13: the corpus encode and decode, the split, the block API.
+    Returns {path: {run: launches}}."""
+    hires = hires_corpus(np)
+    paths = {"hires96k_24bit_B8192": corpus_case(
+        torch, np, dev, "hi-res corpus -m 4 -B 8192", hires, 24, HIRES_RATE,
+        8192, card, False)}
+    paths["short64_B4096"] = corpus_case(
+        torch, np, dev, "64 short files -m 4 -B 4096", short_corpus(np), 16,
+        SAMPLE_RATE, 4096, card, True)
+    paths["block_api"] = phase_block_api(torch, np, dev, pcm, stream, pcm4,
+                                         stream4, hires, card)
+    return paths
 
 
 def main() -> int:
@@ -3317,7 +3720,8 @@ def main() -> int:
     profile_decode(torch, decode, stream, dev)
 
     # Phase 4: high orders and long-term prediction, decode (K9).
-    ltp_dec_got, k9_err = phase_ltp_decode(torch, np, dev, card)
+    ltp_dec_got, k9_err, pcm4, stream4 = phase_ltp_decode(torch, np, dev,
+                                                          card)
 
     records += phase_encode_kernels(torch, np, dev, pcm)
     launches.update(phase_encode(torch, np, dev, pcm, stream, card))
@@ -3341,6 +3745,8 @@ def main() -> int:
     for name in ("svr_cov", "svr_refine", "lpc_coefs", "lpc_quantize",
                  "svr_refine_v1"):
         launches[name] = svr_launches["music120_m4_svr2"]["encode"][name]
+    corpus_launches = phase_corpus(torch, np, dev, pcm, stream, pcm4,
+                                   stream4, card)
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
@@ -3367,6 +3773,10 @@ def main() -> int:
             path: {run: runs[run].get(rec["name"], 0)
                    for run in ("encode", "decode")}
             for path, runs in svr_launches.items()}
+        # Phase 13: each corpus and block path's launches, by run.
+        rec["launches_corpus"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in corpus_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":

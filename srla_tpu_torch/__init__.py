@@ -8,13 +8,16 @@ decode, ``decode(stream, device="cuda")``, and the exact device encode,
 bit reader and writer, Huffman tables, host DSP, the native library for
 parsing and assembly, the exact host encoder for repairs and as the byte
 reference) is the port's own: copies of ``srla_tpu``'s modules under the
-same names, each naming its source.
+same names, each naming its source. ``encode_files`` batches a corpus
+across files, ``parallel`` splits the block axis over devices and fuses a
+corpus into one decode, and ``streaming`` and the block API decode block by
+block.
 
 Nothing in this package imports jax or ``srla_tpu``.
 """
 
 from .decoder import SRLADecoder, decode
-from .encoder import SRLAEncoder, encode
+from .encoder import SRLAEncoder, encode, encode_files
 
-__all__ = ["decode", "encode", "SRLADecoder", "SRLAEncoder"]
+__all__ = ["decode", "encode", "encode_files", "SRLADecoder", "SRLAEncoder"]
 __version__ = "0.1.0"

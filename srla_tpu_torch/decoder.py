@@ -9,6 +9,14 @@ decoded there in one ``kernels.decode2.decode_blocks`` call: entropy decode
 (kernel K2), LPC synthesis and de-emphasis (kernel K1), LTP, stereo inverse
 and offset shift. Every COMPRESS block is decoded on the device, whatever
 its group's size; ``stats`` counts them as ``srla_tpu`` does.
+
+Given ``devices``, each group is cut along its block axis into one
+contiguous shard a device (``parallel.shards``); the stream goes up once to
+each distinct device and every shard is launched before any is fetched.
+``decode_block`` decodes one framed block, a COMPRESS block on the device
+as a group of one; ``decode_block_params``, ``synthesize_block`` and
+``decode_raw_block`` are the host one-block reference
+(``host_decoder.SRLADecoder``).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from .constants import (HEADER_SIZE, MAX_COEFFICIENT_ORDER, MAX_LTP_ORDER,
                         BlockDataType)
 from .format import StreamHeader, decode_header, parse_block_header
 from .kernels.decode2 import decode_blocks, pack_meta
+from .parallel import distinct, record_cut, resolve, shards
 
 
 def upload_stream(data: bytes, device) -> torch.Tensor:
@@ -32,6 +41,18 @@ def upload_stream(data: bytes, device) -> torch.Tensor:
     buf = np.zeros((len(raw) + 3) // 4, np.int32)
     buf.view(np.uint8)[:len(raw)] = raw
     return torch.from_numpy(buf).to(device)
+
+
+def _place(pcm: np.ndarray, starts: np.ndarray, out: np.ndarray) -> None:
+    """Write the decoded blocks out (B, C, n) at their first samples
+    ``starts`` into pcm (C, N): one copy when they are consecutive."""
+    B, C, n = out.shape
+    if B > 1 and (np.diff(starts) == n).all():
+        s0 = int(starts[0])
+        pcm[:, s0:s0 + B * n] = out.transpose(1, 0, 2).reshape(C, B * n)
+    else:
+        for bi, s in enumerate(starts):
+            pcm[:, s:s + n] = out[bi]
 
 
 class DecodeGroup(NamedTuple):
@@ -45,16 +66,22 @@ class DecodeGroup(NamedTuple):
 
 
 class SRLADecoder:
-    def __init__(self, device, check_checksum: bool = True):
+    def __init__(self, device, check_checksum: bool = True, devices=None):
         """device: the torch device that decodes the COMPRESS blocks
         ("cuda" runs the CUDA kernels, "cpu" their plain versions).
+        devices: optional list of devices; each group is then cut along
+        its block axis into len(devices) shards, shard k decoded on
+        devices[k] (a device may be named more than once);
+        ``stats["shard_cuts"]`` lists every group's sorted shard rows in
+        the order cut, and ``stats["shard_rows"]`` the last group's.
         Parameter headers are parsed by the port's native library
         (``native_decoder``), or in Python where it does not build."""
-        self.device = torch.device(device)
+        self.device = resolve([device])[0]
+        self.devices = None if devices is None else resolve(devices)
         self.check_checksum = check_checksum
         # COMPRESS blocks decoded on the device / on the host, accumulated
-        # over decode_whole calls as in srla_tpu. The host count stays 0:
-        # nothing is routed to the host.
+        # over decode_whole and decode_block calls as in srla_tpu. The host
+        # count stays 0: nothing is routed to the host.
         self.stats = {"device_blocks": 0, "host_blocks": 0}
         self._host = host_decoder.SRLADecoder()
 
@@ -63,26 +90,75 @@ class SRLADecoder:
         header, pcm, groups = self.plan(data)
         if not groups:
             return header, pcm
-        words = upload_stream(data, self.device)
-        # Launch every group before fetching any, so the device works on
-        # later groups while the host places earlier ones.
-        outs = [decode_blocks(words, torch.from_numpy(g.meta).to(self.device),
-                              header.offset_lshift, n=g.n,
+        targets = self.devices or [self.device]
+        words = {d: upload_stream(data, d) for d in distinct(targets)}
+        # Every shard's parameters go up before any launch (a copy from
+        # pageable memory waits for the device's queue), then every shard
+        # is launched before any is fetched, so the devices work on later
+        # shards while the host places earlier ones.
+        work = []
+        for g in groups:
+            cuts = shards(len(g.starts), targets)
+            work += [(g, lo, hi, d, torch.from_numpy(g.meta[lo:hi]).to(d))
+                     for d, lo, hi in cuts]
+            if self.devices is not None:
+                record_cut(self.stats, cuts)
+        outs = [decode_blocks(words[d], meta, header.offset_lshift, n=g.n,
                               C=header.num_channels, M=g.M, W=g.W,
                               has_ltp=g.has_ltp)
-                for g in groups]
-        for g, out in zip(groups, outs):
-            out = out.cpu().numpy()
-            B, C, n = out.shape
-            if B > 1 and (np.diff(g.starts) == n).all():
-                s0 = int(g.starts[0])
-                pcm[:, s0:s0 + B * n] = \
-                    out.transpose(1, 0, 2).reshape(C, B * n)
-            else:
-                for bi, s in enumerate(g.starts):
-                    pcm[:, s:s + n] = out[bi]
-            self.stats["device_blocks"] += B
+                for g, _, _, d, meta in work]
+        for (g, lo, hi, _, _), out in zip(work, outs):
+            _place(pcm, g.starts[lo:hi], out.cpu().numpy())
+            self.stats["device_blocks"] += hi - lo
         return header, pcm
+
+    def decode_block(self, data: bytes, header: StreamHeader, offset: int = 0
+                     ) -> tuple[np.ndarray, int]:
+        """Decode the framed block at ``offset`` -> (PCM (C, n) int32,
+        consumed bytes). Sync, size and checksum are verified
+        (SRLADecoder_DecodeBlock); a SILENT block gives zeros, a RAW block
+        is read on the host, and a COMPRESS block is decoded on the device
+        as a group of one (K2, K1, and K9 when it carries LTP), counted in
+        ``stats["device_blocks"]``."""
+        btype, nsamples, poff, psize = parse_block_header(
+            data, offset, self.check_checksum)
+        consumed = (poff - offset) + psize
+        if btype == BlockDataType.SILENT:
+            return np.zeros((header.num_channels, nsamples), np.int32), \
+                consumed
+        if btype == BlockDataType.RAW:
+            return self._host.decode_raw_block(data[poff:poff + psize],
+                                               header, nsamples), consumed
+        # Only the payload's words go up: from the word that holds its first
+        # byte, so its bit offsets are those of the whole stream's decode.
+        base = poff - poff % 4
+        window = data[base:poff + psize]
+        g = self._groups(window, header, np.zeros(1, np.int64), [nsamples],
+                         np.asarray([poff - base], np.int64),
+                         np.asarray([psize], np.int64))[0]
+        out = decode_blocks(upload_stream(window, self.device),
+                            torch.from_numpy(g.meta).to(self.device),
+                            header.offset_lshift, n=nsamples,
+                            C=header.num_channels, M=g.M, W=g.W,
+                            has_ltp=g.has_ltp)
+        self.stats["device_blocks"] += 1
+        return out[0].cpu().numpy(), consumed
+
+    def decode_block_params(self, payload: bytes, header: StreamHeader,
+                            num_samples: int):
+        """The host one-block reference's entropy decode
+        (``host_decoder.SRLADecoder.decode_block_params``)."""
+        return self._host.decode_block_params(payload, header, num_samples)
+
+    def synthesize_block(self, bp, header: StreamHeader,
+                         num_samples: int) -> np.ndarray:
+        """The host one-block reference's synthesis chain
+        (``host_decoder.SRLADecoder.synthesize_block``)."""
+        return self._host.synthesize_block(bp, header, num_samples)
+
+    def decode_raw_block(self, payload: bytes, header: StreamHeader,
+                         num_samples: int) -> np.ndarray:
+        return self._host.decode_raw_block(payload, header, num_samples)
 
     def plan(self, data: bytes
              ) -> tuple[StreamHeader, np.ndarray, list[DecodeGroup]]:
@@ -112,9 +188,16 @@ class SRLADecoder:
             progress += nsamples
         if not progs:
             return header, pcm, []
-        progs = np.asarray(progs, np.int64)
-        poffs = np.asarray(poffs, np.int64)
-        psizes = np.asarray(psizes, np.int64)
+        return header, pcm, self._groups(
+            data, header, np.asarray(progs, np.int64), sizes,
+            np.asarray(poffs, np.int64), np.asarray(psizes, np.int64))
+
+    def _groups(self, data: bytes, header: StreamHeader, progs, sizes,
+                poffs, psizes) -> list[DecodeGroup]:
+        """Batch-parse the COMPRESS parameter headers of the payloads at
+        poffs in data and group those blocks by size (first samples
+        progs, lengths sizes)."""
+        C = header.num_channels
         pp = self._parse_params_batch(data, poffs, psizes, header)
         by_size: dict[int, list] = {}
         for b, n in enumerate(sizes):
@@ -131,7 +214,7 @@ class SRLADecoder:
                 starts=progs[sel], n=n, M=M,
                 W=max(int(-(-psizes[sel].max() // 4)), 1),
                 has_ltp=bool((pp["ltp_periods"][sel] > 0).any()), meta=meta))
-        return header, pcm, groups
+        return groups
 
     def _parse_params_batch(self, data: bytes, poffs: np.ndarray,
                             psizes: np.ndarray, header: StreamHeader) -> dict:

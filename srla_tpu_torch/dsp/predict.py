@@ -75,6 +75,42 @@ def lpc_predict(data: np.ndarray, coefs: np.ndarray, orders: np.ndarray,
     return out.astype(np.int32)
 
 
+def lpc_synthesize(data: np.ndarray, coefs: np.ndarray, orders: np.ndarray,
+                   rshifts: np.ndarray, num_samples: int) -> np.ndarray:
+    """Batched in-order synthesis (inverse of lpc_predict), sequential in s.
+
+    data: (B, n) int32 residuals; returns reconstructed (B, n) int32.
+    """
+    B, n = data.shape
+    maxorder = coefs.shape[1]
+    out = np.zeros((B, n + maxorder), dtype=np.int64)
+    out[:, maxorder:] = data.astype(np.int64)
+
+    ar = np.arange(maxorder)
+    shift_amt = (maxorder - orders)[:, None]
+    cols = ar[None, :] - shift_amt
+    aligned = np.where(cols >= 0, np.take_along_axis(
+        coefs, np.clip(cols, 0, maxorder - 1), axis=1), 0).astype(np.int64)
+
+    ordv = orders.astype(np.int64)
+    half = _half_const(rshifts)
+    rs = rshifts.astype(np.int64)
+    active = ordv > 0
+    with np.errstate(over="ignore"):
+        for s in range(1, num_samples):
+            window = out[:, s:s + maxorder]
+            acc = (window * aligned).sum(axis=1)
+            pred = ((acc + half).astype(np.int32) >> rs.astype(np.int32)).astype(np.int64)
+            cur = out[:, s + maxorder]
+            prev = out[:, s + maxorder - 1]
+            prologue = cur + prev           # first `order` samples: cumsum
+            main = cur - pred
+            newval = np.where(s < ordv, prologue, main)
+            out[:, s + maxorder] = np.where(active,
+                                            newval.astype(np.int32), cur)
+    return out[:, maxorder:maxorder + n].astype(np.int32)
+
+
 def ltp_predict(data: np.ndarray, coefs: np.ndarray, order: int,
                 periods: np.ndarray, rshift: int) -> np.ndarray:
     """Batched long-term prediction. data (B, n) int32; coefs (B, order) int32
@@ -106,3 +142,39 @@ def ltp_predict(data: np.ndarray, coefs: np.ndarray, order: int,
         out = (data.astype(np.int32) - pred).astype(np.int32)
     mask = (periods[:, None] > 0) & (s >= delay + 1)
     return np.where(mask, out, data.astype(np.int32))
+
+
+def ltp_synthesize(data: np.ndarray, coefs: np.ndarray, orders: np.ndarray,
+                   periods: np.ndarray, rshift: int) -> np.ndarray:
+    """Inverse LTP (sequential recurrence; delay >= 9 so chunks of `delay-order`
+    samples can be reconstructed at once — the window never overlaps the chunk).
+    """
+    B, n = data.shape
+    out = data.astype(np.int32).copy()
+    half = np.int64(1 << (rshift - 1))
+    with np.errstate(over="ignore"):
+        for b in range(B):
+            per = int(periods[b])
+            order = int(orders[b])
+            if per == 0 or order == 0:
+                continue
+            half_order = order >> 1
+            delay = per + half_order
+            start = delay + 1
+            x = out[b].astype(np.int64)
+            # window for sample s covers [s-delay, s-delay+order-1]; the
+            # farthest forward reach is s - delay + order - 1 < s, so samples
+            # [s0, s0 + delay - order + 1) can be computed together.
+            step = delay - order + 1
+            s0 = start
+            while s0 < n:
+                s1 = min(n, s0 + step)
+                s = np.arange(s0, s1)
+                acc = np.full(s1 - s0, half, dtype=np.int64)
+                for i in range(order):
+                    acc += int(coefs[b, i]) * x[s - delay + i]
+                pred = acc.astype(np.int32) >> rshift
+                out[b, s0:s1] = (out[b, s0:s1] + pred).astype(np.int32)
+                x[s0:s1] = out[b, s0:s1]
+                s0 = s1
+    return out

@@ -7,8 +7,9 @@ representable and any summation order gives the bit-identical double. We take
 that fast path and fall back to a sequential scan otherwise (24-bit content).
 (Parity: libs/srla_internal/src/srla_utility.c:206-378.)
 
-The port's own copy of ``srla_tpu/dsp/preemphasis.py``, without the
-de-emphasis (the port's decode runs it on the device).
+The port's own copy of ``srla_tpu/dsp/preemphasis.py``. Its de-emphasis
+serves only the host one-block reference (``host_decoder``): the port's
+decode runs it on the device.
 """
 
 from __future__ import annotations
@@ -76,3 +77,16 @@ def preemphasis(data: np.ndarray, coef: np.ndarray, prev: np.ndarray) -> np.ndar
     pred = (pred.astype(np.int32) >> PREEMPHASIS_COEF_SHIFT)
     with np.errstate(over="ignore"):
         return (data.astype(np.int32) - pred).astype(np.int32)
+
+
+def deemphasis(data: np.ndarray, coef: np.ndarray, prev: np.ndarray) -> np.ndarray:
+    """Inverse filter: y[i] = x[i] + ((y[i-1]*coef) >> 4), y[-1] = prev (sequential)."""
+    B, n = data.shape
+    out = data.astype(np.int32).copy()
+    c = coef.astype(np.int32)
+    y_prev = prev.astype(np.int32)
+    with np.errstate(over="ignore"):
+        for i in range(n):
+            out[:, i] = out[:, i] + ((y_prev * c) >> PREEMPHASIS_COEF_SHIFT)
+            y_prev = out[:, i]
+    return out

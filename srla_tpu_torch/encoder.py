@@ -39,10 +39,22 @@ LTP groups and spans under 512 samples (``srla_tpu``'s
 measured on the host (``host_spans``). The output is byte-identical to the
 port's exact host encoder (``host_encoder.encode``) and so to
 ``srla_tpu.encode(..., backend="exact")``.
+
+Given ``devices``, each encode group is cut along its block axis into one
+contiguous shard a device (``parallel.shards``): the file goes up once to
+each distinct device, and every shard of a group is launched before any is
+fetched. The -V measurement is not split. ``encode_files`` batches a corpus
+across files: at -V 0, files that share (channels, offset_lshift) become one
+virtual file whose blocks join the same equal-size groups, each file's
+blocks starting from fresh work-buffer state (the reference encodes each
+file from fresh memory; ``srla_tpu.encode_files`` lets an odd-length block
+take its state from the previous file's last COMPRESS block). Each stream
+equals ``host_encoder.encode`` of its file.
 """
 
 from __future__ import annotations
 
+import bisect
 import time
 
 import numpy as np
@@ -55,6 +67,7 @@ from .format import StreamHeader, encode_header, frame_block
 from .host_encoder import (EncodeParameter, _compute_offset_lshift,
                            make_parameter)
 from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
+from .parallel import distinct, record_cut, resolve, shards
 
 # The smallest LTP group the device analyses (srla_tpu/encoder.py:1209).
 LTP_MIN_DEVICE_SIZE = 512
@@ -97,16 +110,22 @@ class SRLAEncoder:
     # many samples: one call a size up to about 7 minutes of audio.
     MAX_MEASURE_SAMPLES = 1 << 25
 
-    def __init__(self, parameter: EncodeParameter, device):
+    def __init__(self, parameter: EncodeParameter, device, devices=None):
         """device: the torch device that encodes the COMPRESS blocks and
         measures the -V spans ("cuda" runs the CUDA kernels, "cpu" their
-        plain versions). Flagged blocks, odd-size blocks, the odd last
-        lookahead window, RAW and SILENT blocks are encoded on the host by a
-        held ``host_encoder.SRLAEncoder``, whose ``stats`` dict this encoder
-        shares."""
+        plain versions). devices: optional list of devices; each encode
+        group is then cut along its block axis into len(devices) shards,
+        shard k encoded on devices[k] (a device may be named more than
+        once); ``stats["shard_cuts"]`` lists every group's sorted shard
+        rows in the order cut, and ``stats["shard_rows"]`` the last
+        group's, as srla_tpu. Flagged blocks, odd-size blocks, the odd
+        last lookahead window, RAW and SILENT blocks are encoded on the
+        host by a held ``host_encoder.SRLAEncoder``, whose ``stats`` dict
+        this encoder shares."""
         parameter.validate()
         self.p = parameter
-        self.device = torch.device(device)
+        self.device = resolve([device])[0]
+        self.devices = None if devices is None else resolve(devices)
         self._host = host_encoder.SRLAEncoder(parameter)
         # srla_tpu's keys and meaning: COMPRESS blocks emitted from the
         # device, blocks encoded on the host (repairs included), flagged
@@ -140,17 +159,18 @@ class SRLAEncoder:
         lshift = _compute_offset_lshift(pcm)
         header = StreamHeader(C, N, p.sampling_rate, p.bits_per_sample,
                               lshift, p.max_num_samples_per_block, p.preset)
-        file = self._upload(pcm)
-        tick("upload")
         variable = p.min_num_samples_per_block != p.max_num_samples_per_block
+        files = self._upload(pcm, measure=variable)
+        tick("upload")
         if variable:
             spans = host._variable_spans(
-                pcm, lshift, self._measure_route(file, tick), tick)
+                pcm, lshift, self._measure_route(files[self.device], tick),
+                tick)
         else:
             n = p.max_num_samples_per_block
             spans = [(off, min(n, N - off)) for off in range(0, N, n)]
         out = [encode_header(header)]
-        out.extend(self._encode_spans(pcm, file, spans, lshift, tick))
+        out.extend(self._encode_spans(pcm, files, spans, lshift, tick))
         if variable:
             for size, framed in host._encode_odd_window(pcm, spans, lshift):
                 out.append(framed)
@@ -164,7 +184,8 @@ class SRLAEncoder:
         """Byte size this block would encode to
         (SRLAEncoder_ComputeBlockSize), measured on the device."""
         pcm_block = np.asarray(pcm_block, dtype=np.int32)
-        route = self._measure_route(self._upload(pcm_block), no_timer)
+        file = self._upload(pcm_block, measure=True)[self.device]
+        route = self._measure_route(file, no_timer)
         return self._host._measure_blocks(pcm_block, [0], pcm_block.shape[1],
                                           offset_lshift, route)[0]
 
@@ -174,18 +195,72 @@ class SRLAEncoder:
         (SRLAEncoder_EncodeOptimalPartitionedBlock), its spans measured and
         its blocks encoded on the device."""
         pcm_window = np.asarray(pcm_window, dtype=np.int32)
-        file = self._upload(pcm_window)
+        files = self._upload(pcm_window, measure=True)
         spans = self._host._variable_spans(
-            pcm_window, offset_lshift, self._measure_route(file, no_timer),
+            pcm_window, offset_lshift,
+            self._measure_route(files[self.device], no_timer),
             windows=[(0, pcm_window.shape[1])])
-        return b"".join(self._encode_spans(pcm_window, file, spans,
+        return b"".join(self._encode_spans(pcm_window, files, spans,
                                            offset_lshift, no_timer))
 
-    def _upload(self, pcm: np.ndarray) -> torch.Tensor:
-        """The (C, N) samples on the device, int16 up to 16 bits."""
+    def encode_block(self, pcm_block: np.ndarray, offset_lshift: int = 0
+                     ) -> bytes:
+        """Encode one block (C, n) -> framed block bytes
+        (SRLAEncoder_EncodeBlock: type decision, compress, raw or silent,
+        raw fallback, checksum framing): one span, a COMPRESS block of even
+        size analysed on the device."""
+        pcm_block = np.asarray(pcm_block, dtype=np.int32)
+        self._progress_cb = None
+        return self._encode_spans(pcm_block, self._upload(pcm_block),
+                                  [(0, pcm_block.shape[1])], offset_lshift,
+                                  no_timer)[0]
+
+    def _encode_batch(self, pcms: list, offset_lshift: int) -> list[bytes]:
+        """Streams of files that share this encoder's channel count and
+        ``offset_lshift`` (``_compute_offset_lshift`` of each), encoded as
+        one virtual file at fixed block size: their blocks join the same
+        equal-size groups, so a group's device calls span files. Blocks
+        never cross a file's end, and each file's first COMPRESS block
+        starts from fresh work-buffer state, so each stream equals the
+        file's own encode."""
+        p = self.p
+        n = p.max_num_samples_per_block
+        self._host._progress_cb = None
+        self._progress_cb = None
+        tick = self.timer or no_timer
+        if self.timer is not None:
+            self.timer.start()
+        cat = np.concatenate([np.asarray(x, np.int32) for x in pcms], axis=1)
+        spans, firsts = [], []
+        off = 0
+        for x in pcms:
+            firsts.append(len(spans))
+            N = x.shape[1]
+            spans += [(off + o, min(n, N - o)) for o in range(0, N, n)]
+            off += N
+        files = self._upload(cat)
+        tick("upload")
+        framed = self._encode_spans(cat, files, spans, offset_lshift, tick,
+                                    firsts)
+        self._host._check_repair_rate()
+        ends = firsts[1:] + [len(spans)]
+        return [b"".join([encode_header(StreamHeader(
+            x.shape[0], x.shape[1], p.sampling_rate, p.bits_per_sample,
+            offset_lshift, n, p.preset))] + framed[lo:hi])
+            for x, lo, hi in zip(pcms, firsts, ends)]
+
+    def _targets(self) -> list:
+        """The devices of the encode groups' shards, in shard order."""
+        return self.devices or [self.device]
+
+    def _upload(self, pcm: np.ndarray, measure: bool = False) -> dict:
+        """The (C, N) samples, int16 up to 16 bits, once on each distinct
+        device of the groups' shards (and on ``device`` for a
+        measurement): {device: tensor}."""
         dtype = np.int16 if self.p.bits_per_sample <= 16 else np.int32
-        return torch.from_numpy(np.ascontiguousarray(pcm, dtype)).to(
-            self.device)
+        host = torch.from_numpy(np.ascontiguousarray(pcm, dtype))
+        want = self._targets() + ([self.device] if measure else [])
+        return {d: host.to(d) for d in distinct(want)}
 
     def _measure_route(self, file: torch.Tensor, tick):
         """The device route of the host's ``_measure_blocks`` for the
@@ -246,11 +321,14 @@ class SRLAEncoder:
             except Exception:
                 self._progress_cb = None   # a broken meter never kills encode
 
-    def _encode_spans(self, pcm, file, spans, lshift, tick) -> list[bytes]:
+    def _encode_spans(self, pcm, files, spans, lshift, tick,
+                      firsts=(0,)) -> list[bytes]:
         """Type the blocks, encode each even-size COMPRESS group on the
-        device (cut from ``file``, the resident copy of ``pcm``), odd-size
+        device (cut from ``files``, the resident copies of ``pcm``), odd-size
         ones serially on the host (``srla_tpu``'s ``_encode_spans`` with the
-        device route always taken)."""
+        device route always taken). ``firsts``: the sorted indices of the
+        spans that begin a file; an odd-size block takes its work-buffer
+        state from no span before its file's first."""
         host = self._host
         C = pcm.shape[0]
         types = {}
@@ -272,7 +350,7 @@ class SRLAEncoder:
                 for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
                     call = idxs[lo:lo + self.MAX_CALL_BLOCKS]
                     results.update(self._encode_group(
-                        pcm, file, spans, call, size, lshift, tick))
+                        pcm, files, spans, call, size, lshift, tick))
                     self._blocks_done(len(call), size)
                 continue
             if size % 2 == 0:
@@ -286,7 +364,9 @@ class SRLAEncoder:
             # Odd-length blocks: the reference's Welch window leaves the
             # middle sample holding stale work-buffer content.
             for i in idxs:
-                state = host._incoming_state(pcm, spans, types, i, lshift)
+                first = firsts[bisect.bisect_right(firsts, i) - 1]
+                state = host._incoming_state(pcm, spans, types, i, lshift,
+                                             first)
                 off = spans[i][0]
                 method, params, _ = host._compute_coefficients(
                     pcm[:, off:off + size][None], size, lshift,
@@ -315,19 +395,34 @@ class SRLAEncoder:
         return frame_block(BlockDataType.RAW, size, self._host._raw_payload(
             pcm[:, off:off + size], size))
 
-    def _encode_group(self, pcm, file, spans, idxs, size: int, lshift: int,
+    def _encode_group(self, pcm, files, spans, idxs, size: int, lshift: int,
                       tick) -> dict[int, bytes]:
-        """Equal-size blocks on the device: one ``encode_blocks`` call on
-        the blocks cut from ``file``, one fetch of the parameters, one fetch
-        of exactly sum(lens_w) packed words, host repair of flagged blocks,
-        native assembly."""
+        """Equal-size blocks on the device: one ``encode_blocks`` call a
+        shard on the blocks cut from its device's copy in ``files``, every
+        shard launched before any is fetched; then each shard's fetch,
+        repair and assembly (``_finish_shard``)."""
+        C = pcm.shape[0]
+        W = self._section_words(size)
+        cuts = shards(len(idxs), self._targets())
+        if self.devices is not None:
+            record_cut(self.stats, cuts)
+        launched = [(idxs[lo:hi], encode_blocks(
+            cut_spans(files[d], [spans[i][0] for i in idxs[lo:hi]], size),
+            lshift, C=C, W=W, timer=tick, **self._host._device_args(size)))
+            for d, lo, hi in cuts]
+        results: dict[int, bytes] = {}
+        for part, (small_t, flat_t) in launched:
+            results.update(self._finish_shard(pcm, spans, part, size, lshift,
+                                              small_t, flat_t, tick))
+        return results
+
+    def _finish_shard(self, pcm, spans, idxs, size: int, lshift: int,
+                      small_t, flat_t, tick) -> dict[int, bytes]:
+        """One shard's fetch of the parameters, fetch of exactly sum(lens_w)
+        packed words, host repair of flagged blocks and native assembly."""
         host = self._host
         C = pcm.shape[0]
         B = len(idxs)
-        W = self._section_words(size)
-        small_t, flat_t = encode_blocks(
-            cut_spans(file, [spans[i][0] for i in idxs], size), lshift, C=C,
-            W=W, timer=tick, **host._device_args(size))
         keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
                 "section_bits", "method", "bits", "raw_blk", "risky_blk",
                 "lens_w", "ltp_period", "ltp_coefs")
@@ -444,3 +539,56 @@ def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
                            preset, max_block, variable_divisions,
                            lookahead_factor, ltp_order, svr_iterations)
     return SRLAEncoder(param, device).encode_whole(pcm)
+
+
+def encode_files(pcm_list, bits_per_sample: int, sampling_rate: int,
+                 device, preset: int = 4, max_block: int = 4096,
+                 variable_divisions: int = 0, lookahead_factor: int = 4,
+                 ltp_order: int = 0, svr_iterations: int = 0, devices=None,
+                 stats_out=None) -> list[bytes]:
+    """Batched multi-file encode on ``device`` (the twin of
+    ``srla_tpu.encoder.encode_files``). At -V 0 with more than one file,
+    files that share (channels, offset_lshift) are encoded as one virtual
+    file (``SRLAEncoder._encode_batch``): one device call per (group, block
+    size, MAX_CALL_BLOCKS slice) across the files, not one per file. -V > 0
+    and a group of one file encode each file on its own. ``devices`` splits
+    each group's blocks over several devices. Returns the streams in input
+    order, each ``host_encoder.encode`` of its file at the same flags;
+    ``stats_out`` receives the encoders' counters summed over the corpus,
+    every group's ``shard_cuts`` and the last group's ``shard_rows``."""
+    pcms = [np.asarray(p, dtype=np.int32) for p in pcm_list]
+    encoders: dict[int, SRLAEncoder] = {}
+
+    def encoder(C: int) -> SRLAEncoder:
+        if C not in encoders:
+            encoders[C] = SRLAEncoder(make_parameter(
+                C, bits_per_sample, sampling_rate, preset, max_block,
+                variable_divisions, lookahead_factor, ltp_order,
+                svr_iterations), device, devices)
+        return encoders[C]
+
+    out: dict[int, bytes] = {}
+    if variable_divisions == 0 and len(pcms) > 1:
+        groups: dict[tuple, list[int]] = {}
+        for i, x in enumerate(pcms):
+            groups.setdefault((x.shape[0], _compute_offset_lshift(x)),
+                              []).append(i)
+        for (C, lshift), idxs in groups.items():
+            if len(idxs) == 1:
+                out[idxs[0]] = encoder(C).encode_whole(pcms[idxs[0]])
+            else:
+                out.update(zip(idxs, encoder(C)._encode_batch(
+                    [pcms[i] for i in idxs], lshift)))
+    else:
+        for i, x in enumerate(pcms):
+            out[i] = encoder(x.shape[0]).encode_whole(x)
+    if stats_out is not None:
+        for enc in encoders.values():
+            for k, v in enc.stats.items():
+                if k == "shard_rows":
+                    stats_out[k] = v
+                elif k == "shard_cuts":
+                    stats_out[k] = stats_out.get(k, []) + v
+                elif isinstance(v, int):
+                    stats_out[k] = stats_out.get(k, 0) + v
+    return [out[i] for i in range(len(pcms))]

@@ -1,10 +1,15 @@
-"""The host side of the port's decoder: RAW payloads and parameter headers.
+"""The host side of the port's decoder: RAW payloads, parameter headers and
+the host one-block reference.
 
-The port's own copy of the parts of ``srla_tpu/decoder.py`` (:91-218) that
-the device decoder needs on the host: ``decode_raw_block``,
-``_parse_params`` (the Python parameter-header parser, for hosts where the
-native library does not build) and the handle of the native library, whose
-``parse_params_batch`` parses every header of a stream in one call.
+The port's own copy of ``srla_tpu/decoder.py``'s host decoder (:91-240):
+``decode_raw_block`` and ``_parse_params`` (the Python parameter-header
+parser, for hosts where the native library does not build), which the
+device decoder uses, and the handle of the native library, whose
+``parse_params_batch`` parses every header of a stream in one call. Then
+the host one-block reference, ``decode_block_params`` (:130, the entropy
+decode) and ``synthesize_block`` (:187, the integer synthesis chain):
+sequential numpy, what the device decode of a block is held to in the
+tests, never on a device path.
 """
 
 from __future__ import annotations
@@ -13,13 +18,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import native_decoder
+from . import native_decoder, rice
 from .bitio import BitReader, uint32_to_sint32
 from .constants import (LPC_COEFFICIENT_ORDER_BITWIDTH,
                         LTP_COEFFICIENT_BITWIDTH, LTP_MIN_PERIOD,
                         LTP_ORDER_BITWIDTH, LTP_PERIOD_BITWIDTH,
                         MAX_COEFFICIENT_ORDER, PREEMPHASIS_COEF_SHIFT,
-                        RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+                        RSHIFT_LPC_COEFFICIENT_BITWIDTH, ChProcessMethod)
+from .dsp.predict import lpc_synthesize, ltp_synthesize
+from .dsp.preemphasis import deemphasis
 from .format import StreamHeader
 from .huffman import parameter_codebook, sum_parameter_codebook
 
@@ -35,6 +42,7 @@ class _BlockParams:
     ltp_orders: np.ndarray
     ltp_periods: np.ndarray
     ltp_coefs: np.ndarray
+    residual: np.ndarray | None = None   # (C, n) int32, decode_block_params'
 
 
 class SRLADecoder:
@@ -101,3 +109,35 @@ class SRLADecoder:
         for i in range(nbytes):
             uv = (uv << 8) | buf[:, :, i].astype(np.uint32)
         return uint32_to_sint32(uv).T.astype(np.int32).copy()
+
+    def decode_block_params(self, payload: bytes, header: StreamHeader,
+                            num_samples: int) -> _BlockParams:
+        """Entropy-decode one compress-block payload into parameters and
+        residuals."""
+        C = header.num_channels
+        bp, r = self._parse_params(payload, header)
+        residual = np.zeros((C, num_samples), dtype=np.int32)
+        for c in range(C):
+            residual[c] = rice.decode(r, num_samples)
+        bp.residual = residual
+        return bp
+
+    def synthesize_block(self, bp: _BlockParams, header: StreamHeader,
+                         num_samples: int) -> np.ndarray:
+        """Run the integer reconstruction chain for one decoded block."""
+        buf = lpc_synthesize(bp.residual, bp.coefs, bp.orders, bp.rshifts,
+                             num_samples)
+        buf = ltp_synthesize(buf, bp.ltp_coefs, bp.ltp_orders, bp.ltp_periods,
+                             LTP_COEFFICIENT_BITWIDTH - 1)
+        buf = deemphasis(buf, bp.pre_coef, bp.pre_prev)
+        with np.errstate(over="ignore"):
+            if bp.method == ChProcessMethod.MS:
+                buf[0] = (buf[0] - (buf[1] >> 1)).astype(np.int32)
+                buf[1] = (buf[1] + buf[0]).astype(np.int32)
+            elif bp.method == ChProcessMethod.LS:
+                buf[1] = (buf[1] + buf[0]).astype(np.int32)
+            elif bp.method == ChProcessMethod.SR:
+                buf[0] = (buf[1] - buf[0]).astype(np.int32)
+            if header.offset_lshift:
+                buf = (buf << header.offset_lshift).astype(np.int32)
+        return buf

@@ -797,12 +797,14 @@ class SRLAEncoder:
                                self._raw_payload(blk.astype(np.int32), size))
         return frame_block(BlockDataType.COMPRESS, size, payload)
 
-    def _incoming_state(self, pcm, spans, types, i, offset_lshift):
+    def _incoming_state(self, pcm, spans, types, i, offset_lshift,
+                        first: int = 0):
         """LPC work-buffer contents entering span i: the raw IFFT buffer left
         by the previous compress-analyzed span's last channel variant (fresh
-        arena memory — zeros — when there is none)."""
+        arena memory — zeros — when there is none). Spans before ``first``
+        (another file's, in a batched encode) are not looked at."""
         prev = None
-        for j in range(i - 1, -1, -1):
+        for j in range(i - 1, first - 1, -1):
             if types[j] == BlockDataType.COMPRESS:
                 prev = j
                 break

@@ -15,7 +15,9 @@ discrepancy could change the emitted stream.
 
 The port's own copy of ``srla_tpu/rice.py``: the constants, the batched
 parameter search and the section emitter that the port's host paths and
-``kernels/exact.py`` use (no decoder: the port decodes on the device).
+``kernels/exact.py`` use, and the one-channel decoder (``decode``, from
+``srla_tpu/rice.py:300``) of the host one-block reference
+(``host_decoder.SRLADecoder.decode_block_params``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import math
 
 import numpy as np
 
-from .bitio import BitWriter, sint32_to_uint32
+from .bitio import BitReader, BitWriter, sint32_to_uint32, uint32_to_sint32
 from .constants import (CODER_LOG2_MAX_NUM_PARTITIONS, CODER_RICE_PARAMETER_BITS,
                         CodeType)
 
@@ -209,3 +211,79 @@ def emit_channel(writer: BitWriter, uvals: np.ndarray, num_samples: int,
             k = int(v).bit_length() - 1
             writer.put_zero_run(nb - 1 - k)
             writer.put(int(v) & ((1 << k) - 1), k)
+
+
+def decode(reader: BitReader, num_samples: int) -> np.ndarray:
+    """Decode one channel-block of residuals."""
+    code_type = reader.get(2)
+    out = np.zeros(num_samples, dtype=np.int32)
+    if code_type == CodeType.ALLZERO:
+        return out
+    porder = reader.get(CODER_LOG2_MAX_NUM_PARTITIONS)
+    # Valid streams keep porder <= 10 and the partition count dividing the
+    # sample count (srla_coder.c:357-363); anything else is corruption, and
+    # an unchecked 1 << porder would allocate/loop unboundedly.
+    if porder > CODER_LOG2_MAX_NUM_PARTITIONS or (1 << porder) > num_samples \
+            or num_samples % (1 << porder):
+        raise ValueError("corrupt stream (partition order)")
+    nparts = 1 << porder
+    nsmpl = num_samples >> porder
+    bits = reader._bits
+    ones = reader._ones
+    pos = reader.pos
+    oidx = int(np.searchsorted(ones, pos))
+    uvals = np.empty(num_samples, dtype=np.int64)
+    k = 0
+    recursive = code_type == CodeType.RECURSIVE_RICE
+
+    def read_bits(p, n):
+        v = 0
+        for b in bits[p:p + n]:
+            v = (v << 1) | int(b)
+        return v
+
+    # Truncated/corrupt payloads exhaust the ones index mid-codeword; surface
+    # that as the same "insufficient data" error the byte layer raises.
+    try:
+        for part in range(nparts):
+            if part == 0:
+                k = read_bits(pos, CODER_RICE_PARAMETER_BITS)
+                pos += CODER_RICE_PARAMETER_BITS
+            else:
+                while ones[oidx] < pos:
+                    oidx += 1
+                run = int(ones[oidx]) - pos
+                pos = int(ones[oidx]) + 1
+                oidx += 1
+                k += int(uint32_to_sint32(np.uint32(run)))
+            if k < 0 or k > 31:
+                raise ValueError("corrupt stream (rice parameter)")
+            base = part * nsmpl
+            if recursive:
+                k2 = k
+                for i in range(nsmpl):
+                    while ones[oidx] < pos:
+                        oidx += 1
+                    quot = int(ones[oidx]) - pos
+                    pos = int(ones[oidx]) + 1
+                    oidx += 1
+                    nread = k2 + (1 if quot == 0 else 0)
+                    val = read_bits(pos, nread)
+                    pos += nread
+                    uvals[base + i] = val | ((quot + (1 if quot else 0)) << k2)
+            else:
+                for i in range(nsmpl):
+                    while ones[oidx] < pos:
+                        oidx += 1
+                    quot = int(ones[oidx]) - pos
+                    pos = int(ones[oidx]) + 1
+                    oidx += 1
+                    val = read_bits(pos, k)
+                    pos += k
+                    uvals[base + i] = (quot << k) + val
+    except IndexError:
+        raise ValueError("insufficient data") from None
+    if pos > len(bits):
+        raise ValueError("insufficient data")
+    reader.pos = pos
+    return uint32_to_sint32(uvals.astype(np.uint32))

@@ -150,7 +150,8 @@ def main_call_inputs(torch, dev, seconds: float = SECONDS):
     n = 4096
     a = enc._host._device_args(n)
     offs = list(range(0, pcm.shape[1] - n + 1, n))
-    rows = exact.variant_stack(exact.cut_spans(enc._upload(pcm), offs, n),
+    file = enc._upload(pcm)[enc.device]
+    rows = exact.variant_stack(exact.cut_spans(file, offs, n),
                                _compute_offset_lshift(pcm))
     work, _, _ = exact.preemphasis_exact(rows)
     M = a["max_params"]

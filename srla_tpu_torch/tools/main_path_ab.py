@@ -1,0 +1,83 @@
+"""The main path's encode and decode in several checkouts side by side.
+
+    python -m srla_tpu_torch.tools.main_path_ab ROOT [ROOT ...]
+
+Needs one CUDA card. For each checkout ROOT, in the order given, a fresh
+Python process in that directory builds the main path's kernels with that
+checkout's ``srla_tpu_torch``, encodes 120 s of ``make_music`` (16-bit
+stereo, 44.1 kHz) at ``-m 4 -B 4096 -V 0`` once cold and three times warm,
+then decodes the stream once cold, checks it lossless, and decodes it three
+times warm: ``chip_smoke.py`` phases 6 and 3 without their checks. It
+prints a line a ROOT: the stream's length and SHA-256 prefix, the warm
+times and the best of each as x realtime, with the card's name and power
+limit. Give a parent and a change in turns (parent, change, change,
+parent): host times swing between processes.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+SECONDS = 120.0
+# The kernels that the -V 0 encode and the decode launch.
+LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
+             "bitpack", "autocorr", "lpc_analyze")
+
+_CHILD = r'''
+import hashlib, os, subprocess, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np, torch
+from srla_tpu_torch import SRLAEncoder, decode
+from srla_tpu_torch.host_encoder import make_parameter
+from srla_tpu_torch.kernels import build
+from srla_tpu_torch.signals import make_music
+build.load_all(%r)
+seconds = %r
+music = make_music(seconds)
+dev = torch.device("cuda")
+param = make_parameter(2, 16, 44100, 4, 4096, 0, 4, 0, 0)
+
+
+def warm(fn):
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return runs
+
+
+data = SRLAEncoder(param, dev).encode_whole(music)
+enc = warm(lambda: SRLAEncoder(param, dev).encode_whole(music))
+assert np.array_equal(decode(data, device=dev)[1], music), "not lossless"
+dec = warm(lambda: decode(data, device=dev))
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True).stdout.strip()
+print("bytes", len(data), "sha256", hashlib.sha256(data).hexdigest()[:16],
+      "encode warm ms", [round(t * 1e3, 1) for t in enc], "best",
+      round(seconds / min(enc), 1), "x realtime; decode warm ms",
+      [round(t * 1e3, 1) for t in dec], "best",
+      round(seconds / min(dec), 1), "x realtime [" + card + "]")
+'''
+
+
+def main(roots) -> int:
+    rc = 0
+    for root in roots:
+        p = subprocess.run([sys.executable, "-c",
+                            _CHILD % (LIBRARIES, SECONDS)],
+                           cwd=root, capture_output=True, text=True)
+        line = p.stdout.strip().splitlines()[-1:] or [p.stderr[-500:]]
+        print(f"main_path_ab {root}: {line[0]}")
+        rc |= p.returncode
+    return 1 if rc else 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    sys.exit(main(sys.argv[1:]))

@@ -4,8 +4,7 @@ Samples are held at their natural bit depth (16-bit -> [-32768, 32767]); 8-bit
 WAV is offset-binary (stored value - 128). Matches the reference tool's PCM
 conventions (libs/wav/src/wav.c:841-866) so golden comparisons are byte-true.
 
-The port's own copy of ``srla_tpu/wavio.py``: WAV and AIFF in, WAV out
-(the port writes no AIFF).
+The port's own copy of ``srla_tpu/wavio.py``: WAV and AIFF in and out.
 """
 
 from __future__ import annotations
@@ -124,6 +123,34 @@ def read_wav(path: str) -> WavData:
         sign = np.int64(1) << (bps - 1)
         pcm = (val ^ sign) - sign
     return WavData(pcm.T.astype(np.int32).copy(), rate, bps)
+
+
+def write_aiff(path: str, wav: WavData) -> None:
+    """Write AIFF (big-endian PCM, 80-bit extended sample rate)."""
+    pcm = wav.pcm
+    nch, n = pcm.shape
+    nbytes = wav.bits_per_sample // 8
+    inter = pcm.T.astype(np.int64) & ((np.int64(1) << (8 * nbytes)) - 1)
+    out = np.zeros((n, nch, nbytes), dtype=np.uint8)
+    for b in range(nbytes):
+        out[:, :, b] = (inter >> (8 * (nbytes - 1 - b))) & 0xFF
+    payload = out.tobytes()
+    # 80-bit extended float for the sample rate.
+    rate = wav.sampling_rate
+    exp = 16383 + 63
+    mant = rate
+    while mant < (1 << 63):
+        mant <<= 1
+        exp -= 1
+    comm = struct.pack(">hIhHQ", nch, n, wav.bits_per_sample, exp, mant)
+    ssnd = struct.pack(">II", 0, 0) + payload
+    size = 4 + (8 + len(comm)) + (8 + len(ssnd))
+    with open(path, "wb") as f:
+        f.write(b"FORM" + struct.pack(">I", size) + b"AIFF")
+        f.write(b"COMM" + struct.pack(">I", len(comm)) + comm)
+        f.write(b"SSND" + struct.pack(">I", len(ssnd)) + ssnd)
+        if len(ssnd) & 1:
+            f.write(b"\x00")
 
 
 def write_wav(path: str, wav: WavData) -> None:

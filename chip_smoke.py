@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the twelve CUDA libraries of csrc/ (fifteen kernels) and six
+Builds the thirteen CUDA libraries of csrc/ (sixteen kernels) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
@@ -191,6 +191,21 @@ the port calls) with concurrent nvcc, then:
      --sink null --device cuda) once, counted. Prints the warm best of 3
      of both corpus encodes and decodes beside a loop of per-file
      encode_whole and decode, and the block paths' blocks per second.
+ 14. The decode to device-resident PCM (decode_whole_device_resident, K13:
+     csrc/verify.cu) on phase 3's stream, phase 4's, phase 8's -V 3 stream,
+     the hi-res corpus of phase 13 fused into one virtual stream (16.4 M
+     samples a channel, expected 131 MB on the card) and 10 s of make_music
+     with a silent and a full-scale noise second, counted: True, every
+     COMPRESS block on the device, K2 and K13 once a group; K13 equal to
+     its plain version on every group of each (as decoded, one sample of a
+     row flipped, that row not ok); False for one flipped sample in a
+     COMPRESS, a RAW and a SILENT block; phase 3's stream over two shards
+     (K13 once a shard); its host synchronisations by line: uploads and
+     one flag fetch a device, no PCM fetch. Prints the warm best of 3 of
+     the resident decode beside decode_whole's on phase 3's stream, a
+     profile of one resident decode, and K13 at the 1291-block group
+     beside its plain version, its bound and one torch.equal of the same
+     spans.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -199,10 +214,12 @@ that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
 -V 0 encode, K8's and K7's on phase 6's, K11's, K12's and K7's two SVR
 entries' (records lpc_coefs and lpc_quantize) on phase 12's full-width
-encode, 0 for K12's first design (svr_refine_v1, a measurement aid);
+encode, 0 for K12's first design (svr_refine_v1, a measurement aid), K13's
+on phase 14's resident decode of phase 3's stream;
 ``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
-``launches_corpus`` on phase 13's paths, encode and decode apart; K7's
+``launches_corpus`` on phase 13's paths, encode and decode apart,
+``launches_resident`` on phase 14's; K7's
 record also carries its SVR entries' launches on phase 12's full-width
 encode and the coefficient entry's agreement with its plain version)
 and, last, the device JSON line. A kernel's bound is the larger of the
@@ -224,9 +241,10 @@ division, K7's step at M <= 64).
 K9 gets a serial floor too: the steps of its row with the most (ceil((n -
 delay - 1) / w)) times one K9 step alone (chain_probe.cu's kind 4), and
 K10 one solve's chain (kind 5).
-K3, K4, K5, K6, K9 and K10 also get a device time (device_ms): at their smaller
-shapes the host needs longer to enqueue a call than the card to run it, so
-the calls are captured into one CUDA graph and the replay is timed. K3 and
+K3, K4, K5, K6, K9, K10 and K13 also get a device time (device_ms): at
+their smaller shapes the host needs longer to enqueue a call than the card
+to run it, so the calls are captured into one CUDA graph and the replay is
+timed. K3 and
 K5's fused entry also get copy_ms, the device time of one copy that moves
 as many bytes as their bound counts.
 Any failed check raises and the exit code is non-zero; without a CUDA device
@@ -505,39 +523,53 @@ def phase_rice(torch, dev, stream: bytes):
                 tail_serial_floor_ms=tail_floor_ms)
 
 
-def profile_decode(torch, decode, stream: bytes, dev) -> None:
-    """One warm decode under torch.profiler: wall time, device time and the
-    device time of the kernels that take the most."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_decode(torch, fn, what: str) -> None:
+    """One warm call of fn (a decode) under torch.profiler, after one call
+    in the profiler's warm-up step (a second profiler session in a process
+    was seen to miss the first copies and kernels of its window): wall
+    time, device time, the device time of the kernels that take the most,
+    and of the codec's kernels and copies whatever their rank."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        decode(stream, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # The device's own events (kernels, copies); the CPU operators that
-    # launched them carry the same time again.
+    # launched them carry the same time again, and so does the step's
+    # marker.
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.key.startswith("Activity Buffer")),
+                     and not e.key.startswith(("Activity Buffer",
+                                               "ProfilerStep"))),
                     key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in events)
-    top = ", ".join(f"{e.key} {dev_us(e) / 1e3:.3f} ms x{e.count}"
-                    for e in events[:8] if dev_us(e) > 0)
-    print(f"phase 3 decode profile (torch.profiler, one warm decode): wall "
+    ours = ("Memcpy", "rice_decode_kernel", "lpc_synth_kernel",
+            "ltp_synth", "verify_kernel")
+    shown = [e for i, e in enumerate(events) if dev_us(e) > 0 and (
+        i < 8 or any(k in e.key for k in ours))]
+    top = ", ".join(f"{e.key[:72]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
+                    for e in shown)
+    print(f"{what} (torch.profiler, one warm decode): wall "
           f"{wall * 1e3:.1f} ms, device {total / 1e3:.3f} ms; {top}")
 
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
-             "autocorr", "lpc_analyze", "svr_cov", "svr_refine")
+             "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify")
 # Measurement only: the serial floors, and the first designs of K8, K7, K9
 # and K10.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
@@ -1185,6 +1217,7 @@ def all_wrappers() -> dict:
     from srla_tpu_torch.kernels.rice_decode import rice_decode
     from srla_tpu_torch.kernels.rice_search import rice_sums
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
+    from srla_tpu_torch.kernels.verify import verify_blocks
     return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
             "fir_predict": predict, "rice_search": rice_sums,
             "pack_residual_sections": pack_residual_sections,
@@ -1192,7 +1225,8 @@ def all_wrappers() -> dict:
             "ltp_analyze": ltp_analyze, "autocorr": autocorr,
             "lpc_analyze": lpc_analyze, "lpc_coefs": lpc_coefs,
             "lpc_quantize": lpc_quantize, "svr_cov": svr_cov,
-            "svr_refine": svr_refine, "svr_refine_v1": k12_first_design}
+            "svr_refine": svr_refine, "svr_refine_v1": k12_first_design,
+            "verify": verify_blocks}
 
 
 def without_plain(fn):
@@ -1369,7 +1403,8 @@ def phase_variable(torch, np, dev, music, card):
     case, its measurement's largest call and K4's generic kernel at the -V
     3 measurement's 3072-sample group. Returns (each path's kernel launches,
     encode and decode apart; the checks' max_abs_err by kernel; K4's
-    generic record; each path's K7 and K8 tally)."""
+    generic record; each path's K7 and K8 tally; the -V 3 path's PCM and
+    stream)."""
     from srla_tpu_torch import SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import encode as host_encode
@@ -1382,7 +1417,7 @@ def phase_variable(torch, np, dev, music, card):
     tallies: dict = {}
     launches: dict = {}
     errs = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
-    main_case = generic = None
+    main_case = generic = v3_case = None
     for path, V in VARIABLE_PATHS:
         pcm = music if path.startswith("music") else seg
         what = (f"make_music {MAIN_SECONDS:.0f} s" if pcm is music
@@ -1468,6 +1503,8 @@ def phase_variable(torch, np, dev, music, card):
               + "; " + tally_text(tally))
         if main_case is None:
             main_case = (pcm, param, stream, spans, n_measure)
+        if V == 3:
+            v3_case = (pcm, stream)
     require(generic is not None, "the -V 3 measurement has no 3072 group")
 
     pcm, param, stream, spans, n_measure = main_case
@@ -1514,7 +1551,7 @@ def phase_variable(torch, np, dev, music, card):
           f"ms (CUDA graph), plain {generic['plain_ms']:.2f} ms, bound "
           f"{generic['bound_ms']:.4f} ms ({generic['bound_by']}; operations "
           f"{generic['ops_ms']:.4f} ms) [{card}]")
-    return launches, errs, generic, tallies
+    return launches, errs, generic, tallies, v3_case
 
 
 # ---------------------------------------------------------------------------
@@ -3377,7 +3414,7 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
     """One corpus: encode_files on the card against host_encoder.encode per
     file, counted; the fused decode, counted; both again split over two
     shards on this card (and over every card where more than one is
-    visible). Returns {run: launches}."""
+    visible). Returns ({run: launches}, the streams)."""
     from srla_tpu_torch import SRLAEncoder, decode, encode_files
     from srla_tpu_torch.constants import PARAMETER_PRESETS, BlockDataType
     from srla_tpu_torch.host_encoder import encode, make_parameter
@@ -3482,7 +3519,7 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
             [dev], want))
         print(f"phase 13 {what} host synchronisations by line: encode_files "
               f"{enc_sync}; fused decode {dec_sync}")
-    return runs
+    return runs, want
 
 
 def ltp_blocks(np, dev, stream: bytes) -> int:
@@ -3630,19 +3667,268 @@ def phase_block_api(torch, np, dev, pcm, stream, pcm4, stream4, hires,
     return runs
 
 
-def phase_corpus(torch, np, dev, pcm, stream, pcm4, stream4, card) -> dict:
+def phase_corpus(torch, np, dev, pcm, stream, pcm4, stream4, card):
     """Phase 13: the corpus encode and decode, the split, the block API.
-    Returns {path: {run: launches}}."""
+    Returns ({path: {run: launches}}, the hi-res files, their streams)."""
     hires = hires_corpus(np)
-    paths = {"hires96k_24bit_B8192": corpus_case(
+    paths = {}
+    paths["hires96k_24bit_B8192"], hires_streams = corpus_case(
         torch, np, dev, "hi-res corpus -m 4 -B 8192", hires, 24, HIRES_RATE,
-        8192, card, False)}
-    paths["short64_B4096"] = corpus_case(
+        8192, card, False)
+    paths["short64_B4096"], _ = corpus_case(
         torch, np, dev, "64 short files -m 4 -B 4096", short_corpus(np), 16,
         SAMPLE_RATE, 4096, card, True)
     paths["block_api"] = phase_block_api(torch, np, dev, pcm, stream, pcm4,
                                          stream4, hires, card)
-    return paths
+    return paths, hires, hires_streams
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the decode to device-resident PCM, K13
+# ---------------------------------------------------------------------------
+
+RESIDENT_SECONDS = 10.0          # the corruption stream's length
+
+
+def silent_raw_case(np):
+    """RESIDENT_SECONDS of make_music with a second of silence and a second
+    of full-scale noise (SILENT and RAW blocks), at -m 4 -B 4096 -V 0."""
+    from srla_tpu_torch.host_encoder import encode
+    from srla_tpu_torch.signals import make_music
+    pcm = make_music(RESIDENT_SECONDS)
+    pcm[:, SAMPLE_RATE:2 * SAMPLE_RATE] = 0
+    pcm[:, 3 * SAMPLE_RATE:4 * SAMPLE_RATE] = np.random.RandomState(
+        23).randint(-2 ** 15, 2 ** 15, (2, SAMPLE_RATE))
+    return pcm, encode(pcm, 16, SAMPLE_RATE, preset=4)
+
+
+def k13_groups(torch, np, dev, stream: bytes, want_dev):
+    """K13 against verify_blocks_plain on every group of ``stream``, each
+    decoded on the card: as decoded (true), with one sample of its middle
+    row flipped (false), and with that row not ok (true). Returns (checks,
+    the largest group's K13 arguments, its n and B)."""
+    from srla_tpu_torch.decoder import SRLADecoder, upload_stream
+    from srla_tpu_torch.kernels.decode2 import decode_blocks
+    from srla_tpu_torch.kernels.verify import (verify_blocks,
+                                               verify_blocks_plain)
+
+    header, _, groups = SRLADecoder(dev).plan(stream)
+    C = header.num_channels
+    words = upload_stream(stream, dev)
+    checks, largest = 0, None
+    for g in groups:
+        B = len(g.starts)
+        out = decode_blocks(words, torch.from_numpy(g.meta).to(dev),
+                            header.offset_lshift, n=g.n, C=C, M=g.M, W=g.W,
+                            has_ltp=g.has_ltp)
+        starts = torch.from_numpy(g.starts.astype(np.int32)).to(dev)
+        ok = torch.ones(B, dtype=torch.bool, device=dev)
+        k = B // 2
+        bad = out.clone()
+        bad[k, C - 1, g.n // 2] ^= 1
+        skip = ok.clone()
+        skip[k] = False
+        for args, want in (((out, want_dev, starts, ok), True),
+                           ((bad, want_dev, starts, ok), False),
+                           ((bad, want_dev, starts, skip), True)):
+            got = bool(verify_blocks(*args, n=g.n, B=B))
+            plain = bool(verify_blocks_plain(*args, n=g.n, B=B))
+            require(got == plain == want,
+                    f"K13 gives {got}, its plain version {plain}, expected "
+                    f"{want} on the {B}-block group of n={g.n}")
+            checks += 1
+        if largest is None or B > largest[2]:
+            largest = ((out, want_dev, starts, ok), g.n, B, g.starts)
+    return checks, largest
+
+
+def resident_sync_lines() -> tuple[set, set]:
+    """Lines of srla_tpu_torch/decoder.py where the resident decode may
+    wait for the card: its uploads (the stream, each shard's parameters and
+    starts, expected to another device), and its flag fetch."""
+    import inspect
+
+    from srla_tpu_torch import decoder
+    src, first = inspect.getsourcelines(
+        decoder.SRLADecoder.decode_whole_device_resident)
+    uploads = {first + i for i, line in enumerate(src) if ".to(d)" in line}
+    flags = {first + i for i, line in enumerate(src) if ".item()" in line}
+    src, first = inspect.getsourcelines(decoder.upload_stream)
+    uploads |= {first + i for i, line in enumerate(src)
+                if ".to(device)" in line}
+    require(len(flags) == 1 and len(uploads) == 3,
+            f"resident decode: uploads at {uploads}, flag fetch at {flags}")
+    return uploads, flags
+
+
+def check_resident_syncs(sites: dict, devices: int, what: str) -> None:
+    """No host synchronisation of the port but the uploads and one flag
+    fetch a device: no PCM crosses to the host."""
+    uploads, flags = resident_sync_lines()
+    fetches = 0
+    for site, count in sites.items():
+        if not site.startswith("srla_tpu_torch/"):
+            continue
+        path, line = site.rsplit(":", 1)
+        require(path == "srla_tpu_torch/decoder.py"
+                and int(line) in uploads | flags,
+                f"{what}: a host synchronisation at {site} ({count}x), not "
+                f"an upload or the flag fetch")
+        if int(line) in flags:
+            fetches += count
+    require(fetches == devices, f"{what}: {fetches} flag fetches, expected "
+                                f"one a device ({devices})")
+
+
+def resident_case(torch, np, dev, what: str, pcm, stream: bytes):
+    """One stream's decode to device-resident PCM on the card, counted:
+    lossless, every COMPRESS block on the device, K2 and K13 once a group
+    and K1 at least once; then K13 against its plain version on every
+    group. Returns (launches, K13's checks, the largest group's K13
+    arguments, expected on the card)."""
+    from srla_tpu_torch import SRLADecoder
+
+    _, _, groups = SRLADecoder(dev).plan(stream)
+    want_dev = torch.from_numpy(np.ascontiguousarray(pcm, np.int32)).to(dev)
+    dec = SRLADecoder(dev)
+    (ok, stats), got = counted(
+        torch, all_wrappers(),
+        lambda: dec.decode_whole_device_resident(stream, (want_dev, pcm)))
+    require(ok is True, f"phase 14 {what}: the resident decode is {ok}")
+    ncomp = compress_blocks(stream)
+    require(stats == {"device_blocks": ncomp, "host_blocks": 0},
+            f"phase 14 {what}: block routing {stats}, expected {ncomp} on "
+            f"the device")
+    for name in ("verify", "rice_decode"):
+        require(got[name] == len(groups),
+                f"phase 14 {what}: {name} launched {got[name]} times, "
+                f"expected {len(groups)} (one a group)")
+    require(got["lpc_synth"] >= len(groups),
+            f"phase 14 {what}: lpc_synth launched {got['lpc_synth']} times")
+    checks, largest = k13_groups(torch, np, dev, stream, want_dev)
+    shown = {k: got[k] for k in ("rice_decode", "lpc_synth", "ltp_synth",
+                                 "verify")}
+    print(f"phase 14 {what}: resident decode True, {ncomp} COMPRESS blocks "
+          f"on the device in {len(groups)} groups, launches {shown}; K13 "
+          f"equal to its plain version on {checks} checks")
+    return got, checks, largest, want_dev
+
+
+def phase_resident(torch, np, dev, cases, card):
+    """Phase 14: the decode to device-resident PCM. Each of ``cases``
+    (path, PCM, stream) decoded by decode_whole_device_resident and K13
+    held to its plain version (resident_case); the three corruptions on a
+    stream with SILENT and RAW blocks; the first case split over two
+    shards; the host synchronisations by line; the warm speed beside
+    decode_whole's and a profile; K13 timed on the first case's largest
+    group. Returns (K13's record, {path: {run: launches}})."""
+    from srla_tpu_torch import SRLADecoder, decode
+    from srla_tpu_torch.constants import BlockDataType
+    from srla_tpu_torch.kernels.verify import (verify_blocks,
+                                               verify_blocks_plain)
+
+    runs, checks, main = {}, 0, None
+    for path, pcm, stream in cases:
+        got, c, largest, want_dev = resident_case(torch, np, dev, path, pcm,
+                                                  stream)
+        runs[path] = {"resident": got}
+        checks += c
+        if main is None:
+            main = (path, pcm, stream, largest, want_dev)
+
+    # One flipped sample in a COMPRESS, a RAW and a SILENT block.
+    pcm, stream = silent_raw_case(np)
+    blocks, at = [], 0
+    for t, n in stream_blocks(stream):
+        blocks.append((t, at, n))
+        at += n
+    got, c, _, _ = resident_case(torch, np, dev, "music10_silent_raw", pcm,
+                                 stream)
+    runs["music10_silent_raw"] = {"resident": got}
+    checks += c
+    for btype in (BlockDataType.COMPRESS, BlockDataType.RAW,
+                  BlockDataType.SILENT):
+        found = [b for b in blocks if b[0] == btype]
+        require(bool(found), f"phase 14: no {btype.name} block to corrupt")
+        _, s, n = found[len(found) // 2]
+        bad = pcm.copy()
+        bad[1, s + n // 2] ^= 1
+        ok, _ = SRLADecoder(dev).decode_whole_device_resident(
+            stream, (torch.from_numpy(bad).to(dev), bad))
+        require(ok is False, f"phase 14: a flipped sample in a "
+                             f"{btype.name} block gives {ok}")
+
+    path, pcm, stream, (args, n, B, starts), want_dev = main
+    _, _, groups = SRLADecoder(dev).plan(stream)
+    split = SRLADecoder(dev, devices=[dev, dev])
+    (ok, st), got = counted(
+        torch, all_wrappers(), lambda: split.decode_whole_device_resident(
+            stream, (want_dev, pcm)))
+    shards = sum(min(2, len(g.starts)) for g in groups)
+    require(ok is True and got["verify"] == shards,
+            f"phase 14 {path} over two shards: {ok}, K13 launched "
+            f"{got['verify']} times, expected {shards}")
+    runs[path]["resident_split"] = got
+
+    one = sync_sites(torch, lambda: SRLADecoder(
+        dev).decode_whole_device_resident(stream, (want_dev, pcm)))
+    check_resident_syncs(one, 1, f"phase 14 {path}")
+    two = sync_sites(torch, lambda: SRLADecoder(
+        dev, devices=[dev, dev]).decode_whole_device_resident(
+        stream, (want_dev, pcm)))
+    check_resident_syncs(two, 1, f"phase 14 {path} over two shards")
+    print(f"phase 14 {path} host synchronisations by line: resident decode "
+          f"{one}; over two shards of one card {two}; shard_cuts "
+          f"{st['shard_cuts']}; the resident decode corrupted in a "
+          f"COMPRESS, a RAW and a SILENT block: False each")
+
+    seconds = pcm.shape[1] / SAMPLE_RATE
+    t_res = best_of(torch, lambda: SRLADecoder(
+        dev).decode_whole_device_resident(stream, (want_dev, pcm)))
+    t_dec = best_of(torch, lambda: decode(stream, device=dev))
+    t_plan = min(timed(lambda: SRLADecoder(dev).plan(stream))
+                 for _ in range(3))
+    print(f"phase 14 {path} warm best of 3: resident decode "
+          f"{t_res * 1e3:.1f} ms = {seconds / t_res:.1f}x realtime, "
+          f"decode_whole {t_dec * 1e3:.1f} ms = {seconds / t_dec:.1f}x "
+          f"realtime; the host plan alone {t_plan * 1e3:.1f} ms [{card}]")
+    profile_decode(torch, lambda: SRLADecoder(
+        dev).decode_whole_device_resident(stream, (want_dev, pcm)),
+        "phase 14 resident decode profile")
+
+    # K13 at the largest group; the yardstick compares the same spans in
+    # one torch.equal where the group's blocks are consecutive.
+    out = args[0]
+    C = out.shape[1]
+    ms = cuda_ms(torch, lambda: verify_blocks(*args, n=n, B=B), 20)
+    dev_ms = device_ms(torch, lambda: verify_blocks(*args, n=n, B=B), 20)
+    plain_ms = cuda_ms(torch, lambda: verify_blocks_plain(*args, n=n, B=B),
+                       2)
+    require(bool((np.diff(starts) == n).all()),
+            f"phase 14: the {B}-block group is not consecutive")
+    s0 = int(starts[0])
+    span = want_dev[:, s0:s0 + B * n].view(C, B, n)
+    require(torch.equal(out.permute(1, 0, 2), span),
+            "phase 14: torch.equal disagrees with K13")
+    library_ms = cuda_ms(torch, lambda: torch.equal(out.permute(1, 0, 2),
+                                                    span), 20)
+    # Each ok row's n samples of out and of expected read once, the starts
+    # and okrows read, the flag written; a compare and an or a sample.
+    moved = 2 * nbytes(out[:B]) + nbytes(args[2]) + B + 1
+    b = bound(moved, 2 * B * C * n)
+    print(f"phase 14 K13 verify at B={B} C={C} n={n}: equal to plain on "
+          f"{checks} checks over {len(cases) + 1} streams; kernel "
+          f"{ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA graph), plain "
+          f"{plain_ms:.2f} ms, torch.equal {library_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
+          f"{b['ops_ms']:.4f} ms) [{card}]")
+    rec = dict(name="verify", route="cuda",
+               source="srla_tpu_torch/kernels/csrc/verify.cu",
+               replaces="srla_tpu/kernels/decode2.py:660", max_abs_err=0,
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b,
+               library_ms=library_ms, checks=checks)
+    return rec, runs
+
 
 
 def main() -> int:
@@ -3658,7 +3944,7 @@ def main() -> int:
     try:
         import numpy as np
 
-        from srla_tpu_torch import SRLADecoder, decode
+        from srla_tpu_torch import SRLADecoder, decode, parallel
         from srla_tpu_torch.host_encoder import encode
         from srla_tpu_torch.kernels import build
         from srla_tpu_torch.kernels.lpc import lpc_scan
@@ -3717,7 +4003,8 @@ def main() -> int:
           f"{ncomp} COMPRESS blocks on the device, launches {launches}; "
           f"warm best of 3 {best * 1e3:.1f} ms = "
           f"{MAIN_SECONDS / best:.1f}x realtime [{card}]")
-    profile_decode(torch, decode, stream, dev)
+    profile_decode(torch, lambda: decode(stream, device=dev),
+                   "phase 3 decode profile")
 
     # Phase 4: high orders and long-term prediction, decode (K9).
     ltp_dec_got, k9_err, pcm4, stream4 = phase_ltp_decode(torch, np, dev,
@@ -3728,7 +4015,7 @@ def main() -> int:
     k6_records, k6_launches = phase_bitfield(torch, np, dev)
     records += k6_records
     launches.update(k6_launches)
-    var_launches, var_errs, generic, tallies = phase_variable(
+    var_launches, var_errs, generic, tallies, v3_case = phase_variable(
         torch, np, dev, pcm, card)
     ltp_launches, ltp_records, ltp_tallies = phase_ltp_encode(
         torch, np, dev, pcm, card)
@@ -3745,8 +4032,18 @@ def main() -> int:
     for name in ("svr_cov", "svr_refine", "lpc_coefs", "lpc_quantize",
                  "svr_refine_v1"):
         launches[name] = svr_launches["music120_m4_svr2"]["encode"][name]
-    corpus_launches = phase_corpus(torch, np, dev, pcm, stream, pcm4,
-                                   stream4, card)
+    corpus_launches, hires, hires_streams = phase_corpus(
+        torch, np, dev, pcm, stream, pcm4, stream4, card)
+    # Phase 14: the decode to device-resident PCM (K13); its main path is
+    # phase 3's stream.
+    k13_record, resident_launches = phase_resident(torch, np, dev, [
+        ("music120_m4", pcm, stream), ("music120_m6_P3", pcm4, stream4),
+        ("segmented30_V3", *v3_case),
+        ("hires96k_24bit_B8192_fused", np.concatenate(hires, axis=1),
+         parallel.fused_stream(hires_streams))], card)
+    records.append(k13_record)
+    launches["verify"] = resident_launches["music120_m4"]["resident"][
+        "verify"]
     ltp_launches["music120_m6_P3"] = {"decode": ltp_dec_got}
     # K9's path is phase 4's decode, K10's the -V 0 -P 3 encode.
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
@@ -3777,6 +4074,10 @@ def main() -> int:
         rec["launches_corpus"] = {
             path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
             for path, runs in corpus_launches.items()}
+        # Phase 14: each resident decode's launches, by run.
+        rec["launches_resident"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in resident_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":

@@ -10,8 +10,9 @@ parsing and assembly, the exact host encoder for repairs and as the byte
 reference) is the port's own: copies of ``srla_tpu``'s modules under the
 same names, each naming its source. ``encode_files`` batches a corpus
 across files, ``parallel`` splits the block axis over devices and fuses a
-corpus into one decode, and ``streaming`` and the block API decode block by
-block.
+corpus into one decode, ``streaming`` and the block API decode block by
+block, and ``SRLADecoder.decode_whole_device_resident`` decodes to PCM that
+stays on the card, checked there against an expected PCM.
 
 Nothing in this package imports jax or ``srla_tpu``.
 """

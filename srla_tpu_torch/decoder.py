@@ -13,6 +13,9 @@ its group's size; ``stats`` counts them as ``srla_tpu`` does.
 Given ``devices``, each group is cut along its block axis into one
 contiguous shard a device (``parallel.shards``); the stream goes up once to
 each distinct device and every shard is launched before any is fetched.
+``decode_whole_device_resident`` decodes the same way but keeps the PCM on
+the device: each group is compared there with an expected PCM (kernel K13)
+and only one flag a device crosses back.
 ``decode_block`` decodes one framed block, a COMPRESS block on the device
 as a group of one; ``decode_block_params``, ``synthesize_block`` and
 ``decode_raw_block`` are the host one-block reference
@@ -31,6 +34,7 @@ from .constants import (HEADER_SIZE, MAX_COEFFICIENT_ORDER, MAX_LTP_ORDER,
                         BlockDataType)
 from .format import StreamHeader, decode_header, parse_block_header
 from .kernels.decode2 import decode_blocks, pack_meta
+from .kernels.verify import verify_blocks
 from .parallel import distinct, record_cut, resolve, shards
 
 
@@ -112,6 +116,79 @@ class SRLADecoder:
             self.stats["device_blocks"] += hi - lo
         return header, pcm
 
+    def decode_whole_device_resident(self, data: bytes,
+                                     expected) -> tuple[bool, dict]:
+        """Decode a whole .srl stream, keep its PCM on the device and
+        verify it there (``srla_tpu``'s decode to device-resident PCM).
+
+        expected: (expected_dev, expected_np), the same (C, N) int32 PCM as
+        a tensor (sent once to each decoding device other than its own) and
+        as a host array. Each COMPRESS group (each shard, given
+        ``devices``) is decoded as in ``decode_whole`` and compared with
+        its spans of expected_dev by kernel K13 (``kernels.verify``); its
+        PCM is neither fetched nor kept. RAW and SILENT blocks are compared
+        on the host with expected_np. Every shard is launched before the
+        flags are read, in one copy a device. Returns (lossless, stats).
+        """
+        header = decode_header(data)
+        C, N = header.num_channels, header.num_samples
+        expected_dev, expected_np = expected
+        if not isinstance(expected_dev, torch.Tensor) \
+                or expected_dev.dtype != torch.int32 \
+                or tuple(expected_dev.shape) != (C, N):
+            raise ValueError(f"expected_dev must be a ({C}, {N}) int32 "
+                             f"tensor, got {type(expected_dev).__name__} "
+                             f"{getattr(expected_dev, 'dtype', None)} "
+                             f"{tuple(getattr(expected_dev, 'shape', ()))}")
+        expected_np = np.asarray(expected_np)
+        if expected_np.dtype != np.int32 or expected_np.shape != (C, N):
+            raise ValueError(f"expected_np must be a ({C}, {N}) int32 array, "
+                             f"got {expected_np.dtype} {expected_np.shape}")
+        if N >= 2 ** 31:
+            raise ValueError(f"{N} samples: the verify's starts are int32")
+        host_spans: list = []
+        header, pcm, groups = self.plan(data, host_spans)
+        targets = self.devices or [self.device]
+        words = {d: upload_stream(data, d) for d in distinct(targets)}
+        want = {d: expected_dev.to(d).contiguous() for d in words}
+        # Each shard's parameters and block starts go up in one copy, all
+        # before any launch (a copy from pageable memory waits for the
+        # device's queue).
+        work = []
+        for g in groups:
+            cuts = shards(len(g.starts), targets)
+            for d, lo, hi in cuts:
+                meta = g.meta[lo:hi]
+                host = np.concatenate([meta.ravel(),
+                                       g.starts[lo:hi].astype(np.int32)])
+                up = torch.from_numpy(host).to(d)
+                work.append((g, hi - lo, d, up[:meta.size].view(meta.shape),
+                             up[meta.size:]))
+            if self.devices is not None:
+                record_cut(self.stats, cuts)
+        flags: dict = {d: [] for d in words}
+        covered = 0
+        # A shard's PCM is dropped once its K13 is queued behind it, so the
+        # allocator reuses it for the next shard on that stream.
+        for g, B, d, meta, starts in work:
+            out = decode_blocks(words[d], meta, header.offset_lshift, n=g.n,
+                                C=C, M=g.M, W=g.W, has_ltp=g.has_ltp)
+            okrows = torch.ones(B, dtype=torch.bool, device=d)
+            flags[d].append(verify_blocks(out, want[d], starts, okrows,
+                                          n=g.n, B=B))
+            covered += B * g.n
+            self.stats["device_blocks"] += B
+        host_ok = all(np.array_equal(pcm[:, s:s + ln],
+                                     expected_np[:, s:s + ln])
+                      for s, ln in host_spans)
+        covered += sum(ln for _, ln in host_spans)
+        # One copy a device: its groups' flags folded there, then fetched.
+        device_ok = True
+        for f in flags.values():
+            if f and device_ok:
+                device_ok = bool(torch.stack(f).all().item())
+        return device_ok and host_ok and covered >= N, dict(self.stats)
+
     def decode_block(self, data: bytes, header: StreamHeader, offset: int = 0
                      ) -> tuple[np.ndarray, int]:
         """Decode the framed block at ``offset`` -> (PCM (C, n) int32,
@@ -160,12 +237,13 @@ class SRLADecoder:
                          num_samples: int) -> np.ndarray:
         return self._host.decode_raw_block(payload, header, num_samples)
 
-    def plan(self, data: bytes
+    def plan(self, data: bytes, host_spans: list | None = None
              ) -> tuple[StreamHeader, np.ndarray, list[DecodeGroup]]:
         """Host part of the decode: walk and checksum the block headers,
         decode RAW/SILENT blocks into a fresh PCM array, batch-parse the
         COMPRESS parameter headers and group those blocks by size.
-        Returns (header, pcm, groups)."""
+        Returns (header, pcm, groups); ``host_spans``, where given, receives
+        (first sample, length) of every RAW and SILENT block."""
         header = decode_header(data)
         C, N = header.num_channels, header.num_samples
         pcm = np.zeros((C, N), dtype=np.int32)
@@ -184,6 +262,8 @@ class SRLADecoder:
                 sizes.append(nsamples)
                 poffs.append(poff)
                 psizes.append(psize)
+            if btype != BlockDataType.COMPRESS and host_spans is not None:
+                host_spans.append((progress, nsamples))
             offset = poff + psize
             progress += nsamples
         if not progs:

@@ -90,6 +90,21 @@ def encode_corpus_sharded(devices, pcm_list, bits_per_sample: int,
                         stats_out=stats_out)
 
 
+def fused_stream(streams) -> bytes:
+    """Header-compatible .srl streams as one virtual stream: their block
+    sections concatenated behind the first one's header, its sample count
+    the sum of theirs."""
+    import dataclasses
+
+    from .constants import HEADER_SIZE
+    from .format import decode_header, encode_header
+
+    head = decode_header(streams[0])
+    total = sum(decode_header(s).num_samples for s in streams)
+    return encode_header(dataclasses.replace(head, num_samples=total)) \
+        + b"".join(s[HEADER_SIZE:] for s in streams)
+
+
 def decode_corpus_sharded(devices, streams, check_checksum: bool = True,
                           stats_out=None) -> list:
     """Decode a corpus of .srl streams with one block axis split over
@@ -103,9 +118,8 @@ def decode_corpus_sharded(devices, streams, check_checksum: bool = True,
     receives the summed block counts, every group's ``shard_cuts`` and the
     last group's ``shard_rows``.
     """
-    from .constants import HEADER_SIZE
     from .decoder import SRLADecoder
-    from .format import StreamHeader, decode_header, encode_header
+    from .format import decode_header
 
     devices = list(devices)
     out: dict[int, np.ndarray] = {}
@@ -117,16 +131,11 @@ def decode_corpus_sharded(devices, streams, check_checksum: bool = True,
                            h.preset, h.sampling_rate), []).append(i)
     dec = SRLADecoder(devices[0], check_checksum=check_checksum,
                       devices=devices)
-    for key, idxs in groups.items():
+    for idxs in groups.values():
         if len(idxs) == 1:
             _, out[idxs[0]] = dec.decode_whole(streams[idxs[0]])
             continue
-        C, bps, lshift, max_block, preset, rate = key
-        total = sum(headers[i].num_samples for i in idxs)
-        virtual = encode_header(StreamHeader(
-            C, total, rate, bps, lshift, max_block, preset)) + b"".join(
-            streams[i][HEADER_SIZE:] for i in idxs)
-        _, pcm = dec.decode_whole(virtual)
+        _, pcm = dec.decode_whole(fused_stream([streams[i] for i in idxs]))
         off = 0
         for i in idxs:
             n_i = headers[i].num_samples

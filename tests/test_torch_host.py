@@ -245,6 +245,8 @@ def test_port_imports_nothing_of_srla_tpu():
     bad = []
     files = list(_port_files())
     assert len(files) > 30
+    assert os.path.join(REPO, "srla_tpu_torch", "kernels",
+                        "verify.py") in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -8,7 +8,8 @@ Builds the thirteen CUDA libraries of csrc/ (sixteen kernels) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
-the port calls) with concurrent nvcc, then:
+the port calls) with concurrent nvcc,
+then:
 
   1. K1 (LPC synthesis, csrc/lpc_synth.cu) against its plain PyTorch version
      on the card at the main-path shape (2584 rows x 4096 samples, 64 taps),
@@ -34,8 +35,10 @@ the port calls) with concurrent nvcc, then:
      period 262, wrapping values, n 300 and 4064) and on 37 hard rows
      (k9_hard_args: periods 8, 31, 32, 33 and 262, off rows between) at n
      16384, 4064 and 333: bit-equal; warm speed.
-  5. K3 (FIR residual, csrc/fir_predict.cu), K4 (Rice partition sums,
-     csrc/rice_search.cu) and K5 (csrc/bitpack.cu: pack_residual_sections,
+  5. K3 (FIR residual, csrc/fir_predict.cu), K4 (the Rice parameter
+     search, csrc/rice_search.cu: from the residual to each row's code
+     type, order, parameters, bits and flag) and K5 (csrc/bitpack.cu:
+     pack_residual_sections,
      residuals to packed sections in one kernel, the entry the encode runs,
      and pack, the generic pack of a ready codeword stream, which is off
      the encode's path) against their plain versions on the card, on the
@@ -45,22 +48,27 @@ the port calls) with concurrent nvcc, then:
      partition orders 0..5; tail_ms) and with a device time (CUDA graph
      replay) at both shapes, and each at one small odd shape: K3 at 11 rows
      of 333 samples, M 12 (orders 0, 1, M and M + 1, which reads as M;
-     shifts 0 and 31; rows that are not 16-byte aligned); K4 and both K5
-     entries at 12 rows of 512 samples at partition orders 0..9 (partitions
-     of one sample, shorter than a thread's run; both row kinds, a
-     full-range, a zero, an ALLZERO and a skipped row, parameters 0, 30 and
-     31): bit-equal. Also times the codeword stream (torch ops) that the
-     generic pack needs first: with pack's time, what the fused entry's
-     work cost before.
+     shifts 0 and 31; rows that are not 16-byte aligned); K4 at 12 rows of
+     512 samples at partition orders 0..9 (leaves of one sample; both row
+     kinds, a full-range row, an all-zero row, a row of mean 2 exactly)
+     and both K5 entries at 12 rows of 512 samples at partition orders
+     0..9 (partitions of one sample, shorter than a thread's run; both row
+     kinds, a full-range, a zero, an ALLZERO and a skipped row, parameters
+     0, 30 and 31): bit-equal, every output. Also times the codeword stream
+     (torch ops) that the generic pack needs first: with pack's time, what
+     the fused entry's work cost before.
   6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
      at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
      every COMPRESS block emitted from the device or a counted host repair
      or overflow, K8 (autocorrelation, csrc/autocorr.cu), K7 (Levinson,
      order choice and quantization, csrc/lpc_analyze.cu), K3, K4 and K5's
      pack_residual_sections launched by that encode (twice each, once a
-     group; the generic pack not at all) and no plain version of K7 or K8
-     reached, and the stream decoded losslessly by the port. Prints the
-     warm best-of-3 encode speed and a per-step breakdown.
+     group; the generic pack not at all) and no plain version of K7, K8 or
+     K4 reached, and the stream decoded losslessly by the port. Prints the
+     warm best-of-3 encode speed and a per-step breakdown, and three of
+     the main group's encodes under torch.profiler: the device's kernels
+     in launch order, none between any K3 and its K4 (the Rice search is
+     one launch).
   7. K6 (bit-field placement probes, csrc/bitfield_probe.cu: one-hot
      product, read-modify-write OR, masked lane reduction): the port's tool
      ``python -m srla_tpu_torch.tools.bitfield_probes`` run once as the
@@ -75,8 +83,9 @@ the port calls) with concurrent nvcc, then:
      lookahead window measured on the card by kernels.exact.measure_spans,
      K3 and K4, one call per span length; the reference's Dijkstra on the
      host; the chosen blocks encoded as in phase 6): 120 s of make_music at
-     the CLI's defaults (-m 4 -B 4096 -V 1 -L 4) and 30 s of the segmented
-     signal (srla_tpu_torch.signals.make_segmented) at -V 1 and -V 3, each
+     the CLI's defaults (-m 4 -B 4096 -V 1 -L 4), 30 s of the segmented
+     signal (srla_tpu_torch.signals.make_segmented) at -V 1 and -V 3 and
+     its first 10 s at -V 2 -L 2 and -V 2 -L 4, each
      encoded by SRLAEncoder(device="cuda"): byte-identical to the port's
      host exact encoder at the same flags, every span enumerated here
      measured on the card or a counted host re-measure, every COMPRESS
@@ -96,15 +105,21 @@ the port calls) with concurrent nvcc, then:
      encode's and decode's warm
      best of 3 beside the host exact encoder's time, its step breakdown,
      its measurement's call count and the largest call's time and peak
-     memory, and K4's generic kernel against its plain version on the -V 3
+     memory, and K4's generic entry against its plain version on the -V 3
      measurement's 3072-sample group (CUDA events, device time, bound).
   9. Long-term prediction on the encode: the 120 s of phase 3 at -m 4 -B
-     4096 -V 0 -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), each
+     4096 -V 0 -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), and
+     its first 20 s at -V 2 -L 4 -P 3 and first 10 s at -V 2 -B 1024 -L 4
+     -P 3, each
      encoded by SRLAEncoder(device="cuda"), counted: byte-identical to the
-     host exact encoder, span and block accounting, K10 (pitch search and
-     LTP solve, csrc/ltp_analyze.cu), K7, K3 and K4 once per analysis call,
-     K8 twice (the pitch lags, then the LPC lags) and K5 once per encode
-     group, analysis rows with LTP on above 0, and the stream decoded
+     host exact encoder, span and block accounting (the spans and blocks
+     under 512 samples on the host, as many as the span plan and the
+     stream give: device_route), K10 (pitch search and LTP solve,
+     csrc/ltp_analyze.cu), K7, K3 and K4 once per device analysis call (K4
+     held to its plain version on every output on the inputs of each of
+     its calls: held_encode), K8 twice (the pitch lags, then the LPC lags)
+     and K5 once per encode group, analysis rows with LTP on above 0, and
+     the stream decoded
      losslessly on the card with K9 launched. Then K10 against its plain
      version on the inputs of every analysis call (the pitch lags of every
      measurement call and encode group) and K9 on every LTP decode group:
@@ -138,7 +153,8 @@ the port calls) with concurrent nvcc, then:
      had not run: 20 s of make_music shifted to 24 bits at -m 4 -B 8192 -V
      0 -P 3 and 16-bit at -m 6 -B 16384 -V 0 -P 1, encoded on the card:
      byte-identical to the host exact encoder, repaired blocks counted, K10,
-     K7, K3, K4 and K5 once per encode group and K8 twice, the decode
+     K7, K3, K4 (held to its plain version on each call's inputs) and K5
+     once per encode group and K8 twice, the decode
      lossless with K9 once per LTP group; K9 and K10 against their plain
      versions on every group, K8 and K7 as in phase 8.
  12. SVR refinement (--svr-filter-learning-iteration 2): make_music at -m 4
@@ -148,14 +164,16 @@ the port calls) with concurrent nvcc, then:
      byte-identical to the host exact encoder (its time printed), span and
      block accounting, K7's coefficient and quantization entries, K11
      (csrc/svr_cov.cu) and K12 (csrc/svr_refine.cu) once per analysis call
-     and K7's fused entry never, no plain version reached, the decode on
-     the card lossless; K11, K12 and K7's quantization entry bit-equal to
+     and K7's fused entry never, no plain version reached, K4 held to its
+     plain version on each call's inputs, the decode on the card lossless;
+     K11, K12 and K7's quantization entry bit-equal to
      their plain versions (flags and iterations too) on the M 255 path's
      tail group, and K7's coefficient entry held to its plain version there
      (flags equal, orders equal where unflagged, coefficients within 4
      kappa' 2^-42 max|c| and kappa' within (2M + 1) kappa' 2^-42 relative:
      the two sum in different orders, k7_coefs_check). Then phase 3's 120 s
-     at -m 4 -B 4096 -V 0 --svr 2: counted, decoded losslessly, the repair
+     at -m 4 -B 4096 -V 0 --svr 2: counted (K4 held as above), decoded
+     losslessly, the repair
      rate (a warning above 5 %), warm best of 3 with its step split, K11,
      K12 and K7's two SVR entries against their plain versions on every row
      of both analysis calls, and K11, K12 and K7's two SVR entries
@@ -205,7 +223,7 @@ the port calls) with concurrent nvcc, then:
      the resident decode beside decode_whole's on phase 3's stream, a
      profile of one resident decode, and K13 at the 1291-block group
      beside its plain version, its bound and one torch.equal of the same
-     spans.
+     spans, and at the stream's 1-block tail group.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -214,7 +232,8 @@ that call's time; then one JSON line describing the kernels (``launches``
 counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
 -V 0 encode, K8's and K7's on phase 6's, K11's, K12's and K7's two SVR
 entries' (records lpc_coefs and lpc_quantize) on phase 12's full-width
-encode, 0 for K12's first design (svr_refine_v1, a measurement aid), K13's
+encode, 0 for K12's first design (svr_refine_v1, a measurement aid),
+K13's
 on phase 14's resident decode of phase 3's stream;
 ``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
@@ -263,6 +282,8 @@ SAMPLE_RATE = 44100
 MAIN_SECONDS = 120.0
 LTP_SECONDS = 120.0              # phase 4's -m 6 -P 3 stream
 VAR_SECONDS = 30.0               # the segmented signal of phase 8
+VAR2_SECONDS = 10.0              # its part that phase 8 encodes at -V 2
+LTP2_SECONDS = 20.0              # phase 3's part that phase 9 takes at -V 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 # H100 SXM: 132 SMs, 64 INT32 results per clock per SM for add, shift,
 # logic and multiply-add (compute capability 9.0), 1.98 GHz boost clock.
@@ -307,6 +328,10 @@ def device_ms(torch, fn, reps: int) -> float:
 
 
 def max_abs_err(torch, got, want) -> int:
+    """Largest difference of two integer tensors (or tuples of them, each
+    pair of the same shape)."""
+    if isinstance(got, tuple):
+        return max(max_abs_err(torch, g, w) for g, w in zip(got, want))
     return int((got.long() - want.long()).abs().max().item())
 
 
@@ -570,8 +595,8 @@ def profile_decode(torch, fn, what: str) -> None:
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
              "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify")
-# Measurement only: the serial floors, and the first designs of K8, K7, K9
-# and K10.
+# Measurement only: the serial floors, and the first designs of K8, K7, K9,
+# K10 and K12.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
           "ltp_analyze_v1", "svr_refine_v1")
 
@@ -623,33 +648,63 @@ def compare(torch, name, kernel, plain, args, reps: int = 20):
     return e, ms, plain_ms
 
 
-def rice_search_args(torch, core, args):
+def rice_search_args(core, args):
     """K4's arguments as the analysis of a group hands them over."""
-    from srla_tpu_torch.kernels import exact
-    from srla_tpu_torch.kernels.lpc import wrap32
-    u, ks, rec, _, _ = exact.rice_params(core["residual"], args["n"],
-                                         args["max_porder"])
-    return (wrap32(u).to(torch.int32), ks.to(torch.int32).contiguous(),
-            rec.to(torch.int32), args["n"], args["max_porder"])
+    return core["residual"], args["n"], args["max_porder"]
 
 
-def small_leaf_args(torch, np, dev):
+def k4_odd_args(torch, np, dev):
     """K4 arguments whose finest partitions are one sample, shorter than a
-    thread's run: 12 rows of 512 samples at partition orders 0..9, a
-    full-range row, a zero row, rows with every parameter at 30, 31 and 0,
-    both row kinds."""
-    V, n, max_porder = 12, 512, 9
+    thread's run: 12 rows of 512 samples at partition orders 0..9, plain
+    and recursive rows (Laplace scales 0.3 to 3e4), a full-range row
+    (zigzag codes up to 2^32), an all-zero row and a row whose mean is 2
+    exactly (flagged)."""
+    n = 512
     rng = np.random.RandomState(0)
-    u = rng.randint(0, 1 << 12, (V, n))
-    u[1] = rng.randint(0, 1 << 31, n)
-    u[2] = 0
-    ks = rng.randint(0, 14, (V, (2 << max_porder) - 1))
-    ks[3], ks[4], ks[5] = 30, 31, 0
+    scales = np.array([0.3, 0.9, 3.0, 40.0, 900.0, 3.0e4] * 2)
+    res = rng.laplace(0, 1, (12, n)) * scales[:, None]
+    res = res.astype(np.int64)
+    res[1] = rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    res[2] = 0
+    res[3] = 1                                  # zigzag 2: mean 2
+    return torch.from_numpy(res.astype(np.int32)).to(dev), n, 9
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    return t(u), t(ks), t(np.arange(V) % 2), n, max_porder
+def k4_bound(args, out) -> dict:
+    """K4's bound on this run's inputs: the residual read once and the
+    outputs written once (the ks as int64); the integer instructions of the
+    cheapest sequence sm_90 has for each term: a sample's zigzag (shift,
+    shift, xor) and its 64-bit leaf-sum add (add, add with carry) once, then
+    a sample and order 3 on the rows this data made recursive (one DPX
+    add-max, shift, add) and 2 on the others (shift, add)."""
+    res, n, max_porder = args
+    V = res.shape[0]
+    rec = int((out[0] == 1).sum())
+    ops = (5 * V + (3 * rec + 2 * (V - rec)) * (max_porder + 1)) * n
+    return bound(nbytes(res) + nbytes(*out), ops)
+
+
+def k4_timed(torch, what: str, args) -> dict:
+    """K4 against its plain version on ``args`` (every output), timed by
+    CUDA events and by graph replay, beside its bound and its plain
+    version."""
+    from srla_tpu_torch.kernels.rice_search import (rice_search,
+                                                    rice_search_plain)
+    e, ms, pms = compare(torch, what, rice_search, rice_search_plain, args)
+    b = k4_bound(args, rice_search(*args))
+    return dict(rows=args[0].shape[0], n=args[1], max_porder=args[2],
+                max_abs_err=e, ms=ms, plain_ms=pms,
+                device_ms=device_ms(torch, lambda: rice_search(*args), 20),
+                **b)
+
+
+def k4_text(r: dict) -> str:
+    return (f"V={r['rows']} n={r['n']} porders 0..{r['max_porder']}: "
+            f"bit-equal to plain on every output, kernel {r['ms']:.4f} ms, "
+            f"device time {r['device_ms']:.4f} ms (CUDA graph), plain "
+            f"{r['plain_ms']:.2f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}; operations {r['ops_ms']:.6f} ms; device time "
+            f"at {r['bound_ms'] / r['device_ms'] * 100:.0f} % of it)")
 
 
 def fir_odd_args(torch, np, dev):
@@ -763,8 +818,8 @@ def phase_encode_kernels(torch, np, dev, pcm):
                                                 pack_residual_sections,
                                                 pack_residual_sections_plain)
     from srla_tpu_torch.kernels.predict import predict, predict_plain
-    from srla_tpu_torch.kernels.rice_search import (rice_sums,
-                                                    rice_sums_plain)
+    from srla_tpu_torch.kernels.rice_search import (rice_search,
+                                                    rice_search_plain)
 
     blocks, B, args, W = main_group(torch, np, dev, pcm)
     n = args["n"]
@@ -814,37 +869,27 @@ def phase_encode_kernels(torch, np, dev, pcm):
                      max_abs_err=e, ms=ms, plain_ms=pms, **b,
                      library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
                      tail_device_ms=tail_dev_ms, copy_ms=cp_ms))
-    k4 = rice_search_args(torch, core, args)
-    e, ms, pms = compare(torch, "K4", rice_sums, rice_sums_plain, k4)
-    k4_tail = rice_search_args(torch, tail_core, tail_args)
-    tail_e, tail_ms, _ = compare(torch, "K4 (tail group)", rice_sums,
-                                 rice_sums_plain, k4_tail)
-    k4_small = small_leaf_args(torch, np, dev)
-    small_e, _, _ = compare(torch, "K4 (leaves of one sample)", rice_sums,
-                            rice_sums_plain, k4_small, reps=1)
-    e = max(e, tail_e, small_e)
-    dev_ms = device_ms(torch, lambda: rice_sums(*k4), 20)
-    tail_dev_ms = device_ms(torch, lambda: rice_sums(*k4_tail), 20)
-    # Read the codes, parameters and row kinds once, write the sums once;
-    # a shift and an add per sample and partition order.
-    b = bound(nbytes(*k4[:3]) + nbytes(k4[1]),
-              2 * V * n * (args["max_porder"] + 1))
-    print(f"phase 5 K4 rice_search at V={V} n={n} porders "
-          f"0..{args['max_porder']}: bit-equal, kernel {ms:.4f} ms, "
-          f"plain {pms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms), device time "
-          f"{dev_ms:.4f} ms (CUDA graph); tail "
-          f"V={k4_tail[0].shape[0]} n={k4_tail[3]} porders "
-          f"0..{k4_tail[4]}: bit-equal, kernel {tail_ms:.4f} ms, device "
-          f"time {tail_dev_ms:.4f} ms; "
-          f"V={k4_small[0].shape[0]} n={k4_small[3]} porders "
-          f"0..{k4_small[4]}: bit-equal")
+    # K4 at the main group, the tail group (the generic entry: leaves of
+    # 127 padded to 128) and the odd shape.
+    main4 = k4_timed(torch, "K4", rice_search_args(core, args))
+    tail4 = k4_timed(torch, "K4 (tail group)",
+                     rice_search_args(tail_core, tail_args))
+    small_e, _, _ = compare(torch, "K4 (leaves of one sample)", rice_search,
+                            rice_search_plain, k4_odd_args(torch, np, dev),
+                            reps=1)
+    print(f"phase 5 K4 rice_search: {k4_text(main4)}; tail "
+          f"{k4_text(tail4)}; V=12 n=512 porders 0..9: bit-equal")
     recs.append(dict(name="rice_search", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/rice_search.cu",
                      replaces="srla_tpu/kernels/exact.py:454",
-                     max_abs_err=e, ms=ms, plain_ms=pms, **b,
-                     library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
-                     tail_device_ms=tail_dev_ms))
+                     max_abs_err=max(main4["max_abs_err"],
+                                     tail4["max_abs_err"], small_e),
+                     ms=main4["ms"], plain_ms=main4["plain_ms"],
+                     bound_ms=main4["bound_ms"], bound_by=main4["bound_by"],
+                     ops_ms=main4["ops_ms"], library_ms=None,
+                     tail_ms=tail4["ms"], device_ms=main4["device_ms"],
+                     tail_device_ms=tail4["device_ms"],
+                     tail_bound_ms=tail4["bound_ms"]))
 
     # K5. The chosen rows of a group as the encode hands them over, and
     # the same rows' codeword stream for the generic pack.
@@ -1104,14 +1149,69 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     print("phase 6 encode breakdown (host clock, synchronised per step, ms): "
           + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
           + f"; total {sum(steps.values()) * 1e3:.2f}")
+    profile_encode_group(torch, np, dev, pcm, card)
     return launches
 
 
-def variable_param(V: int):
-    """-m 4 -B 4096 -V V -L 4 for 16-bit stereo at 44.1 kHz (at V 1 the
-    CLI's defaults)."""
+def profile_encode_group(torch, np, dev, pcm, card) -> None:
+    """The main group's encode (kernels.exact.encode_blocks, 1291 blocks of
+    4096) under torch.profiler, after a warm-up step: the device's kernels
+    in launch order. The window holds RUNS encodes, since a later profiler
+    session in a process may miss the first kernels of its window: every
+    K3 kernel recorded must be followed at once by K4's, with exactly one
+    K4 kernel before the next K3 (the Rice search is one launch)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from srla_tpu_torch.kernels import exact
+    blocks, B, args, W = main_group(torch, np, dev, pcm)
+    runs = 3
+
+    def run():
+        exact.encode_blocks(blocks, 0, C=2, W=W, **args)
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(runs):
+            run()
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith("Memcpy")
+                      and not e.name.startswith("Memset")),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    k3 = [i for i, nm in enumerate(names) if "fir_predict" in nm]
+    require(k3, f"phase 6 profile: no K3 kernel among the {len(names)} "
+                f"kernels of {runs} encode groups")
+    for a, b in zip(k3, k3[1:] + [len(names)]):
+        require(a + 1 < b and "rice_search_rows" in names[a + 1],
+                f"phase 6 profile: the kernels after K3 are "
+                f"{names[a:a + 6]}")
+        require(sum("rice_search" in nm for nm in names[a:b]) == 1,
+                "phase 6 profile: K4 launched more than once in a group")
+    last = k3[-1]
+    after = names[last:last + 6]
+    short = [nm.replace("(anonymous namespace)::", "").replace("void ", "")
+             .split("(")[0]
+             .split("<")[0].split("::")[-1] for nm in after]
+    dev_us = [e.time_range.elapsed_us() for e in kernels[last:last + 2]]
+    print(f"phase 6 profile of {runs} encode groups ({B} blocks x "
+          f"{args['n']}, torch.profiler): {len(names)} kernels recorded, "
+          f"{len(k3)} K3; from the last K3 on {short}; K3 {dev_us[0]:.1f} "
+          f"us, K4 {dev_us[1]:.1f} us; nothing between K3 and K4 in any "
+          f"group [{card}]")
+
+
+def variable_param(V: int, L: int = 4):
+    """-m 4 -B 4096 -V V -L L for 16-bit stereo at 44.1 kHz (at V 1, L 4
+    the CLI's defaults)."""
     from srla_tpu_torch.host_encoder import make_parameter
-    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4)
+    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, L)
 
 
 def span_groups(pcm, param) -> dict:
@@ -1215,11 +1315,11 @@ def all_wrappers() -> dict:
     from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
     from srla_tpu_torch.kernels.predict import predict
     from srla_tpu_torch.kernels.rice_decode import rice_decode
-    from srla_tpu_torch.kernels.rice_search import rice_sums
+    from srla_tpu_torch.kernels.rice_search import rice_search
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
     from srla_tpu_torch.kernels.verify import verify_blocks
     return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
-            "fir_predict": predict, "rice_search": rice_sums,
+            "fir_predict": predict, "rice_search": rice_search,
             "pack_residual_sections": pack_residual_sections,
             "bitpack": pack, "ltp_synth": ltp_synth,
             "ltp_analyze": ltp_analyze, "autocorr": autocorr,
@@ -1230,11 +1330,12 @@ def all_wrappers() -> dict:
 
 
 def without_plain(fn):
-    """fn() with the plain versions of K7, K8, K11 and K12 (and the torch
-    loops they compose) replaced by tripwires: an encode on the card that
-    reached one of them raises."""
+    """fn() with the plain versions of K7, K8, K11, K12 and K4 (and the
+    torch loops they compose) replaced by tripwires: an encode on the card
+    that reached one of them raises."""
     from srla_tpu_torch.kernels import autocorr as k8
     from srla_tpu_torch.kernels import levinson as k7
+    from srla_tpu_torch.kernels import rice_search as k4
     from srla_tpu_torch.kernels import svr as k12
     names = ((k8, "autocorr_plain"), (k7, "lpc_analyze_plain"),
              (k7, "levinson"), (k7, "select_order_exact"),
@@ -1242,12 +1343,14 @@ def without_plain(fn):
              (k7, "lpc_quantize_plain"), (k12, "svr_cov_plain"),
              (k12, "svr_refine_plain"), (k12, "cholesky_plain"),
              (k12, "cholesky_solve_plain"), (k12, "inverse_diag_max_plain"),
-             (k12, "rgr_mean_code_length"))
+             (k12, "rgr_mean_code_length"), (k4, "rice_search_plain"),
+             (k4, "rice_params"), (k4, "rice_sums_plain"),
+             (k4, "porder_search"))
     saved = [getattr(m, name) for m, name in names]
 
     def tripwire(*_a, **_k):
-        raise RuntimeError("a plain version of K7, K8, K11 or K12 ran on the "
-                           "encode's path")
+        raise RuntimeError("a plain version of K7, K8, K11, K12 or K4 ran on "
+                           "the encode's path")
 
     for m, name in names:
         setattr(m, name, tripwire)
@@ -1256,6 +1359,56 @@ def without_plain(fn):
     finally:
         for (m, name), f in zip(names, saved):
             setattr(m, name, f)
+
+
+def k4_held(torch, fn, tally: dict):
+    """fn() with the analysis's K4 call (kernels/exact.py's rice_search)
+    recording each call's residual and outputs; after fn, outside
+    without_plain's tripwires, each call's outputs are held to the plain
+    version's on the same residual: bit-equal on every output (code type,
+    order, bits, ks, risky). Adds the calls and rows to ``tally``."""
+    from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.rice_search import rice_search_plain
+    kernel = exact.rice_search
+    calls = []
+
+    def recorded(residual, n, max_porder):
+        out = kernel(residual, n, max_porder)
+        calls.append(((residual.clone(), n, max_porder),
+                      tuple(t.clone() for t in out)))
+        return out
+
+    exact.rice_search = recorded
+    try:
+        result = fn()
+    finally:
+        exact.rice_search = kernel
+    for args, got in calls:
+        e = max_abs_err(torch, got, rice_search_plain(*args))
+        require(e == 0, f"K4 differs from its plain version on the inputs "
+                        f"of an analysis call ({args[0].shape[0]} rows x "
+                        f"{args[1]}, max abs err {e})")
+        tally["calls"] += 1
+        tally["rows"] += args[0].shape[0]
+    return result
+
+
+def held_encode(torch, wrappers: dict, fn):
+    """counted(torch, wrappers, fn) with fn under without_plain and every
+    K4 call of it held to the plain version on its inputs (k4_held), one
+    held call a launch. Returns (fn's result, launches, K4's tally)."""
+    k4 = {"calls": 0, "rows": 0}
+    out, got = counted(torch, wrappers, lambda: k4_held(
+        torch, lambda: without_plain(fn), k4))
+    require(k4["calls"] == got["rice_search"],
+            f"K4 held on {k4['calls']} calls, launched {got['rice_search']} "
+            f"times")
+    return out, got, k4
+
+
+def k4_held_text(k4: dict) -> str:
+    return (f"K4 bit-equal to plain on every output on the inputs of each "
+            f"of its {k4['calls']} analysis calls ({k4['rows']} rows)")
 
 
 def new_tally() -> dict:
@@ -1328,18 +1481,17 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
     measurement call of one -V encode (its spans of each length, cut into
     calls as the encoder cuts them) and of every encode group (the
     stream's blocks of each length), K5's pack_residual_sections on those
-    of every encode group: bit-equal; K8 and K7 on the same calls
-    (analysis_checks, counted into ``tally``). At the first measurement
-    call of length time_n it also times K4 (CUDA events, device time,
-    bound).
+    of every encode group: bit-equal (K4 on every output); K8 and K7 on the
+    same calls (analysis_checks, counted into ``tally``). At the first
+    measurement call of length time_n it also times K4 (k4_timed).
     Returns (max_abs_err by kernel, [(what, rows, n)] checked, K4's timed
     record or None)."""
     from srla_tpu_torch import SRLAEncoder
     from srla_tpu_torch.host_encoder import _compute_offset_lshift
     from srla_tpu_torch.kernels import exact
     from srla_tpu_torch.kernels.predict import predict, predict_plain
-    from srla_tpu_torch.kernels.rice_search import (rice_sums,
-                                                    rice_sums_plain)
+    from srla_tpu_torch.kernels.rice_search import (rice_search,
+                                                    rice_search_plain)
     enc = SRLAEncoder(param, dev)
     file = enc._upload(pcm)[enc.device]
     lshift = _compute_offset_lshift(pcm)
@@ -1354,9 +1506,9 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
         k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
         err["fir_predict"] = max(err["fir_predict"], check(
             torch, f"K3 ({at})", predict, predict_plain, k3))
-        k4 = rice_search_args(torch, core, args)
+        k4 = rice_search_args(core, args)
         err["rice_search"] = max(err["rice_search"], check(
-            torch, f"K4 ({at})", rice_sums, rice_sums_plain, k4))
+            torch, f"K4 ({at})", rice_search, rice_search_plain, k4))
         analysis_checks(torch, at, None, core["work"], args, tally)
         checked.append((what, k3[0].shape[0], n))
         return args, small, big, core, k4
@@ -1366,15 +1518,7 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
         for k, part in enumerate(calls_of(offs, per_call)):
             args, _, _, _, k4 = analysed(part, n, "measurement call")
             if n == time_n and k == 0:
-                e, ms, pms = compare(torch, f"K4 (generic, n={n})",
-                                     rice_sums, rice_sums_plain, k4)
-                dev_ms = device_ms(torch, lambda: rice_sums(*k4), 20)
-                V, porders = k4[0].shape[0], args["max_porder"]
-                b = bound(nbytes(*k4[:3]) + nbytes(k4[1]),
-                          2 * V * n * (porders + 1))
-                timed_k4 = dict(rows=V, n=n, max_porder=porders,
-                                max_abs_err=e, ms=ms, device_ms=dev_ms,
-                                plain_ms=pms, **b)
+                timed_k4 = k4_timed(torch, f"K4 (generic, n={n})", k4)
     for n, offs in sorted(blocks.items()):
         W = enc._section_words(n)
         for part in calls_of(offs, SRLAEncoder.MAX_CALL_BLOCKS):
@@ -1388,14 +1532,18 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
     return err, checked, timed_k4
 
 
-VARIABLE_PATHS = (("music120_V1", 1), ("segmented30_V1", 1),
-                  ("segmented30_V3", 3))
+# (path, -V, -L): the segmented paths take the first VAR_SECONDS or
+# VAR2_SECONDS of one segmented signal.
+VARIABLE_PATHS = (("music120_V1", 1, 4), ("segmented30_V1", 1, 4),
+                  ("segmented30_V3", 3, 4), ("segmented10_V2_L2", 2, 2),
+                  ("segmented10_V2_L4", 2, 4))
 
 
 def phase_variable(torch, np, dev, music, card):
     """Phase 8, the -V path on the card: 120 s of make_music at the CLI's
-    defaults (-m 4 -B 4096 -V 1 -L 4) and 30 s of the segmented signal at -V
-    1 and -V 3, each encoded by SRLAEncoder(device="cuda") and decoded by
+    defaults (-m 4 -B 4096 -V 1 -L 4), 30 s of the segmented signal at -V
+    1 and -V 3 and its first 10 s at -V 2 -L 2 and -V 2 -L 4, each
+    encoded by SRLAEncoder(device="cuda") and decoded by
     decode(..., device="cuda"). Checks bytes against the host exact encoder,
     span and block accounting, launch counts and lossless decode; then K3,
     K4 and K5's fused entry against their plain versions on the inputs of
@@ -1418,13 +1566,16 @@ def phase_variable(torch, np, dev, music, card):
     launches: dict = {}
     errs = dict(fir_predict=0, rice_search=0, pack_residual_sections=0)
     main_case = generic = v3_case = None
-    for path, V in VARIABLE_PATHS:
-        pcm = music if path.startswith("music") else seg
+    seg2 = np.ascontiguousarray(seg[:, :int(VAR2_SECONDS * SAMPLE_RATE)])
+    for path, V, L in VARIABLE_PATHS:
+        pcm = (music if path.startswith("music") else
+               seg2 if path.startswith("segmented10") else seg)
         what = (f"make_music {MAIN_SECONDS:.0f} s" if pcm is music
-                else f"segmented {VAR_SECONDS:.0f} s")
-        param = variable_param(V)
+                else f"segmented {pcm.shape[1] / SAMPLE_RATE:.0f} s -L {L}")
+        param = variable_param(V, L)
         t0 = time.perf_counter()
-        stream = host_encode(pcm, 16, SAMPLE_RATE, variable_divisions=V)
+        stream = host_encode(pcm, 16, SAMPLE_RATE, variable_divisions=V,
+                             lookahead_factor=L)
         host_s = time.perf_counter() - t0
         spans = span_groups(pcm, param)
         blocks = encode_groups(pcm, param, stream)
@@ -1544,13 +1695,8 @@ def phase_variable(torch, np, dev, music, card):
           f"{sorted(spans)}); the largest, {len(offs)} spans of {n}, "
           f"{call_ms:.1f} ms, peak device memory {peak_gb:.2f} GiB above "
           f"the resident file [{card}]")
-    print(f"phase 8 K4 generic kernel at the -V 3 measurement's group of "
-          f"{generic['rows']} rows x {generic['n']} (porders "
-          f"0..{generic['max_porder']}): bit-equal, kernel "
-          f"{generic['ms']:.4f} ms, device time {generic['device_ms']:.4f} "
-          f"ms (CUDA graph), plain {generic['plain_ms']:.2f} ms, bound "
-          f"{generic['bound_ms']:.4f} ms ({generic['bound_by']}; operations "
-          f"{generic['ops_ms']:.4f} ms) [{card}]")
+    print(f"phase 8 K4 generic entry at the -V 3 measurement's group: "
+          f"{k4_text(generic)} [{card}]")
     return launches, errs, generic, tallies, v3_case
 
 
@@ -1558,7 +1704,14 @@ def phase_variable(torch, np, dev, music, card):
 # Long-term prediction (-P): K9 in the decode, K10 in the encode
 # ---------------------------------------------------------------------------
 
-LTP_PATHS = (("music120_V0_P3", 0), ("music120_V1_P3", 1))
+# (path, -V, -B, samples of phase 3's audio): at -V 2 the last lookahead
+# window's clipped spans, and at -B 1024 every span of 256, are under the
+# 512 samples that -P analyses on the device, so the host measures them.
+LTP_PATHS = (("music120_V0_P3", 0, 4096, int(MAIN_SECONDS * SAMPLE_RATE)),
+             ("music120_V1_P3", 1, 4096, int(MAIN_SECONDS * SAMPLE_RATE)),
+             ("music20_V2_P3", 2, 4096, int(LTP2_SECONDS * SAMPLE_RATE)),
+             ("music10_V2_B1024_P3", 2, 1024,
+              int(VAR2_SECONDS * SAMPLE_RATE)))
 
 
 def ltp_synth_groups(torch, dev, stream: bytes) -> list:
@@ -1835,10 +1988,22 @@ def phase_ltp_decode(torch, np, dev, card):
     return got, err, pcm4, stream4
 
 
-def ltp_param(V: int):
-    """-m 4 -B 4096 -V V -L 4 -P 3 for 16-bit stereo at 44.1 kHz."""
+def ltp_param(V: int, B: int = 4096):
+    """-m 4 -B B -V V -L 4 -P 3 for 16-bit stereo at 44.1 kHz."""
     from srla_tpu_torch.host_encoder import make_parameter
-    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4, 3)
+    return make_parameter(2, 16, SAMPLE_RATE, 4, B, V, 4, 3)
+
+
+def device_route(groups: dict, param) -> tuple[dict, int]:
+    """``groups`` ({length: [offsets]} of COMPRESS spans or blocks, all of
+    even length) split as the encoder routes them: the lengths the device
+    analyses (with -P, those of at least LTP_MIN_DEVICE_SIZE samples), and
+    the count of the others, which the host measures or encodes in a
+    counted batch (srla_tpu's rule)."""
+    from srla_tpu_torch.encoder import LTP_MIN_DEVICE_SIZE
+    least = LTP_MIN_DEVICE_SIZE if param.ltp_order else 0
+    return ({n: o for n, o in groups.items() if n >= least},
+            sum(len(o) for n, o in groups.items() if n < least))
 
 
 def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
@@ -1876,11 +2041,16 @@ def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
 
 def phase_ltp_encode(torch, np, dev, music, card):
     """Phase 9, -P 3 on the card: 120 s of make_music at -m 4 -B 4096 -V 0
-    -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), each encoded by
+    -P 3 and at the CLI's defaults with -P 3 (-V 1 -L 4), and its first
+    20 s at -V 2 -L 4 -P 3 and its first 10 s at -V 2 -B 1024 -L 4 -P 3,
+    each encoded by
     SRLAEncoder(device="cuda"), counted: byte-identical to the host exact
-    encoder, block (and span) accounting, K10, K3, K4 once per analysis
-    call and K5 once per encode group, and the stream decoded losslessly on
-    the card with K9 launched. Then K10 against its plain version on the
+    encoder, block and span accounting (the spans and blocks under 512
+    samples on the host, as many as the span plan and the stream give),
+    K10, K3, K4 once per device analysis call (K4 held to its plain version
+    on each call's inputs) and K5 once per encode group, and the stream
+    decoded losslessly on the card with K9 launched. Then K10 against its
+    plain version on the
     inputs of every analysis call and K9 on every decode group; the rows
     with LTP on; each encode's warm best of 3 and step split; K10's and
     K9's times at the main shapes. Returns (each path's launches, the two
@@ -1895,30 +2065,38 @@ def phase_ltp_encode(torch, np, dev, music, card):
     tallies: dict = {}
     err10 = err9 = 0
     k10_main = k10_tail = k9_main = k9_tail = None
-    for path, V in LTP_PATHS:
-        param = ltp_param(V)
+    whole = music
+    for path, V, B, N in LTP_PATHS:
+        music = np.ascontiguousarray(whole[:, :N])
+        seconds = N / SAMPLE_RATE
+        param = ltp_param(V, B)
         t0 = time.perf_counter()
-        stream = host_encode(music, 16, SAMPLE_RATE, variable_divisions=V,
-                             ltp_order=3)
+        stream = host_encode(music, 16, SAMPLE_RATE, max_block=B,
+                             variable_divisions=V, ltp_order=3)
         host_s = time.perf_counter() - t0
-        spans = span_groups(music, param) if V else {}
-        blocks = encode_groups(music, param, stream)
+        spans, host_spans = device_route(
+            span_groups(music, param) if V else {}, param)
+        blocks, host_blocks = device_route(
+            encode_groups(music, param, stream), param)
         n_measure, n_encode = expected_calls(spans, blocks)
         enc = SRLAEncoder(param, dev)
-        data, got = counted(torch, all_wrappers(), lambda: without_plain(
-            lambda: enc.encode_whole(music)))
-        require(data == stream, f"-V {V} -P 3 encode differs from the host "
+        data, got, k4 = held_encode(torch, all_wrappers(),
+                                    lambda: enc.encode_whole(music))
+        require(data == stream, f"{path} encode differs from the host "
                                 f"exact stream")
         s = enc.stats
         nspans = sum(len(o) for o in spans.values())
         require(s["device_spans"] + s["remeasured_spans"] == nspans
-                and s["host_spans"] == 0,
-                f"-V {V} -P 3 span accounting {s}: {nspans} spans")
+                and s["host_spans"] == host_spans,
+                f"{path} span accounting {s}: {nspans} spans on the "
+                f"device, {host_spans} on the host")
         ncomp = compress_blocks(stream)
         handled = (s["device_blocks"] + s["repaired_blocks"]
                    + s["w_overflow_blocks"])
-        require(handled == ncomp, f"-V {V} -P 3 block accounting {s}: "
-                                  f"{handled} of {ncomp} COMPRESS blocks")
+        require(handled == ncomp - host_blocks
+                and s["host_blocks"] == host_blocks,
+                f"{path} block accounting {s}: {handled} of {ncomp} "
+                f"COMPRESS blocks on the device, {host_blocks} on the host")
         calls = n_measure + n_encode
         want = {"ltp_analyze": calls, "fir_predict": calls,
                 "rice_search": calls, "lpc_analyze": calls,
@@ -1926,11 +2104,11 @@ def phase_ltp_encode(torch, np, dev, music, card):
                 "pack_residual_sections": n_encode, "bitpack": 0,
                 "svr_refine_v1": 0}
         for name, count in want.items():
-            require(got[name] == count, f"-V {V} -P 3: {name} launched "
+            require(got[name] == count, f"{path}: {name} launched "
                                         f"{got[name]} times, expected {count}")
         (_, out), dec_got = counted(torch, all_wrappers(),
                                     lambda: decode(data, device=dev))
-        require(np.array_equal(out, music), f"-V {V} -P 3 decode is not "
+        require(np.array_equal(out, music), f"{path} decode is not "
                                             f"lossless")
         dec_names = ("rice_decode", "lpc_synth", "ltp_synth")
         for name in dec_names:
@@ -1956,12 +2134,12 @@ def phase_ltp_encode(torch, np, dev, music, card):
             if V == 0 and (k10_tail is None
                            or lags.shape[0] < k10_tail.shape[0]):
                 k10_tail = lags
-        require(on > 0, f"-V {V} -P 3: no analysis row has LTP on")
-        require(tally["k7_flag_diff"] == 0, f"-V {V} -P 3: K7 and its plain "
+        require(on > 0, f"{path}: no analysis row has LTP on")
+        require(tally["k7_flag_diff"] == 0, f"{path}: K7 and its plain "
                 f"version flag {tally['k7_flag_diff']} rows apart")
         tallies[path] = tally
         groups = ltp_synth_groups(torch, dev, data)
-        err9 = max(err9, check_ltp_synth(torch, f"-V {V} -P 3", groups))
+        err9 = max(err9, check_ltp_synth(torch, f"{path}", groups))
         if V == 0:
             k9_main = max(groups, key=lambda g: g[0])[2]
             k9_tail = min(groups, key=lambda g: g[0])[2]
@@ -1972,24 +2150,26 @@ def phase_ltp_encode(torch, np, dev, music, card):
         timed_enc.timer = StepTimer(dev)
         timed_enc.encode_whole(music)
         steps = timed_enc.timer.seconds
-        print(f"phase 9 encode {MAIN_SECONDS:.0f} s stereo -m 4 -B 4096 -V {V}"
+        print(f"phase 9 encode {seconds:.0f} s stereo -m 4 -B {B} -V {V}"
               f" -P 3 on the card: byte-identical to the host exact stream "
               f"({host_s:.2f} s on the host), {s['device_blocks']} device / "
               f"{s['repaired_blocks']} repaired / {s['w_overflow_blocks']} "
-              f"overflow of {ncomp} COMPRESS blocks; spans "
-              f"{s['device_spans']} device / {s['remeasured_spans']} "
-              f"re-measured of {nspans}; {n_measure} measurement calls, "
+              f"overflow / {s['host_blocks']} host of {ncomp} COMPRESS "
+              f"blocks; spans {s['device_spans']} device / "
+              f"{s['remeasured_spans']} re-measured / {s['host_spans']} host "
+              f"of {nspans + host_spans}; {n_measure} measurement calls, "
               f"{n_encode} encode groups; launches {got}; analysis rows with "
               f"LTP on: {on}; K10 bit-equal to plain on every call (rows x n "
               f"{checked}); decode on the card lossless, launches "
               f"{ {k: dec_got[k] for k in dec_names} }, K9 bit-equal to "
-              f"plain on its {len(groups)} LTP groups; {tally_text(tally)}; "
+              f"plain on its {len(groups)} LTP groups; {k4_held_text(k4)}; "
+              f"{tally_text(tally)}; "
               f"warm "
               f"best of 3: encode {enc_best * 1e3:.1f} ms = "
-              f"{MAIN_SECONDS / enc_best:.1f}x realtime, decode "
-              f"{dec_best * 1e3:.1f} ms = {MAIN_SECONDS / dec_best:.1f}x "
+              f"{seconds / enc_best:.1f}x realtime, decode "
+              f"{dec_best * 1e3:.1f} ms = {seconds / dec_best:.1f}x "
               f"realtime [{card}]")
-        print(f"phase 9 -V {V} -P 3 encode breakdown (host clock, "
+        print(f"phase 9 -B {B} -V {V} -P 3 encode breakdown (host clock, "
               f"synchronised per step, ms): "
               + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
               + f"; total {sum(steps.values()) * 1e3:.2f}")
@@ -2136,8 +2316,8 @@ def phase_ltp_shapes(torch, np, dev, card, tallies: dict):
         blocks = encode_groups(pcm, param, stream)
         _, calls = expected_calls({}, blocks)
         enc = SRLAEncoder(param, dev)
-        data, got = counted(torch, all_wrappers(), lambda: without_plain(
-            lambda: enc.encode_whole(pcm)))
+        data, got, k4 = held_encode(torch, all_wrappers(),
+                                    lambda: enc.encode_whole(pcm))
         require(data == stream, f"{path}: the encode differs from the host "
                                 f"exact stream")
         st = enc.stats
@@ -2189,7 +2369,8 @@ def phase_ltp_shapes(torch, np, dev, card, tallies: dict):
               f"every call (rows x n {checked}); decode on the card lossless, "
               f"K9 launched once per LTP group ({len(groups)}) and bit-equal "
               f"to plain on each (blocks x n "
-              f"{[(b, n) for b, n, _ in groups]}); {tally_text(tally)} "
+              f"{[(b, n) for b, n, _ in groups]}); {k4_held_text(k4)}; "
+              f"{tally_text(tally)} "
               f"[{card}]")
     return launches, err9, err10
 
@@ -2484,13 +2665,15 @@ def k7_first_design(torch, ac, n: int, bps: int, M: int, fixed: bool):
     return run
 
 
-def in_turns(torch, old, new, reps: int) -> tuple:
-    """Device times (CUDA graph replay) of two versions of a kernel in
-    turns, old, new, new, old: ((old, old), (new, new)) ms."""
-    a = device_ms(torch, old, reps)
-    b = device_ms(torch, new, reps)
-    c = device_ms(torch, new, reps)
-    d = device_ms(torch, old, reps)
+def in_turns(torch, old, new, reps: int, timer=None) -> tuple:
+    """Device times (CUDA graph replay; or ``timer``, such as cuda_ms) of
+    two versions of a kernel in turns, old, new, new, old: ((old, old),
+    (new, new)) ms."""
+    timer = timer or device_ms
+    a = timer(torch, old, reps)
+    b = timer(torch, new, reps)
+    c = timer(torch, new, reps)
+    d = timer(torch, old, reps)
     return (a, d), (b, c)
 
 
@@ -2768,8 +2951,8 @@ def svr_want(calls: int, n_encode: int, ltp: bool) -> dict:
     """The launches of an SVR encode of ``calls`` analysis calls, of which
     ``n_encode`` encode groups: K7's coefficient and quantization entries,
     K11, K12, K3 and K4 once a call, K8 once (twice with -P), K5's fused
-    entry once a group; K7's fused entry, the generic pack and K12's
-    first design never."""
+    entry once a group; K7's fused entry, the generic pack and K12's first
+    design never."""
     return {"lpc_coefs": calls, "svr_cov": calls, "svr_refine": calls,
             "lpc_quantize": calls, "lpc_analyze": 0, "fir_predict": calls,
             "rice_search": calls, "autocorr": calls * (2 if ltp else 1),
@@ -2963,8 +3146,8 @@ def svr_encode_case(torch, np, dev, case, card) -> dict:
     n_measure, n_encode = expected_calls(spans, blocks)
     enc = SRLAEncoder(param, dev)
     t0 = time.perf_counter()
-    data, got = counted(torch, all_wrappers(), lambda: without_plain(
-        lambda: enc.encode_whole(pcm)))
+    data, got, k4 = held_encode(torch, all_wrappers(),
+                                lambda: enc.encode_whole(pcm))
     card_s = time.perf_counter() - t0
     require(data == stream, f"{path}: the encode differs from the host "
                             f"exact stream")
@@ -2994,7 +3177,8 @@ def svr_encode_case(torch, np, dev, case, card) -> dict:
           f"overflow of {ncomp} COMPRESS blocks, {st['device_spans']} device "
           f"/ {st['remeasured_spans']} re-measured of {nspans} spans; "
           f"{n_measure} measurement calls + {n_encode} encode groups; "
-          f"launches {got}; decode on the card lossless [{card}]")
+          f"launches {got}; {k4_held_text(k4)}; decode on the card lossless "
+          f"[{card}]")
     return {"encode": got, "decode": dec_got, "host_s": host_s}
 
 
@@ -3034,8 +3218,8 @@ def phase_svr(torch, np, dev, music, card):
     # Full width: phase 3's 120 s at -m 4 -B 4096 -V 0 --svr 2.
     param = svr_param(4, 4096, 0, 0)
     enc = SRLAEncoder(param, dev)
-    data, got = counted(torch, all_wrappers(), lambda: without_plain(
-        lambda: enc.encode_whole(music)))
+    data, got, k4 = held_encode(torch, all_wrappers(),
+                                lambda: enc.encode_whole(music))
     st = dict(enc.stats)
     ncomp = st["device_blocks"] + st["repaired_blocks"] \
         + st["w_overflow_blocks"]
@@ -3064,7 +3248,8 @@ def phase_svr(torch, np, dev, music, card):
           f"{st['repaired_blocks']} repaired / {st['w_overflow_blocks']} "
           f"overflow of {ncomp} COMPRESS blocks (repair rate "
           f"{100 * rate:.2f} %{', ABOVE 5 %' if rate > SVR_REPAIR_WARN else ''}"
-          f"), launches {got}, decode on the card lossless; warm best of 3 "
+          f"), launches {got}, {k4_held_text(k4)}, decode on the card "
+          f"lossless; warm best of 3 "
           f"{best * 1e3:.1f} ms = {MAIN_SECONDS / best:.1f}x realtime "
           f"[{card}]")
     if rate > SVR_REPAIR_WARN:
@@ -3706,7 +3891,8 @@ def k13_groups(torch, np, dev, stream: bytes, want_dev):
     """K13 against verify_blocks_plain on every group of ``stream``, each
     decoded on the card: as decoded (true), with one sample of its middle
     row flipped (false), and with that row not ok (true). Returns (checks,
-    the largest group's K13 arguments, its n and B)."""
+    the largest group's K13 arguments, its n, B and starts, and the
+    smallest group's)."""
     from srla_tpu_torch.decoder import SRLADecoder, upload_stream
     from srla_tpu_torch.kernels.decode2 import decode_blocks
     from srla_tpu_torch.kernels.verify import (verify_blocks,
@@ -3715,7 +3901,7 @@ def k13_groups(torch, np, dev, stream: bytes, want_dev):
     header, _, groups = SRLADecoder(dev).plan(stream)
     C = header.num_channels
     words = upload_stream(stream, dev)
-    checks, largest = 0, None
+    checks, largest, smallest = 0, None, None
     for g in groups:
         B = len(g.starts)
         out = decode_blocks(words, torch.from_numpy(g.meta).to(dev),
@@ -3737,9 +3923,12 @@ def k13_groups(torch, np, dev, stream: bytes, want_dev):
                     f"K13 gives {got}, its plain version {plain}, expected "
                     f"{want} on the {B}-block group of n={g.n}")
             checks += 1
+        group = ((out, want_dev, starts, ok), g.n, B, g.starts)
         if largest is None or B > largest[2]:
-            largest = ((out, want_dev, starts, ok), g.n, B, g.starts)
-    return checks, largest
+            largest = group
+        if smallest is None or B < smallest[2]:
+            smallest = group
+    return checks, largest, smallest
 
 
 def resident_sync_lines() -> tuple[set, set]:
@@ -3785,7 +3974,8 @@ def resident_case(torch, np, dev, what: str, pcm, stream: bytes):
     lossless, every COMPRESS block on the device, K2 and K13 once a group
     and K1 at least once; then K13 against its plain version on every
     group. Returns (launches, K13's checks, the largest group's K13
-    arguments, expected on the card)."""
+    arguments, expected on the card, the smallest group's K13
+    arguments)."""
     from srla_tpu_torch import SRLADecoder
 
     _, _, groups = SRLADecoder(dev).plan(stream)
@@ -3805,13 +3995,13 @@ def resident_case(torch, np, dev, what: str, pcm, stream: bytes):
                 f"expected {len(groups)} (one a group)")
     require(got["lpc_synth"] >= len(groups),
             f"phase 14 {what}: lpc_synth launched {got['lpc_synth']} times")
-    checks, largest = k13_groups(torch, np, dev, stream, want_dev)
+    checks, largest, smallest = k13_groups(torch, np, dev, stream, want_dev)
     shown = {k: got[k] for k in ("rice_decode", "lpc_synth", "ltp_synth",
                                  "verify")}
     print(f"phase 14 {what}: resident decode True, {ncomp} COMPRESS blocks "
           f"on the device in {len(groups)} groups, launches {shown}; K13 "
           f"equal to its plain version on {checks} checks")
-    return got, checks, largest, want_dev
+    return got, checks, largest, want_dev, smallest
 
 
 def phase_resident(torch, np, dev, cases, card):
@@ -3829,12 +4019,12 @@ def phase_resident(torch, np, dev, cases, card):
 
     runs, checks, main = {}, 0, None
     for path, pcm, stream in cases:
-        got, c, largest, want_dev = resident_case(torch, np, dev, path, pcm,
-                                                  stream)
+        got, c, largest, want_dev, smallest = resident_case(
+            torch, np, dev, path, pcm, stream)
         runs[path] = {"resident": got}
         checks += c
         if main is None:
-            main = (path, pcm, stream, largest, want_dev)
+            main = (path, pcm, stream, largest, want_dev, smallest)
 
     # One flipped sample in a COMPRESS, a RAW and a SILENT block.
     pcm, stream = silent_raw_case(np)
@@ -3842,8 +4032,8 @@ def phase_resident(torch, np, dev, cases, card):
     for t, n in stream_blocks(stream):
         blocks.append((t, at, n))
         at += n
-    got, c, _, _ = resident_case(torch, np, dev, "music10_silent_raw", pcm,
-                                 stream)
+    got, c, _, _, _ = resident_case(torch, np, dev, "music10_silent_raw",
+                                    pcm, stream)
     runs["music10_silent_raw"] = {"resident": got}
     checks += c
     for btype in (BlockDataType.COMPRESS, BlockDataType.RAW,
@@ -3858,7 +4048,7 @@ def phase_resident(torch, np, dev, cases, card):
         require(ok is False, f"phase 14: a flipped sample in a "
                              f"{btype.name} block gives {ok}")
 
-    path, pcm, stream, (args, n, B, starts), want_dev = main
+    path, pcm, stream, (args, n, B, starts), want_dev, tail = main
     _, _, groups = SRLADecoder(dev).plan(stream)
     split = SRLADecoder(dev, devices=[dev, dev])
     (ok, st), got = counted(
@@ -3916,17 +4106,24 @@ def phase_resident(torch, np, dev, cases, card):
     # and okrows read, the flag written; a compare and an or a sample.
     moved = 2 * nbytes(out[:B]) + nbytes(args[2]) + B + 1
     b = bound(moved, 2 * B * C * n)
+    # The stream's tail group (its last block, of the samples left over).
+    targs, tn, tB, _ = tail
+    tail_ms = cuda_ms(torch, lambda: verify_blocks(*targs, n=tn, B=tB), 20)
+    tail_dev_ms = device_ms(torch, lambda: verify_blocks(*targs, n=tn,
+                                                         B=tB), 20)
     print(f"phase 14 K13 verify at B={B} C={C} n={n}: equal to plain on "
           f"{checks} checks over {len(cases) + 1} streams; kernel "
           f"{ms:.4f} ms, device time {dev_ms:.4f} ms (CUDA graph), plain "
           f"{plain_ms:.2f} ms, torch.equal {library_ms:.4f} ms, bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}; operations "
-          f"{b['ops_ms']:.4f} ms) [{card}]")
+          f"{b['ops_ms']:.4f} ms); tail group B={tB} n={tn}: kernel "
+          f"{tail_ms:.4f} ms, device time {tail_dev_ms:.4f} ms [{card}]")
     rec = dict(name="verify", route="cuda",
                source="srla_tpu_torch/kernels/csrc/verify.cu",
                replaces="srla_tpu/kernels/decode2.py:660", max_abs_err=0,
                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b,
-               library_ms=library_ms, checks=checks)
+               library_ms=library_ms, checks=checks, tail_ms=tail_ms,
+               tail_device_ms=tail_dev_ms)
     return rec, runs
 
 

@@ -7,7 +7,8 @@ group with K13 ``verify.verify_blocks`` (csrc/verify.cu). Encode, composed
 by ``exact.py``: K8 ``autocorr.autocorr`` (csrc/autocorr.cu), K10
 ``ltp.ltp_analyze`` (csrc/ltp_analyze.cu), K7 ``levinson.lpc_analyze``
 (csrc/lpc_analyze.cu), K3 ``predict.predict`` (csrc/fir_predict.cu), K4
-``rice_search.rice_sums`` (csrc/rice_search.cu) and K5
+``rice_search.rice_search`` (csrc/rice_search.cu: the whole Rice parameter
+search) and K5
 ``bitpack.pack_residual_sections`` (csrc/bitpack.cu). Each wrapper
 launches its kernel for a CUDA tensor, runs its plain PyTorch version for
 a CPU tensor, and counts its kernel launches in ``<wrapper>.launches``. The kernels are built with nvcc

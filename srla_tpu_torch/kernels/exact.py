@@ -32,22 +32,18 @@ srla_encoder.c:1121-1187 (accounting), :1323-1367 (selection).
 
 from __future__ import annotations
 
-import math
 from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import (CODER_LOG2_MAX_NUM_PARTITIONS,
-                         CODER_RICE_PARAMETER_BITS,
-                         LPC_COEFFICIENT_ORDER_BITWIDTH,
+from ..constants import (LPC_COEFFICIENT_ORDER_BITWIDTH,
                          LPC_RIDGE_REGULARIZATION_PARAMETER,
                          LTP_COEFFICIENT_BITWIDTH, LTP_ORDER_BITWIDTH,
                          LTP_PERIOD_BITWIDTH, PREEMPHASIS_COEF_SHIFT,
                          RSHIFT_LPC_COEFFICIENT_BITWIDTH)
 from ..huffman import parameter_codebook, sum_parameter_codebook
-from ..rice import _LOG_OPTX, MLNOPTX
 from .autocorr import autocorr, autocorr_plain  # noqa: F401 (re-exported)
 from .bitpack import (pack_residual_sections, section_stream, zigzag,
                       zigzag32)
@@ -57,7 +53,7 @@ from .levinson import (_dist_to_half, _round_half_away,  # noqa: F401
 from .lpc import wrap32
 from .ltp import LTP_COLS, LTP_LAGS, ltp_analyze, ltp_predict
 from .predict import predict, reverse_coefs
-from .rice_search import rice_sums
+from .rice_search import rice_search
 from .svr import svr_cov, svr_refine
 
 # Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
@@ -93,18 +89,8 @@ from .svr import svr_cov, svr_refine
 # - Levinson, order choice and quantization (K7): levinson.py, above
 #   _EPS_SILENT, carries the lag error d <= 2^-42 into the kappa-scaled
 #   margins and bounds K7's order of gamma's sum.
-# - Rice: the partition means are exact leaf sums divided once and halved
-#   pairwise, the same operations in the same order as the host's: the
-#   distance is 0. The host's plain k comes from a chain of libm calls, each
-#   within an ulp, behind 1 - 1/(1+mean), which cancels: its log2v is off
-#   by up to 8e-17 * (1 + mean), under 1e-9 for means below 1.2e7, against
-#   _EPS_RICE_LOG = 1e-8 (beyond that see _PLAIN_K_TRUSTED); the recursive
-#   k2 truncates MLNOPTX * (1 + mean), one rounding, against a relative
-#   _EPS_RICE_TRUNC = 1e-9.
+# - Rice (K4): rice_search.py, beside the Rice margins.
 _EPS_PREEMPH = 1e-8          # |16*r1/r0| distance to rounding half-boundary
-_EPS_RICE_LOG = 1e-8         # |log2v| distance to round-half boundary
-_EPS_RICE_TRUNC = 1e-9       # relative distance to k2 truncation boundary
-_EPS_RICE_MEAN2 = 1e-9       # |mean - 2| recursive/plain selection
 
 _F64 = torch.float64
 
@@ -146,93 +132,6 @@ def ltp_lags(work: torch.Tensor, n: int, bps: int,
                  (0, LTP_COLS - LTP_LAGS))
 
 
-@lru_cache(maxsize=None)
-def rice_k_boundaries():
-    """Decision boundaries of the two Rice-parameter chains in
-    partition-mean space, as plain f64 tables of 33 entries (index j holds
-    boundary j for j = 1..31; 0 and 32 are sentinels) with their margins
-    (``exact._rice_k_boundaries``).
-
-    Plain Rice (srla_coder.c:262-287): k = max(0, round(log2v)) with
-    log2v = log2(ln OPTX / ln(1 - 1/(1+m))): boundary j at log2v = j - 0.5.
-    Recursive (c:298-324): k2 = log2floor(trunc(MLNOPTX*(1+m))): boundary j
-    at MLNOPTX*(1+m) = 2^j. Both are strictly increasing in m.
-    Returns ((kb, kb_eps), (tb, tb_eps)) as numpy f64 arrays."""
-    def m_of_log2v(l2v):
-        om = math.exp(_LOG_OPTX / 2.0 ** l2v)
-        return om / (1.0 - om)
-
-    big = 3.0e38
-    kb, kb_eps, tb, tb_eps = [-big], [0.0], [-big], [0.0]
-    for j in range(1, 32):
-        m = m_of_log2v(j - 0.5)
-        kb.append(m)
-        kb_eps.append(abs(m_of_log2v(j - 0.5 + _EPS_RICE_LOG) - m)
-                      + m * 2.0 ** -40 + 1e-12)
-        t = 2.0 ** j / MLNOPTX - 1.0
-        tb.append(t)
-        tb_eps.append(max(_EPS_RICE_TRUNC, t * 2.0 ** -38))
-    kb.append(big)
-    kb_eps.append(0.0)
-    tb.append(big)
-    tb_eps.append(0.0)
-    # The JAX package compares margins in f32: keep their f32 values.
-    return ((np.asarray(kb), np.asarray(kb_eps, np.float32).astype(float)),
-            (np.asarray(tb), np.asarray(tb_eps, np.float32).astype(float)))
-
-
-# From this plain-Rice parameter on a partition is always flagged: the
-# host's 1 - 1/(1+mean) cancels, so its log2v is off by 8e-17 * mean (over
-# _EPS_RICE_LOG from mean 1.2e8 on), and the table's own margins, taken
-# through exp() of a number within 1e-8 of 0, lose their digits from
-# boundary 25 on. No encode comes near: the plain chain serves rows whose
-# mean is under 2, so a partition's mean stays under 2 * 1024.
-_PLAIN_K_TRUSTED = 24
-
-
-def _count_and_flag(flat, bounds, eps, zero_mean, top: int = 31):
-    """k = number of boundaries 1..31 at or below each mean, and whether the
-    mean lies within the margin of either neighbouring boundary (or k is at
-    least ``top``)."""
-    b = torch.from_numpy(bounds).to(flat.device)
-    be = torch.from_numpy(eps).to(flat.device)
-    k = torch.searchsorted(b[1:32].contiguous(), flat.contiguous(),
-                           right=True)
-    d1 = (flat - b[k]).abs()
-    d2 = (b[k + 1] - flat).abs()
-    flagged = ((d1 < be[k]) | (d2 < be[k + 1]) | (k >= top)) & ~zero_mean
-    return k, flagged
-
-
-def rice_params(residual: torch.Tensor, n: int, max_porder: int):
-    """The float half of the Rice parameter search: zigzag, partition means
-    (exact leaf sums, then pairwise halving as the host does), the
-    recursive/plain choice and each partition's k. Returns (u (V, n) int64,
-    ks (V, P) int64 in the flat layout of ``rice_search``, recursive (V,),
-    flagged (V, P) per-partition boundary flags, risky (V,))."""
-    V = residual.shape[0]
-    u = zigzag(residual)
-    nleaf = 1 << max_porder
-    nsl = n >> max_porder
-    means = [None] * (max_porder + 1)
-    means[max_porder] = u.reshape(V, nleaf, nsl).sum(dim=2).to(_F64) / nsl
-    for p in range(max_porder - 1, -1, -1):
-        m = means[p + 1]
-        means[p] = (m[:, 0::2] + m[:, 1::2]) / 2.0
-    mean_all = means[0][:, 0]
-    recursive = mean_all >= 2.0
-    risky = (mean_all - 2.0).abs() < _EPS_RICE_MEAN2
-    flat = torch.cat(means, dim=1)
-    zero_mean = flat == 0
-    (kb, kb_eps), (tb, tb_eps) = rice_k_boundaries()
-    kr, r_log = _count_and_flag(flat, kb, kb_eps, zero_mean,
-                                top=_PLAIN_K_TRUSTED)
-    k2, r_trunc = _count_and_flag(flat, tb, tb_eps, zero_mean)
-    rec = recursive[:, None]
-    return (u, torch.where(rec, k2, kr), recursive,
-            torch.where(rec, r_trunc, r_log), risky)
-
-
 def no_timer(_name):
     pass
 
@@ -240,42 +139,11 @@ def no_timer(_name):
 def rice_exact(residual: torch.Tensor, n: int, max_porder: int,
                timer=no_timer):
     """residual (V, n) int32. Returns (code_type, porder, bits (+2), ks
-    (V, 2^max_porder) int64, risky). The per-partition sums run in K4."""
-    V = residual.shape[0]
-    u, ks, recursive, pflag, risky = rice_params(residual, n, max_porder)
-    timer("Rice means + parameters (torch f64)")
-    sums = rice_sums(wrap32(u).to(torch.int32),
-                     ks.to(torch.int32).contiguous(),
-                     recursive.to(torch.int32), n, max_porder).long()
+    (V, 2^max_porder) int64, risky): the whole Rice parameter search, one
+    K4 launch on the card."""
+    out = rice_search(residual, n, max_porder)
     timer("K4 rice_search")
-    nsmpl = torch.cat([torch.full((1 << p,), n >> p, dtype=torch.int64,
-                                  device=u.device)
-                       for p in range(max_porder + 1)])
-    part_bits = sums + torch.where(recursive[:, None], ks + 2, ks + 1) * nsmpl
-    MAXP = 1 << max_porder
-    best_bits = torch.full((V,), 1 << 30, dtype=torch.int64,
-                           device=u.device)
-    best_porder = torch.zeros(V, dtype=torch.int64, device=u.device)
-    best_ks = torch.zeros((V, MAXP), dtype=torch.int64, device=u.device)
-    for porder in range(max_porder + 1):
-        nparts = 1 << porder
-        cols = slice(nparts - 1, 2 * nparts - 1)
-        k = ks[:, cols]
-        risky = risky | pflag[:, cols].any(dim=1)
-        deltas = zigzag(k[:, 1:] - k[:, :-1])
-        bits = (CODER_LOG2_MAX_NUM_PARTITIONS + CODER_RICE_PARAMETER_BITS
-                + part_bits[:, cols].sum(dim=1) + (deltas + 1).sum(dim=1))
-        better = bits < best_bits
-        best_bits = torch.where(better, bits, best_bits)
-        best_porder = torch.where(better, porder, best_porder)
-        best_ks = torch.where(better[:, None], F.pad(k, (0, MAXP - nparts)),
-                              best_ks)
-    allzero = u.max(dim=1).values == 0
-    code_type = torch.where(allzero, 2, torch.where(recursive, 1, 0))
-    bits = torch.where(allzero, 0, best_bits) + 2
-    best_porder = torch.where(allzero, 0, best_porder)
-    timer("Rice partition-order search (torch)")
-    return code_type, best_porder, bits, best_ks, risky & ~allzero
+    return out
 
 
 def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
@@ -330,10 +198,11 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
             step = "K7 lpc_analyze + reverse"
         rshifts = torch.where(orders > 0, rshifts, 0)
         coefs_rev = reverse_coefs(intc, orders)
+        risky = risky | r_lpc
         timer(step)
+        # K3, then K4 on its output: no other kernel between them.
         residual = predict(work, coefs_rev, orders, rshifts)
         timer("K3 fir_predict")
-        risky = risky | r_lpc
     else:
         orders = torch.zeros(V, dtype=torch.int32, device=dev)
         rshifts = torch.zeros(V, dtype=torch.int32, device=dev)
@@ -344,7 +213,7 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
     return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
                 rshifts=rshifts, coefs=coefs_rev, work=work,
                 residual=residual, code_type=code_type, porder=porder,
-                rice_bits=rice_bits, ks=ks, risky=risky | r_rice,
+                rice_bits=rice_bits, ks=ks, risky=risky, rice_risky=r_rice,
                 ltp_period=ltp_period, ltp_coefs=ltp_coefs)
 
 
@@ -380,8 +249,10 @@ def _small(core: dict) -> dict:
     ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``."""
     small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
                                   "rshifts", "coefs", "code_type", "porder",
-                                  "risky", "ltp_period", "ltp_coefs")}
+                                  "ltp_period", "ltp_coefs")}
     small["section_bits"] = core["rice_bits"]
+    # The accounting's first step: every flag of a row together.
+    small["risky"] = core["risky"] | core["rice_risky"]
     return small
 
 

@@ -7,11 +7,14 @@ Python process in that directory builds the main path's kernels with that
 checkout's ``srla_tpu_torch``, encodes 120 s of ``make_music`` (16-bit
 stereo, 44.1 kHz) at ``-m 4 -B 4096 -V 0`` once cold and three times warm,
 then decodes the stream once cold, checks it lossless, and decodes it three
-times warm: ``chip_smoke.py`` phases 6 and 3 without their checks. It
-prints a line a ROOT: the stream's length and SHA-256 prefix, the warm
-times and the best of each as x realtime, with the card's name and power
-limit. Give a parent and a change in turns (parent, change, change,
-parent): host times swing between processes.
+times warm, then encodes it at the CLI's defaults (``-V 1 -L 4``) once
+cold and three times warm: ``chip_smoke.py`` phases 6, 3 and 8 without
+their checks; last, one ``-V 0`` encode under the encoder's ``StepTimer``
+(a device synchronise at each step). It prints two lines a ROOT: the
+streams' lengths and SHA-256 prefixes, the warm times and the best of each
+as x realtime, with the card's name and power limit; then the timed
+encode's steps. Give a parent and a change in turns (parent, change,
+change, parent): host times swing between processes.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import hashlib, os, subprocess, sys, time
 sys.path.insert(0, os.getcwd())
 import numpy as np, torch
 from srla_tpu_torch import SRLAEncoder, decode
+from srla_tpu_torch.encoder import StepTimer
 from srla_tpu_torch.host_encoder import make_parameter
 from srla_tpu_torch.kernels import build
 from srla_tpu_torch.signals import make_music
@@ -37,6 +41,7 @@ seconds = %r
 music = make_music(seconds)
 dev = torch.device("cuda")
 param = make_parameter(2, 16, 44100, 4, 4096, 0, 4, 0, 0)
+param1 = make_parameter(2, 16, 44100, 4, 4096, 1, 4, 0, 0)
 
 
 def warm(fn):
@@ -54,6 +59,11 @@ data = SRLAEncoder(param, dev).encode_whole(music)
 enc = warm(lambda: SRLAEncoder(param, dev).encode_whole(music))
 assert np.array_equal(decode(data, device=dev)[1], music), "not lossless"
 dec = warm(lambda: decode(data, device=dev))
+data1 = SRLAEncoder(param1, dev).encode_whole(music)
+enc1 = warm(lambda: SRLAEncoder(param1, dev).encode_whole(music))
+timed = SRLAEncoder(param, dev)
+timed.timer = StepTimer(dev)
+timed.encode_whole(music)
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                        "--format=csv,noheader"], capture_output=True,
                       text=True).stdout.strip()
@@ -61,7 +71,12 @@ print("bytes", len(data), "sha256", hashlib.sha256(data).hexdigest()[:16],
       "encode warm ms", [round(t * 1e3, 1) for t in enc], "best",
       round(seconds / min(enc), 1), "x realtime; decode warm ms",
       [round(t * 1e3, 1) for t in dec], "best",
-      round(seconds / min(dec), 1), "x realtime [" + card + "]")
+      round(seconds / min(dec), 1), "x realtime; -V 1 bytes", len(data1),
+      "sha256", hashlib.sha256(data1).hexdigest()[:16], "encode warm ms",
+      [round(t * 1e3, 1) for t in enc1], "best",
+      round(seconds / min(enc1), 1), "x realtime [" + card + "]")
+print("-V 0 encode steps (ms):", ", ".join(
+    f"{k} {v * 1e3:.2f}" for k, v in timed.timer.seconds.items()))
 '''
 
 
@@ -71,8 +86,9 @@ def main(roots) -> int:
         p = subprocess.run([sys.executable, "-c",
                             _CHILD % (LIBRARIES, SECONDS)],
                            cwd=root, capture_output=True, text=True)
-        line = p.stdout.strip().splitlines()[-1:] or [p.stderr[-500:]]
-        print(f"main_path_ab {root}: {line[0]}")
+        lines = p.stdout.strip().splitlines()[-2:] or [p.stderr[-500:]]
+        for line in lines:
+            print(f"main_path_ab {root}: {line}")
         rc |= p.returncode
     return 1 if rc else 0
 

@@ -221,6 +221,8 @@ def test_step_timer_breakdown():
                  "K4 rice_search", "K5 bitpack", "fetch + big-endian bytes",
                  "repair (host)", "assembly"):
         assert steps[name] >= 0.0, name
+    # The Rice search is one step, K4's.
+    assert not [k for k in steps if "Rice" in k]
 
 
 @pytest.mark.parametrize("kw,what", [

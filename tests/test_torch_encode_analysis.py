@@ -23,6 +23,7 @@ from srla_tpu.encoder import EncodeParameter, SRLAEncoder  # noqa: E402
 from srla_tpu.kernels.exact import (analyze_blocks_exact,  # noqa: E402
                                     encode_blocks_exact)
 from srla_tpu_torch.kernels import exact as texact  # noqa: E402
+from srla_tpu_torch.kernels import rice_search  # noqa: E402
 from test_exact_device import _max_porder, _signals  # noqa: E402
 
 B, C, N, PRESET = 8, 2, 1024, 4
@@ -171,7 +172,7 @@ def test_rice_boundary_tables_match_jax():
     tables' values, margins included."""
     from srla_tpu.kernels.exact import _rice_k_boundaries
     for (hi, lo, eps), (b, beps) in zip(_rice_k_boundaries(),
-                                        texact.rice_k_boundaries()):
+                                        rice_search.rice_k_boundaries()):
         np.testing.assert_array_equal(eps.astype(np.float64), beps)
         inner = slice(1, 32)
         np.testing.assert_allclose(b[inner], hi[inner].astype(np.float64)

@@ -8,8 +8,8 @@ of rice_k_boundaries, and the long-term prediction's crossing signs, peak
 tests, threshold, ratio, Cholesky pivots and coefficient rounding) and to
 points a few float roundings and a few margins away from it, hands the
 port's stage inputs moved by the error the margins are sized for (2^-42
-relative, see the comments above the margins in exact.py and ltp.py) and
-the host's stage (srla_tpu_torch.host_encoder and its dsp/
+relative, see the comments above the margins in exact.py, rice_search.py
+and ltp.py) and the host's stage (srla_tpu_torch.host_encoder and its dsp/
 and rice modules) the unmoved ones, and checks the contract of the flags:
 every row whose decision differs from the host's is flagged risky. Rows on
 the boundary must be flagged and rows several margins away must not, so the
@@ -39,7 +39,7 @@ from srla_tpu_torch.host_encoder import (EncodeParameter,  # noqa: E402
 from srla_tpu_torch import native_decoder  # noqa: E402
 from srla_tpu_torch.constants import (  # noqa: E402
     LPC_RIDGE_REGULARIZATION_PARAMETER, LTP_MAX_PERIOD, LTP_MIN_PERIOD)
-from srla_tpu_torch.kernels import exact, ltp  # noqa: E402
+from srla_tpu_torch.kernels import exact, ltp, rice_search  # noqa: E402
 
 # The relative error of the analysis inputs that the margins allow for.
 MOVE = 2.0 ** -42
@@ -291,7 +291,7 @@ def _boundary_means(bounds):
 
 @pytest.mark.parametrize("chain", ["plain", "recursive"])
 def test_rice_parameter_boundaries_are_flagged(chain):
-    (kb, kb_eps), (tb, tb_eps) = exact.rice_k_boundaries()
+    (kb, kb_eps), (tb, tb_eps) = rice_search.rice_k_boundaries()
     bounds, eps, host_k = ((kb, kb_eps, rice.rice_k_array)
                            if chain == "plain" else
                            (tb, tb_eps, rice.recursive_rice_k2_array))
@@ -299,8 +299,8 @@ def test_rice_parameter_boundaries_are_flagged(chain):
     moved = torch.from_numpy(_moved(means))
     # The plain chain is trusted below _PLAIN_K_TRUSTED only (the host's
     # own chain cancels at larger means); the table ends at 31.
-    top = exact._PLAIN_K_TRUSTED if chain == "plain" else 31
-    k, flagged = exact._count_and_flag(
+    top = rice_search._PLAIN_K_TRUSTED if chain == "plain" else 31
+    k, flagged = rice_search._count_and_flag(
         moved, bounds, eps, torch.zeros(means.size, dtype=torch.bool),
         top=top)
     host = host_k(means)
@@ -316,8 +316,8 @@ def test_rice_rows_at_the_type_boundary_are_flagged():
     n, max_porder = 512, 5
     res = np.ones((2, n), np.int32)           # zigzag 2 everywhere
     res[1, 0] = -2                            # zigzag 3: mean 2 + 1 / n
-    u, ks, recursive, _, risky = exact.rice_params(torch.from_numpy(res), n,
-                                                   max_porder)
+    u, ks, recursive, _, risky = rice_search.rice_params(
+        torch.from_numpy(res), n, max_porder)
     assert risky.tolist() == [True, False]
     ct, _, _, host_ks = rice.analyze_batch(res, n)
     assert recursive.tolist() == [True, True] and list(ct) == [1, 1]

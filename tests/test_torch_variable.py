@@ -304,6 +304,7 @@ def test_step_timer_breakdown_at_v():
                  "measure: fetch", "K4 rice_search", "K5 bitpack",
                  "assembly"):
         assert steps[name] >= 0.0, name
+    assert not [k for k in steps if "Rice" in k]
 
 
 def test_progress_fires_once_per_block_at_v():
@@ -367,14 +368,14 @@ def test_cli_default_flags_equal_srla_tpu_cli(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("V", [1, 2, 3])
 def test_variable_encode_on_card(cuda, V):
     """The -V encode on the card: the host's bytes, every span accounted,
     K3 and K4 once per measurement call plus once per encode group, K5's
     fused entry once per encode group."""
     from srla_tpu_torch.kernels.bitpack import pack_residual_sections
     from srla_tpu_torch.kernels.predict import predict
-    from srla_tpu_torch.kernels.rice_search import rice_sums
+    from srla_tpu_torch.kernels.rice_search import rice_search
     pcm = _signal("segmented", 2, 16, 40000)      # even windows only
     want = host_encoder.encode(pcm, 16, 44100, variable_divisions=V)
     calls = []
@@ -384,7 +385,7 @@ def test_variable_encode_on_card(cuda, V):
         calls.append(kw["n"])
         return real(file, offsets, *a, **kw)
 
-    k3, k4, k5 = (predict.launches, rice_sums.launches,
+    k3, k4, k5 = (predict.launches, rice_search.launches,
                   pack_residual_sections.launches)
     enc = encoder.SRLAEncoder(_param(2, 16, V, 4096, 4), cuda)
     with pytest.MonkeyPatch.context() as mp:
@@ -398,22 +399,22 @@ def test_variable_encode_on_card(cuda, V):
     assert s["host_spans"] == odd == 0
     assert pack_residual_sections.launches - k5 == len(groups)
     assert len(calls) == len(set(calls))           # one call per length
-    assert (predict.launches - k3 == rice_sums.launches - k4
+    assert (predict.launches - k3 == rice_search.launches - k4
             == len(calls) + len(groups))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1536, 2048, 2560, 3072, 3584, 2016])
 def test_kernels_match_plain_at_variable_sizes(cuda, n):
-    """K3, K4 (the power-of-two kernel at 2048, the generic one at the
-    rest) and K5's fused entry against their plain versions on the spans of
-    one -V measurement group of length n."""
+    """K3, K4 (the aligned power-of-two entry at 2048, the generic one at
+    the rest; every output) and K5's fused entry against their plain
+    versions on the spans of one -V measurement group of length n."""
     from srla_tpu_torch.kernels.bitpack import (pack_residual_sections,
                                                 pack_residual_sections_plain,
                                                 zigzag32)
-    from srla_tpu_torch.kernels.lpc import wrap32
     from srla_tpu_torch.kernels.predict import predict, predict_plain
-    from srla_tpu_torch.kernels.rice_search import rice_sums, rice_sums_plain
+    from srla_tpu_torch.kernels.rice_search import (rice_search,
+                                                    rice_search_plain)
     pcm = _signal("segmented", 2, 16, 60000)
     offs = np.arange(0, 60000 - n, 512)
     host = host_encoder.SRLAEncoder(_param(2, 16, 3, 4096, 4))
@@ -423,12 +424,9 @@ def test_kernels_match_plain_at_variable_sizes(cuda, n):
     k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
     np.testing.assert_array_equal(predict(*k3).cpu().numpy(),
                                   predict_plain(*k3).cpu().numpy())
-    u, ks, rec, _, _ = texact.rice_params(core["residual"], n,
-                                          args["max_porder"])
-    k4 = (wrap32(u).to(torch.int32), ks.to(torch.int32).contiguous(),
-          rec.to(torch.int32), n, args["max_porder"])
-    np.testing.assert_array_equal(rice_sums(*k4).cpu().numpy(),
-                                  rice_sums_plain(*k4).cpu().numpy())
+    k4 = (core["residual"], n, args["max_porder"])
+    for got, want in zip(rice_search(*k4), rice_search_plain(*k4)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     B = len(offs)
     W = encoder.SRLAEncoder(host.p, "cpu")._section_words(n)
     sel = texact.select_rows(small, B=B, C=2, n=n, bps=16, W=W,

@@ -56,7 +56,14 @@ then:
      kinds, a full-range, a zero, an ALLZERO and a skipped row, parameters
      0, 30 and 31): bit-equal, every output. Also times the codeword stream
      (torch ops) that the generic pack needs first: with pack's time, what
-     the fused entry's work cost before.
+     the fused entry's work cost before. The generic pack also on the main
+     stream shuffled (a seeded permutation on the card), on the same in
+     int32, and on an out-of-range stream (k5_edge_stream: negative
+     offsets, offsets past cap_w, an entry straddling the last word, widths
+     0, 32 and up to 2^33, shuffled): bit-equal; its device time (the whole
+     call, int64 and int32, and shuffled), its torch.profiler split by
+     kernel (the zero fill and the kernel) and its bound at the caller's
+     dtypes (every slot's offset, tail and width as given, the words once).
   6. The same 120 s encoded by srla_tpu_torch.SRLAEncoder(device="cuda")
      at -m 4 -B 4096 -V 0: byte-identical to phase 3's host exact stream,
      every COMPRESS block emitted from the device or a counted host repair
@@ -164,14 +171,20 @@ then:
      byte-identical to the host exact encoder (its time printed), span and
      block accounting, K7's coefficient and quantization entries, K11
      (csrc/svr_cov.cu) and K12 (csrc/svr_refine.cu) once per analysis call
-     and K7's fused entry never, no plain version reached, K4 held to its
-     plain version on each call's inputs, the decode on the card lossless;
+     and K7's fused entry never, no plain version reached, K4 and K7's
+     quantization entry held to their plain versions on each call's inputs
+     (every output, flags too), the decode on the card lossless;
      K11, K12 and K7's quantization entry bit-equal to
      their plain versions (flags and iterations too) on the M 255 path's
      tail group, and K7's coefficient entry held to its plain version there
      (flags equal, orders equal where unflagged, coefficients within 4
      kappa' 2^-42 max|c| and kappa' within (2M + 1) kappa' 2^-42 relative:
-     the two sum in different orders, k7_coefs_check). Then phase 3's 120 s
+     the two sum in different orders, k7_coefs_check). K7's quantization
+     entry also on the rows of k7_quantize_case (the coefficients its
+     coefficient entry gives on their lags) with cerr 0 and widened, and
+     on k7_quantize_batch at M 32, 64, 128 and 255 (1197 rows: orders 0
+     to M, tiny, all-zero, NaN and inf rows): equal to its plain version
+     on every output. Then phase 3's 120 s
      at -m 4 -B 4096 -V 0 --svr 2: counted (K4 held as above), decoded
      losslessly, the repair
      rate (a warning above 5 %), warm best of 3 with its step split, K11,
@@ -180,7 +193,9 @@ then:
      (srla_lpc_coefs, srla_lpc_quantize) timed at the main call (CUDA
      events, device time) beside their plain versions, bounds (f64
      instructions over 17 T/s; K7's f64 operations over 34 T/s), serial
-     floors (chain_probe.cu kind 6, a dependent f64 add) and library
+     floors (chain_probe.cu kind 6, a dependent f64 add; for K7's
+     quantization entry kind 7, a step of its chain, times the largest
+     order) and library
      yardsticks (a batched DGEMM Gram for K11; cholesky_ex and
      cholesky_solve for K12, the median of five runs), which the port
      never calls; K12 also beside its first design (csrc/svr_refine_v1.cu,
@@ -266,6 +281,11 @@ to run it, so the calls are captured into one CUDA graph and the replay is
 timed. K3 and
 K5's fused entry also get copy_ms, the device time of one copy that moves
 as many bytes as their bound counts.
+With --parent DIR (a checkout of another commit, such as the parent's
+``git archive``) it first runs srla_tpu_torch/tools/kernel_ab.py in DIR
+and here in turns (DIR, here, here, DIR, each its own process) and prints
+the device times of K7's quantization entry and the generic pack of each
+beside phase 12's and phase 5's own; without it they read "not measured".
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -325,6 +345,28 @@ def device_ms(torch, fn, reps: int) -> float:
             fn()
     graph.replay()
     return cuda_ms(torch, graph.replay, 5) / reps
+
+
+# Filled by main() from --parent DIR: the device times of K7's
+# quantization entry and the generic pack in the parent checkout and in
+# this one, in turns (tools/kernel_ab.py).
+PARENT_AB: dict = {}
+
+
+def parent_runs(key: str) -> list:
+    """[(checkout, device ms)] of one kernel in turns, or [] without
+    --parent."""
+    return [(r["root"], r[f"{key}_device_ms"]) for r in PARENT_AB.get(
+        "runs", [])]
+
+
+def parent_text(key: str) -> str:
+    runs = parent_runs(key)
+    if not runs:
+        return ("the parent in turns: not measured (chip_smoke.py --parent "
+                "DIR)")
+    return ("in turns, each checkout its own process (device time, ms): "
+            + ", ".join(f"{root} {ms:.4f}" for root, ms in runs))
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -414,7 +456,8 @@ def chain_step_ms(torch, kind: int) -> float:
     """Milliseconds one warp needs for one step of a serial chain alone
     (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
     the Levinson step of K7's first design, kind 3 K7's step at M <= 64,
-    kind 4 a K9 step, kind 5 K10's solve, kind 6 a K12 chain's f64 add):
+    kind 4 a K9 step, kind 5 K10's solve, kind 6 a K12 chain's f64 add,
+    kind 7 a step of K7's quantization):
     the difference of two chain lengths over their difference, CUDA
     events."""
     import ctypes
@@ -777,6 +820,69 @@ def section_odd_args(torch, np, dev):
     return (t(u), t(ct), t(po), t(ks), n, starts, lens_w, cap), owned
 
 
+def k5_edge_stream(np, count: int, seed: int):
+    """A stream for the generic pack (offsets, tails, tbits, cap_w) as
+    numpy int64 arrays, in random order: widths 0, 1..32 (32 often), 33,
+    63, 64, 65, 100 and 2^33, random tails with no bit set above a width
+    under 32, bit ranges disjoint (an entry of width w spans min(w, 64)
+    bits, what the pack writes of it), entries at negative offsets (-1,
+    -32, -2^40), at and past cap_w words, and straddling the last word."""
+    rng = np.random.RandomState(seed)
+    widths = rng.randint(1, 33, count)
+    widths[rng.uniform(size=count) < 0.1] = 32
+    widths[rng.uniform(size=count) < 0.05] = 0
+    special = rng.choice(count, 12, replace=False)
+    widths[special] = (33, 63, 64, 65, 100, 2 ** 33, 0, 32, 33, 64, 65, 100)
+    span = np.minimum(widths, 64)
+    offs = np.cumsum(span + rng.randint(0, 5, count)) - span
+    tails = rng.randint(0, 1 << 32, count, dtype=np.int64)
+    tails = np.where(widths < 32, tails & ((1 << np.minimum(widths, 32)) - 1),
+                     tails)
+    cap_w = int(offs[count * 9 // 10] >> 5) + 1   # the last tenth dropped
+    # The last entry that starts in the last word straddles it: width 40.
+    last = int(np.flatnonzero(offs >> 5 == cap_w - 1)[-1])
+    widths[last] = 40
+    offs[last + 1:] = np.maximum(offs[last + 1:], cap_w * 32 + 64)
+    neg = rng.choice(count, 6, replace=False)
+    offs[neg] = (-1, -32, -(1 << 40), -1, -5, -64)
+    offs[rng.choice(count, 6, replace=False)] = cap_w * 32 + rng.randint(
+        0, 1 << 20, 6)
+    perm = rng.permutation(count)
+    return offs[perm], tails[perm], widths[perm], cap_w
+
+
+def profile_kernels(torch, fn, runs: int = 3) -> list:
+    """RUNS calls of fn under torch.profiler (CUDA activity only), after a
+    warm-up step: [(device kernel or copy, microseconds a call, its
+    launches a call)] in the order of the first launch of each."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    split: dict = {}
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        name = (e.name.replace("(anonymous namespace)::", "")
+                .replace("void ", "").split("(")[0])
+        us, n = split.get(name, (0.0, 0))
+        split[name] = (us + e.time_range.elapsed_us(), n + 1)
+    return [(name, us / runs, n / runs) for name, (us, n) in split.items()]
+
+
+def split_text(split: list) -> str:
+    return ", ".join(f"{name[:60]} {us:.1f} us x{n:g}"
+                     for name, us, n in split)
+
+
 def check_sections(torch, what, args, image, owned=None) -> int:
     """K5's fused entry against its plain version on the words the rows
     own (the first sum(lens_w) of a compacted buffer, or ``owned``).
@@ -956,27 +1062,58 @@ def phase_encode_kernels(torch, np, dev, pcm):
                      library_ms=None, tail_ms=tail_ms, device_ms=dev_ms,
                      tail_device_ms=tail_dev_ms, copy_ms=cp_ms,
                      stream_ms=stream_ms, before_ms=stream_ms + gms))
-    # Read each slot's offset (int64), tail and width (int32) once, write
-    # the words once; about eight operations per live codeword (split,
-    # two shifts, two ORs).
+    # The generic pack on the same stream shuffled, in int32, and on a
+    # stream out of range (k5_edge_stream): bit-equal to plain.
+    cap = B * 2 * W
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    perm = torch.randperm(offs.numel(), device=dev, generator=gen)
+    k5_shuffled = (offs.reshape(-1)[perm], tails.reshape(-1)[perm],
+                   tbits.reshape(-1)[perm], cap)
+    k5_i32 = (*(t.to(torch.int32) for t in (offs, tails, tbits)), cap)
+    edge = k5_edge_stream(np, 100_000, 23)
+    k5_edge = (*(torch.from_numpy(a).to(dev) for a in edge[:3]), edge[3])
+    more = {}
+    for what, a in (("shuffled", k5_shuffled), ("int32", k5_i32),
+                     ("out of range", k5_edge)):
+        more[what] = check(torch, f"K5 pack ({what})", pack, pack_plain, a)
+    shuffled_dev_ms = device_ms(torch, lambda: pack(*k5_shuffled), 10)
+    i32_dev_ms = device_ms(torch, lambda: pack(*k5_i32), 10)
+    split = profile_kernels(torch, lambda: pack(*k5))
+    # Read each slot's offset, tail and width once at the caller's dtypes
+    # (int64 here), write the words once; about eight operations per live
+    # codeword (split, two shifts, two ORs).
     live = int((tbits > 0).sum())
-    b = bound(16 * offs.numel() + 4 * B * 2 * W, 8 * live)
+    b = bound(nbytes(offs, tails, tbits) + 4 * cap, 8 * live)
+    b32 = bound(nbytes(*k5_i32[:3]) + 4 * cap, 8 * live)
     print(f"phase 5 K5 pack (generic, off the encode's path) of "
           f"{offs.shape[0]} rows x {offs.shape[1]} "
-          f"slots ({live} live) into {B * 2 * W} words: bit-equal, kernel "
-          f"{gms:.4f} ms, device time {gdev_ms:.4f} ms (CUDA graph), plain "
-          f"{gpms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms); tail "
-          f"{k5_tail[0].shape[0]} rows x {k5_tail[0].shape[1]} slots: "
-          f"bit-equal, kernel {tail_gms:.4f} ms, device time "
-          f"{tail_gdev_ms:.4f} ms; {k5_odd[0].shape[0]} rows x "
-          f"{k5_odd[0].shape[1]} slots: bit-equal")
+          f"slots ({live} live, int64) into {cap} words: bit-equal, kernel "
+          f"{gms:.4f} ms, device time {gdev_ms:.4f} ms (CUDA graph, the "
+          f"whole call), plain {gpms:.2f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}: {nbytes(offs, tails, tbits) + 4 * cap} bytes; "
+          f"operations {b['ops_ms']:.4f} ms); torch.profiler, one call: "
+          f"{split_text(split)}; {parent_text('pack')}; the same stream "
+          f"shuffled: bit-equal, device time {shuffled_dev_ms:.4f} ms; in "
+          f"int32: bit-equal, device time {i32_dev_ms:.4f} ms (bound "
+          f"{b32['bound_ms']:.4f} ms); {edge[0].size} entries out of range "
+          f"(negative offsets, past cap_w, widths 0 to 2^33, shuffled): "
+          f"bit-equal; tail {k5_tail[0].shape[0]} rows x "
+          f"{k5_tail[0].shape[1]} slots: bit-equal, kernel {tail_gms:.4f} "
+          f"ms, device time {tail_gdev_ms:.4f} ms; {k5_odd[0].shape[0]} "
+          f"rows x {k5_odd[0].shape[1]} slots: bit-equal")
     recs.append(dict(name="bitpack", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/bitpack.cu",
                      replaces="srla_tpu/kernels/pallas_pack.py:79",
-                     max_abs_err=max(ge, tail_ge, odd_ge), ms=gms,
-                     plain_ms=gpms, **b, library_ms=None, tail_ms=tail_gms,
-                     device_ms=gdev_ms, tail_device_ms=tail_gdev_ms,
+                     max_abs_err=max(ge, tail_ge, odd_ge, *more.values()),
+                     ms=gms, plain_ms=gpms, **b, library_ms=None,
+                     tail_ms=tail_gms, device_ms=gdev_ms,
+                     tail_device_ms=tail_gdev_ms,
+                     shuffled_device_ms=shuffled_dev_ms,
+                     int32_device_ms=i32_dev_ms,
+                     int32_bound_ms=b32["bound_ms"],
+                     profile_us={name: us for name, us, _ in split},
+                     parent_in_turns=parent_runs("pack"),
                      on_encode_path=False))
     return recs
 
@@ -1361,54 +1498,78 @@ def without_plain(fn):
             setattr(m, name, f)
 
 
-def k4_held(torch, fn, tally: dict):
+def kernels_held(torch, fn, tally: dict):
     """fn() with the analysis's K4 call (kernels/exact.py's rice_search)
-    recording each call's residual and outputs; after fn, outside
-    without_plain's tripwires, each call's outputs are held to the plain
-    version's on the same residual: bit-equal on every output (code type,
-    order, bits, ks, risky). Adds the calls and rows to ``tally``."""
+    and, under SVR, its K7 quantization call (exact.lpc_quantize) recording
+    each call's inputs and outputs; after fn, outside without_plain's
+    tripwires, each call's outputs are held to the plain version's on the
+    same inputs: bit-equal on every output (K4: code type, order, bits, ks,
+    risky; K7: shifts, values, risky). Adds the calls and rows to
+    ``tally`` (K7's under "k7q_calls" and "k7q_rows")."""
     from srla_tpu_torch.kernels import exact
+    from srla_tpu_torch.kernels.levinson import lpc_quantize_plain
     from srla_tpu_torch.kernels.rice_search import rice_search_plain
-    kernel = exact.rice_search
-    calls = []
+    kernels = {"rice_search": exact.rice_search,
+               "lpc_quantize": exact.lpc_quantize}
+    calls = {name: [] for name in kernels}
 
-    def recorded(residual, n, max_porder):
-        out = kernel(residual, n, max_porder)
-        calls.append(((residual.clone(), n, max_porder),
-                      tuple(t.clone() for t in out)))
-        return out
+    def recorder(name):
+        def recorded(*args):
+            out = kernels[name](*args)
+            calls[name].append((
+                tuple(a.clone() if hasattr(a, "clone") else a for a in args),
+                tuple(t.clone() for t in out)))
+            return out
+        return recorded
 
-    exact.rice_search = recorded
+    for name in kernels:
+        setattr(exact, name, recorder(name))
     try:
         result = fn()
     finally:
-        exact.rice_search = kernel
-    for args, got in calls:
+        for name, kernel in kernels.items():
+            setattr(exact, name, kernel)
+    for args, got in calls["rice_search"]:
         e = max_abs_err(torch, got, rice_search_plain(*args))
         require(e == 0, f"K4 differs from its plain version on the inputs "
                         f"of an analysis call ({args[0].shape[0]} rows x "
                         f"{args[1]}, max abs err {e})")
         tally["calls"] += 1
         tally["rows"] += args[0].shape[0]
+    for args, got in calls["lpc_quantize"]:
+        e = max_abs_err(torch, got, lpc_quantize_plain(*args))
+        require(e == 0, f"K7's quantization entry differs from its plain "
+                        f"version on the inputs of an analysis call "
+                        f"({args[0].shape[0]} rows, max abs err {e})")
+        tally["k7q_calls"] += 1
+        tally["k7q_rows"] += args[0].shape[0]
     return result
 
 
 def held_encode(torch, wrappers: dict, fn):
     """counted(torch, wrappers, fn) with fn under without_plain and every
-    K4 call of it held to the plain version on its inputs (k4_held), one
-    held call a launch. Returns (fn's result, launches, K4's tally)."""
-    k4 = {"calls": 0, "rows": 0}
-    out, got = counted(torch, wrappers, lambda: k4_held(
+    K4 call, and every call of K7's quantization entry, of it held to the
+    plain version on its inputs (kernels_held), one held call a launch.
+    Returns (fn's result, launches, the tally)."""
+    k4 = {"calls": 0, "rows": 0, "k7q_calls": 0, "k7q_rows": 0}
+    out, got = counted(torch, wrappers, lambda: kernels_held(
         torch, lambda: without_plain(fn), k4))
     require(k4["calls"] == got["rice_search"],
             f"K4 held on {k4['calls']} calls, launched {got['rice_search']} "
             f"times")
+    require(k4["k7q_calls"] == got["lpc_quantize"],
+            f"K7's quantization entry held on {k4['k7q_calls']} calls, "
+            f"launched {got['lpc_quantize']} times")
     return out, got, k4
 
 
-def k4_held_text(k4: dict) -> str:
-    return (f"K4 bit-equal to plain on every output on the inputs of each "
+def held_text(k4: dict) -> str:
+    text = (f"K4 bit-equal to plain on every output on the inputs of each "
             f"of its {k4['calls']} analysis calls ({k4['rows']} rows)")
+    if k4["k7q_calls"]:
+        text += (f", K7's quantization entry on each of its "
+                 f"{k4['k7q_calls']} ({k4['k7q_rows']} rows)")
+    return text
 
 
 def new_tally() -> dict:
@@ -2162,7 +2323,7 @@ def phase_ltp_encode(torch, np, dev, music, card):
               f"LTP on: {on}; K10 bit-equal to plain on every call (rows x n "
               f"{checked}); decode on the card lossless, launches "
               f"{ {k: dec_got[k] for k in dec_names} }, K9 bit-equal to "
-              f"plain on its {len(groups)} LTP groups; {k4_held_text(k4)}; "
+              f"plain on its {len(groups)} LTP groups; {held_text(k4)}; "
               f"{tally_text(tally)}; "
               f"warm "
               f"best of 3: encode {enc_best * 1e3:.1f} ms = "
@@ -2369,7 +2530,7 @@ def phase_ltp_shapes(torch, np, dev, card, tallies: dict):
               f"every call (rows x n {checked}); decode on the card lossless, "
               f"K9 launched once per LTP group ({len(groups)}) and bit-equal "
               f"to plain on each (blocks x n "
-              f"{[(b, n) for b, n, _ in groups]}); {k4_held_text(k4)}; "
+              f"{[(b, n) for b, n, _ in groups]}); {held_text(k4)}; "
               f"{tally_text(tally)} "
               f"[{card}]")
     return launches, err9, err10
@@ -2557,6 +2718,42 @@ def k7_boundary_cases(np) -> list:
     """[(name, lags, n, bps, M, max_fixed, must_flag, must_not_flag)]: lag
     rows that drive K7's decisions to their boundaries."""
     return [k7_order_tie_case(np), k7_quantize_case(np), k7_silent_case(np)]
+
+
+K7Q_BATCH_ROWS = 32 * 37 + 13          # no multiple of a warp's 4 rows
+K7Q_WIDENINGS = (0.0, 1e-9, 1e-6)      # cerr of the boundary rows
+
+
+def k7_quantize_batch(np, V: int, M: int, seed: int):
+    """Arguments of K7's quantization entry, (coefs (V, M) f64, orders (V,)
+    int32, kappa (V,) f64, cerr (V,) f64) as numpy arrays: rows of largest
+    |c| from 3e-4 to 2, orders 0..M (0, 1, M and M among the first four),
+    values past each order that must not count (a NaN and an inf among
+    them), kappa' from 1 to 1e8, cerr 0 on a third of the rows and up to
+    1e-6 relative on the others; and rows at the edges: tiny (largest |c|
+    2^-9 and exactly the tiny threshold 2^-7), all zero, a NaN and an inf
+    inside the order, largest |c| exactly 0.5 and just below 1."""
+    rng = np.random.RandomState(seed)
+    orders = rng.randint(0, M + 1, V)
+    orders[:4] = (0, 1, M, M)
+    mag = 10.0 ** rng.uniform(-3.5, 0.3, V)
+    coefs = rng.uniform(-1.0, 1.0, (V, M)) * mag[:, None]
+    kappa = 10.0 ** rng.uniform(0.0, 8.0, V)
+    cerr = np.where(rng.uniform(size=V) < 1 / 3, 0.0,
+                    mag * 10.0 ** rng.uniform(-16.0, -6.0, V))
+    edge = 4 + np.arange(9)
+    orders[edge] = max(M // 2, 2)
+    for row, top in ((4, 2.0 ** -9), (5, 2.0 ** -7), (9, 0.5),
+                     (10, np.nextafter(1.0, 0.0))):
+        j = int(np.abs(coefs[row, :orders[row]]).argmax())
+        coefs[row] *= top / abs(coefs[row, j])
+        coefs[row, j] = np.copysign(top, coefs[row, j])
+    coefs[6, :orders[6]] = 0.0
+    coefs[7, 1] = np.nan
+    coefs[8, 0] = np.inf
+    coefs[11, orders[11]:] = np.nan
+    coefs[12, orders[12]:] = np.inf
+    return coefs, orders.astype(np.int32), kappa, cerr
 
 
 def check_flag_contract(np, what: str, port, host, risky, must_flag=None,
@@ -3177,7 +3374,7 @@ def svr_encode_case(torch, np, dev, case, card) -> dict:
           f"overflow of {ncomp} COMPRESS blocks, {st['device_spans']} device "
           f"/ {st['remeasured_spans']} re-measured of {nspans} spans; "
           f"{n_measure} measurement calls + {n_encode} encode groups; "
-          f"launches {got}; {k4_held_text(k4)}; decode on the card lossless "
+          f"launches {got}; {held_text(k4)}; decode on the card lossless "
           f"[{card}]")
     return {"encode": got, "decode": dec_got, "host_s": host_s}
 
@@ -3214,6 +3411,8 @@ def phase_svr(torch, np, dev, music, card):
           f"{int(inp[1].max())}): bit-equal to their plain versions, flags "
           f"and K7's quantization entry too; K7's coefficient entry: "
           f"{k7_coefs_text(k7)} ({time.perf_counter() - t0:.1f} s) [{card}]")
+    print(f"phase 12 K7's quantization entry: "
+          f"{k7_quantize_cases(torch, np, dev)} [{card}]")
 
     # Full width: phase 3's 120 s at -m 4 -B 4096 -V 0 --svr 2.
     param = svr_param(4, 4096, 0, 0)
@@ -3248,7 +3447,7 @@ def phase_svr(torch, np, dev, music, card):
           f"{st['repaired_blocks']} repaired / {st['w_overflow_blocks']} "
           f"overflow of {ncomp} COMPRESS blocks (repair rate "
           f"{100 * rate:.2f} %{', ABOVE 5 %' if rate > SVR_REPAIR_WARN else ''}"
-          f"), launches {got}, {k4_held_text(k4)}, decode on the card "
+          f"), launches {got}, {held_text(k4)}, decode on the card "
           f"lossless; warm best of 3 "
           f"{best * 1e3:.1f} ms = {MAIN_SECONDS / best:.1f}x realtime "
           f"[{card}]")
@@ -3283,6 +3482,47 @@ def phase_svr(torch, np, dev, music, card):
     k7_tallies = {"m255_tail": k7, "full_width": k7_full}
     return launches, svr_records(torch, dev, main_inp, main_cov, main_out,
                                  main_plain, card), k7_tallies
+
+
+def k7_quantize_check(torch, what: str, args) -> int:
+    """K7's quantization entry against its plain version on args (coefs,
+    orders, kappa, cerr) on the card: equal on every output, the flags
+    too. Returns the rows the plain version flags."""
+    from srla_tpu_torch.kernels.levinson import (lpc_quantize,
+                                                 lpc_quantize_plain)
+    got = lpc_quantize(*args)
+    want = lpc_quantize_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("shifts", "values", "flags"), got, want):
+        require(torch.equal(g, w), f"K7's quantization entry differs from "
+                                   f"its plain version in its {name} "
+                                   f"({what})")
+    return int(want[2].sum())
+
+
+def k7_quantize_cases(torch, np, dev) -> str:
+    """K7's quantization entry on the rows of k7_quantize_case (the
+    coefficients K7's coefficient entry gives on their lags) with cerr 0
+    and widened (K7Q_WIDENINGS relative to each row's largest |c|), and on
+    k7_quantize_batch at M 32, 64, 128 and 255: equal to its plain version
+    on every output. Returns what it checked."""
+    from srla_tpu_torch.kernels.levinson import lpc_coefs
+    _, lags, n, bps, M, fixed, _, _ = k7_quantize_case(np)
+    orders, coefs, kappa, _ = lpc_coefs(torch.from_numpy(lags).to(dev), n,
+                                        bps, M, fixed)
+    top = coefs.abs().max(dim=1).values
+    flagged = [k7_quantize_check(torch, f"boundary rows, cerr {w:g} max|c|",
+                                 (coefs, orders, kappa, top * w))
+               for w in K7Q_WIDENINGS]
+    text = (f"{lags.shape[0]} boundary rows (k7_quantize_case) with cerr "
+            f"{', '.join(f'{w:g}' for w in K7Q_WIDENINGS)} x max|c|: equal "
+            f"to plain on every output, {flagged} flagged")
+    for M in (32, 64, 128, 255):
+        batch = k7_quantize_batch(np, K7Q_BATCH_ROWS, M, M)
+        args = tuple(torch.from_numpy(a).to(dev) for a in batch)
+        f = k7_quantize_check(torch, f"random batch at M {M}", args)
+        text += f"; {K7Q_BATCH_ROWS} random rows at M {M}: equal, {f} flagged"
+    return text
 
 
 def k7_coefs_text(t: dict) -> str:
@@ -3411,6 +3651,9 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
 
     ms7c, dev7c = cuda_ms(torch, k7c, 20), device_ms(torch, k7c, 20)
     ms7q, dev7q = cuda_ms(torch, k7q, 20), device_ms(torch, k7q, 20)
+    # The quantization's floor: its longest row's chain, steps of
+    # chain_probe.cu kind 7.
+    floor7q = int(o.max()) * chain_step_ms(torch, 7)
     plain7c = cuda_ms(torch, lambda: lpc_coefs_plain(ac, n, bps, M, fixed),
                       1)
     plain7q = cuda_ms(torch, lambda: lpc_quantize_plain(
@@ -3450,7 +3693,9 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
           f"ms, bound {b7c['bound_ms']:.4f} ms ({b7c['bound_by']}); "
           f"srla_lpc_quantize kernel {ms7q:.4f} ms, device time "
           f"{dev7q:.4f} ms, plain {plain7q:.2f} ms, bound "
-          f"{b7q['bound_ms']:.4f} ms ({b7q['bound_by']}) [{card}]")
+          f"{b7q['bound_ms']:.4f} ms ({b7q['bound_by']}), serial floor "
+          f"{floor7q:.4f} ms ({int(o.max())} steps of chain_probe.cu kind "
+          f"7); {parent_text('lpc_quantize')} [{card}]")
     common = dict(route="cuda", max_abs_err=0)
     k12_src = "srla_tpu_torch/kernels/csrc/svr_refine"
     k7_src = "srla_tpu_torch/kernels/csrc/lpc_analyze.cu"
@@ -3476,7 +3721,8 @@ def svr_records(torch, dev, inp, cov, out12, plain, card):
             dict(name="lpc_quantize", source=k7_src,
                  replaces="srla_tpu/kernels/exact.py:330", ms=ms7q,
                  plain_ms=plain7q, **b7q, library_ms=None, device_ms=dev7q,
-                 **common)]
+                 serial_floor_ms=floor7q,
+                 parent_in_turns=parent_runs("lpc_quantize"), **common)]
 
 
 HIRES_SECONDS = (60.0, 45.0, 30.0, 20.0, 10.0, 5.0, 1.0)
@@ -4128,7 +4374,14 @@ def phase_resident(torch, np, dev, cases, card):
 
 
 
-def main() -> int:
+def main(argv) -> int:
+    parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--parent":
+            print("usage: python3 chip_smoke.py [--parent DIR]",
+                  file=sys.stderr)
+            return 2
+        parent = argv[1]
     try:
         import torch
     except ImportError:
@@ -4164,6 +4417,24 @@ def main() -> int:
     build.load_all(LIBRARIES + PROBES)
     print("kernel build (concurrent nvcc, s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in build.build_seconds.items()))
+
+    if parent is not None:
+        # K7's quantization entry and the generic pack in the parent and
+        # here, each checkout its own process, in turns; phases 5 and 12
+        # print them beside their own times.
+        from srla_tpu_torch.tools import kernel_ab
+        runs = kernel_ab.run([parent, ".", ".", parent])
+        for r in runs:
+            require("error" not in r, f"kernel_ab in {r['root']}: "
+                                      f"{r.get('error')}")
+        for key in ("lpc_quantize_sha256", "pack_sha256"):
+            require(len({r[key] for r in runs}) == 1,
+                    f"the parent's and this checkout's outputs differ "
+                    f"({key})")
+        for r, label in zip(runs, ("parent", "change", "change", "parent")):
+            r["root"] = label
+        PARENT_AB["runs"] = runs
+        print("in turns: " + json.dumps(runs))
 
     records = [phase_lpc(torch, np, dev)]
 
@@ -4294,4 +4565,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

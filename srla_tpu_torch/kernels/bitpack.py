@@ -17,9 +17,11 @@ This is the entry the encode runs.
 flat buffer of MSB-first 32-bit words, the job of the Pallas kernel
 ``srla_tpu.kernels.pallas_pack.pallas_pack_rows`` and of the XLA packers
 ``bitpack.pack_flat_stream`` / ``pack_monotone_stream``. On a CUDA tensor it
-launches ``bitpack_kernel`` of the same source; on a CPU tensor it runs
-``pack_plain``. It is off the encode's path since the fused entry took its
-place there, and stays for callers that hold a stream.
+launches ``bitpack_kernel`` of the same source on the caller's tensors as
+they are (contributions to one word merged in the warp before its atomic);
+on a CPU tensor it runs ``pack_plain``. It is off the encode's path since
+the fused entry took its place there, and stays for callers that hold a
+stream.
 """
 
 from __future__ import annotations
@@ -172,6 +174,15 @@ def pack_plain(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
     return wrap32(buf[:cap_w] & _MASK32).to(torch.int32)
 
 
+def _flat(t: torch.Tensor, dtypes: tuple) -> torch.Tensor:
+    """t as a contiguous 1-D tensor, int64 unless its dtype is in dtypes: a
+    view of a contiguous input of such a dtype, with no pass over it."""
+    t = t.reshape(-1)
+    if t.dtype not in dtypes:
+        t = t.to(torch.int64)
+    return t.contiguous()
+
+
 def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
     """offsets (..., T) absolute bit positions; tails (..., T) with the low
     tbits bits significant; tbits (..., T), 0 for a masked slot. Entries
@@ -179,17 +190,24 @@ def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
     (cap_w,) int32: the MSB-first words as bit patterns.
 
     CUDA tensors go through the kernel (``pack.launches`` counts its
-    launches); CPU tensors go through ``pack_plain``. The encode does not
-    call it: ``pack_residual_sections`` packs its sections.
+    launches), which reads int64 offsets and int32 or int64 tails and
+    tbits as they are (other dtypes are converted to int64 first); CPU
+    tensors go through ``pack_plain``. The encode does not call it:
+    ``pack_residual_sections`` packs its sections.
     """
     if offsets.device.type == "cpu":
         return pack_plain(offsets, tails, tbits, cap_w)
     if offsets.device.type != "cuda":
         raise ValueError(f"pack: no kernel for device {offsets.device}")
     dev = offsets.device
-    offs = offsets.reshape(-1).to(torch.int64).contiguous()
-    tl = wrap32(tails.reshape(-1).long()).to(torch.int32).contiguous()
-    tb = tbits.reshape(-1).to(torch.int32).contiguous()
+    if tails.device != dev or tbits.device != dev:
+        raise ValueError(f"pack: offsets, tails and tbits must all be on "
+                         f"{dev}")
+    if not 0 <= cap_w < 1 << 32:
+        raise ValueError(f"pack: cap_w must be in 0..2^32 - 1, got {cap_w}")
+    offs = _flat(offsets, (torch.int64,))
+    tl = _flat(tails, (torch.int32, torch.int64))
+    tb = _flat(tbits, (torch.int32, torch.int64))
     count = offs.numel()
     if tl.numel() != count or tb.numel() != count:
         raise ValueError("pack: offsets, tails and tbits differ in size")
@@ -199,7 +217,9 @@ def pack(offsets, tails, tbits, cap_w: int) -> torch.Tensor:
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.srla_bitpack(offs.data_ptr(), tl.data_ptr(), tb.data_ptr(),
-                           out.data_ptr(), count, cap_w, stream)
+                           out.data_ptr(), count, cap_w,
+                           int(tl.dtype == torch.int64),
+                           int(tb.dtype == torch.int64), stream)
     build.check(err, "bitpack")
     pack.launches += 1
     return out
@@ -307,7 +327,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fused = lib.srla_pack_sections
         fused.restype = ctypes.c_int
         fused.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \

@@ -53,21 +53,49 @@
 // whose lens_w is too small for its bits loses its end but writes nowhere
 // else.
 //
-// bitpack_kernel: one thread per entry, at most two atomicOr into a buffer
-// the wrapper zeroes. Words at or beyond cap_w are dropped, as both JAX
-// packers drop them; an entry at a negative offset is dropped too. Shift
-// counts >= 32 give 0, as XLA's shifts do. Bit ranges of distinct entries
-// are disjoint in a valid stream, so the OR equals the JAX packers' sum and
-// the result does not depend on the order of the atomics. The TPU's grouped
-// windows, frame overflow and prefix sums were workarounds for missing
-// scatter; neither kernel has a frame limit, so nothing overflows.
+// bitpack_kernel, the generic pack. Words at or beyond cap_w are dropped,
+// as both JAX packers drop them; an entry at a negative offset is dropped
+// too. Shift counts >= 32 give 0, as XLA's shifts do (a width above 65
+// acts as 65). Bit ranges of distinct entries are disjoint in a valid
+// stream, so the OR equals the JAX packers' sum and the result does not
+// depend on the order of the atomics. The TPU's grouped windows, frame
+// overflow and prefix sums were workarounds for missing scatter; neither
+// kernel has a frame limit, so nothing overflows.
+//
+// What bounds the generic pack on an H100: its bytes, each entry's offset
+// (int64), tail and width (int32 or int64, as the caller holds them) read
+// once and the cap_w words written once: 2582 x 5122 slots of int64 and 6.7
+// M words, 344 MB, ~0.10 ms. Design: the kernel reads the caller's tensors
+// as they are (a template over int32 and int64 tails and widths; the tail
+// is the low 32 bits of either), so the wrapper runs no conversion pass on
+// contiguous int32 or int64 inputs, and zeroes the words (one memset) for
+// the ORs. A thread takes kPackRuns entries, 32 apart, so that each load
+// instruction of a warp reads 32 consecutive entries (256 contiguous bytes
+// of int64) and a step of the warp holds 32 consecutive entries, one a
+// lane. Each entry gives at most two contributions, A to its first word
+// and B to the next. Contributions to the same word are merged in the warp
+// before any atomic: an entry's B joins the next lane's A when that is the
+// same word, then a segmented inclusive OR-scan over the lanes (five
+// shuffle steps, each taking the value of the lane d below only where its
+// word is the same) leaves on the last lane of every run of equal words
+// the OR of the run, and that lane alone issues the atomicOr. A sorted
+// stream, such as a row's codewords, has its words in runs: one atomic a
+// word that the warp's entries touch (about five codewords a word at the
+// encode's sizes, against up to two atomics an entry before). In any other
+// order every contribution still reaches an atomic to its own word (a run
+// is then short, and OR is idempotent), so the result does not depend on
+// the order: no fast path or sortedness test is needed. A contribution of
+// value 0 issues nothing. Words are 32-bit keys, so cap_w < 2^32.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPackThreads = 256;
+constexpr int kPackRuns = 4;               // entries a thread, 32 apart
+constexpr uint32_t kAllLanes = 0xffffffffu;
+constexpr uint32_t kNoWord = 0xffffffffu;  // no contribution
 
 __device__ __forceinline__ uint32_t shl(uint32_t x, int k) {
     return (k < 0 || k >= 32) ? 0u : x << k;
@@ -77,28 +105,71 @@ __device__ __forceinline__ uint32_t shr(uint32_t x, int k) {
     return (k < 0 || k >= 32) ? 0u : x >> k;
 }
 
-__global__ void bitpack_kernel(const int64_t* __restrict__ offs,
-                               const int32_t* __restrict__ tails,
-                               const int32_t* __restrict__ tbits,
-                               uint32_t* __restrict__ out, long long count,
-                               long long cap_w) {
-    const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (e >= count) return;
-    const int tb = tbits[e];
-    const long long off = offs[e];
-    if (tb <= 0 || off < 0 || off >= cap_w * 32) return;
-    const long long w0 = off >> 5;
-    const int sh = (int)(off & 31);
-    int over = tb - (32 - sh);
-    if (over < 0) over = 0;
-    const int keep = tb - over;
-    const uint32_t tail = (uint32_t)tails[e];
-    if (keep > 0) {
-        atomicOr(&out[w0], shl(shr(tail, over), 32 - sh - keep));
+template <typename TT, typename TB>
+__global__ void __launch_bounds__(kPackThreads)
+bitpack_kernel(const int64_t* __restrict__ offs,
+               const TT* __restrict__ tails, const TB* __restrict__ tbits,
+               uint32_t* __restrict__ out, long long count, long long cap_w) {
+    const int lane = threadIdx.x & 31;
+    // The warp's entries: kPackRuns steps of 32 consecutive ones.
+    const long long base = ((long long)blockIdx.x * kPackThreads
+                            + (threadIdx.x & ~31)) * kPackRuns;
+    long long off[kPackRuns], tb[kPackRuns];
+    uint32_t tail[kPackRuns];
+#pragma unroll
+    for (int j = 0; j < kPackRuns; ++j) {
+        const long long e = base + 32 * j + lane;
+        const bool in = e < count;
+        off[j] = in ? offs[e] : -1;
+        tail[j] = in ? (uint32_t)tails[e] : 0u;
+        tb[j] = in ? (long long)tbits[e] : 0;
     }
-    if (over > 0 && w0 + 1 < cap_w) {
-        atomicOr(&out[w0 + 1], shl(tail, 32 - over));
+    const long long limit = cap_w * 32;
+#pragma unroll
+    for (int j = 0; j < kPackRuns; ++j) {
+        uint32_t ka = kNoWord, kb = kNoWord, va = 0u, vb = 0u;
+        if (tb[j] > 0 && off[j] >= 0 && off[j] < limit) {
+            const int width = (int)min(tb[j], 65LL);
+            const uint32_t w0 = (uint32_t)(off[j] >> 5);
+            const int sh = (int)(off[j] & 31);
+            int over = width - (32 - sh);
+            if (over < 0) over = 0;
+            const int keep = width - over;
+            va = keep > 0 ? shl(shr(tail[j], over), 32 - sh - keep) : 0u;
+            vb = over > 0 && (long long)w0 + 1 < cap_w
+                ? shl(tail[j], 32 - over) : 0u;
+            ka = va != 0u ? w0 : kNoWord;
+            kb = vb != 0u ? w0 + 1 : kNoWord;
+        }
+        // B to the next lane's A where both are the same word.
+        const uint32_t ka_next = __shfl_down_sync(kAllLanes, ka, 1);
+        const uint32_t kb_prev = __shfl_up_sync(kAllLanes, kb, 1);
+        const uint32_t vb_prev = __shfl_up_sync(kAllLanes, vb, 1);
+        const bool b_given = lane < 31 && kb != kNoWord && kb == ka_next;
+        if (lane > 0 && ka != kNoWord && kb_prev == ka) va |= vb_prev;
+        // The segmented OR-scan over runs of equal words.
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const uint32_t k_up = __shfl_up_sync(kAllLanes, ka, d);
+            const uint32_t v_up = __shfl_up_sync(kAllLanes, va, d);
+            if (lane >= d && k_up == ka) va |= v_up;
+        }
+        if (ka != kNoWord && (lane == 31 || ka_next != ka))
+            atomicOr(&out[ka], va);
+        if (kb != kNoWord && !b_given) atomicOr(&out[kb], vb);
     }
+}
+
+template <typename TT, typename TB>
+int launch_pack(const void* offs, const void* tails, const void* tbits,
+                void* out, long long count, long long cap_w,
+                cudaStream_t stream) {
+    const long long per_block = (long long)kPackThreads * kPackRuns;
+    const long long blocks = (count + per_block - 1) / per_block;
+    bitpack_kernel<TT, TB><<<(unsigned)blocks, kPackThreads, 0, stream>>>(
+        (const int64_t*)offs, (const TT*)tails, (const TB*)tbits,
+        (uint32_t*)out, count, cap_w);
+    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -358,16 +429,28 @@ pack_sections_kernel(const uint32_t* __restrict__ u,
 
 }  // namespace
 
-// offs: (count,) int64 absolute bit offsets; tails, tbits: (count,) int32;
-// out: (cap_w,) zeroed 32-bit words.
+// offs: (count,) int64 absolute bit offsets; tails, tbits: (count,) int32
+// or int64 (tails64, tbits64 non-zero: int64); out: (cap_w,) zeroed 32-bit
+// words, cap_w < 2^32.
 extern "C" int srla_bitpack(const void* offs, const void* tails,
                             const void* tbits, void* out, long long count,
-                            long long cap_w, void* stream) {
-    const long long blocks = (count + kThreads - 1) / kThreads;
-    bitpack_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)offs, (const int32_t*)tails, (const int32_t*)tbits,
-        (uint32_t*)out, count, cap_w);
-    return (int)cudaGetLastError();
+                            long long cap_w, int tails64, int tbits64,
+                            void* stream) {
+    if (count < 0 || cap_w < 0 || cap_w > 0xfffffffeLL)
+        return (int)cudaErrorInvalidValue;
+    if (count == 0 || cap_w == 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (tails64 && tbits64)
+        return launch_pack<int64_t, int64_t>(offs, tails, tbits, out, count,
+                                             cap_w, s);
+    if (tails64)
+        return launch_pack<int64_t, int32_t>(offs, tails, tbits, out, count,
+                                             cap_w, s);
+    if (tbits64)
+        return launch_pack<int32_t, int64_t>(offs, tails, tbits, out, count,
+                                             cap_w, s);
+    return launch_pack<int32_t, int32_t>(offs, tails, tbits, out, count,
+                                         cap_w, s);
 }
 
 // u: (rows, n) zigzag residuals as 32-bit patterns; the others int64, as

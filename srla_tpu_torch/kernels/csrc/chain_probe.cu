@@ -30,12 +30,17 @@
 //           operand read from shared memory independently of the sum (the
 //           mean-abs sum and each r-vector entry of SVR's refinement are
 //           such chains over the samples)
+//   kind 7, a step of K7's quantization chain (lpc_analyze.cu
+//           quantize_row): the coefficient read from shared memory and
+//           scaled, added to the fed-back error, rounded half away from
+//           zero, clamped, its margin test, and the new error, with the
+//           same intrinsics
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
-// codewords (K7: the recursion's steps; K9: the steps of its row with the
-// most; K10: one solve a row, to which its scans add): the kernel's serial
-// floor on this card.
+// codewords (K7: the recursion's steps, and for its quantization entry the
+// largest order; K9: the steps of its row with the most; K10: one solve a
+// row, to which its scans add): the kernel's serial floor on this card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -67,6 +72,34 @@ __device__ uint32_t add_chain(uint32_t y, int steps) {
 #pragma unroll 16
     for (int i = 0; i < steps; ++i) acc = __dadd_rn(acc, vals[i & 255]);
     return (uint32_t)__double2hiint(acc);
+}
+
+// K7's quantization step (quantize_row) on coefficients in shared memory,
+// at 8-bit values (qmax 128) and a shift of 7; the stored value is summed
+// instead, off the chain as the kernel's store is.
+__device__ uint32_t quant_chain(uint32_t y, int steps) {
+    __shared__ double coef[256];
+    const int lane = threadIdx.x & 31;
+    for (int k = lane; k < 256; k += 32)
+        coef[k] = ((double)((k * 37 + 11) % 255) - 127.0) / 128.0;
+    __syncwarp();
+    const double scale = 128.0, qmax = 128.0, eps_k = 1e-7;
+    double qerr = (double)(y & 3u) * 0.125;
+    bool risky = false;
+    int32_t sum = 0;
+#pragma unroll 4
+    for (int i = 0; i < steps; ++i) {
+        const double qe = __dadd_rn(qerr, __dmul_rn(coef[i & 255], scale));
+        const double ax = fabs(qe);
+        const double r = floor(__dadd_rn(ax, 0.5));
+        double qt = qe < 0.0 ? -r : r;
+        qt = qt < -qmax ? -qmax : (qt > qmax - 1.0 ? qmax - 1.0 : qt);
+        risky |= fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5)) < eps_k;
+        qerr = __dsub_rn(qe, qt);
+        sum += (int32_t)qt;
+    }
+    return (uint32_t)sum ^ (risky ? 1u : 0u)
+        ^ (uint32_t)__double2hiint(qerr);
 }
 
 // K9's step (ltp_synth.cu) on a ring of 2048 samples.
@@ -151,6 +184,8 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
         y = k10_chain(y, steps);
     } else if (kind == 6) {
         y = add_chain(y, steps);
+    } else if (kind == 7) {
+        y = quant_chain(y, steps);
     } else {
         y = kind == 2 ? f64_chain<32>(y, steps) : f64_chain<8>(y, steps);
     }

@@ -26,8 +26,8 @@
 // coefficients between steps 3 and 4: the entry srla_lpc_coefs runs steps
 // 1-3 and writes the coefficients at the chosen order, kappa' and the flags
 // of steps 1-2 (kernels/levinson.py:lpc_coefs_plain), and srla_lpc_quantize
-// runs step 4 alone, a thread a row, on the refined coefficients with its
-// rounding margin widened by SVR's error bound
+// runs step 4 alone, eight lanes a row (last paragraph), on the refined
+// coefficients with its rounding margin widened by SVR's error bound
 // (levinson.py:lpc_quantize_plain, kernels/svr.py for the bound).
 //
 // f64 throughout, every operation written as the plain version writes it
@@ -63,8 +63,31 @@
 // row's scalars, so nothing diverges inside a group; rows past V are
 // computed on the last row and not stored, so every mask is the full
 // warp.
+//
+// srla_lpc_quantize, step 4 alone. Its bytes are the (V, M) f64
+// coefficients and each row's order, kappa' and cerr in, the (V, M) int32
+// values, shift and flag out: 4 MB at 5164 rows x 64 (0.0012 ms). Its
+// floor is a row's chain: `order` dependent steps of quantize_row's loop
+// (the fed-back error, the rounding half away from zero, the clamp, the new
+// error: about ten dependent f64 operations a step), which
+// csrc/chain_probe.cu kind 7 times alone. Design: a CTA is one warp, a row
+// a group of kQuantLanes = 8 lanes, 4 rows a warp, as in the fused kernel.
+// The warp stages its rows, which lie end to end in coefs, into shared
+// memory with every copy in flight at once (cp.async, 256 contiguous bytes
+// a warp instruction), each row at an odd stride of doubles so that the
+// groups' reads fall in distinct banks; each lane takes the largest |c| of
+// its part of the row in four chains, a butterfly gives the row's, each
+// lane runs quantize_row on the row (the group alike, so nothing diverges
+// in a group) into an int32 tile of the same stride, and the warp writes
+// the rows' values back end to end, 32 consecutive words an instruction, 0
+// past each order. 5164 rows make 1291 CTAs, ten warps an SM, so the
+// staging, the stores and the chains of different warps overlap. A row a
+// lane (kQuantLanes = 1, 32 rows a warp, 162 CTAs) runs no chain twice but
+// leaves an SM one warp, whose staging and stores then run alone: it
+// measured slower (PERF.md). A tile takes 12 (M | 1) bytes a row.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -87,6 +110,10 @@ constexpr double kKappaScale = 1.0 / 1099511627776.0;  // 2^-40
 constexpr double kInvLoge2 = 1.4426950408889634;     // _INV_LOGE2
 constexpr double kFrexpTop = 1.0 - 1e-7;
 constexpr double kSvrQuantScale = 4.0;               // SVR_QUANT_SCALE
+// srla_lpc_quantize's lanes a row: 8, 4 rows a warp (the header's last
+// paragraph).
+constexpr int kQuantLanes = 8;
+constexpr int kStoreRuns = 4;              // its stores a lane in flight
 
 // Doubles a row: the lags, the best order's vector, the ring.
 __host__ __device__ constexpr int row_doubles(int M) {
@@ -139,15 +166,25 @@ __device__ __forceinline__ double quant_eps(double qmax, double kappa,
                                             cerr));
 }
 
+// A quantized value as the plain version stores it: as a double, or as
+// int32 through int64 (torch's .long(), then int32), so that a NaN gives 0
+// there as in the plain version.
+__device__ __forceinline__ void put_q(double& q, double v) { q = v; }
+__device__ __forceinline__ void put_q(int32_t& q, double v) {
+    q = (int32_t)(long long)v;
+}
+
 // Step 4 on the coefficients coef[1 .. order] (coef[0] unused) of largest
 // magnitude maxabs, cerr < 0 for K7's own margin: writes the quantized
 // values to q[0 .. order - 1] and the shift to rshift, returns the flags.
 template <typename T>
-__device__ __forceinline__ bool quantize_row(const double* coef, int order,
+__device__ __forceinline__ bool quantize_row(const double* __restrict__ coef,
+                                             int order,
                                              bool silent, double maxabs,
                                              double kappa, double cerr,
                                              int nbits, int max_bits,
-                                             int& rshift, T* q) {
+                                             int& rshift,
+                                             T* __restrict__ q) {
     const double qmax = (double)(1 << (nbits - 1));
     const double tiny_thresh = ldexp(1.0, -(nbits - 1));
     const bool tiny = maxabs <= tiny_thresh;
@@ -163,17 +200,22 @@ __device__ __forceinline__ bool quantize_row(const double* coef, int order,
     const double scale = ldexp(1.0, rshift);
     const double eps_k = quant_eps(qmax, kappa, scale, cerr);
     double qerr = 0.0;
+    // Each step's coefficient is read a step ahead: a read issued behind
+    // the last step's store would wait on the chain.
+    double next = order > 0 ? coef[order] : 0.0;
 #pragma unroll 4
     for (int o = order - 1; o >= 0; --o) {
+        const double c = next;
+        next = o > 0 ? coef[o] : 0.0;
         const double qe = __dadd_rn(qerr, __dmul_rn(
-            silent ? 0.0 : coef[o + 1], scale));
+            silent ? 0.0 : c, scale));
         const double ax = fabs(qe);
         const double r = floor(__dadd_rn(ax, 0.5));
         double qt = qe < 0.0 ? -r : r;
         qt = qt < -qmax ? -qmax : (qt > qmax - 1.0 ? qmax - 1.0 : qt);
         risky |= fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5)) < eps_k;
         qerr = __dsub_rn(qe, qt);
-        q[o] = (T)(tiny ? 0.0 : qt);
+        put_q(q[o], tiny ? 0.0 : qt);
     }
     return risky || !isfinite(maxabs);
 }
@@ -370,9 +412,10 @@ lpc_analyze_kernel(const double* __restrict__ lags,
     }
 }
 
-// srla_lpc_quantize: step 4 of each row on given coefficients, a thread
-// a row (the chain of step 4 is serial; SVR's refinement costs far more).
-__global__ void __launch_bounds__(128)
+// srla_lpc_quantize: step 4 alone on given coefficients, kQuantLanes lanes
+// a row (the header's last paragraph has the design).
+template <int G>
+__global__ void __launch_bounds__(32)
 lpc_quantize_kernel(const double* __restrict__ coefs,
                     const int32_t* __restrict__ orders,
                     const double* __restrict__ kappa,
@@ -381,19 +424,85 @@ lpc_quantize_kernel(const double* __restrict__ coefs,
                     int32_t* __restrict__ intc_out,
                     uint8_t* __restrict__ risky_out, int V, int M, int nbits,
                     int max_bits) {
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= V) return;
-    const double* c = coefs + (size_t)row * M - 1;   // c[1 .. M]
-    const int order = orders[row];
-    double maxabs = 0.0;
-    for (int j = 1; j <= order; ++j) maxabs = nan_max(maxabs, fabs(c[j]));
-    int32_t* intc = intc_out + (size_t)row * M;
-    for (int o = order; o < M; ++o) intc[o] = 0;
+    constexpr int R = 32 / G;              // rows a warp (and a CTA)
+    extern __shared__ double qsmem[];
+    __shared__ int ord_s[R];
+    const int S = M | 1;                   // an odd stride: no bank conflict
+    double* tile = qsmem;                  // R rows of S coefficients
+    int32_t* qtile = reinterpret_cast<int32_t*>(qsmem + R * S);
+    const int lane = threadIdx.x;
+    const int slot = lane / G, gl = lane % G;
+    const int first = blockIdx.x * R;
+    const int rows = min(R, V - first);
+    const int count = rows * M;            // the tile's rows lie end to end
+    // Stage: the tile's rows lie end to end in coefs; every copy in
+    // flight at once (cp.async, 8 bytes a lane, 256 contiguous bytes a
+    // warp instruction: a padded row is no 16-byte aligned destination).
+    const double* src = coefs + (size_t)first * M;
+    {
+        int r = 0, c = lane;               // element k = r M + c
+        while (c >= M) { c -= M; ++r; }
+        for (int k = lane; k < count; k += 32) {
+            __pipeline_memcpy_async(tile + r * S + c, src + k,
+                                    sizeof(double));
+            c += 32;
+            while (c >= M) { c -= M; ++r; }
+        }
+        __pipeline_commit();
+    }
+    const bool live = slot < rows;
+    const int row = first + (live ? slot : 0);
+    // The plain version reads no coefficient at or past M.
+    const int order = live ? min(max(orders[row], 0), M) : 0;
+    if (gl == 0) ord_s[slot] = order;
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    // The largest |c[j]|, j < order (a NaN wins, as torch.max), in four
+    // chains a lane, then over the row's G lanes.
+    const double* c = tile + slot * S;
+    double m0 = 0.0, m1 = 0.0, m2 = 0.0, m3 = 0.0;
+    int j = gl;
+    for (; j + 3 * G < order; j += 4 * G) {
+        m0 = nan_max(m0, fabs(c[j]));
+        m1 = nan_max(m1, fabs(c[j + G]));
+        m2 = nan_max(m2, fabs(c[j + 2 * G]));
+        m3 = nan_max(m3, fabs(c[j + 3 * G]));
+    }
+    for (; j < order; j += G) m0 = nan_max(m0, fabs(c[j]));
+    double maxabs = nan_max(nan_max(m0, m1), nan_max(m2, m3));
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+        maxabs = nan_max(maxabs, __shfl_xor_sync(kFull, maxabs, off, G));
     int rshift = 0;
-    const bool risky = quantize_row(c, order, false, maxabs, kappa[row],
-                                    cerr[row], nbits, max_bits, rshift, intc);
-    rshifts_out[row] = rshift;
-    risky_out[row] = risky ? 1 : 0;
+    bool risky = false;
+    if (live) {
+        risky = quantize_row(c - 1, order, false, maxabs, kappa[row],
+                             cerr[row], nbits, max_bits, rshift,
+                             qtile + slot * S);
+        if (gl == 0) {
+            rshifts_out[row] = rshift;
+            risky_out[row] = risky ? 1 : 0;
+        }
+    }
+    __syncwarp();
+    // The tile's rows back, end to end, 0 past each order: kStoreRuns
+    // shared reads in flight, then their stores.
+    int32_t* dst = intc_out + (size_t)first * M;
+    int r = 0, cc = lane;
+    while (cc >= M) { cc -= M; ++r; }
+    for (int k0 = lane; k0 < count; k0 += 32 * kStoreRuns) {
+        int32_t v[kStoreRuns];
+#pragma unroll
+        for (int u = 0; u < kStoreRuns; ++u) {
+            v[u] = k0 + 32 * u < count && cc < ord_s[r]
+                ? qtile[r * S + cc] : 0;
+            cc += 32;
+            while (cc >= M) { cc -= M; ++r; }
+        }
+#pragma unroll
+        for (int u = 0; u < kStoreRuns; ++u)
+            if (k0 + 32 * u < count) dst[k0 + 32 * u] = v[u];
+    }
 }
 
 template <int G, bool kCoefsOnly>
@@ -469,9 +578,17 @@ extern "C" int srla_lpc_quantize(const void* coefs, const void* orders,
                                  void* stream) {
     if (M < 1 || M > 255 || nbits < 1 || nbits > 31)
         return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    lpc_quantize_kernel<<<(V + threads - 1) / threads, threads, 0,
-                          (cudaStream_t)stream>>>(
+    constexpr int R = 32 / kQuantLanes;
+    const size_t bytes = (size_t)R * (M | 1) * (sizeof(double)
+                                                + sizeof(int32_t));
+    if (bytes > 48 * 1024) {               // a lane a row at M > 130
+        const cudaError_t err = cudaFuncSetAttribute(
+            lpc_quantize_kernel<kQuantLanes>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (err != cudaSuccess) return (int)err;
+    }
+    lpc_quantize_kernel<kQuantLanes><<<(V + R - 1) / R, 32, bytes,
+                                       (cudaStream_t)stream>>>(
         (const double*)coefs, (const int32_t*)orders, (const double*)kappa,
         (const double*)cerr, (int32_t*)rshifts, (int32_t*)intc,
         (uint8_t*)risky, V, M, nbits, max_bits);

@@ -7,6 +7,14 @@ flat grouped-window pack pack_flat_stream, the scatter pack
 pack_monotone_stream(impl="scatter"), _word_splits and
 residual_codewords; and one section's bytes against rice.emit_channel.
 
+The generic pack's kernel (csrc/bitpack.cu bitpack_kernel) merges the
+contributions of 32 consecutive entries to one word before its atomics:
+_warp_pack_model is that merge in numpy, window by window as a warp runs it,
+held to pallas_pack_rows in interpret mode on shuffled rows with drops and
+to pack_plain on a stream out of range (chip_smoke.k5_edge_stream); change
+the kernel and the model together. On the card (marked gpu) the kernel is
+held to pack_plain on the shuffled, int32 and out-of-range streams.
+
 Every output is an integer, so every comparison is exact (tolerance 0)."""
 
 import numpy as np
@@ -20,6 +28,7 @@ from srla_tpu import rice  # noqa: E402
 from srla_tpu.bitio import BitWriter, sint32_to_uint32  # noqa: E402
 from srla_tpu.kernels import bitpack as jbitpack  # noqa: E402
 from srla_tpu.kernels.pallas_pack import pallas_pack_rows  # noqa: E402
+import chip_smoke  # noqa: E402
 from srla_tpu_torch.kernels import bitpack  # noqa: E402
 
 
@@ -170,6 +179,142 @@ def test_shift_edges_pinned():
     got = _u32(bitpack.pack_plain(offs, tails, tbits, W).numpy())
     np.testing.assert_array_equal(got, [0xFFFFFFFF, 0x7FFFFFFF,
                                         0x80000001])
+
+
+def _shift(x, k, left):
+    """uint32 x shifted by k (int64), 0 where k is outside 0..31."""
+    ok = (k >= 0) & (k < 32)
+    kk = np.where(ok, k, 0).astype(np.uint64)
+    x = x.astype(np.uint64)
+    y = ((x << kk) & 0xFFFFFFFF) if left else (x >> kk)
+    return np.where(ok, y, 0).astype(np.uint64)
+
+
+def _warp_pack_model(offs, tails, tbits, cap_w):
+    """The generic pack as bitpack_kernel runs it: entries in windows of 32
+    consecutive ones (a warp's step, a lane an entry); each entry's A (its
+    first word) and B (the next word) contributions, 0-valued ones dropped;
+    a B handed to the next lane's A of the same word; a segmented inclusive
+    OR-scan over the lanes, taking lane i - d's value only where its word
+    is lane i's; an atomicOr from the last lane of each run of equal words
+    and from every B not handed on. Returns (words (cap_w,) uint32, the
+    atomics issued)."""
+    offs = np.asarray(offs, np.int64).reshape(-1)
+    tb = np.asarray(tbits, np.int64).reshape(-1)
+    tail = np.asarray(tails, np.int64).reshape(-1) & 0xFFFFFFFF
+    pad = -offs.size % 32
+    offs, tb, tail = (np.pad(a, (0, pad)) for a in (offs, tb, tail))
+    valid = (tb > 0) & (offs >= 0) & (offs < cap_w * 32)
+    width = np.minimum(tb, 65)
+    w0 = offs >> 5
+    sh = offs & 31
+    over = np.maximum(width - (32 - sh), 0)
+    keep = width - over
+    va = np.where(valid & (keep > 0),
+                  _shift(_shift(tail, over, False), 32 - sh - keep, True), 0)
+    vb = np.where(valid & (over > 0) & (w0 + 1 < cap_w),
+                  _shift(tail, 32 - over, True), 0)
+    none = -1
+    ka = np.where(va != 0, w0, none).reshape(-1, 32)
+    kb = np.where(vb != 0, w0 + 1, none).reshape(-1, 32)
+    va, vb = va.reshape(-1, 32), vb.reshape(-1, 32)
+    lane = np.arange(32)
+
+    def up(x, d):              # __shfl_up_sync: lanes below d keep theirs
+        return np.concatenate([x[:, :d], x[:, :-d]], axis=1)
+
+    ka_next = np.concatenate([ka[:, 1:], ka[:, 31:]], axis=1)
+    given = (lane < 31) & (kb != none) & (kb == ka_next)
+    recv = (lane > 0) & (ka != none) & (up(kb, 1) == ka)
+    va = np.where(recv, va | up(vb, 1), va)
+    for d in (1, 2, 4, 8, 16):
+        va = np.where((lane >= d) & (up(ka, d) == ka), va | up(va, d), va)
+    emit_a = (ka != none) & ((lane == 31) | (ka_next != ka))
+    emit_b = (kb != none) & ~given
+    out = np.zeros(cap_w, np.uint64)
+    np.bitwise_or.at(out, ka[emit_a], va[emit_a])
+    np.bitwise_or.at(out, kb[emit_b], vb[emit_b])
+    return out.astype(np.uint32), int(emit_a.sum() + emit_b.sum())
+
+
+def test_warp_model_matches_pallas_on_shuffled_rows_with_drops():
+    """Rows whose tails run past W (dropped, one straddling word W) with
+    their entries shuffled: the warp model equals pallas_pack_rows on the
+    same rows; on the rows in order it issues one atomic for each word a
+    window of 32 entries touches, and more on the shuffled rows."""
+    offs, tails, tbits, _ = _random_rows(seed=13, V=8, T=512)
+    W = 280
+    assert (offs >= W * 32).any() and (offs < W * 32).any()
+    rng = np.random.RandomState(4)
+    perm = np.stack([rng.permutation(offs.shape[1]) for _ in offs])
+    sh = [np.take_along_axis(a, perm, axis=1) for a in (offs, tails, tbits)]
+    want = np.asarray(pallas_pack_rows(*sh, W))
+    in_order = shuffled = 0
+    for v in range(offs.shape[0]):
+        got, atomics = _warp_pack_model(sh[0][v], sh[1][v], sh[2][v], W)
+        np.testing.assert_array_equal(got, want[v])
+        shuffled += atomics
+        got, atomics = _warp_pack_model(offs[v], tails[v], tbits[v], W)
+        np.testing.assert_array_equal(got, want[v])
+        w0, va, vb = (t.numpy() for t in bitpack.word_splits(
+            _t(offs[v]), _t(tails[v]), _t(tbits[v]), W))
+        win = np.arange(w0.size) // 32
+        touched = {(i, w) for i, w, a in zip(win, w0, va) if a and w < W}
+        touched |= {(i, w + 1) for i, w, b in zip(win, w0, vb)
+                    if b and w + 1 < W}
+        assert atomics == len(touched)
+        in_order += atomics
+    assert in_order < shuffled
+
+
+def test_warp_model_matches_plain_on_edge_stream():
+    """The out-of-range stream of chip_smoke.py's phase 5 (negative
+    offsets, offsets past cap_w, widths 0 to 2^33, shuffled) and the same
+    in order: the warp model equals pack_plain word for word."""
+    offs, tails, tbits, cap = chip_smoke.k5_edge_stream(np, 4000, 23)
+    want = _u32(bitpack.pack_plain(_t(offs), _t(tails), _t(tbits),
+                                   cap).numpy())
+    got, _ = _warp_pack_model(offs, tails, tbits, cap)
+    np.testing.assert_array_equal(got, want)
+    order = np.argsort(offs, kind="stable")
+    got, _ = _warp_pack_model(offs[order], tails[order], tbits[order], cap)
+    np.testing.assert_array_equal(got, want)
+
+
+def _generic_streams(device):
+    """(name, (offsets, tails, tbits, cap_w)) of the generic pack on the
+    card's cases: rows in order, the same shuffled, in int32, int64
+    offsets with int32 tails and int64 widths, and the out-of-range
+    stream."""
+    offs, tails, tbits, W = _random_rows(seed=11, V=16, T=1024)
+    flat = (offs + (np.arange(16) * W * 32)[:, None]).astype(np.int64)
+    rows = [_t(a, device) for a in (flat, tails, tbits)]
+    perm = torch.from_numpy(np.random.RandomState(9).permutation(
+        flat.size)).to(device)
+    edge = chip_smoke.k5_edge_stream(np, 20_000, 31)
+    cap = 16 * W - 5
+    return {
+        "in-order": (*rows, cap),
+        "shuffled": (*(t.reshape(-1)[perm] for t in rows), cap),
+        "int32": (*(t.to(torch.int32) for t in rows), cap),
+        "mixed-dtypes": (rows[0], rows[1].to(torch.int32), rows[2], cap),
+        "out-of-range": (*(_t(a, device) for a in edge[:3]), edge[3])}
+
+
+GENERIC_STREAMS = ("in-order", "shuffled", "int32", "mixed-dtypes",
+                   "out-of-range")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", GENERIC_STREAMS)
+def test_generic_pack_streams_on_card(cuda, stream):
+    args = _generic_streams(cuda)[stream]
+    before = bitpack.pack.launches
+    got = bitpack.pack(*args)
+    torch.cuda.synchronize()
+    assert bitpack.pack.launches == before + 1
+    want = bitpack.pack_plain(*args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.gpu

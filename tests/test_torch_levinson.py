@@ -19,11 +19,21 @@ levinson), against the JAX package and the host.
   lpc_quantize_plain with no widening) equal lpc_analyze_plain bit for
   bit; chip_smoke.k7_coefs_check, which holds K7's coefficient entry to its
   plain version, refuses a coefficient moved past its allowance.
+- The quantization entry's plain version (lpc_quantize_plain, cerr 0)
+  against the host's quantize_coefficients and JAX's _quantize_exact on
+  chip_smoke.k7_quantize_batch (rows at M 32, 64, 128 and 255 with orders
+  0..M, tiny and all-zero rows, garbage past each order), coefficients
+  exact in f32 so that all read the same values: equal shifts and values
+  on every row the port does not flag (the host) and neither flags (JAX,
+  at M <= 128; at M 255 JAX rounds one row other than the host).
 - On the card (marked gpu): the kernel against its plain version on the
   same rows, equal where neither flags and flagged alike; the coefficient
   entry within k7_coefs_check's allowance of its plain version and the
-  quantization entry equal to its plain version; the boundary contract for
-  the kernel; a CUDA tensor of the wrong dtype raises."""
+  quantization entry equal to its plain version, flags too, also on the
+  boundary rows of k7_quantize_case with cerr 0 and widened and on
+  k7_quantize_batch at M 32, 64, 128 and 255 (NaN and inf rows among
+  them); the boundary contract for the kernel; a CUDA tensor of the wrong
+  dtype raises."""
 
 import functools
 from fractions import Fraction
@@ -256,9 +266,83 @@ def test_k7_coefs_check_refuses_a_move_past_its_allowance():
         check((orders, coefs, kappa, flipped))
 
 
+@functools.partial(jax.jit, static_argnums=(4,))
+def _jax_quantize(tok, hi, orders, kappa, M):
+    """JAX's quantization (_quantize_exact) of coefficients exact in f32."""
+    with dd.pinned(tok):
+        return _quantize_exact((hi, jnp.zeros_like(hi)), orders,
+                               LPC_COEFFICIENT_BITWIDTH,
+                               1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH, kappa)
+
+
+@pytest.mark.parametrize("M", [32, 64, 128, 255])
+def test_quantize_plain_matches_jax_and_host(M):
+    """lpc_quantize_plain with no widening on the finite rows of
+    chip_smoke.k7_quantize_batch, their coefficients rounded to f32 (JAX
+    reads them as (hi, 0) exactly): equal shifts and values to the host's
+    quantize_coefficients on every row it does not flag, and to JAX's
+    _quantize_exact on every row neither flags at M <= 128. At M 255 JAX
+    rounds one unflagged row (order 244) differently from the host and the
+    port from its 13th coefficient on, where the f64 chain's value lies
+    8e-5 from a half: the host alone holds it there."""
+    from srla_tpu_torch.dsp.quantize import quantize_coefficients
+    coefs, orders, kappa, _ = chip_smoke.k7_quantize_batch(np, 200, M, M)
+    mask = np.arange(M)[None, :] < orders[:, None]
+    rows = np.isfinite(np.where(mask, coefs, 0.0)).all(axis=1)
+    coefs = np.where(mask, coefs, 0.0)[rows].astype(np.float32)
+    orders, kappa = orders[rows], kappa[rows]
+    rshifts, intc, risky = (t.numpy() for t in lpc_quantize_plain(
+        torch.from_numpy(coefs.astype(np.float64)), torch.from_numpy(orders),
+        torch.from_numpy(kappa), torch.zeros(len(kappa), dtype=torch.float64)))
+    hintc, hrshifts = quantize_coefficients(
+        coefs.astype(np.float64), orders, LPC_COEFFICIENT_BITWIDTH,
+        1 << RSHIFT_LPC_COEFFICIENT_BITWIDTH)
+    ok = ~risky
+    assert ok.mean() > 0.75, ok.mean()
+    np.testing.assert_array_equal(rshifts[ok], hrshifts[ok])
+    np.testing.assert_array_equal(intc[ok], hintc[ok])
+    if M > 128:
+        return
+    jintc, jrshifts, jrisky = (np.asarray(x) for x in _jax_quantize(
+        np.int32(0), coefs, orders, kappa, M))
+    ok &= ~jrisky
+    assert ok.mean() > 0.75, ok.mean()
+    np.testing.assert_array_equal(rshifts[ok], jrshifts[ok])
+    np.testing.assert_array_equal(intc[ok], jintc[ok])
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [32, 64, 128, 255])
+def test_quantize_entry_random_batch_on_card(cuda, M):
+    """K7's quantization entry on chip_smoke.k7_quantize_batch (1197 rows,
+    no multiple of a tile): equal to its plain version on every output,
+    the flags and the NaN and inf rows too; one launch."""
+    args = tuple(torch.from_numpy(a).to(cuda) for a in
+                 chip_smoke.k7_quantize_batch(np, chip_smoke.K7Q_BATCH_ROWS,
+                                              M, M))
+    before = lpc_quantize.launches
+    assert chip_smoke.k7_quantize_check(torch, f"M {M}", args) > 0
+    assert lpc_quantize.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widening", chip_smoke.K7Q_WIDENINGS)
+def test_quantize_entry_boundary_rows_on_card(cuda, widening):
+    """K7's quantization entry on the coefficients of k7_quantize_case's
+    lags (a rounding half, the frexp and tiny edges), cerr widening x
+    max|c|: equal to its plain version on every output."""
+    _, lags, n, bps, M, fixed, must, _ = chip_smoke.k7_quantize_case(np)
+    orders, coefs, kappa, _ = lpc_coefs(torch.from_numpy(lags).to(cuda), n,
+                                        bps, M, fixed)
+    cerr = coefs.abs().max(dim=1).values * widening
+    flagged = chip_smoke.k7_quantize_check(torch, f"cerr {widening:g}",
+                                           (coefs, orders, kappa, cerr))
+    assert flagged >= int(must.sum())
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M", [8, 64, 255])

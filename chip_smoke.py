@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the thirteen CUDA libraries of csrc/ (sixteen kernels) and six
+Builds the fifteen CUDA libraries of csrc/ (eighteen kernels) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
@@ -239,6 +239,29 @@ then:
      profile of one resident decode, and K13 at the 1291-block group
      beside its plain version, its bound and one torch.equal of the same
      spans, and at the stream's 1-block tail group.
+ 15. The f32 approximate encode (SRLAEncoder(..., approx=True), the
+     port's SRLA_TPU_APPROX=1): K14 (the f32 Levinson recursion, order
+     choice and quantization, csrc/lpc_analyze_f32.cu) and K15 (the f32
+     Rice cost, csrc/rice_cost.cu) against their plain versions, bit for
+     bit on every output, on the inputs the approximate analysis of the
+     main group (V 5164, n 4096, M 64, partition orders 0..10) and of the
+     tail group (V 4, n 4064, orders 0..5) gives them, and on odd shapes
+     (k14_odd_lags at M 1, 7, 64 and 255, searched and fixed orders, with
+     silent rows and a half-even tie; k15_odd_rows at n 6, 512, 4064 and
+     4096 with 24-bit full-range, int32-extreme, ALLZERO and mean-2 rows),
+     each timed (CUDA events, device time by graph replay) beside its
+     bound on these inputs and its plain version. Then phase 3's 120 s at
+     -m 4 -B 4096 -V 0, at the CLI's -V 1 -L 4 and at -V 0 -P 3, each
+     encoded approximately on the card, counted (K14, K15, K3 and K5 once
+     a group, -V 1's measurement calls adding K14, K15 and K3; K8, K7, K4
+     and K10 never; a tripwire on K14's and K15's plain versions):
+     lossless through decode(..., "cuda"), at most 1.02 times the exact
+     stream's size, every COMPRESS block from the device, none on the host
+     or repaired, every -V span measured on the device; each encode's warm
+     best of 3 beside the exact encode's, and the -V 0 encode's step
+     split. Last, parallel.full_step_sharded over [cuda:0, cuda:0] on the
+     main group's rows: residual and bits equal to one analyze_variants
+     call.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -253,7 +276,8 @@ on phase 14's resident decode of phase 3's stream;
 ``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
 ``launches_corpus`` on phase 13's paths, encode and decode apart,
-``launches_resident`` on phase 14's; K7's
+``launches_resident`` on phase 14's, ``launches_approx`` on phase 15's
+three encodes; K14's and K15's ``launches`` on phase 15's -V 0 encode; K7's
 record also carries its SVR entries' launches on phase 12's full-width
 encode and the coefficient entry's agreement with its plain version)
 and, last, the device JSON line. A kernel's bound is the larger of the
@@ -268,7 +292,9 @@ the shortest dependent step alone, measured in the same run.
 K7's and K10's operations are f64, over the H100's 34 TFLOP/s outside the
 tensor cores; K8's run on the f64 tensor cores, 67 TFLOP/s; K11's and
 K12's are counted as f64 instructions (unfused multiplies and adds, one
-issue slot each) over 17 T/s. K7 also gets a
+issue slot each) over 17 T/s, K14's as f32 instructions over 33.5 T/s
+(half the 67 TFLOP/s f32 rate, which counts a fused multiply-add as two),
+K15's as 32-bit integer instructions as K4's are. K7 also gets a
 serial floor: the recursion's M - 1 steps of the shortest dependent chain
 of one step (chain_probe.cu's kind 3: an 8-lane butterfly and the
 division, K7's step at M <= 64).
@@ -637,7 +663,8 @@ def profile_decode(torch, fn, what: str) -> None:
 
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
-             "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify")
+             "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify",
+             "lpc_analyze_f32", "rice_cost")
 # Measurement only: the serial floors, and the first designs of K8, K7, K9,
 # K10 and K12.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
@@ -1449,8 +1476,10 @@ def all_wrappers() -> dict:
     from srla_tpu_torch.kernels.levinson import (lpc_analyze, lpc_coefs,
                                                  lpc_quantize)
     from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.lpc_f32 import lpc_analyze_f32
     from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
     from srla_tpu_torch.kernels.predict import predict
+    from srla_tpu_torch.kernels.rice_cost import rice_cost
     from srla_tpu_torch.kernels.rice_decode import rice_decode
     from srla_tpu_torch.kernels.rice_search import rice_search
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
@@ -1463,7 +1492,8 @@ def all_wrappers() -> dict:
             "lpc_analyze": lpc_analyze, "lpc_coefs": lpc_coefs,
             "lpc_quantize": lpc_quantize, "svr_cov": svr_cov,
             "svr_refine": svr_refine, "svr_refine_v1": k12_first_design,
-            "verify": verify_blocks}
+            "verify": verify_blocks, "lpc_analyze_f32": lpc_analyze_f32,
+            "rice_cost": rice_cost}
 
 
 def without_plain(fn):
@@ -4374,6 +4404,361 @@ def phase_resident(torch, np, dev, cases, card):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the f32 approximate encode (K14, K15, with K3 and K5)
+# ---------------------------------------------------------------------------
+
+# H100 SXM f32 outside the tensor cores: 67 TFLOP/s (data sheet) counts a
+# fused multiply-add as two; K14's multiplies and adds are unfused (each
+# its own instruction, one issue slot), so its operations are counted as
+# f32 instructions over half that rate.
+F32_INSTR_PER_S = 67e12 / 2
+APPROX_PATHS = (("music120_V0_approx", 0, 0), ("music120_V1_approx", 1, 0),
+                ("music120_V0_P3_approx", 0, 3))
+
+
+def approx_param(V: int, P: int):
+    """-m 4 -B 4096 -V V -L 4 -P P for 16-bit stereo at 44.1 kHz."""
+    from srla_tpu_torch.host_encoder import make_parameter
+    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4, P, 0)
+
+
+def k14_odd_lags(torch, np, V: int, n: int, bps: int, M: int, seed: int):
+    """(V, M+1) f32 lags with the ridge, on the CPU: rows of segmented
+    music, full-range noise and sines through the f32 autocorrelation,
+    then edge rows: lag 0 zero (0), lag 0 under 2^-23 (1: silent), an
+    AR(1) row of coefficient 129/256, whose 8-bit quantization is a
+    half-even tie at -64.5 (2), and a row of one nonzero lag (3). At
+    max_fixed every row has order M; otherwise the edge rows have order 1
+    and the others range up to M."""
+    from srla_tpu_torch.kernels.encode import autocorr
+    from srla_tpu_torch.signals import make_segmented
+
+    rng = np.random.RandomState(seed)
+    src = make_segmented(1.0)
+    rows = []
+    for r in range(V):
+        if r % 3 == 0:
+            o = rng.randint(0, src.shape[1] - n)
+            rows.append(src[r % 2, o:o + n].astype(np.int64) << (bps - 16))
+        elif r % 3 == 1:
+            rows.append(rng.randint(-(1 << (bps - 1)), 1 << (bps - 1), n))
+        else:
+            rows.append(np.round(np.sin(np.arange(n) / (3.0 + r))
+                                 * (1 << (bps - 2)) + rng.randn(n) * 50))
+    work = torch.from_numpy(np.stack(rows).astype(np.int32))
+    ac = autocorr(work, n, bps, M + 1, 1 << (n - 1).bit_length())
+    ac[:, 0] = ac[:, 0] * float(np.float32(1.0 + 1e-5))
+    ac[0] = 0.0
+    ac[1] = 0.0
+    ac[1, 0] = 1e-8
+    rho = np.float32(129.0 / 256.0)
+    ac[2] = torch.from_numpy(rho ** np.arange(M + 1, dtype=np.float32))
+    ac[3] = 0.0
+    ac[3, 0] = 1.0
+    return ac.contiguous()
+
+
+def k15_odd_rows(torch, np, V: int, n: int, seed: int):
+    """(V, n) int32 residual rows on the CPU, seven kinds in turn:
+    music-like, 24-bit full-range, int32-extreme (zigzag codes of 2^31 and
+    above), all zero (ALLZERO), codes of 2 (row mean 2 exactly: recursive),
+    alternating 0/1 (mean 1: plain), one sample of -2^31."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n)
+    rows = []
+    for r in range(V):
+        kind = r % 7
+        if kind == 0:
+            x = np.round(np.sin(t / (2.0 + r)) * 3000 + rng.randn(n) * 40)
+        elif kind == 1:
+            x = rng.randint(-(1 << 23), 1 << 23, n)
+        elif kind == 2:
+            x = rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64)
+        elif kind == 3:
+            x = np.zeros(n)
+        elif kind == 4:
+            x = np.ones(n)
+        elif kind == 5:
+            x = t % 2
+        else:
+            x = np.zeros(n)
+            x[n // 3] = -(1 << 31)
+        rows.append(x)
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+def levinson_ops(m: int) -> int:
+    """f32 multiplies and adds of one Levinson recursion up to order m:
+    step k (0..m-2) sums k+2 products (k+2 multiplies, k+1 adds) and
+    updates a[0..k+2] (k+3 multiplies and adds), plus the start's three."""
+    return 3 + sum(4 * k + 9 for k in range(max(m - 1, 0)))
+
+
+def k14_bound(args, out) -> dict:
+    """K14's bound on this run's inputs: the lags read once, the outputs
+    written once; the f32 instructions this data needs: the recursion to M
+    with each order's length (about 20 operations and two logarithms,
+    counted as 30; no lengths at max_fixed) and the quantization of each
+    row's chosen order (4 a coefficient)."""
+    ac, n, bps, M, fixed = args
+    V = ac.shape[0]
+    ops = V * (levinson_ops(M) + (0 if fixed else 30 * M)) \
+        + 4 * int(out[0].long().sum())
+    return bound(nbytes(ac) + nbytes(*out), ops, F32_INSTR_PER_S)
+
+
+def k15_bound(args, out) -> dict:
+    """K15's bound on this run's inputs: the residual read once and the
+    outputs written once (code type, order and ks int64, bits int32); the
+    integer instructions of the cheapest sequence for each term, as K4's
+    bound counts them: a sample's zigzag and 64-bit leaf-sum add (5) once,
+    then a sample and order 3 on the rows this data made recursive and 2 on
+    the others."""
+    res, n, max_porder = args
+    V = res.shape[0]
+    rec = int((out[0] == 1).sum())
+    ops = (5 * V + (3 * rec + 2 * (V - rec)) * (max_porder + 1)) * n
+    return bound(nbytes(res) + nbytes(*out), ops)
+
+
+def approx_timed(torch, what: str, kernel, plain, args, bound_fn,
+                 reps: int = 20) -> dict:
+    """A kernel against its plain version on ``args`` (every output,
+    bit-equal), timed by CUDA events and by graph replay, beside its bound
+    on these inputs and its plain version's time."""
+    e, ms, pms = compare(torch, what, kernel, plain, args, reps)
+    return dict(max_abs_err=e, ms=ms, plain_ms=pms,
+                device_ms=device_ms(torch, lambda: kernel(*args), reps),
+                **bound_fn(args, kernel(*args)))
+
+
+def approx_kernel_inputs(torch, np, dev, pcm, tail: bool = False):
+    """K14's and K15's inputs as the approximate analysis of the main
+    group (1291 blocks of 4096: V 5164, M 64, partition orders 0..10) or
+    of its tail group (1 block of 4064: V 4, orders 0..5) hands them over:
+    (K14's args, K15's args, the variant rows)."""
+    from srla_tpu_torch.kernels import encode as approx
+    from srla_tpu_torch.kernels.exact import variant_stack
+    from srla_tpu_torch.kernels.predict import predict, reverse_coefs
+
+    blocks, _, args, _ = main_group(torch, np, dev, pcm, tail)
+    n, M = args["n"], args["max_params"]
+    sig = variant_stack(blocks, 0)
+    work, _ = approx.preemphasis(sig)
+    ac = approx.autocorr(work, n, args["bps"], M + 1, args["fft_size"])
+    ac[:, 0] = ac[:, 0] * float(np.float32(1.0 + 1e-5))
+    k14 = (ac.contiguous(), n, args["bps"], M, args["max_fixed"])
+    from srla_tpu_torch.kernels.lpc_f32 import lpc_analyze_f32
+    orders, intc, rshifts = lpc_analyze_f32(*k14)
+    res = predict(work, reverse_coefs(intc, orders), orders, rshifts)
+    return k14, (res, n, args["max_porder"]), sig
+
+
+def approx_no_plain(fn):
+    """fn() with K14's and K15's plain versions replaced by tripwires: an
+    approximate encode on the card that reached one of them raises."""
+    from srla_tpu_torch.kernels import lpc_f32, rice_cost
+    names = ((lpc_f32, "lpc_analyze_f32_plain"),
+             (rice_cost, "rice_cost_plain"))
+    saved = [getattr(m, name) for m, name in names]
+
+    def tripwire(*_a, **_k):
+        raise RuntimeError("a plain version of K14 or K15 ran on the "
+                           "approximate encode's path")
+
+    for m, name in names:
+        setattr(m, name, tripwire)
+    try:
+        return fn()
+    finally:
+        for (m, name), f in zip(names, saved):
+            setattr(m, name, f)
+
+
+def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
+    """Phase 15: the f32 approximate encode. K14 and K15 against their
+    plain versions at the main group's, the tail group's and odd shapes;
+    the approximate encode of the 120 s file at -m 4 -B 4096 -V 0, counted
+    (K14, K15, K3 and K5 once a group, the exact analysis' K8, K7 and K4
+    never, no plain version reached), lossless on the card, within 2 % of
+    the exact stream, timed beside the exact encode; the same at -V 1 and
+    at -V 0 -P 3; full_step_sharded over [cuda:0, cuda:0] against one call.
+    Returns (K14's and K15's records, {path: {run: launches}})."""
+    from srla_tpu_torch import SRLAEncoder, decode, parallel
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.kernels import encode as approx
+    from srla_tpu_torch.kernels.lpc_f32 import (lpc_analyze_f32,
+                                                lpc_analyze_f32_plain)
+    from srla_tpu_torch.kernels.rice_cost import rice_cost, rice_cost_plain
+
+    t_phase = time.perf_counter()
+    k14_main, k15_main, sig = approx_kernel_inputs(torch, np, dev, pcm)
+    k14_tail, k15_tail, _ = approx_kernel_inputs(torch, np, dev, pcm, True)
+    r14 = approx_timed(torch, "K14 (main group)", lpc_analyze_f32,
+                       lpc_analyze_f32_plain, k14_main, k14_bound)
+    t14 = approx_timed(torch, "K14 (tail group)", lpc_analyze_f32,
+                       lpc_analyze_f32_plain, k14_tail, k14_bound)
+    r15 = approx_timed(torch, "K15 (main group)", rice_cost,
+                       rice_cost_plain, k15_main, k15_bound)
+    t15 = approx_timed(torch, "K15 (tail group)", rice_cost,
+                       rice_cost_plain, k15_tail, k15_bound)
+    odd14, odd15 = [], []
+    for M, n, bps in ((1, 64, 16), (7, 333, 16), (64, 4096, 24),
+                      (255, 4096, 24)):
+        for fixed in (False, True):
+            args = (k14_odd_lags(torch, np, 37, n, bps, M, M).to(dev), n,
+                    bps, M, fixed)
+            odd14.append((M, n, fixed, approx_timed(
+                torch, f"K14 (odd: M {M}, n {n})", lpc_analyze_f32,
+                lpc_analyze_f32_plain, args, k14_bound, 5)))
+            o, c, s = (t.cpu() for t in lpc_analyze_f32(*args))
+            require(int(s[0]) == 8 and int(s[1]) == 8
+                    and not c[:2].any(), "K14: silent rows not all zero "
+                                         "with shift 8")
+            if not fixed and M > 1:
+                require(int(o[2]) == 1 and int(c[2, 0]) == -64,
+                        "K14: the half-even tie row is not order 1 at -64")
+    for n, P in ((6, 1), (512, 9), (4064, 5), (4096, 10)):
+        args = (k15_odd_rows(torch, np, 29, n, n).to(dev), n, P)
+        odd15.append((n, P, approx_timed(torch, f"K15 (odd: n {n})",
+                                         rice_cost, rice_cost_plain, args,
+                                         k15_bound, 5)))
+    for name, main_r, tail_r, odd in (("K14", r14, t14, [r for *_, r in
+                                                         odd14]),
+                                      ("K15", r15, t15, [r for *_, r in
+                                                         odd15])):
+        print(f"phase 15 {name} bit-equal to plain on every output: main "
+              f"group kernel {main_r['ms']:.4f} ms, device time "
+              f"{main_r['device_ms']:.4f} ms, plain {main_r['plain_ms']:.2f}"
+              f" ms, bound {main_r['bound_ms']:.4f} ms ({main_r['bound_by']}"
+              f"; operations {main_r['ops_ms']:.4f} ms); tail kernel "
+              f"{tail_r['ms']:.4f} ms, device time "
+              f"{tail_r['device_ms']:.4f} ms, plain {tail_r['plain_ms']:.2f}"
+              f" ms, bound {tail_r['bound_ms']:.6f} ms; odd shapes: "
+              + ", ".join(f"device {r['device_ms']:.4f} ms (bound "
+                          f"{r['bound_ms']:.5f})" for r in odd)
+              + f" [{card}]")
+
+    runs: dict = {}
+    wrappers = {k: w for k, w in all_wrappers().items()
+                if k in ("lpc_analyze_f32", "rice_cost", "fir_predict",
+                         "pack_residual_sections", "bitpack", "autocorr",
+                         "lpc_analyze", "rice_search", "ltp_analyze")}
+    exact_sizes, times = {}, {}
+    for path, V, P in APPROX_PATHS:
+        param = approx_param(V, P)
+        exact_enc = SRLAEncoder(param, dev)
+        if V == 0 and P == 0:
+            exact_data = stream
+        else:
+            exact_data = exact_enc.encode_whole(pcm)
+        enc = SRLAEncoder(param, dev, approx=True)
+        require(enc.approx, f"{path}: approx was not taken")
+        data, got = counted(torch, wrappers, lambda: approx_no_plain(
+            lambda: enc.encode_whole(pcm)))
+        _, out = decode(data, device=dev)
+        require(np.array_equal(out, pcm), f"{path}: the approximate stream "
+                                          f"is not lossless")
+        ratio = len(data) / len(exact_data)
+        require(ratio <= 1.02, f"{path}: approximate size {len(data)} is "
+                               f"{ratio:.4f} of the exact {len(exact_data)}")
+        s = enc.stats
+        ncomp = compress_blocks(data)
+        require(s["device_blocks"] == ncomp and s["host_blocks"] == 0
+                and s["repaired_blocks"] == 0,
+                f"{path}: block routing {s}, {ncomp} COMPRESS blocks")
+        for name in ("autocorr", "lpc_analyze", "rice_search",
+                     "ltp_analyze", "bitpack"):
+            require(got[name] == 0, f"{path}: {name} launched {got[name]} "
+                                    f"times by the approximate encode")
+        if V == 0:
+            # Two groups (1291 blocks of 4096, 1 of 4064): once each.
+            for name in ("lpc_analyze_f32", "rice_cost", "fir_predict",
+                         "pack_residual_sections"):
+                require(got[name] == 2, f"{path}: {name} launched "
+                                        f"{got[name]} times, expected 2")
+        else:
+            require(s["device_spans"] > 0 and s["remeasured_spans"] == 0
+                    and s["host_spans"] == 0,
+                    f"{path}: span accounting {s}")
+            require(got["lpc_analyze_f32"] == got["rice_cost"]
+                    == got["fir_predict"] > got["pack_residual_sections"]
+                    > 0, f"{path}: launches {got}")
+        runs[path] = {"encode": got}
+        exact_sizes[path] = (len(data), len(exact_data))
+        best = best_of(torch, lambda: SRLAEncoder(
+            param, dev, approx=True).encode_whole(pcm))
+        best_exact = best_of(torch, lambda: SRLAEncoder(
+            param, dev).encode_whole(pcm))
+        times[path] = (best, best_exact)
+        print(f"phase 15 {path}: approximate stream lossless on the card, "
+              f"{len(data)} bytes = {ratio:.5f} of the exact "
+              f"{len(exact_data)}, {s['device_blocks']} device / "
+              f"{s['host_blocks']} host / {s['repaired_blocks']} repaired "
+              f"of {ncomp} COMPRESS blocks, device_spans "
+              f"{s['device_spans']}, launches {got}; warm best of 3 "
+              f"{best * 1e3:.1f} ms = {MAIN_SECONDS / best:.1f}x realtime "
+              f"(the exact encode {best_exact * 1e3:.1f} ms = "
+              f"{MAIN_SECONDS / best_exact:.1f}x) [{card}]")
+    enc = SRLAEncoder(approx_param(0, 0), dev, approx=True)
+    enc.timer = StepTimer(dev)
+    enc.encode_whole(pcm)
+    steps = enc.timer.seconds
+    print("phase 15 approximate encode breakdown -V 0 (host clock, "
+          "synchronised per step, ms): "
+          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
+          + f"; total {sum(steps.values()) * 1e3:.2f}")
+
+    # The sharded step over two shards of one card against one call.
+    args = dict(n=4096, bps=16, max_params=64, max_fixed=False,
+                fft_size=4096, max_porder=10)
+    sig_np = sig.cpu().numpy()
+    out, total = parallel.full_step_sharded([dev, dev], sig_np, **args)
+    single = approx.analyze_variants(sig, **args)
+    require(torch.equal(out["residual"], single["residual"])
+            and torch.equal(out["rice_bits"], single["rice_bits"]),
+            "full_step_sharded differs from one analyze_variants call")
+    # The total is an f32 sum (as JAX's f32 all-reduce): above 2^24 bits it
+    # rounds, by far less than 1e-6 of the exact total.
+    exact_total = int(single["rice_bits"].sum())
+    require(abs(total - exact_total) <= 1e-6 * exact_total,
+            f"full_step_sharded total {total} is not the rows' "
+            f"{exact_total} bits")
+    print(f"phase 15 full_step_sharded over [cuda:0, cuda:0] on the main "
+          f"group's {sig.shape[0]} rows: residual and bits equal to one "
+          f"call, total {total:.0f} bits (f32; exact {exact_total}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    base = dict(route="cuda", library_ms=None, approx_sizes=exact_sizes,
+                approx_times_s=times)
+    recs = [
+        dict(name="lpc_analyze_f32", **base,
+             source="srla_tpu_torch/kernels/csrc/lpc_analyze_f32.cu",
+             replaces="srla_tpu/kernels/encode.py:67",
+             also_replaces=["srla_tpu/kernels/encode.py:122",
+                            "srla_tpu/kernels/encode.py:140"],
+             max_abs_err=max([r14["max_abs_err"], t14["max_abs_err"]]
+                             + [r["max_abs_err"] for *_, r in odd14]),
+             **{k: r14[k] for k in ("ms", "plain_ms", "device_ms",
+                                    "bound_ms", "bound_by", "ops_ms")},
+             tail_ms=t14["ms"], tail_device_ms=t14["device_ms"],
+             tail_bound_ms=t14["bound_ms"], tail_plain_ms=t14["plain_ms"],
+             odd={f"M{M}_n{n}_{'fixed' if f else 'search'}":
+                  r["device_ms"] for M, n, f, r in odd14}),
+        dict(name="rice_cost", **base,
+             source="srla_tpu_torch/kernels/csrc/rice_cost.cu",
+             replaces="srla_tpu/kernels/encode.py:288",
+             max_abs_err=max([r15["max_abs_err"], t15["max_abs_err"]]
+                             + [r["max_abs_err"] for *_, r in odd15]),
+             **{k: r15[k] for k in ("ms", "plain_ms", "device_ms",
+                                    "bound_ms", "bound_by", "ops_ms")},
+             tail_ms=t15["ms"], tail_device_ms=t15["device_ms"],
+             tail_bound_ms=t15["bound_ms"], tail_plain_ms=t15["plain_ms"],
+             odd={f"n{n}_P{P}": r["device_ms"] for n, P, r in odd15})]
+    return recs, runs
+
+
 def main(argv) -> int:
     parent = None
     if argv:
@@ -4519,6 +4904,14 @@ def main(argv) -> int:
         "ltp_analyze"]
     var_errs["ltp_synth"] = max(k9_err, k9_shape_err)
     var_errs["ltp_analyze"] = k10_shape_err
+    # Phase 15: the f32 approximate encode; K14's and K15's path is its
+    # -V 0 encode of phase 3's file.
+    approx_recs, approx_launches = phase_approx(torch, np, dev, pcm, stream,
+                                                card)
+    records += approx_recs
+    for name in ("lpc_analyze_f32", "rice_cost"):
+        launches[name] = approx_launches["music120_V0_approx"]["encode"][
+            name]
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "srla_tpu", "bench"))
@@ -4546,6 +4939,10 @@ def main(argv) -> int:
         rec["launches_resident"] = {
             path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
             for path, runs in resident_launches.items()}
+        # Phase 15: each approximate encode's launches.
+        rec["launches_approx"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in approx_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":

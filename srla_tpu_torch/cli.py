@@ -10,12 +10,16 @@ cpu runs the kernels' plain versions). The flags and their defaults are
 defaults (-m 4 -B 4096 -V 1 -L 4) -e writes the bytes of
 ``python -m srla_tpu.cli -e``, and so it does with -P 1 or -P 3 (long-term
 prediction) and --svr-filter-learning-iteration N (SVR refinement of the
-LPC coefficients), both on --device too.
+LPC coefficients), both on --device too. SRLA_TPU_APPROX=1 in the
+environment takes srla_tpu's f32 approximate encode (as
+``srla_tpu/encoder.py:169``): lossless, within about 2 % of the exact size,
+not byte-identical.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import struct
 import sys
 import time
@@ -102,8 +106,10 @@ def main(argv=None) -> int:
             ltp_order=args.long_term_prediction,
             num_svr_filter_learning_iteration=(
                 args.svr_filter_learning_iteration))
+        approx = os.environ.get("SRLA_TPU_APPROX", "") == "1"
         try:
-            data = SRLAEncoder(param, args.device).encode_whole(
+            data = SRLAEncoder(param, args.device,
+                               approx=approx).encode_whole(
                 np.asarray(wav.pcm, dtype=np.int32),
                 progress_callback=progress)
         except ValueError as e:

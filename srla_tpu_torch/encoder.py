@@ -50,6 +50,18 @@ blocks starting from fresh work-buffer state (the reference encodes each
 file from fresh memory; ``srla_tpu.encode_files`` lets an odd-length block
 take its state from the previous file's last COMPRESS block). Each stream
 equals ``host_encoder.encode`` of its file.
+
+``approx=True`` (the port's CLI: ``SRLA_TPU_APPROX=1``, as
+``srla_tpu/encoder.py:169``) takes ``srla_tpu``'s f32 approximate encode
+instead: each equal-size group is one ``kernels.encode.encode_blocks_approx``
+call a shard (f32 analysis, K14, K3, K15, selection and K5), the -V spans
+are measured by ``kernels.encode.measure_spans_approx``, and nothing is
+flagged or repaired. The stream decodes losslessly but is not
+byte-identical to the reference's; its size is within about 2 % of the
+exact encode's. With LTP and variable block sizes the encode takes the
+exact path (``srla_tpu/encoder.py:170-175``), whose bytes equal
+``host_encoder.encode``'s. The f32 path has no SVR refinement, as in
+``srla_tpu``.
 """
 
 from __future__ import annotations
@@ -66,6 +78,7 @@ from .constants import BlockDataType
 from .format import StreamHeader, encode_header, frame_block
 from .host_encoder import (EncodeParameter, _compute_offset_lshift,
                            make_parameter)
+from .kernels.encode import encode_blocks_approx, measure_spans_approx
 from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
 from .parallel import distinct, record_cut, resolve, shards
 
@@ -110,7 +123,8 @@ class SRLAEncoder:
     # many samples: one call a size up to about 7 minutes of audio.
     MAX_MEASURE_SAMPLES = 1 << 25
 
-    def __init__(self, parameter: EncodeParameter, device, devices=None):
+    def __init__(self, parameter: EncodeParameter, device, devices=None,
+                 approx: bool = False):
         """device: the torch device that encodes the COMPRESS blocks and
         measures the -V spans ("cuda" runs the CUDA kernels, "cpu" their
         plain versions). devices: optional list of devices; each encode
@@ -121,9 +135,18 @@ class SRLAEncoder:
         group's, as srla_tpu. Flagged blocks, odd-size blocks, the odd
         last lookahead window, RAW and SILENT blocks are encoded on the
         host by a held ``host_encoder.SRLAEncoder``, whose ``stats`` dict
-        this encoder shares."""
+        this encoder shares. approx: the f32 approximate encode (lossless,
+        not byte-exact; see the module's notes), except with LTP at
+        variable block sizes, which stays exact (``self.approx`` says
+        which)."""
         parameter.validate()
         self.p = parameter
+        variable = (parameter.min_num_samples_per_block
+                    != parameter.max_num_samples_per_block)
+        # srla_tpu/encoder.py:170-175: the approximate path covers LTP for
+        # fixed-size blocks only.
+        self.approx = bool(approx) and not (parameter.ltp_order > 0
+                                            and variable)
         self.device = resolve([device])[0]
         self.devices = None if devices is None else resolve(devices)
         self._host = host_encoder.SRLAEncoder(parameter)
@@ -280,6 +303,17 @@ class SRLAEncoder:
                 step("odd size or short LTP span (host)")
                 return bits
             per_call = max(1, self.MAX_MEASURE_SAMPLES // size)
+            if self.approx:
+                # No LTP in the approximate measurement (encoder.py:1937).
+                args = self._approx_args(size)
+                del args["ltp_order"]
+                bits = np.concatenate([measure_spans_approx(
+                    file, offsets[lo:lo + per_call], lshift,
+                    C=window.shape[0], timer=step, **args).cpu().numpy()
+                    for lo in range(0, len(offsets), per_call)])
+                step("fetch")
+                self.stats["device_spans"] += len(offsets)
+                return bits
             parts = []
             for lo in range(0, len(offsets), per_call):
                 small = measure_spans(file, offsets[lo:lo + per_call], lshift,
@@ -305,9 +339,18 @@ class SRLAEncoder:
     def _device_size_ok(self, size: int) -> bool:
         """Whether the device analyses blocks or spans of ``size``: even
         sizes, and with LTP at least LTP_MIN_DEVICE_SIZE samples (the host
-        keeps the others, as srla_tpu does)."""
-        return size % 2 == 0 and (self.p.ltp_order == 0
+        keeps the others, as srla_tpu does). Under approx every even size:
+        its analysis runs without LTP below 263 lags
+        (``srla_tpu/encoder.py:1207-1211``)."""
+        return size % 2 == 0 and (self.approx or self.p.ltp_order == 0
                                   or size >= LTP_MIN_DEVICE_SIZE)
+
+    def _approx_args(self, size: int) -> dict:
+        """The arguments of the approximate analysis of n-sample blocks:
+        the exact path's without SVR."""
+        args = self._host._device_args(size)
+        del args["svr_iter"], args["margins"]
+        return args
 
     def _blocks_done(self, count: int, size: int) -> None:
         """Advance the progress meter: one call for each of ``count``
@@ -397,8 +440,9 @@ class SRLAEncoder:
 
     def _encode_group(self, pcm, files, spans, idxs, size: int, lshift: int,
                       tick) -> dict[int, bytes]:
-        """Equal-size blocks on the device: one ``encode_blocks`` call a
-        shard on the blocks cut from its device's copy in ``files``, every
+        """Equal-size blocks on the device: one ``encode_blocks`` call
+        (``encode_blocks_approx`` under approx) a shard on the blocks cut
+        from its device's copy in ``files``, every
         shard launched before any is fetched; then each shard's fetch,
         repair and assembly (``_finish_shard``)."""
         C = pcm.shape[0]
@@ -406,9 +450,13 @@ class SRLAEncoder:
         cuts = shards(len(idxs), self._targets())
         if self.devices is not None:
             record_cut(self.stats, cuts)
-        launched = [(idxs[lo:hi], encode_blocks(
+        if self.approx:
+            encode, args = encode_blocks_approx, self._approx_args(size)
+        else:
+            encode, args = encode_blocks, self._host._device_args(size)
+        launched = [(idxs[lo:hi], encode(
             cut_spans(files[d], [spans[i][0] for i in idxs[lo:hi]], size),
-            lshift, C=C, W=W, timer=tick, **self._host._device_args(size)))
+            lshift, C=C, W=W, timer=tick, **args))
             for d, lo, hi in cuts]
         results: dict[int, bytes] = {}
         for part, (small_t, flat_t) in launched:
@@ -531,21 +579,23 @@ class SRLAEncoder:
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            device, preset: int = 4, max_block: int = 4096,
            variable_divisions: int = 0, lookahead_factor: int = 4,
-           ltp_order: int = 0, svr_iterations: int = 0) -> bytes:
+           ltp_order: int = 0, svr_iterations: int = 0,
+           approx: bool = False) -> bytes:
     """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
-    ``srla_tpu.encode``'s) result for the same arguments."""
+    ``srla_tpu.encode``'s) result for the same arguments; with approx, the
+    f32 approximate encode (lossless, not byte-exact)."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
                            lookahead_factor, ltp_order, svr_iterations)
-    return SRLAEncoder(param, device).encode_whole(pcm)
+    return SRLAEncoder(param, device, approx=approx).encode_whole(pcm)
 
 
 def encode_files(pcm_list, bits_per_sample: int, sampling_rate: int,
                  device, preset: int = 4, max_block: int = 4096,
                  variable_divisions: int = 0, lookahead_factor: int = 4,
                  ltp_order: int = 0, svr_iterations: int = 0, devices=None,
-                 stats_out=None) -> list[bytes]:
+                 stats_out=None, approx: bool = False) -> list[bytes]:
     """Batched multi-file encode on ``device`` (the twin of
     ``srla_tpu.encoder.encode_files``). At -V 0 with more than one file,
     files that share (channels, offset_lshift) are encoded as one virtual
@@ -555,7 +605,9 @@ def encode_files(pcm_list, bits_per_sample: int, sampling_rate: int,
     each group's blocks over several devices. Returns the streams in input
     order, each ``host_encoder.encode`` of its file at the same flags;
     ``stats_out`` receives the encoders' counters summed over the corpus,
-    every group's ``shard_cuts`` and the last group's ``shard_rows``."""
+    every group's ``shard_cuts`` and the last group's ``shard_rows``. With
+    approx, each file's f32 approximate encode (lossless, not
+    byte-exact)."""
     pcms = [np.asarray(p, dtype=np.int32) for p in pcm_list]
     encoders: dict[int, SRLAEncoder] = {}
 
@@ -564,7 +616,7 @@ def encode_files(pcm_list, bits_per_sample: int, sampling_rate: int,
             encoders[C] = SRLAEncoder(make_parameter(
                 C, bits_per_sample, sampling_rate, preset, max_block,
                 variable_divisions, lookahead_factor, ltp_order,
-                svr_iterations), device, devices)
+                svr_iterations), device, devices, approx)
         return encoders[C]
 
     out: dict[int, bytes] = {}

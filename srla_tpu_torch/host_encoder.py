@@ -170,6 +170,12 @@ class SRLAEncoder:
         if ltp_order > 0:
             norm = 2.0 ** (-(bps - 1))
             max_lag = LTP_MAX_PERIOD + 1
+            if state is not None and len(state) < max_lag:
+                # Lags past the work buffer (blocks under 263 samples at a
+                # max block under 263) read the arena beyond it: fresh
+                # memory, zeros, as _fresh_state takes it.
+                state = np.concatenate([state,
+                                        np.zeros(max_lag - len(state))])
             if n == 1:
                 # Degenerate 1-sample tail: the whole signal is the Welch
                 # window's unwritten middle, and the size-1 real FFT mixes
@@ -465,8 +471,12 @@ class SRLAEncoder:
                 params, raw = self._analyze_channel(v, n, stale_state=state,
                                                     want_state=True)
                 if raw is not None:
-                    state = state.copy()
-                    state[:len(raw)] = raw
+                    # raw may run past the state (LTP's lags past a short
+                    # work buffer, zero-extended in _analyze_channel).
+                    ns = np.zeros(max(len(state), len(raw)))
+                    ns[:len(state)] = state
+                    ns[:len(raw)] = raw
+                    state = ns
                 split.append(params)
             self._last_state = state
         else:

@@ -9,7 +9,10 @@ by ``exact.py``: K8 ``autocorr.autocorr`` (csrc/autocorr.cu), K10
 (csrc/lpc_analyze.cu), K3 ``predict.predict`` (csrc/fir_predict.cu), K4
 ``rice_search.rice_search`` (csrc/rice_search.cu: the whole Rice parameter
 search) and K5
-``bitpack.pack_residual_sections`` (csrc/bitpack.cu). Each wrapper
+``bitpack.pack_residual_sections`` (csrc/bitpack.cu). The f32
+approximate encode, composed by ``encode.py``, runs K14
+``lpc_f32.lpc_analyze_f32`` (csrc/lpc_analyze_f32.cu), K3, K15
+``rice_cost.rice_cost`` (csrc/rice_cost.cu) and K5. Each wrapper
 launches its kernel for a CUDA tensor, runs its plain PyTorch version for
 a CPU tensor, and counts its kernel launches in ``<wrapper>.launches``. The kernels are built with nvcc
 at first use (``build.py``).

@@ -1,0 +1,380 @@
+"""The f32 approximate encode analysis (``SRLA_TPU_APPROX=1``): the twin of
+``srla_tpu.kernels.encode``.
+
+Every stage runs batched over the variant rows of a group, in f32: the
+pre-emphasis statistics and the FFT autocorrelation in torch ops (JAX
+computes both with XLA and ``jnp.fft``, outside any Pallas kernel, so
+torch's reductions and ``torch.fft`` (cuFFT on the card) are their
+twins), the pitch search and LTP solve in torch ops (``torch.linalg.solve``
+where JAX calls ``jnp.linalg.solve``), the Levinson recursion, order choice
+and quantization in kernel K14 (``lpc_f32.lpc_analyze_f32``), the exact
+wrapping-int32 FIR residual in K3 (``predict.predict``) and the Rice
+parameter search in K15 (``rice_cost.rice_cost``). The parameter choices
+may differ from the exact analysis', so the stream is not byte-identical
+to the reference's; the residual is the exact FIR of the quantized
+coefficients and K15's bits are the exact packed section lengths, so every
+stream decodes losslessly. There are no decision-boundary flags and no
+host repair.
+
+``encode_blocks_approx`` encodes one equal-size group as
+``kernels.exact.encode_blocks`` does, with this analysis in place of the
+exact one: ``analyze_blocks_ex``, ``exact.select_rows`` with every row
+unflagged (the argmin ``srla_tpu``'s ``_device_finish_approx`` runs on the
+host), ``exact.chosen_sections`` and K5's ``pack_residual_sections``.
+``measure_spans_approx`` measures the -V spans (``srla_tpu``'s
+``_measure_group_device`` under approx: ``analyze_variants``, no LTP).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import (LPC_RIDGE_REGULARIZATION_PARAMETER,
+                         LTP_COEFFICIENT_BITWIDTH, LTP_MAX_PERIOD,
+                         LTP_MIN_PERIOD, PREEMPHASIS_COEF_SHIFT)
+from .bitpack import pack_residual_sections, zigzag32
+from .exact import (_method_lengths, chosen_sections, cut_spans, no_timer,
+                    select_rows, variant_stack)
+from .lpc import wrap32
+from .lpc_f32 import lpc_analyze_f32
+from .predict import predict, reverse_coefs
+from .rice_cost import rice_cost
+
+_F32 = torch.float32
+_RIDGE = float(np.float32(1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER))
+_WINDOWS: dict = {}
+
+
+def welch_f32(n: int, device) -> torch.Tensor:
+    """``_welch_f32`` (:35): the Welch window in f64, rounded to f32, made
+    on ``device`` (no upload from host memory on the encode's path), once
+    a device."""
+    key = (n, str(device))
+    if key not in _WINDOWS:
+        s = torch.arange(n, dtype=torch.float64, device=device)
+        _WINDOWS[key] = ((4.0 / (n - 1) ** 2) * s * ((n - 1) - s)).to(_F32)
+    return _WINDOWS[key]
+
+
+def preemphasis(sig: torch.Tensor):
+    """``_preemphasis`` (:41): sig (V, n) int32. Returns (work int32, coef
+    int32): r0 and r1 summed in f32 (torch's order, not XLA's), the
+    coefficient rounded half to even and clipped to -16..15."""
+    x = sig.to(_F32)
+    r0 = (x * x).sum(dim=1)
+    r1 = (x[:, :-1] * x[:, 1:]).sum(dim=1)
+    lim = 1 << PREEMPHASIS_COEF_SHIFT
+    q = torch.clamp(torch.round(16.0 * r1 / torch.clamp_min(r0, 1e-30)),
+                    -lim, lim - 1)
+    coef = torch.where(r0 < 1e-6, 0.0, q).to(torch.int32)
+    s = sig.long()
+    prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
+    pred = wrap32(prev * coef.long()[:, None]) >> PREEMPHASIS_COEF_SHIFT
+    return wrap32(s - pred).to(torch.int32), coef
+
+
+def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
+             fft_size: int) -> torch.Tensor:
+    """``_autocorr`` (:55): lags 0..order-1 (V, order) f32 of the
+    Welch-windowed, 2^-(bps-1)-scaled rows, by a real FFT of fft_size
+    points, the power spectrum and its inverse FFT."""
+    scale = float(2.0 ** (-(bps - 1)))
+    d = work.to(_F32) * scale * welch_f32(n, work.device)
+    spec = torch.fft.rfft(d, n=fft_size)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return torch.fft.irfft(power, n=fft_size)[:, :order].contiguous()
+
+
+def ltp_solve(acl: torch.Tensor, period: torch.Tensor, order: int):
+    """``_ltp``'s solve (:247-264): the order 1 or 3 LTP coefficients of
+    each row at its period (>= order // 2 + 1) from the pitch lags acl,
+    the ridge on the Toeplitz diagonal. Returns (csol (V, order) f32, ok
+    (V,) bool: False where the system is singular, which solve_ex reports
+    instead of raising)."""
+    V = acl.shape[0]
+    dev = acl.device
+    half = order // 2
+    r0r = acl[:, 0] * _RIDGE
+    if order == 1:
+        rhs0 = acl.gather(1, period[:, None])[:, 0]
+        csol = (rhs0 / torch.where(r0r.abs() < 1e-35, 1.0, r0r))[:, None]
+        return csol, torch.ones(V, dtype=torch.bool, device=dev)
+    # Symmetric Toeplitz A[j, k] = ac[|j - k|].
+    idx = (torch.arange(order, device=dev)[:, None]
+           - torch.arange(order, device=dev)[None, :]).abs()
+    A = acl[:, idx]
+    A.diagonal(dim1=1, dim2=2).copy_(r0r[:, None].expand(V, order))
+    ridx = period[:, None] - half + torch.arange(order, device=dev)
+    csol, info = torch.linalg.solve_ex(A, acl.gather(1, ridx)[..., None])
+    return csol[..., 0], info == 0
+
+
+def ltp_params(acl: torch.Tensor, order: int):
+    """``_ltp``'s pitch choice and solve (:227-271) on the pitch lags acl
+    (V, 263) f32: the period (the first positive local maximum of the lags
+    in [8, 262) within 0.9 of the largest, that largest at least 0.1 of lag
+    0), the order 1 or 3 coefficients from the ridge Toeplitz system,
+    quantized to 6 bits rounding half away from zero. Returns (period (V,)
+    int64, 0 where no period is valid; qrev (V, order) int64, the
+    coefficients reversed, zero without a period)."""
+    V = acl.shape[0]
+    dev = acl.device
+    half = order // 2
+    r0 = acl[:, 0]
+    j = torch.arange(acl.shape[1], device=dev)
+    inrange = ((j >= LTP_MIN_PERIOD) & (j < LTP_MAX_PERIOD))[None, :]
+    prev = torch.cat([acl[:, :1], acl[:, :-1]], dim=1)
+    nxt = torch.cat([acl[:, 1:], acl[:, -1:]], dim=1)
+    peak = (acl > prev) & (acl > nxt) & (acl > 0) & inrange
+    max_peak = torch.where(peak, acl, 0.0).amax(dim=1)
+    cand = peak & (acl >= 0.9 * max_peak[:, None])
+    period = cand.to(torch.int32).argmax(dim=1)            # first candidate
+    valid = (peak.any(dim=1) & (max_peak >= 0.1 * r0)
+             & (r0.abs() > 1e-35) & (period >= half + 1))
+    csol, solved = ltp_solve(acl, torch.clamp_min(period, half + 1), order)
+    valid = valid & solved & torch.isfinite(csol).all(dim=1)
+    csol = torch.where(torch.isfinite(csol), csol, 0.0)
+    q = torch.where(csol >= 0, torch.floor(csol * 32.0 + 0.5),
+                    -torch.floor(-csol * 32.0 + 0.5))
+    qrev = torch.clamp(q, -32, 31).to(torch.int64).flip(1)
+    return (torch.where(valid, period, 0),
+            torch.where(valid[:, None], qrev, 0))
+
+
+def ltp_filter(work: torch.Tensor, period: torch.Tensor, qrev: torch.Tensor,
+               order: int) -> torch.Tensor:
+    """``_ltp``'s delay FIR (:274-285), exact wrapping int32: each row with
+    a period p loses its prediction from the samples p + order // 2 back,
+    from that delay + 1 on. Returns (V, n) int32."""
+    V, n = work.shape
+    rshift = LTP_COEFFICIENT_BITWIDTH - 1
+    delay = period.long() + order // 2
+    s = torch.arange(n, device=work.device)[None, :]
+    x = work.long()
+    acc = torch.full((V, n), 1 << (rshift - 1), dtype=torch.int64,
+                     device=work.device)
+    for i in range(order):
+        src = torch.clamp(s - delay[:, None] + i, 0, n - 1)
+        acc = acc + qrev[:, i:i + 1].long() * x.gather(1, src)
+    pred = wrap32(acc) >> rshift
+    apply = (period[:, None] > 0) & (s >= (delay + 1)[:, None])
+    return torch.where(apply, wrap32(x - pred), x).to(torch.int32)
+
+
+def ltp(work: torch.Tensor, n: int, bps: int, fft_size: int, order: int):
+    """``_ltp`` (:216): the pitch lags (``autocorr``, 263 of them),
+    ``ltp_params`` and ``ltp_filter``. Returns (work int32, period (V,)
+    int32, coefficients (V, order) int32 reversed, as JAX's qrev); rows
+    without a valid period keep their samples and get period 0."""
+    acl = autocorr(work, n, bps, LTP_MAX_PERIOD + 1, fft_size)
+    period, qrev = ltp_params(acl, order)
+    return (ltp_filter(work, period, qrev, order), period.to(torch.int32),
+            qrev.to(torch.int32))
+
+
+def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
+                 max_fixed: bool, fft_size: int, max_porder: int,
+                 ltp_order: int = 0, timer=no_timer) -> dict:
+    """``_analyze_core`` (:344): the f32 analysis of each row of sig (V, n)
+    int32. Returns JAX's dict (pre_prev, pre_coef, orders, rshifts, coefs
+    (reversed, left-aligned), residual, code_type, porder, rice_bits, ks,
+    ltp_period, ltp_coefs). LTP runs only with fft_size >= 263 lags, as in
+    JAX. ``timer`` is called with a step name after each step."""
+    V = sig.shape[0]
+    dev = sig.device
+    work, pre_coef = preemphasis(sig)
+    ltp_period = torch.zeros(V, dtype=torch.int32, device=dev)
+    ltp_coefs = torch.zeros((V, max(ltp_order, 1)), dtype=torch.int32,
+                            device=dev)
+    timer("variants + pre-emphasis (torch)")
+    if ltp_order > 0 and fft_size >= LTP_MAX_PERIOD + 1:
+        work, ltp_period, ltp_coefs = ltp(work, n, bps, fft_size, ltp_order)
+        timer("LTP (torch, cuFFT, linalg.solve)")
+    if max_params > 0:
+        ac = autocorr(work, n, bps, max_params + 1, fft_size)
+        ac[:, 0] = ac[:, 0] * _RIDGE
+        timer("autocorr (cuFFT)")
+        orders, intc, rshifts = lpc_analyze_f32(ac, n, bps, max_params,
+                                                max_fixed)
+        timer("K14 lpc_analyze_f32")
+        coefs_rev = reverse_coefs(intc, orders)
+        residual = predict(work, coefs_rev, orders, rshifts)
+        timer("K3 fir_predict")
+    else:
+        orders = torch.zeros(V, dtype=torch.int32, device=dev)
+        rshifts = torch.zeros(V, dtype=torch.int32, device=dev)
+        coefs_rev = torch.zeros((V, 1), dtype=torch.int32, device=dev)
+        residual = work
+    code_type, porder, rice_bits, ks = rice_cost(residual, n, max_porder)
+    timer("K15 rice_cost")
+    return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
+                rshifts=rshifts, coefs=coefs_rev, residual=residual,
+                code_type=code_type, porder=porder, rice_bits=rice_bits,
+                ks=ks, ltp_period=ltp_period, ltp_coefs=ltp_coefs)
+
+
+def analyze_variants(sig: torch.Tensor, *, n: int, bps: int,
+                     max_params: int, max_fixed: bool, fft_size: int,
+                     max_porder: int, timer=no_timer) -> dict:
+    """``analyze_variants`` (:378): the analysis of a batch of variant rows
+    (V, n) int32 on their device, without LTP, residuals returned."""
+    return analyze_core(sig, n=n, bps=bps, max_params=max_params,
+                        max_fixed=max_fixed, fft_size=fft_size,
+                        max_porder=max_porder, timer=timer)
+
+
+def pack_rows(u, code_type, porder, ks, bits, n: int, W: int):
+    """Each row's section packed into its own W words: (V, W) int32 bit
+    patterns, zero past the section. A row whose section exceeds W words
+    is left all zero (JAX's packers keep its first W words, which no
+    caller can use)."""
+    V = u.shape[0]
+    lens_w = (bits.long() + 31) // 32
+    lens_w = torch.where(lens_w > W, 0, lens_w)
+    starts = torch.arange(V, device=u.device) * W
+    flat = pack_residual_sections(u, code_type, porder, ks, n, starts, lens_w,
+                                  V * W, section_words=W)
+    words = flat.view(V, W)
+    col = torch.arange(W, device=u.device)[None, :]
+    return torch.where(col < lens_w[:, None], words, 0)
+
+
+def analyze_pack_variants(sig: torch.Tensor, *, n: int, bps: int,
+                          max_params: int, max_fixed: bool, fft_size: int,
+                          max_porder: int, W: int):
+    """``analyze_pack_variants`` (:388): the analysis and every row's
+    section packed on the device. Returns (small, words): ``small`` the
+    per-row parameters and ``section_bits`` (the exact packed lengths, K15's
+    bits), ``words`` (V, W) int32 (``pack_rows``), meant to stay on the
+    device until ``gather_sections``."""
+    out = analyze_variants(sig, n=n, bps=bps, max_params=max_params,
+                           max_fixed=max_fixed, fft_size=fft_size,
+                           max_porder=max_porder)
+    words = pack_rows(zigzag32(out["residual"]), out["code_type"],
+                      out["porder"], out["ks"], out["rice_bits"], n, W)
+    small = {k: out[k] for k in ("pre_prev", "pre_coef", "orders", "rshifts",
+                                 "coefs", "code_type", "porder", "rice_bits")}
+    small["section_bits"] = out["rice_bits"]
+    return small, words
+
+
+def analyze_blocks_ex(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+                      max_params: int, max_fixed: bool, fft_size: int,
+                      max_porder: int, C: int, ltp_order: int = 0,
+                      timer=no_timer):
+    """``analyze_blocks_ex`` (:413): blocks (B, C, n) int16/int32 samples
+    on the device. Stacks the variants ([M, S] for C >= 2, then each
+    channel) and analyses them. Returns (small, big): ``small`` the per-row
+    parameters with ``section_bits`` (K15's exact packed lengths), no
+    ``risky`` (nothing is flagged); ``big`` the zigzag residuals as int32
+    bit patterns (what K5 reads) and the Rice choices."""
+    if blocks.shape[1] != C:
+        raise ValueError(f"analyze_blocks_ex: blocks have {blocks.shape[1]} "
+                         f"channels, C = {C}")
+    out = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
+                       max_params=max_params, max_fixed=max_fixed,
+                       fft_size=fft_size, max_porder=max_porder,
+                       ltp_order=ltp_order, timer=timer)
+    small = {k: out[k] for k in ("pre_prev", "pre_coef", "orders", "rshifts",
+                                 "coefs", "code_type", "porder",
+                                 "ltp_period", "ltp_coefs")}
+    small["section_bits"] = out["rice_bits"]
+    big = dict(u=zigzag32(out["residual"]), code_type=out["code_type"],
+               porder=out["porder"], ks=out["ks"])
+    return small, big
+
+
+def encode_blocks_approx(blocks: torch.Tensor, lshift: int, *, n: int,
+                         bps: int, max_params: int, max_fixed: bool,
+                         fft_size: int, max_porder: int, C: int, W: int,
+                         ltp_order: int = 0, timer=no_timer):
+    """The approximate encode of one equal-size block group: the twin of
+    ``srla_tpu``'s ``_device_dispatch`` + ``_device_finish_approx`` under
+    approx, with the same results as ``kernels.exact.encode_blocks``.
+
+    ``analyze_blocks_ex``, then ``exact.select_rows`` with every row
+    unflagged (so ``risky_blk`` is all False; a section above W words still
+    gets lens_w 0, and its block goes to the host), then K5 on the chosen
+    rows. Returns (small, flat) as ``encode_blocks`` does: ``flat`` holds
+    the chosen sections compacted in row order in its first sum(lens_w)
+    words."""
+    B = blocks.shape[0]
+    small, big = analyze_blocks_ex(blocks, lshift, n=n, bps=bps,
+                                   max_params=max_params,
+                                   max_fixed=max_fixed, fft_size=fft_size,
+                                   max_porder=max_porder, C=C,
+                                   ltp_order=ltp_order, timer=timer)
+    small = dict(small)
+    small["risky"] = torch.zeros(small["orders"].shape[0], dtype=torch.bool,
+                                 device=small["orders"].device)
+    sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
+                      max_params=max_params)
+    sections = chosen_sections(big, sel, n, B * C * W)
+    timer("accounting + selection + codewords (torch)")
+    flat = pack_residual_sections(*sections, section_words=W)
+    timer("K5 bitpack")
+    for k in ("method", "bits", "raw_blk", "risky_blk", "use_sum",
+              "lens_w"):
+        small[k] = sel[k]
+    return small, flat
+
+
+def measure_spans_approx(file: torch.Tensor, offsets, lshift: int, *, n: int,
+                         bps: int, max_params: int, max_fixed: bool,
+                         fft_size: int, max_porder: int, C: int,
+                         timer=no_timer) -> torch.Tensor:
+    """The -V span measurement under approx (``srla_tpu``'s
+    ``_measure_group_device`` :1933-1942): the spans of the resident (C, N)
+    ``file`` at host ``offsets`` cut on the device, their variants analysed
+    by ``analyze_variants`` (no LTP), the accounting and the best stereo
+    method. Returns each span's rounded block bits (B,) int64; nothing is
+    flagged."""
+    blocks = cut_spans(file, offsets, n)
+    out = analyze_variants(variant_stack(blocks, lshift), n=n, bps=bps,
+                           max_params=max_params, max_fixed=max_fixed,
+                           fft_size=fft_size, max_porder=max_porder,
+                           timer=timer)
+    V = out["orders"].shape[0]
+    zeros = torch.zeros(V, dtype=torch.int32, device=file.device)
+    small = dict(section_bits=out["rice_bits"], orders=out["orders"],
+                 coefs=out["coefs"], ltp_period=zeros,
+                 ltp_coefs=zeros[:, None])
+    lens, _ = _method_lengths(small, B=blocks.shape[0], C=C,
+                              max_params=max_params, bps=bps)
+    bits = ((lens.min(dim=0).values + 2 + 7) // 8) * 8
+    timer("accounting + selection (torch)")
+    return bits
+
+
+def pack_chosen(u, code_type, porder, ks, chosen, starts, lens, *, n: int,
+                W: int, cap: int):
+    """``pack_chosen`` (:450): pack only the ``chosen`` rows, compacted into
+    one flat buffer. starts, lens (K,) the word offset (the running sum of
+    lens) and length of each chosen row's section. Returns (flat (cap,)
+    int32, zero past the last section; overflow (K,) bool: rows whose
+    section exceeds W words, left out and to be host-encoded)."""
+    ovf = lens > W
+    lens = torch.where(ovf, 0, lens)
+    flat = pack_residual_sections(u[chosen], code_type[chosen],
+                                  porder[chosen], ks[chosen], n, starts,
+                                  lens, cap, section_words=W)
+    end = (starts.long() + lens.long()).amax() if lens.numel() else 0
+    return torch.where(torch.arange(cap, device=flat.device) < end, flat,
+                       0), ovf
+
+
+def gather_sections(words: torch.Tensor, chosen: torch.Tensor,
+                    starts: torch.Tensor, lens: torch.Tensor, cap: int):
+    """``gather_sections`` (:472): compact the chosen rows' packed sections
+    of words (V, W) into one flat buffer. chosen (K,) rows in output order,
+    starts (K,) sorted word offsets, lens (K,) word counts. Returns (cap,)
+    of words' dtype, zero where no section lies."""
+    dev = words.device
+    j = torch.arange(cap, device=dev)
+    seg = torch.clamp(torch.searchsorted(starts.long(), j, right=True) - 1,
+                      0, chosen.shape[0] - 1)
+    col = j - starts.long()[seg]
+    ok = (col >= 0) & (col < lens.long()[seg])
+    col = torch.clamp(col, 0, words.shape[1] - 1)
+    return torch.where(ok, words[chosen.long()[seg], col], 0)

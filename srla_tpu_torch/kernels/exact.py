@@ -277,13 +277,18 @@ def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
 
 def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
     """The numpy outputs of ``srla_tpu.kernels.exact.analyze_blocks_exact``
+    or of the approximate ``srla_tpu.kernels.encode.analyze_blocks_ex``
     (``small``, ``big``) as the port's tensors on ``device``, so that the
-    port's selection, codewords and pack can run on JAX's decisions."""
+    port's selection, codewords and pack can run on JAX's decisions. The
+    approximate ``small`` has no ``risky``: every row is unflagged."""
     keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
             "code_type", "porder", "section_bits", "ltp_period", "ltp_coefs")
     s = {k: torch.from_numpy(np.asarray(small[k]).astype(np.int32)).to(device)
          for k in keys}
-    s["risky"] = torch.from_numpy(np.array(small["risky"], bool)).to(device)
+    risky = small.get("risky")
+    s["risky"] = torch.from_numpy(
+        np.zeros(len(s["orders"]), bool) if risky is None
+        else np.array(risky, bool)).to(device)
     b = {"u": torch.from_numpy(
              np.asarray(big["u"]).astype(np.uint32).astype(np.int64)
          ).to(device)}

@@ -13,9 +13,12 @@ fetched, so separate cards work at once. Bytes and PCM do not depend on the
 split. The list may name one card more than once: two shards then queue on
 that card.
 
-Not ported: ``analyze_variants_sharded`` (:28), ``_train_style_step`` (:50)
-and ``full_step_sharded`` (:61) run ``srla_tpu``'s f32 approximate
-analysis, which is not byte-exact.
+``analyze_variants_sharded`` (:28), ``_train_style_step`` (:50) and
+``full_step_sharded`` (:61) run the f32 approximate analysis
+(``kernels.encode.analyze_variants``) over the same cut of the variant
+rows: one call a shard, every shard uploaded and launched before any is
+fetched, and the total bits summed on the first device, the twin of the
+mesh's all-reduce.
 """
 
 from __future__ import annotations
@@ -63,6 +66,68 @@ def shards(rows: int, devices) -> list[tuple[torch.device, int, int]]:
         out.append((torch.device(devices[k]), lo, hi))
         lo = hi
     return out
+
+
+def _launch_shards(devices, sig, step):
+    """sig (V, n) int32 numpy rows cut by ``shards`` over ``devices``: every
+    shard uploaded, then ``step(rows on its device)`` launched on each.
+    Returns the steps' results in shard order."""
+    sig = np.ascontiguousarray(sig, np.int32)
+    cuts = shards(sig.shape[0], resolve(devices))
+    parts = [torch.from_numpy(sig[lo:hi]).to(d) for d, lo, hi in cuts]
+    return [step(part) for part in parts]
+
+
+def _gather(outs: list, device) -> dict:
+    """The shards' per-row output dicts joined in row order on
+    ``device``."""
+    return {k: torch.cat([o[k].to(device) for o in outs]) for k in outs[0]}
+
+
+def analyze_variants_sharded(devices, sig, *, n: int, bps: int,
+                             max_params: int, max_fixed: bool, fft_size: int,
+                             max_porder: int) -> dict:
+    """Block-sharded ``kernels.encode.analyze_variants``: sig (V, n) int32
+    rows cut into one shard a device. Every stage is row by row, so the
+    shards share nothing; the outputs are joined on the first device (the
+    twin of fetching the sharded arrays)."""
+    from .kernels.encode import analyze_variants
+
+    devices = resolve(devices)
+    outs = _launch_shards(devices, sig, lambda part: analyze_variants(
+        part, n=n, bps=bps, max_params=max_params, max_fixed=max_fixed,
+        fft_size=fft_size, max_porder=max_porder))
+    return _gather(outs, devices[0])
+
+
+def _train_style_step(sig: torch.Tensor, *, n: int, bps: int,
+                      max_params: int, max_fixed: bool, fft_size: int,
+                      max_porder: int):
+    """One step on one shard: the full analysis and its total bits (f32 on
+    the shard's device)."""
+    from .kernels.encode import analyze_variants
+
+    out = analyze_variants(sig, n=n, bps=bps, max_params=max_params,
+                           max_fixed=max_fixed, fft_size=fft_size,
+                           max_porder=max_porder)
+    return out, out["rice_bits"].to(torch.float32).sum()
+
+
+def full_step_sharded(devices, sig, *, n: int, bps: int = 16,
+                      max_params: int = 32, max_fixed: bool = False,
+                      fft_size: int | None = None, max_porder: int = 6):
+    """The full analysis step over ``devices``, run once: one
+    ``_train_style_step`` a shard, the shards' totals summed on the first
+    device (the all-reduce). Returns (outputs joined on the first device,
+    total bits as a float)."""
+    if fft_size is None:
+        fft_size = 1 << (n - 1).bit_length()
+    devices = resolve(devices)
+    steps = _launch_shards(devices, sig, lambda part: _train_style_step(
+        part, n=n, bps=bps, max_params=max_params, max_fixed=max_fixed,
+        fft_size=fft_size, max_porder=max_porder))
+    total = sum(t.to(devices[0]) for _, t in steps)
+    return _gather([o for o, _ in steps], devices[0]), float(total)
 
 
 def record_cut(stats: dict, cuts) -> None:

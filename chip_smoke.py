@@ -483,7 +483,8 @@ def chain_step_ms(torch, kind: int) -> float:
     (csrc/chain_probe.cu: kind 0 a K1 sample, kind 1 a K2 codeword, kind 2
     the Levinson step of K7's first design, kind 3 K7's step at M <= 64,
     kind 4 a K9 step, kind 5 K10's solve, kind 6 a K12 chain's f64 add,
-    kind 7 a step of K7's quantization):
+    kind 7 a step of K7's quantization, kinds 8-13 a K14 recursion step
+    at K14_STEP_KINDS' lanes and registers):
     the difference of two chain lengths over their difference, CUDA
     events."""
     import ctypes
@@ -4413,18 +4414,26 @@ def phase_resident(torch, np, dev, cases, card):
 # its own instruction, one issue slot), so its operations are counted as
 # f32 instructions over half that rate.
 F32_INSTR_PER_S = 67e12 / 2
-APPROX_PATHS = (("music120_V0_approx", 0, 0), ("music120_V1_approx", 1, 0),
-                ("music120_V0_P3_approx", 0, 3))
+# (path, -V, -P, -m): -m 5 is max order 128, K14 at 16 lanes a row.
+APPROX_PATHS = (("music120_V0_approx", 0, 0, 4),
+                ("music120_V1_approx", 1, 0, 4),
+                ("music120_V0_P3_approx", 0, 3, 4),
+                ("music120_V0_m5_approx", 0, 0, 5))
+# chain_probe.cu's K14 step kinds: kind -> (lanes a row, registers a lane).
+K14_STEP_KINDS = {8: (8, 9), 9: (16, 5), 10: (32, 3), 11: (16, 9),
+                  12: (32, 5), 13: (32, 8)}
 
 
-def approx_param(V: int, P: int):
-    """-m 4 -B 4096 -V V -L 4 -P P for 16-bit stereo at 44.1 kHz."""
+def approx_param(V: int, P: int, preset: int = 4):
+    """-m preset -B 4096 -V V -L 4 -P P for 16-bit stereo at 44.1 kHz."""
     from srla_tpu_torch.host_encoder import make_parameter
-    return make_parameter(2, 16, SAMPLE_RATE, 4, 4096, V, 4, P, 0)
+    return make_parameter(2, 16, SAMPLE_RATE, preset, 4096, V, 4, P, 0)
 
 
-def k14_odd_lags(torch, np, V: int, n: int, bps: int, M: int, seed: int):
-    """(V, M+1) f32 lags with the ridge, on the CPU: rows of segmented
+def k14_odd_lags(torch, np, V: int, n: int, bps: int, M: int, seed: int,
+                 dev=None):
+    """(V, M+1) f32 lags with the ridge (on ``dev``, the lags computed
+    there; by default the CPU): rows of segmented
     music, full-range noise and sines through the f32 autocorrelation,
     then edge rows: lag 0 zero (0), lag 0 under 2^-23 (1: silent), an
     AR(1) row of coefficient 129/256, whose 8-bit quantization is a
@@ -4447,13 +4456,16 @@ def k14_odd_lags(torch, np, V: int, n: int, bps: int, M: int, seed: int):
             rows.append(np.round(np.sin(np.arange(n) / (3.0 + r))
                                  * (1 << (bps - 2)) + rng.randn(n) * 50))
     work = torch.from_numpy(np.stack(rows).astype(np.int32))
+    if dev is not None:
+        work = work.to(dev)
     ac = autocorr(work, n, bps, M + 1, 1 << (n - 1).bit_length())
     ac[:, 0] = ac[:, 0] * float(np.float32(1.0 + 1e-5))
     ac[0] = 0.0
     ac[1] = 0.0
     ac[1, 0] = 1e-8
     rho = np.float32(129.0 / 256.0)
-    ac[2] = torch.from_numpy(rho ** np.arange(M + 1, dtype=np.float32))
+    ac[2] = torch.from_numpy(rho ** np.arange(M + 1, dtype=np.float32)).to(
+        ac.device)
     ac[3] = 0.0
     ac[3, 0] = 1.0
     return ac.contiguous()
@@ -4511,15 +4523,37 @@ def k14_bound(args, out) -> dict:
 def k15_bound(args, out) -> dict:
     """K15's bound on this run's inputs: the residual read once and the
     outputs written once (code type, order and ks int64, bits int32); the
-    integer instructions of the cheapest sequence for each term, as K4's
-    bound counts them: a sample's zigzag and 64-bit leaf-sum add (5) once,
-    then a sample and order 3 on the rows this data made recursive and 2 on
-    the others."""
+    integer instructions of the cheapest sequence for the terms this data
+    needs, priced as K4's bound prices them: a sample's zigzag and 64-bit
+    leaf-sum add (5) once, then 3 a term on recursive rows and 2 on plain
+    ones (none on all-zero rows). A term depends on the sample and its
+    parameter alone, so a sample needs one for each distinct parameter
+    among its partitions of orders 0..max_porder (the parameters of each
+    order from the exact partition sums, as the plain version computes
+    them), not one an order."""
+    import torch
+    from srla_tpu_torch.kernels.bitpack import zigzag
+    from srla_tpu_torch.kernels.rice_cost import plain_k, recursive_k
+
     res, n, max_porder = args
     V = res.shape[0]
-    rec = int((out[0] == 1).sum())
-    ops = (5 * V + (3 * rec + 2 * (V - rec)) * (max_porder + 1)) * n
-    return bound(nbytes(res) + nbytes(*out), ops)
+    code_type = out[0]
+    leaves, leaf = 1 << max_porder, n >> max_porder
+    sums = zigzag(res).view(V, leaves, leaf).sum(dim=2)
+    rec = (code_type == 1)[:, None]
+    ks = []
+    for p in range(max_porder + 1):
+        part = sums.view(V, 1 << p, leaves >> p).sum(dim=2)
+        m = part.to(torch.float32) / torch.full(
+            part.shape, float(n >> p), device=part.device)
+        k = torch.where(rec, recursive_k(m), plain_k(m))
+        ks.append(k.repeat_interleave(leaves >> p, dim=1))
+    ks = torch.stack(ks, dim=1).sort(dim=1).values     # (V, orders, leaves)
+    distinct = 1 + (ks[:, 1:] != ks[:, :-1]).sum(dim=1)
+    per_term = torch.where(code_type == 1, 3,
+                           torch.where(code_type == 0, 2, 0))
+    terms = int((per_term * distinct.sum(dim=1)).sum()) * leaf
+    return bound(nbytes(res) + nbytes(*out), 5 * V * n + terms)
 
 
 def approx_timed(torch, what: str, kernel, plain, args, bound_fn,
@@ -4576,6 +4610,30 @@ def approx_no_plain(fn):
             setattr(m, name, f)
 
 
+def k14_floor(torch, M: int, card: str) -> dict:
+    """K14's serial floor at largest order M: a recursion step of
+    chain_probe.cu kinds 8-13 (each lane count and register count the
+    lane choice weighed) times the M - 1 steps of a row, at the kind of
+    ``lanes_for(M)``'s layout."""
+    from srla_tpu_torch.kernels.lpc_f32 import lanes_for
+
+    steps = {kind: chain_step_ms(torch, kind) for kind in K14_STEP_KINDS}
+    chain = M - 1
+    lanes = lanes_for(M)
+    kind = next(k for k, (L, R) in K14_STEP_KINDS.items()
+                if L == lanes and R == (M + lanes) // lanes)
+    floor = steps[kind] * chain
+    print("phase 15 K14 one recursion step (chain_probe.cu kinds 8-13, L "
+          "lanes, R registers): " + ", ".join(
+              f"L{L} R{R} {steps[k] * 1e6:.1f} ns"
+              for k, (L, R) in K14_STEP_KINDS.items())
+          + f"; serial floor at the main group {floor:.4f} ms ({chain} "
+          f"steps of kind {kind}, L {lanes}) [{card}]")
+    return dict(serial_floor_ms=floor, serial_floor_steps=chain,
+                step_ns={f"L{L}_R{R}": steps[k] * 1e6
+                         for k, (L, R) in K14_STEP_KINDS.items()})
+
+
 def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
     """Phase 15: the f32 approximate encode. K14 and K15 against their
     plain versions at the main group's, the tail group's and odd shapes;
@@ -4584,6 +4642,8 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
     never, no plain version reached), lossless on the card, within 2 % of
     the exact stream, timed beside the exact encode; the same at -V 1 and
     at -V 0 -P 3; full_step_sharded over [cuda:0, cuda:0] against one call.
+    The same at -m 5 (max order 128). K14's recursion's serial floor
+    (``k14_floor``).
     Returns (K14's and K15's records, {path: {run: launches}})."""
     from srla_tpu_torch import SRLAEncoder, decode, parallel
     from srla_tpu_torch.encoder import StepTimer
@@ -4605,7 +4665,7 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
                        rice_cost_plain, k15_tail, k15_bound)
     odd14, odd15 = [], []
     for M, n, bps in ((1, 64, 16), (7, 333, 16), (64, 4096, 24),
-                      (255, 4096, 24)):
+                      (128, 4096, 16), (255, 4096, 24)):
         for fixed in (False, True):
             args = (k14_odd_lags(torch, np, 37, n, bps, M, M).to(dev), n,
                     bps, M, fixed)
@@ -4619,7 +4679,7 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
             if not fixed and M > 1:
                 require(int(o[2]) == 1 and int(c[2, 0]) == -64,
                         "K14: the half-even tie row is not order 1 at -64")
-    for n, P in ((6, 1), (512, 9), (4064, 5), (4096, 10)):
+    for n, P in ((6, 1), (512, 9), (3072, 10), (4064, 5), (4096, 10)):
         args = (k15_odd_rows(torch, np, 29, n, n).to(dev), n, P)
         odd15.append((n, P, approx_timed(torch, f"K15 (odd: n {n})",
                                          rice_cost, rice_cost_plain, args,
@@ -4639,6 +4699,7 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
               + ", ".join(f"device {r['device_ms']:.4f} ms (bound "
                           f"{r['bound_ms']:.5f})" for r in odd)
               + f" [{card}]")
+    floor = k14_floor(torch, k14_main[3], card)
 
     runs: dict = {}
     wrappers = {k: w for k, w in all_wrappers().items()
@@ -4646,10 +4707,10 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
                          "pack_residual_sections", "bitpack", "autocorr",
                          "lpc_analyze", "rice_search", "ltp_analyze")}
     exact_sizes, times = {}, {}
-    for path, V, P in APPROX_PATHS:
-        param = approx_param(V, P)
+    for path, V, P, preset in APPROX_PATHS:
+        param = approx_param(V, P, preset)
         exact_enc = SRLAEncoder(param, dev)
-        if V == 0 and P == 0:
+        if V == 0 and P == 0 and preset == 4:
             exact_data = stream
         else:
             exact_data = exact_enc.encode_whole(pcm)
@@ -4745,7 +4806,8 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
              tail_ms=t14["ms"], tail_device_ms=t14["device_ms"],
              tail_bound_ms=t14["bound_ms"], tail_plain_ms=t14["plain_ms"],
              odd={f"M{M}_n{n}_{'fixed' if f else 'search'}":
-                  r["device_ms"] for M, n, f, r in odd14}),
+                  r["device_ms"] for M, n, f, r in odd14},
+             **floor),
         dict(name="rice_cost", **base,
              source="srla_tpu_torch/kernels/csrc/rice_cost.cu",
              replaces="srla_tpu/kernels/encode.py:288",

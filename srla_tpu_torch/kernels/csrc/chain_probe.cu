@@ -35,6 +35,15 @@
 //           scaled, added to the fed-back error, rounded half away from
 //           zero, clamped, its margin test, and the new error, with the
 //           same intrinsics
+//   kinds 8-13, a step of K14's recursion (lpc_analyze_f32.cu Chain::step)
+//           with L lanes a row and R registers a lane: R products and
+//           predicated adds, the xor butterfly over the row's lanes
+//           (log2 L shuffles and adds), the IEEE division, the update of
+//           a[] and c[] and the shuffle that moves c[] up one index; kind
+//           8: L 8, R 9 (M 64), 9: L 16, R 5 (M 64), 10: L 32, R 3 (M 64),
+//           11: L 16, R 9 (M 128), 12: L 32, R 5 (M 128), 13: L 32, R 8
+//           (M 255); ev starts at 2^20, so gamma stays tiny and the values
+//           bounded over any number of steps
 //
 // chip_smoke.py times two chain lengths with CUDA events and takes the
 // difference per step, then multiplies by a row's samples or a block's
@@ -165,6 +174,55 @@ __device__ uint32_t k10_chain(uint32_t y, int steps) {
     return (uint32_t)__double2hiint(r);
 }
 
+// K14's step (lpc_analyze_f32.cu Chain::step) over a row's L lanes.
+template <int L, int R>
+__device__ uint32_t k14_chain(uint32_t y, int steps) {
+    const int l = threadIdx.x & (L - 1);
+    float lag[R], a[R], b[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        const int m = l + L * j;
+        lag[j] = 1.0f / (float)(m + 2);
+        a[j] = m == 0 ? 1.0f : 0.25f;
+        b[j] = 0.5f + (float)(y & 3u) * 0.125f;
+    }
+    float ev = 1048576.0f;
+    const int below = (l + L - 1) & (L - 1);
+    for (int i = 0; i < steps; ++i) {
+        const int kp2 = (i & 63) + 2;
+        float s = 0.0f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const int m = l + L * j;
+            if (m >= 1 && m <= kp2) s = __fadd_rn(s, __fmul_rn(b[j], lag[j]));
+        }
+#pragma unroll
+        for (int o = L / 2; o >= 1; o >>= 1)
+            s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o, L));
+        const float den = fabsf(ev) < 1e-30f ? 1.0f : ev;
+        const float g = __fdiv_rn(s, -den);
+        ev = __fmul_rn(ev, __fsub_rn(1.0f, __fmul_rn(g, g)));
+        float c[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const float aj = a[j], bj = b[j];
+            a[j] = __fadd_rn(aj, __fmul_rn(g, bj));
+            c[j] = __fadd_rn(bj, __fmul_rn(g, aj));
+        }
+        float up[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            up[j] = __shfl_sync(0xffffffffu, c[j], below, L);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            b[j] = l == 0 ? (j == 0 ? 0.0f : up[j - 1]) : up[j];
+    }
+    float sum = ev;
+#pragma unroll
+    for (int j = 0; j < R; ++j) sum = __fadd_rn(sum, a[j]);
+    return __float_as_uint(sum);
+}
+
 __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
                                    uint32_t b, uint32_t* out) {
     uint32_t y = a ^ threadIdx.x;
@@ -186,6 +244,18 @@ __global__ void chain_probe_kernel(int kind, int steps, uint32_t a,
         y = add_chain(y, steps);
     } else if (kind == 7) {
         y = quant_chain(y, steps);
+    } else if (kind == 8) {
+        y = k14_chain<8, 9>(y, steps);
+    } else if (kind == 9) {
+        y = k14_chain<16, 5>(y, steps);
+    } else if (kind == 10) {
+        y = k14_chain<32, 3>(y, steps);
+    } else if (kind == 11) {
+        y = k14_chain<16, 9>(y, steps);
+    } else if (kind == 12) {
+        y = k14_chain<32, 5>(y, steps);
+    } else if (kind == 13) {
+        y = k14_chain<32, 8>(y, steps);
     } else {
         y = kind == 2 ? f64_chain<32>(y, steps) : f64_chain<8>(y, steps);
     }

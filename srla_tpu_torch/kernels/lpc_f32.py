@@ -12,14 +12,16 @@ against: ``levinson_f32``, ``select_order_f32`` and ``quantize_f32``, the
 stages the tests hold to their JAX twins one by one.
 
 The stages repeat JAX's f32 operations one for one, with two fixed choices
-the kernel keeps too: gamma's sum adds its terms a[i] ac[k+2-i] for i =
-0..k+1 in that order (JAX sums all M+2 columns in XLA's order; the columns
-past k+1 are exact zero products), and every division is a true division
-of two tensors (torch's CUDA division by a Python number multiplies by its
-reciprocal, another rounding). On the card the kernel equals the plain
-version bit for bit; against JAX the floats agree to a few ulps times the
-recursion's growth and the integer decisions wherever their float lies
-clear of its boundary.
+the kernel keeps too: gamma's sum has its own order (``gamma_sum``: the
+terms a[k+2-m] ac[m], m = 1..k+2, spread over the row's ``lanes_for(M)``
+lanes by m mod L, each lane adding its own in ascending m, then an xor
+butterfly over the lanes; JAX sums all M+2 columns in XLA's order, the
+columns past k+1 exact zero products), and every division is a true
+division of two tensors (torch's CUDA division by a Python number
+multiplies by its reciprocal, another rounding). On the card the kernel
+equals the plain version bit for bit; against JAX the floats agree to a
+few ulps times the recursion's growth and the integer decisions wherever
+their float lies clear of its boundary.
 """
 
 from __future__ import annotations
@@ -45,11 +47,44 @@ def welch_inv_f32(n: int) -> float:
     return float(np.float32(welch_inverse_squared_sum(n)))
 
 
+def lanes_for(M: int) -> int:
+    """The lanes K14 gives a row of largest order M: the fewest of 8, 16
+    and 32 that hold the row's M+1 coefficients in at most 9 registers a
+    lane (``srla_lpc_f32``'s dispatch makes the same choice). The sum
+    order of gamma depends on it (``gamma_sum``)."""
+    for lanes in (8, 16, 32):
+        if M + 1 <= 9 * lanes:
+            return lanes
+    return 32
+
+
+def gamma_sum(terms: torch.Tensor, lanes: int) -> torch.Tensor:
+    """gamma's f32 sum in K14's order. terms (V, T): column m holds the
+    term of index m (the columns outside 1..k+2 hold +0). Lane l of the
+    row's ``lanes`` adds columns l, l + lanes, ... in ascending order to a
+    sum that starts at +0; then lane l adds lane l ^ s's sum for s =
+    lanes/2, ..., 2, 1 (each lane's value, as IEEE addition commutes, is
+    the same: lane l < s's is sums[l] + sums[l + s]). Returns (V,)."""
+    V, T = terms.shape
+    R = -(-T // lanes)
+    terms = torch.nn.functional.pad(terms, (0, R * lanes - T))
+    s = torch.zeros((V, lanes), dtype=terms.dtype, device=terms.device)
+    for j in range(R):
+        s = s + terms[:, j * lanes:(j + 1) * lanes]
+    w = lanes // 2
+    while w >= 1:
+        s = s[:, :w] + s[:, w:2 * w]
+        w //= 2
+    return s[:, 0]
+
+
 def levinson_f32(ac: torch.Tensor, M: int, orders=None):
     """``_levinson``: ac (V, M+1) f32, the ridge on lag 0. Returns (ev (V,
     M+1), the coefficients a[1..M] of each row at its ``orders`` (V, M),
     or None without orders). Silent rows (|r0| < 2^-23) get ev = r0 and
-    zero coefficients."""
+    zero coefficients. gamma is summed in K14's order over the
+    ``lanes_for(M)`` lanes."""
+    lanes = lanes_for(M)
     V = ac.shape[0]
     dev = ac.device
     r0 = ac[:, 0]
@@ -65,11 +100,11 @@ def levinson_f32(ac: torch.Tensor, M: int, orders=None):
     if collect:
         orders = orders.long()
         coefs[:, 0] = torch.where(orders == 1, a[:, 1], 0.0)
+    terms = torch.zeros((V, M + 1), dtype=_F32, device=dev)
     for k in range(M - 1):
-        prods = a[:, :k + 2] * ac[:, 1:k + 3].flip(1)     # a[i] ac[k+2-i]
-        g = prods[:, 0]
-        for i in range(1, k + 2):
-            g = g + prods[:, i]
+        # The term of index m = 1..k+2: a[k+2-m] ac[m].
+        terms[:, 1:k + 3] = a[:, :k + 2].flip(1) * ac[:, 1:k + 3]
+        g = gamma_sum(terms[:, :k + 3], lanes)
         evk = ev[:, k + 1]
         g = g / -torch.where(evk.abs() < 1e-30, 1.0, evk)
         ev[:, k + 2] = evk * (1.0 - g * g)
@@ -152,7 +187,7 @@ def lpc_analyze_f32_plain(ac: torch.Tensor, n: int, bps: int, M: int,
     variances, ``select_order_f32``, ``levinson_f32`` again to collect the
     coefficients, ``quantize_f32``. Same arguments and results as
     ``lpc_analyze_f32``."""
-    ev, _ = levinson_f32(ac, M, None)
+    ev, _ = levinson_f32(ac, M)
     orders = select_order_f32(ev, n, bps, M, max_fixed)
     _, coefs = levinson_f32(ac, M, orders)
     intc, rshifts = quantize_f32(coefs, orders)
@@ -162,9 +197,10 @@ def lpc_analyze_f32_plain(ac: torch.Tensor, n: int, bps: int, M: int,
 def lpc_analyze_f32(ac: torch.Tensor, n: int, bps: int, M: int,
                     max_fixed: bool):
     """ac (V, M+1) f32 lags with the ridge on lag 0; n the block length,
-    bps the sample bits, M >= 1 the largest order. Returns (orders (V,)
-    int32 in 1..M, intc (V, M) int32 quantized coefficients left-aligned,
-    zero past the order, rshifts (V,) int32).
+    bps the sample bits, M the largest order (1..287: the kernel holds a
+    row in at most 32 lanes of 9 registers). Returns (orders (V,) int32
+    in 1..M, intc (V, M) int32 quantized coefficients left-aligned, zero
+    past the order, rshifts (V,) int32).
 
     CUDA tensors go through the kernel (``lpc_analyze_f32.launches`` counts
     its launches); CPU tensors go through ``lpc_analyze_f32_plain``."""
@@ -175,10 +211,10 @@ def lpc_analyze_f32(ac: torch.Tensor, n: int, bps: int, M: int,
         raise ValueError(f"lpc_analyze_f32: no kernel for device {dev}")
     V = ac.shape[0]
     if M < 1 or ac.dtype != _F32 or tuple(ac.shape) != (V, M + 1) \
-            or not ac.is_contiguous():
+            or not ac.is_contiguous() or M + 1 > 9 * 32:
         raise ValueError(f"lpc_analyze_f32: ac must be a contiguous f32 "
-                         f"tensor of shape (V, {M + 1}) with M >= 1, got "
-                         f"{ac.dtype} {tuple(ac.shape)}")
+                         f"tensor of shape (V, {M + 1}) with 1 <= M <= "
+                         f"287; got {ac.dtype} {tuple(ac.shape)}")
     orders = torch.empty(V, dtype=torch.int32, device=dev)
     intc = torch.empty((V, M), dtype=torch.int32, device=dev)
     rshifts = torch.empty(V, dtype=torch.int32, device=dev)

@@ -36,7 +36,8 @@ NEG_MLNOPTX_F32 = float(np.float32(-0.66794162356))
 # The bits of a partition order before its partitions: the order field and
 # the first parameter's 5 bits (encode.py:327).
 HEAD_BITS = CODER_LOG2_MAX_NUM_PARTITIONS + 5
-# The largest row: a CTA's threads take runs of at most 256 samples.
+# The largest row: a CTA holds the row in registers, at most 64 samples a
+# thread over 1024 threads.
 MAX_N = 65536
 
 

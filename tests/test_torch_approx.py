@@ -595,7 +595,10 @@ def _compress_blocks(stream: bytes) -> int:
 @pytest.mark.parametrize("kind,C,preset", [("music", 2, 4),
                                            ("segmented", 2, 4),
                                            ("music", 1, 2),
-                                           ("segmented", 2, 6)])
+                                           ("segmented", 2, 6),
+                                           ("music", 1, 1),
+                                           ("segmented", 1, 3),
+                                           ("music", 1, 5)])
 def test_approx_encode_lossless_within_two_percent(kind, C, preset):
     pcm = (make_music if kind == "music" else make_segmented)(1.5)[:C]
     enc = SRLAEncoder(make_parameter(C, 16, RATE, preset, 4096, 0, 4, 0, 0),

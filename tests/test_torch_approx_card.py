@@ -3,7 +3,9 @@ without one): K14 (csrc/lpc_analyze_f32.cu) and K15 (csrc/rice_cost.cu)
 against their plain PyTorch versions on the same CUDA tensors at small odd
 shapes (chip_smoke.k14_odd_lags and k15_odd_rows: silent rows, a half-even
 tie, full-range 24-bit and int32-extreme rows), bit for bit on every
-output, and a short approximate encode on the
+output: K14 at every lane count and at M 1-255, K15 on rows of each of its
+two bodies and at lengths of no power of two; and a short approximate
+encode on the
 card: lossless, within 2 % of the exact size, every COMPRESS block from
 the device, K14, K15, K3 and K5 launched. No JAX here: the CPU twin,
 ``test_torch_approx.py``, holds the port to ``srla_tpu``."""
@@ -64,6 +66,40 @@ def test_k14_equals_plain(cuda, M, n, bps, max_fixed):
         assert (orders == M).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 128, 255])
+@pytest.mark.parametrize("max_fixed", [False, True])
+def test_k14_lanes_order_equals_plain(cuda, M, max_fixed):
+    """The lane layout at every M the presets reach (8 lanes a row up to M
+    71, 16 up to 143, 32 above): orders, coefficients and shifts equal to
+    the plain version summing gamma in the same order."""
+    n = 4096 if M > 32 else 1024
+    ac = k14_lags(45, n, 16, M, seed=3 * M + 1).to(cuda)
+    got = lpc_analyze_f32(ac, n, 16, M, max_fixed)
+    want = lpc_analyze_f32_plain(ac, n, 16, M, max_fixed)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_k14_every_lane_count_equals_plain(cuda, lanes):
+    """The kernel at each lane count against the plain version summing
+    in that count's order: at 8 lanes M 64 and 71, at 16 and 32 the
+    least and the largest M that ``lanes_for`` gives them (5 and 9
+    registers a lane)."""
+    from srla_tpu_torch.kernels.lpc_f32 import lanes_for
+    for M in {8: (64, 71), 16: (72, 143), 32: (144, 287)}[lanes]:
+        assert lanes_for(M) == lanes
+        ac = k14_lags(37, 4096, 24, M, seed=lanes + M).to(cuda)
+        got = lpc_analyze_f32(ac, 4096, 24, M, False)
+        want = lpc_analyze_f32_plain(ac, 4096, 24, M, False)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def k15_rows(V: int, n: int, seed: int) -> torch.Tensor:
     return chip_smoke.k15_odd_rows(torch, np, V, n, seed)
 
@@ -85,6 +121,64 @@ def test_k15_equals_plain_and_packed_length(cuda, n, max_porder):
     _, total = residual_codewords(u, ct, po, ks, n)
     assert torch.equal(bits.long(), total)
     assert (ct.cpu()[3::7] == 2).all()
+
+
+def k15_kind_rows(kind: str, V: int, n: int, seed: int) -> torch.Tensor:
+    """Rows of one kind: 16-bit (music-like and full-range 16-bit noise),
+    24-bit full range (codes under 2^25: the 32-bit body), int32-extreme
+    (codes of 2^31 and above: the 64-bit body; one row of small values
+    with a single -2^31)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n)
+    rows = []
+    for r in range(V):
+        if kind == "16bit":
+            x = (np.round(np.sin(t / (3.0 + r)) * 3000 + rng.randn(n) * 40)
+                 if r % 2 else rng.randint(-(1 << 15), 1 << 15, n))
+        elif kind == "24bit":
+            x = rng.randint(-(1 << 23), 1 << 23, n)
+        elif r % 3 == 2:
+            x = rng.randint(-50, 50, n)
+            x[rng.randint(n)] = -(1 << 31)
+        else:
+            x = rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64)
+        rows.append(x)
+    return torch.from_numpy(np.stack(rows).astype(np.int32))
+
+
+def _k15_check(res, n, max_porder):
+    rice_cost.launches = 0
+    got = rice_cost(res, n, max_porder)
+    want = rice_cost_plain(res, n, max_porder)
+    torch.cuda.synchronize()
+    assert rice_cost.launches == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    ct, po, bits, ks = got
+    u = ((res.long() << 1) ^ (res.long() >> 31)) & 0xFFFFFFFF
+    _, total = residual_codewords(u, ct, po, ks, n)
+    assert torch.equal(bits.long(), total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["16bit", "24bit", "int32"])
+@pytest.mark.parametrize("n,max_porder", [(1024, 7), (4096, 10)])
+def test_k15_each_body_equals_plain(cuda, kind, n, max_porder):
+    """Rows that take the 32-bit body (16- and 24-bit) and the 64-bit one
+    (int32-extreme), bit for bit on every output, the bits the packed
+    length."""
+    _k15_check(k15_kind_rows(kind, 24, n, seed=n + len(kind)).to(cuda), n,
+               max_porder)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,max_porder", [(12, 2), (1000, 3), (3072, 10),
+                                          (4064, 5), (6144, 10),
+                                          (20000, 5)])
+def test_k15_non_power_of_two_equals_plain(cuda, n, max_porder):
+    """Lengths that are no power of two (each leaf padded with zeros to
+    one), every row kind."""
+    _k15_check(k15_rows(21, n, seed=n).to(cuda), n, max_porder)
 
 
 @pytest.mark.gpu

@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the fifteen CUDA libraries of csrc/ (eighteen kernels) and six
+Builds the eighteen CUDA libraries of csrc/ (twenty-one kernels) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
@@ -261,7 +261,30 @@ then:
      best of 3 beside the exact encode's, and the -V 0 encode's step
      split. Last, parallel.full_step_sharded over [cuda:0, cuda:0] on the
      main group's rows: residual and bits equal to one analyze_variants
-     call.
+     call. Each approximate stream's length is the one APPROX_BYTES
+     records; K17 and K5's row entry launched once a group (K17's
+     measurement entry once a -V call), K16 and K18 never (the path
+     keeps its f32 pre-emphasis and LTP filter), no plain version of K17
+     or K5 reached.
+ 16. (Run after phase 5.) The exact encode's last stages: K16 (the variant
+     stack and exact pre-emphasis, csrc/preemphasis.cu), K17 (the bit
+     accounting and stereo selection, csrc/select.cu, and its measurement
+     entry), K18 (the LTP residual, csrc/ltp_predict.cu) and K5's row
+     entry (the chosen rows read by index and zigzagged as they load)
+     against their plain versions, bit for bit on every output, at the
+     main group's and the tail group's inputs as the encode hands them
+     over (K16 on the resident file's spans and on the block tensor, K18
+     at -P 3) and at odd shapes (k16_cases: n 333 at C 1 and 3, unaligned
+     spans, int32 extremes, half boundaries flagged; k17_small at M 8 to
+     255: ties, clamped codes, wrapping sums, raw blocks, sections above
+     W; k18_cases: periods 8 and 262, the delay past n, order 1; K5's
+     rows at 12 x 334, not 16-byte aligned, and 40 x 512 at porders
+     0..9); each timed (CUDA events, graph replay) beside its plain
+     version and its bound, K5's row entry beside the work it replaced
+     (zigzag32 of every row, the gather, the gathered entry). Phases 6,
+     8, 9, 11, 12, 13 and 15 count K16, K17's two entries and K18 as they
+     count K3, and run their encodes with every plain version of K16,
+     K17, K18 and K5's section entry replaced by a tripwire.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -272,7 +295,10 @@ counted on phases 3, 6 and 7, K9's on phase 4 and K10's on phase 9's
 entries' (records lpc_coefs and lpc_quantize) on phase 12's full-width
 encode, 0 for K12's first design (svr_refine_v1, a measurement aid),
 K13's
-on phase 14's resident decode of phase 3's stream;
+on phase 14's resident decode of phase 3's stream, K16's and K17's on
+phase 6's, K17's measurement entry's on phase 8's -V 1 encode of the
+music, K18's on phase 9's -V 0 -P 3 encode; K5's fused entry's times are
+its row entry's (phase 16), its gathered entry's beside them;
 ``launches_variable`` on each of phase 8's three paths, ``launches_ltp`` on
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
 ``launches_corpus`` on phase 13's paths, encode and decode apart,
@@ -665,7 +691,8 @@ def profile_decode(torch, fn, what: str) -> None:
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
              "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify",
-             "lpc_analyze_f32", "rice_cost")
+             "lpc_analyze_f32", "rice_cost", "preemphasis", "select",
+             "ltp_predict")
 # Measurement only: the serial floors, and the first designs of K8, K7, K9,
 # K10 and K12.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
@@ -1267,7 +1294,8 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
 
     param = main_param()
     names = ("fir_predict", "rice_search", "pack_residual_sections",
-             "bitpack", "autocorr", "lpc_analyze")
+             "bitpack", "autocorr", "lpc_analyze", "preemphasis",
+             "select_blocks", "measure_blocks", "ltp_predict")
     wrappers = {k: w for k, w in all_wrappers().items() if k in names}
     torch.cuda.reset_peak_memory_stats()
     enc = SRLAEncoder(param, dev)
@@ -1283,10 +1311,12 @@ def phase_encode(torch, np, dev, pcm, stream: bytes, card: str):
     require(handled == ncomp, f"block accounting {s}: {handled} of "
                               f"{ncomp} COMPRESS blocks")
     # Two groups (1291 blocks of 4096, 1 block of 4064): one launch each,
-    # K8 and K7 too (the LPC lags, then their analysis). The generic pack
-    # is off the encode's path.
+    # K8 and K7 too (the LPC lags, then their analysis), K16 and K17's
+    # encode entry too. The generic pack is off the encode's path; without
+    # -V and -P nothing measures and nothing runs K18.
     for name, count in launches.items():
-        want = 0 if name == "bitpack" else 2
+        want = 0 if name in ("bitpack", "measure_blocks",
+                             "ltp_predict") else 2
         require(count == want, f"{name} was launched {count} times by the "
                                f"encode, expected {want}")
     _, out = decode(data, device=dev)
@@ -1478,11 +1508,14 @@ def all_wrappers() -> dict:
                                                  lpc_quantize)
     from srla_tpu_torch.kernels.lpc import lpc_scan
     from srla_tpu_torch.kernels.lpc_f32 import lpc_analyze_f32
-    from srla_tpu_torch.kernels.ltp import ltp_analyze, ltp_synth
+    from srla_tpu_torch.kernels.ltp import (ltp_analyze, ltp_predict,
+                                            ltp_synth)
     from srla_tpu_torch.kernels.predict import predict
+    from srla_tpu_torch.kernels.preemphasis import variant_preemphasis
     from srla_tpu_torch.kernels.rice_cost import rice_cost
     from srla_tpu_torch.kernels.rice_decode import rice_decode
     from srla_tpu_torch.kernels.rice_search import rice_search
+    from srla_tpu_torch.kernels.select import measure_blocks, select_blocks
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
     from srla_tpu_torch.kernels.verify import verify_blocks
     return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
@@ -1494,18 +1527,39 @@ def all_wrappers() -> dict:
             "lpc_quantize": lpc_quantize, "svr_cov": svr_cov,
             "svr_refine": svr_refine, "svr_refine_v1": k12_first_design,
             "verify": verify_blocks, "lpc_analyze_f32": lpc_analyze_f32,
-            "rice_cost": rice_cost}
+            "rice_cost": rice_cost, "preemphasis": variant_preemphasis,
+            "select_blocks": select_blocks, "measure_blocks": measure_blocks,
+            "ltp_predict": ltp_predict}
+
+
+def stage_plains():
+    """The plain versions of K17 and of K5's section entry (and the torch
+    code they compose), as (module, name)."""
+    from srla_tpu_torch.kernels import bitpack as k5
+    from srla_tpu_torch.kernels import select as k17
+    return ((k17, "select_blocks_plain"), (k17, "measure_blocks_plain"),
+            (k17, "select_rows"), (k17, "account_bits"),
+            (k17, "method_lengths"), (k17, "section_starts"),
+            (k17, "chosen_sections"), (k5, "pack_residual_sections_plain"),
+            (k5, "section_stream"))
 
 
 def without_plain(fn):
-    """fn() with the plain versions of K7, K8, K11, K12 and K4 (and the
-    torch loops they compose) replaced by tripwires: an encode on the card
-    that reached one of them raises."""
+    """fn() with the plain versions of K7, K8, K11, K12, K4, K16, K17, K18
+    and K5's section entry (and the torch code they compose) replaced by
+    tripwires: an encode on the card that reached one of them raises."""
     from srla_tpu_torch.kernels import autocorr as k8
+    from srla_tpu_torch.kernels import exact
     from srla_tpu_torch.kernels import levinson as k7
+    from srla_tpu_torch.kernels import ltp as k18
+    from srla_tpu_torch.kernels import preemphasis as k16
     from srla_tpu_torch.kernels import rice_search as k4
     from srla_tpu_torch.kernels import svr as k12
-    names = ((k8, "autocorr_plain"), (k7, "lpc_analyze_plain"),
+    names = stage_plains() + (
+             (k16, "variant_preemphasis_plain"), (k16, "preemphasis_rows"),
+             (k16, "variant_stack"), (k16, "cut_spans"),
+             (exact, "preemphasis_exact"), (k18, "ltp_predict_plain"),
+             (k8, "autocorr_plain"), (k7, "lpc_analyze_plain"),
              (k7, "levinson"), (k7, "select_order_exact"),
              (k7, "quantize_exact"), (k7, "lpc_coefs_plain"),
              (k7, "lpc_quantize_plain"), (k12, "svr_cov_plain"),
@@ -1517,8 +1571,8 @@ def without_plain(fn):
     saved = [getattr(m, name) for m, name in names]
 
     def tripwire(*_a, **_k):
-        raise RuntimeError("a plain version of K7, K8, K11, K12 or K4 ran on "
-                           "the encode's path")
+        raise RuntimeError("a plain version of K4, K5, K7, K8, K11, K12, "
+                           "K16, K17 or K18 ran on the encode's path")
 
     for m, name in names:
         setattr(m, name, tripwire)
@@ -1693,7 +1747,7 @@ def variable_kernels(torch, dev, pcm, param, spans: dict, blocks: dict,
     def analysed(offs, n, what):
         args = enc._host._device_args(n)
         small, big, core = exact.variant_analysis(
-            exact.cut_spans(file, offs, n), lshift, **args)
+            exact.Spans(file, offs, n), lshift, **args)
         at = f"{what}, {len(offs)} of {n}"
         k3 = (core["work"], core["coefs"], core["orders"], core["rshifts"])
         err["fir_predict"] = max(err["fir_predict"], check(
@@ -1793,6 +1847,8 @@ def phase_variable(torch, np, dev, music, card):
         calls = n_measure + n_encode
         want = {"fir_predict": calls, "rice_search": calls,
                 "autocorr": calls, "lpc_analyze": calls,
+                "preemphasis": calls, "select_blocks": n_encode,
+                "measure_blocks": n_measure, "ltp_predict": 0,
                 "pack_residual_sections": n_encode, "bitpack": 0,
                 "svr_refine_v1": 0}
         for name, count in want.items():
@@ -2223,7 +2279,8 @@ def ltp_analysis_calls(torch, dev, pcm, param, spans: dict,
                 rows = exact.variant_stack(exact.cut_spans(file, part, n),
                                            lshift)
                 pre, _, _ = exact.preemphasis_exact(rows)
-                core = exact.analyze_core(rows, **args)
+                core = exact.analyze_core(exact.Spans(file, part, n),
+                                          lshift, **args)
                 calls.append((f"{kind}, {len(part)} of {n}", args, pre,
                               core["work"],
                               exact.ltp_lags(pre, n, args["bps"],
@@ -2293,6 +2350,8 @@ def phase_ltp_encode(torch, np, dev, music, card):
         want = {"ltp_analyze": calls, "fir_predict": calls,
                 "rice_search": calls, "lpc_analyze": calls,
                 "autocorr": 2 * calls,        # the pitch lags, the LPC lags
+                "preemphasis": calls, "ltp_predict": calls,
+                "select_blocks": n_encode, "measure_blocks": n_measure,
                 "pack_residual_sections": n_encode, "bitpack": 0,
                 "svr_refine_v1": 0}
         for name, count in want.items():
@@ -2521,7 +2580,8 @@ def phase_ltp_shapes(torch, np, dev, card, tallies: dict):
         want = {"ltp_analyze": calls, "fir_predict": calls,
                 "rice_search": calls, "lpc_analyze": calls,
                 "autocorr": 2 * calls, "pack_residual_sections": calls,
-                "bitpack": 0}
+                "preemphasis": calls, "ltp_predict": calls,
+                "select_blocks": calls, "measure_blocks": 0, "bitpack": 0}
         for name, count in want.items():
             require(got[name] == count, f"{path}: {name} launched "
                                         f"{got[name]} times, expected {count}")
@@ -3179,12 +3239,15 @@ def svr_want(calls: int, n_encode: int, ltp: bool) -> dict:
     """The launches of an SVR encode of ``calls`` analysis calls, of which
     ``n_encode`` encode groups: K7's coefficient and quantization entries,
     K11, K12, K3 and K4 once a call, K8 once (twice with -P), K5's fused
-    entry once a group; K7's fused entry, the generic pack and K12's first
-    design never."""
+    entry once a group; K16 once a call, K18 too with -P; K17's encode
+    entry once a group and its measurement entry once a measurement call;
+    K7's fused entry, the generic pack and K12's first design never."""
     return {"lpc_coefs": calls, "svr_cov": calls, "svr_refine": calls,
             "lpc_quantize": calls, "lpc_analyze": 0, "fir_predict": calls,
             "rice_search": calls, "autocorr": calls * (2 if ltp else 1),
             "ltp_analyze": calls if ltp else 0,
+            "preemphasis": calls, "ltp_predict": calls if ltp else 0,
+            "select_blocks": n_encode, "measure_blocks": calls - n_encode,
             "pack_residual_sections": n_encode, "bitpack": 0,
             "svr_refine_v1": 0}
 
@@ -3846,7 +3909,7 @@ def fused_groups(streams) -> tuple[int, int]:
 
 
 ENCODE_KERNELS = ("autocorr", "lpc_analyze", "fir_predict", "rice_search",
-                  "pack_residual_sections")
+                  "pack_residual_sections", "preemphasis", "select_blocks")
 
 
 def sync_sites(torch, fn) -> dict:
@@ -3889,8 +3952,9 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
     plan = corpus_calls(files, block, limit)
     wrappers = all_wrappers()
     stats: dict = {}
-    got, enc_l = counted(torch, wrappers, lambda: encode_files(
-        files, bps, rate, dev, preset=4, max_block=block, stats_out=stats))
+    got, enc_l = counted(torch, wrappers, lambda: without_plain(
+        lambda: encode_files(files, bps, rate, dev, preset=4,
+                             max_block=block, stats_out=stats)))
     bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
     require(not bad, f"{what}: encode_files differs from host_encoder.encode "
                      f"on files {bad[:8]}")
@@ -3899,6 +3963,9 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
                 f"{what}: {name} launched {enc_l[name]} times by "
                 f"encode_files, expected {plan['batched']} (one a batched "
                 f"call)")
+    for name in ("measure_blocks", "ltp_predict"):
+        require(enc_l[name] == 0, f"{what}: {name} launched {enc_l[name]} "
+                                  f"times by a -V 0 encode without -P")
     require(plan["batched"] < plan["per_file"],
             f"{what}: {plan['batched']} batched calls, not fewer than the "
             f"per-file {plan['per_file']}")
@@ -4041,14 +4108,16 @@ def phase_block_api(torch, np, dev, pcm, stream, pcm4, stream4, hires,
     want = [host._encode_spans(b, [(0, b.shape[1])], 0)[0] for b in blocks]
     enc = SRLAEncoder(param, dev)
     got, runs["encode_block"] = counted(
-        torch, wrappers, lambda: [enc.encode_block(b) for b in blocks])
+        torch, wrappers, lambda: without_plain(
+            lambda: [enc.encode_block(b) for b in blocks]))
     require(got == want, "encode_block on the card differs from the host's "
                          "one-span encode")
     # 12 music blocks and the noise block are analysed on the card; the
     # silent, RAW-sized and odd-length ones are not.
-    require(runs["encode_block"]["fir_predict"] == 13,
-            f"encode_block launched K3 {runs['encode_block']['fir_predict']}"
-            f" times, expected 13")
+    for name in ("fir_predict", "preemphasis", "select_blocks"):
+        require(runs["encode_block"][name] == 13,
+                f"encode_block launched {name} "
+                f"{runs['encode_block'][name]} times, expected 13")
     # K2 and K1 once a COMPRESS block, K9 and K1 again once an LTP block.
     per_block = {}
     for src in (stream, stream4):
@@ -4419,6 +4488,13 @@ APPROX_PATHS = (("music120_V0_approx", 0, 0, 4),
                 ("music120_V1_approx", 1, 0, 4),
                 ("music120_V0_P3_approx", 0, 3, 4),
                 ("music120_V0_m5_approx", 0, 0, 5))
+# The approximate streams' lengths on these paths since K14's sum order was
+# fixed: K17 and K5's row entry take the same decisions and words as the
+# torch selection and the gathered pack before them.
+APPROX_BYTES = {"music120_V0_approx": 15491570,
+                "music120_V1_approx": 15491570,
+                "music120_V0_P3_approx": 15482330,
+                "music120_V0_m5_approx": 15482443}
 # chain_probe.cu's K14 step kinds: kind -> (lanes a row, registers a lane).
 K14_STEP_KINDS = {8: (8, 9), 9: (16, 5), 10: (32, 3), 11: (16, 9),
                   12: (32, 5), 13: (32, 8)}
@@ -4590,16 +4666,17 @@ def approx_kernel_inputs(torch, np, dev, pcm, tail: bool = False):
 
 
 def approx_no_plain(fn):
-    """fn() with K14's and K15's plain versions replaced by tripwires: an
-    approximate encode on the card that reached one of them raises."""
+    """fn() with the plain versions of K14, K15, K17 and K5's section entry
+    replaced by tripwires: an approximate encode on the card that reached
+    one of them raises."""
     from srla_tpu_torch.kernels import lpc_f32, rice_cost
     names = ((lpc_f32, "lpc_analyze_f32_plain"),
-             (rice_cost, "rice_cost_plain"))
+             (rice_cost, "rice_cost_plain")) + stage_plains()
     saved = [getattr(m, name) for m, name in names]
 
     def tripwire(*_a, **_k):
-        raise RuntimeError("a plain version of K14 or K15 ran on the "
-                           "approximate encode's path")
+        raise RuntimeError("a plain version of K14, K15, K17 or K5 ran on "
+                           "the approximate encode's path")
 
     for m, name in names:
         setattr(m, name, tripwire)
@@ -4705,7 +4782,9 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
     wrappers = {k: w for k, w in all_wrappers().items()
                 if k in ("lpc_analyze_f32", "rice_cost", "fir_predict",
                          "pack_residual_sections", "bitpack", "autocorr",
-                         "lpc_analyze", "rice_search", "ltp_analyze")}
+                         "lpc_analyze", "rice_search", "ltp_analyze",
+                         "select_blocks", "measure_blocks", "preemphasis",
+                         "ltp_predict")}
     exact_sizes, times = {}, {}
     for path, V, P, preset in APPROX_PATHS:
         param = approx_param(V, P, preset)
@@ -4724,21 +4803,26 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
         ratio = len(data) / len(exact_data)
         require(ratio <= 1.02, f"{path}: approximate size {len(data)} is "
                                f"{ratio:.4f} of the exact {len(exact_data)}")
+        require(len(data) == APPROX_BYTES[path],
+                f"{path}: {len(data)} bytes, not {APPROX_BYTES[path]}")
         s = enc.stats
         ncomp = compress_blocks(data)
         require(s["device_blocks"] == ncomp and s["host_blocks"] == 0
                 and s["repaired_blocks"] == 0,
                 f"{path}: block routing {s}, {ncomp} COMPRESS blocks")
+        # The approximate path keeps its f32 pre-emphasis and LTP filter
+        # (torch ops): K16 and K18 are the exact path's.
         for name in ("autocorr", "lpc_analyze", "rice_search",
-                     "ltp_analyze", "bitpack"):
+                     "ltp_analyze", "bitpack", "preemphasis", "ltp_predict"):
             require(got[name] == 0, f"{path}: {name} launched {got[name]} "
                                     f"times by the approximate encode")
         if V == 0:
             # Two groups (1291 blocks of 4096, 1 of 4064): once each.
             for name in ("lpc_analyze_f32", "rice_cost", "fir_predict",
-                         "pack_residual_sections"):
+                         "pack_residual_sections", "select_blocks"):
                 require(got[name] == 2, f"{path}: {name} launched "
                                         f"{got[name]} times, expected 2")
+            require(got["measure_blocks"] == 0, f"{path}: launches {got}")
         else:
             require(s["device_spans"] > 0 and s["remeasured_spans"] == 0
                     and s["host_spans"] == 0,
@@ -4746,6 +4830,12 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
             require(got["lpc_analyze_f32"] == got["rice_cost"]
                     == got["fir_predict"] > got["pack_residual_sections"]
                     > 0, f"{path}: launches {got}")
+            # K17's encode entry once a group, its measurement entry once
+            # a measurement call.
+            require(got["select_blocks"] == got["pack_residual_sections"]
+                    and got["measure_blocks"] == got["fir_predict"]
+                    - got["pack_residual_sections"],
+                    f"{path}: launches {got}")
         runs[path] = {"encode": got}
         exact_sizes[path] = (len(data), len(exact_data))
         best = best_of(torch, lambda: SRLAEncoder(
@@ -4819,6 +4909,507 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
              tail_bound_ms=t15["bound_ms"], tail_plain_ms=t15["plain_ms"],
              odd={f"n{n}_P{P}": r["device_ms"] for n, P, r in odd15})]
     return recs, runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the exact encode's last stages (K16, K17, K18, K5's row entry)
+# ---------------------------------------------------------------------------
+
+K16_EPS = 1e-8                   # kernels/exact.py _EPS_PREEMPH
+
+
+def k16_half_row(np, n: int, sign: int = 1):
+    """A row whose 16 r1 / r0 is 0.5 exactly (r0 32, r1 1; -0.5 with sign
+    -1): a rounding half, which both routes must flag."""
+    row = np.zeros(n, np.int64)
+    row[:8] = (1, sign, 0, 5, 0, 2, 0, 1)
+    return row
+
+
+def k16_cases(np) -> list:
+    """K16's odd cases, (what, samples, offsets or None, n, lshift):
+    blocks (B, C, n) where offsets is None, else a (C, N) file and the
+    offsets of its spans. n 333 at C 1 (int16, a half-boundary row, an
+    all-zero block); n 333 at C 3 (int32 24-bit samples at lshift 2,
+    spans at odd offsets, so no row starts on 16 bytes, and one span of
+    int32 extremes, where M and S wrap); n 64 at C 2 with two equal
+    half-boundary channels (S all zero, M and both channels on the half),
+    their negative twin and an all-zero block."""
+    rng = np.random.RandomState(16)
+    n = 333
+    b = rng.laplace(0, 2000, (9, 1, n)).clip(-32768, 32767).astype(np.int16)
+    b[0, 0] = k16_half_row(np, n)
+    b[1] = 0
+    N = 9000
+    f = (rng.laplace(0, 1 << 18, (3, N)).clip(-(1 << 23), (1 << 23) - 1)
+         .astype(np.int32) >> 2) << 2
+    offs = [1, 335, 1001, 2047, 4093, 6001, 8665]
+    f[:, 6001:6001 + n] = rng.randint(-(1 << 31), 1 << 31, (3, n),
+                                      dtype=np.int64)
+    s = rng.laplace(0, 3000, (6, 2, 64)).clip(-32768, 32767).astype(np.int16)
+    s[0, :] = k16_half_row(np, 64)
+    s[1, :] = k16_half_row(np, 64, -1)
+    s[2] = 0
+    return [("n 333 C 1 int16 blocks", b, None, n, 0),
+            ("n 333 C 3 int32 lshift 2 spans at odd offsets", f, offs, n, 2),
+            ("n 64 C 2 half-boundary blocks", s, None, 64, 0)]
+
+
+def k16_source(torch, dev, case):
+    """The case's samples on ``dev``, as K16 takes them."""
+    from srla_tpu_torch.kernels.preemphasis import Spans
+    _, data, offs, n, _ = case
+    t = torch.from_numpy(data).to(dev)
+    return t if offs is None else Spans(t, offs, n)
+
+
+def k16_entries():
+    """K16 and its plain version as (src, lshift) -> outputs."""
+    from srla_tpu_torch.kernels.preemphasis import (variant_preemphasis,
+                                                    variant_preemphasis_plain)
+    return (lambda src, lshift: variant_preemphasis(src, lshift,
+                                                    eps=K16_EPS),
+            lambda src, lshift: variant_preemphasis_plain(src, lshift,
+                                                          eps=K16_EPS))
+
+
+def k17_small(torch, np, dev, B: int, C: int, M: int, seed: int,
+              sec64: bool = True, ltp_order: int = 3):
+    """K17's inputs for B blocks of C channels at max order M: (small,
+    rice_risky, the entry's keywords). Orders 0, 1, M and M + 3 (read as
+    M) among random ones; coefficients small, or up to +-300 on every
+    seventh row (codes past 255: the clamp and the summed form refused),
+    int32 extremes on one row (the sums wrap); coefficient rows wider than
+    M; sections above W words and block sums at the raw limit; LTP
+    periods on a third of the rows; a few flags of each kind; block 0's
+    variants all equal, so every stereo method ties."""
+    rng = np.random.RandomState(seed)
+    nvar = C + 2 if C >= 2 else 1
+    V = nvar * B
+    n, bps, W = 512, 16, 200
+    orders = rng.randint(0, M + 1, V)
+    orders[1:4] = (1, M, M + 3)
+    coefs = rng.randint(-20, 21, (V, M + 2)).astype(np.int64)
+    coefs[::7] = rng.randint(-300, 301, coefs[::7].shape)
+    coefs[5] = rng.choice([-(1 << 31), (1 << 31) - 1], M + 2)
+    sec = rng.randint(0, 12000, V)
+    sec[::13] = W * 32 + 1
+    period = np.where(rng.rand(V) < 0.3, rng.randint(8, 263, V), 0)
+    risky = rng.rand(V) < 0.02
+    rice_risky = rng.rand(V) < 0.02
+    same = np.arange(nvar) * B
+    for a in (orders, coefs, sec, period, risky, rice_risky):
+        a[same] = a[same[0]]
+    risky[same] = rice_risky[same] = False
+    risky[V - 1] = rice_risky[V - 2] = True    # at least one of each
+    sec[np.arange(nvar) * B + B - 2] = 13000     # a raw block
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
+
+    small = dict(section_bits=t(sec, np.int64 if sec64 else np.int32),
+                 orders=t(orders, np.int32), coefs=t(coefs, np.int32),
+                 ltp_period=t(period, np.int32),
+                 ltp_coefs=torch.zeros((V, ltp_order), dtype=torch.int32,
+                                       device=dev),
+                 risky=t(risky, bool))
+    return small, t(rice_risky, bool), dict(B=B, C=C, n=n, bps=bps, W=W,
+                                            max_params=M)
+
+
+def dict_err(torch, what: str, got: dict, want: dict) -> int:
+    """Two dicts of tensors: the same keys and dtypes, bit-equal. Returns
+    max_abs_err."""
+    require(set(got) == set(want), f"{what}: keys {sorted(got)} against "
+                                   f"{sorted(want)}")
+    for k in want:
+        require(got[k].dtype == want[k].dtype
+                and got[k].shape == want[k].shape,
+                f"{what}: {k} is {got[k].dtype} {tuple(got[k].shape)}, the "
+                f"plain version's {want[k].dtype} {tuple(want[k].shape)}")
+    e = max(max_abs_err(torch, got[k], want[k]) for k in want)
+    require(e == 0, f"{what} differs from its plain version (max abs err "
+                    f"{e})")
+    return e
+
+
+def k17_check(torch, what: str, small, rice_risky, kw) -> int:
+    """K17's encode and measurement entries against their plain versions
+    on the same inputs, every output. Returns max_abs_err."""
+    from srla_tpu_torch.kernels import select
+    mkw = {k: kw[k] for k in ("B", "C", "bps", "max_params")}
+    e = dict_err(torch, f"K17 ({what})", select.select_blocks(
+        small, rice_risky=rice_risky, **kw), select.select_blocks_plain(
+        small, rice_risky=rice_risky, **kw))
+    return max(e, dict_err(torch, f"K17's measurement entry ({what})",
+                           select.measure_blocks(small, rice_risky=rice_risky,
+                                                 **mkw),
+                           select.measure_blocks_plain(
+                               small, rice_risky=rice_risky, **mkw)))
+
+
+def k18_cases(np) -> list:
+    """K18's odd cases, (what, work, coefs, periods, order): 40 rows of 333
+    and of 4096 samples at orders 1 and 3, periods 8..262 with period 0,
+    8, 262, 9, n and n + 5 (the delay past the row) among them, four rows
+    of int32 extremes (the sums and the subtraction wrap)."""
+    rng = np.random.RandomState(18)
+    cases = []
+    for n in (333, 4096):
+        V = 40
+        work = rng.randint(-(1 << 20), 1 << 20, (V, n)).astype(np.int32)
+        work[:4] = rng.randint(-(1 << 31), 1 << 31, (4, n), dtype=np.int64)
+        periods = rng.randint(8, 263, V).astype(np.int32)
+        periods[4:10] = (0, 8, 262, 9, n, n + 5)
+        for order in (1, 3):
+            coefs = rng.randint(-32, 32, (V, order)).astype(np.int32)
+            cases.append((f"n {n} order {order}", work, coefs, periods,
+                          order))
+    return cases
+
+
+def k5_rows_case(torch, np, dev, V: int, n: int, max_porder: int,
+                 seed: int):
+    """K5's row entry on V residual rows of n samples (Laplace scales 0.3
+    to 3e4, a full-range row, an all-zero row): K4 (or its plain version
+    on the CPU) chooses each row's Rice coding; half the rows, shuffled,
+    are packed by index, the first of them skipped (lens_w 0). Returns
+    (the entry's positional arguments, section_words)."""
+    from srla_tpu_torch.kernels.rice_search import rice_search
+    rng = np.random.RandomState(seed)
+    scales = np.array([0.3, 0.9, 3.0, 40.0, 900.0, 3.0e4])
+    res = rng.laplace(0, 1, (V, n)) * scales[np.arange(V) % 6][:, None]
+    res = res.astype(np.int64)
+    res[1] = rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64)
+    res[2] = 0
+    residual = torch.from_numpy(res.astype(np.int32)).to(dev)
+    ct, po, bits, ks, _ = rice_search(residual, n, max_porder)
+    rows = torch.from_numpy(rng.permutation(V)[:V // 2].astype(
+        np.int64)).to(dev)
+    lens_w = (bits[rows] + 31) // 32
+    lens_w[0] = 0
+    starts = torch.cumsum(lens_w, 0) - lens_w
+    cap = int(lens_w.sum()) + 3
+    return ((residual, ct, po, ks, n, starts, lens_w, cap, rows),
+            max(int(lens_w.max()), 1))
+
+
+def k5_rows_check(torch, what: str, args, image: int) -> int:
+    """K5's row entry against its plain version and against the gathered
+    entry on the same rows (zigzag32 and a gather first): equal words
+    wherever a row owns them. Returns max_abs_err."""
+    from srla_tpu_torch.kernels.bitpack import (pack_residual_sections,
+                                                pack_residual_sections_plain,
+                                                zigzag32)
+    res, ct, po, ks, n, starts, lens_w, cap, rows = args
+    got = pack_residual_sections(*args[:8], section_words=image, rows=rows)
+    want = pack_residual_sections_plain(*args[:8], rows=rows)
+    gathered = pack_residual_sections(zigzag32(res)[rows], ct[rows], po[rows],
+                                      ks[rows], n, starts, lens_w, cap,
+                                      section_words=image)
+    torch.cuda.synchronize()
+    total = int(lens_w.sum())
+    e = max(max_abs_err(torch, got[:total], want[:total]),
+            max_abs_err(torch, gathered[:total], want[:total]))
+    require(e == 0, f"K5's row entry differs from its plain version or "
+                    f"the gathered entry {what} (max abs err {e})")
+    return e
+
+
+def stage_timed(torch, kernel, plain, dev_fn=None, reps: int = 20) -> dict:
+    """A kernel's CUDA-event time (the call as the encode makes it), its
+    device time (graph replay of dev_fn, the kernel itself by default) and
+    its plain version's time."""
+    return dict(ms=cuda_ms(torch, kernel, reps),
+                device_ms=device_ms(torch, dev_fn or kernel, reps),
+                plain_ms=cuda_ms(torch, plain, 2))
+
+
+def k16_bound(B: int, C: int, n: int, elem: int, V: int,
+              spans: bool) -> dict:
+    """K16's bound: each sample of the group read once (and the span
+    offsets), the (V, n) int32 rows and their three fields written once;
+    about 13 integer instructions a row sample (form it, two widening
+    products and 64-bit adds, the residual's product, shift and
+    subtraction)."""
+    moved = B * C * n * elem + (8 * B if spans else 0) + V * n * 4 + 9 * V
+    return bound(moved, 13 * V * n)
+
+
+def k17_bound(small, out: dict, M: int) -> dict:
+    """K17's bound on this run's inputs: each row's section bits, order,
+    period and flags and the coefficients its order reads once, the
+    outputs once; about 12 integer instructions a coefficient read (two
+    zigzags, two clamps, two lookups, the pair sum, the adds) and 30 a
+    row and a block."""
+    orders = small["orders"].long().clamp(0, max(M, 1))
+    read = int(orders.sum())
+    V = orders.numel()
+    moved = (nbytes(small["section_bits"], small["orders"],
+                    small["ltp_period"]) + 2 * V + 4 * read
+             + nbytes(*out.values()))
+    return bound(moved, 12 * read + 30 * V)
+
+
+def k18_bound(args) -> dict:
+    """K18's bound: the rows read once, coefficients and periods once, the
+    rows written once; 2 * order + 4 instructions a filtered sample (the
+    taps' products and sum, shift, subtraction, index) and 2 a sample
+    copied."""
+    work, coefs, periods, order = args
+    V, n = work.shape
+    delay = periods.long() + order // 2
+    on = int((n - delay - 1).clamp(min=0)[periods > 0].sum())
+    return bound(2 * nbytes(work) + nbytes(coefs, periods),
+                 (2 * order + 4) * on + 2 * (V * n - on))
+
+
+def k5_rows_bound(args) -> dict:
+    """K5's row entry's bound: the packed rows' residuals read once, the
+    parameters of their partitions, their fields and indices once, the
+    words once; about a dozen operations a sample (phase 5's count) and
+    the zigzag's three."""
+    res, ct, po, ks, n, starts, lens_w, cap, rows = args
+    live = lens_w > 0
+    n_live = int(live.sum())
+    nparts = int((1 << po[rows][live]).sum())
+    moved = (4 * n_live * n + 8 * nparts + 40 * rows.numel()
+             + 4 * int(lens_w.sum()))
+    return bound(moved, 15 * n_live * n)
+
+
+def phase_encode_stages(torch, np, dev, pcm, card):
+    """Phase 16: K16, K17 (both entries), K18 and K5's row entry against
+    their plain versions on the card at the main group's and the tail
+    group's inputs (as the encode hands them over: K16 on the resident
+    file's spans; K18 at -P 3) and at odd shapes: bit-equal, every output;
+    each timed by CUDA events, by graph replay and beside its plain
+    version and its bound. Returns (the records, K5's row entry's times)."""
+    from srla_tpu_torch.kernels import exact, select
+    from srla_tpu_torch.kernels.bitpack import (pack_residual_sections,
+                                                pack_residual_sections_plain,
+                                                zigzag32)
+    from srla_tpu_torch.kernels.ltp import ltp_predict, ltp_predict_plain
+    from srla_tpu_torch.kernels.preemphasis import Spans
+
+    k16, k16_plain = k16_entries()
+    file = torch.from_numpy(np.ascontiguousarray(pcm, np.int16)).to(dev)
+    blocks, B, args, W = main_group(torch, np, dev, pcm)
+    tail_blocks, _, tail_args, tail_W = main_group(torch, np, dev, pcm,
+                                                   tail=True)
+    n, tail_n = args["n"], tail_args["n"]
+    main_src = Spans(file, np.arange(B) * n, n)
+    tail_src = Spans(file, [B * n], tail_n)
+    recs = []
+
+    # K16.
+    e = 0
+    for what, src in (("main group", main_src), ("main group blocks",
+                                                   blocks),
+                      ("tail group", tail_src)):
+        e = max(e, dict_err(torch, f"K16 ({what})", dict(enumerate(k16(
+            src, 0))), dict(enumerate(k16_plain(src, 0)))))
+    for case in k16_cases(np):
+        src = k16_source(torch, dev, case)
+        e = max(e, dict_err(torch, f"K16 ({case[0]})", dict(enumerate(k16(
+            src, case[4]))), dict(enumerate(k16_plain(src, case[4])))))
+        risky = k16(src, case[4])[2].cpu()
+        if case[0].startswith("n 333 C 1"):
+            flagged = bool(risky[0])           # block 0's only row
+        elif case[0].startswith("n 64"):
+            # M, ch0 and ch1 of blocks 0 and 1 (S is all zero there).
+            flagged = bool(risky.reshape(4, -1)[[0, 2, 3]][:, :2].all())
+        else:
+            flagged = True
+        require(flagged, f"K16 ({case[0]}): a half-boundary row is not "
+                         f"flagged")
+    main_t = stage_timed(torch, lambda: k16(main_src, 0),
+                         lambda: k16_plain(main_src, 0),
+                         lambda: k16(blocks, 0))
+    tail_t = stage_timed(torch, lambda: k16(tail_src, 0),
+                         lambda: k16_plain(tail_src, 0),
+                         lambda: k16(tail_blocks, 0))
+    V = 4 * B
+    b = k16_bound(B, 2, n, 2, V, True)
+    tail_b = k16_bound(1, 2, tail_n, 2, 4, True)
+    print(f"phase 16 K16 preemphasis at B={B} C=2 n={n} (V={V}, int16 "
+          f"spans of the resident file): bit-equal (also on the blocks "
+          f"tensor, the tail group and {len(k16_cases(np))} odd cases: n "
+          f"333 at C 1 and 3, unaligned spans, int32 extremes, half "
+          f"boundaries flagged), kernel {main_t['ms']:.4f} ms (the call, "
+          f"the offsets' upload included), device time "
+          f"{main_t['device_ms']:.4f} ms (CUDA graph, blocks entry), plain "
+          f"{main_t['plain_ms']:.2f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms); tail V=4 "
+          f"n={tail_n}: kernel {tail_t['ms']:.4f} ms, device time "
+          f"{tail_t['device_ms']:.4f} ms [{card}]")
+    recs.append(dict(name="preemphasis", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/preemphasis.cu",
+                     replaces="srla_tpu/kernels/exact.py:83",
+                     max_abs_err=e, ms=main_t["ms"],
+                     plain_ms=main_t["plain_ms"], **b, library_ms=None,
+                     tail_ms=tail_t["ms"], device_ms=main_t["device_ms"],
+                     tail_device_ms=tail_t["device_ms"],
+                     tail_bound_ms=tail_b["bound_ms"]))
+
+    # K17 on the analysis of both groups, and at odd inputs.
+    def analysed(src, a):
+        core = exact.analyze_core(src, 0, **a)
+        return core, exact.core_small(core)
+
+    core, small = analysed(main_src, args)
+    tail_core, tail_small = analysed(tail_src, tail_args)
+    kw = dict(B=B, C=2, n=n, bps=16, W=W, max_params=args["max_params"])
+    tail_kw = dict(B=1, C=2, n=tail_n, bps=16, W=tail_W,
+                   max_params=tail_args["max_params"])
+    e = max(k17_check(torch, "main group", small, core["rice_risky"], kw),
+            k17_check(torch, "tail group", tail_small,
+                      tail_core["rice_risky"], tail_kw))
+    odd = []
+    for B17, C17, M17, sec64 in ((37, 2, 8, True), (29, 1, 32, False),
+                                 (23, 3, 64, True), (41, 2, 128, False),
+                                 (7, 2, 255, True)):
+        e = max(e, k17_check(torch, f"B {B17} C {C17} M {M17}", *k17_small(
+            torch, np, dev, B17, C17, M17, B17 + M17, sec64)))
+        odd.append(f"B {B17} C {C17} M {M17}")
+
+    def sel(s, c, k):
+        return lambda: select.select_blocks(s, rice_risky=c["rice_risky"],
+                                            **k)
+
+    def sel_plain(s, c, k):
+        return lambda: select.select_blocks_plain(
+            s, rice_risky=c["rice_risky"], **k)
+
+    mkw = {k: kw[k] for k in ("B", "C", "bps", "max_params")}
+    main_t = stage_timed(torch, sel(small, core, kw),
+                         sel_plain(small, core, kw))
+    tail_t = stage_timed(torch, sel(tail_small, tail_core, tail_kw),
+                         sel_plain(tail_small, tail_core, tail_kw))
+    meas_t = stage_timed(torch, lambda: select.measure_blocks(
+        small, rice_risky=core["rice_risky"], **mkw), lambda:
+        select.measure_blocks_plain(small, rice_risky=core["rice_risky"],
+                                    **mkw))
+    out = select.select_blocks(small, rice_risky=core["rice_risky"], **kw)
+    b = k17_bound(small, out, args["max_params"])
+    mb = k17_bound(small, select.measure_blocks(
+        small, rice_risky=core["rice_risky"], **mkw), args["max_params"])
+    print(f"phase 16 K17 select_blocks at B={B} C=2 (V={V}, M "
+          f"{args['max_params']}): bit-equal on every output (also the "
+          f"tail group and {', '.join(odd)}: ties, clamps, int32 sums, raw "
+          f"and W limits), kernel {main_t['ms']:.4f} ms, device time "
+          f"{main_t['device_ms']:.4f} ms (the ticket's memset and the "
+          f"kernel), plain {main_t['plain_ms']:.2f} ms, bound "
+          f"{b['bound_ms']:.5f} ms ({b['bound_by']}); tail: kernel "
+          f"{tail_t['ms']:.4f} ms, device time {tail_t['device_ms']:.4f} "
+          f"ms; measurement entry: kernel {meas_t['ms']:.4f} ms, device "
+          f"time {meas_t['device_ms']:.4f} ms, plain "
+          f"{meas_t['plain_ms']:.2f} ms, bound {mb['bound_ms']:.5f} ms "
+          f"[{card}]")
+    recs.append(dict(name="select_blocks", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/select.cu",
+                     replaces="srla_tpu/kernels/exact.py:1317",
+                     max_abs_err=e, ms=main_t["ms"],
+                     plain_ms=main_t["plain_ms"], **b, library_ms=None,
+                     tail_ms=tail_t["ms"], device_ms=main_t["device_ms"],
+                     tail_device_ms=tail_t["device_ms"]))
+    recs.append(dict(name="measure_blocks", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/select.cu",
+                     replaces="srla_tpu/kernels/exact.py:1317",
+                     max_abs_err=e, ms=meas_t["ms"],
+                     plain_ms=meas_t["plain_ms"], **mb, library_ms=None,
+                     device_ms=meas_t["device_ms"]))
+
+    # K18 at -P 3 on both groups' pre-emphasised rows, and odd cases.
+    def k18_args(src, a):
+        work = k16(src, 0)[0]
+        lags = exact.ltp_lags(work, a["n"], a["bps"], a["fft_size"])
+        period, coefs, _ = exact.ltp_analyze(lags, 3)
+        return (work, coefs, period, 3)
+
+    main18, tail18 = k18_args(main_src, args), k18_args(tail_src, tail_args)
+    e = max(check(torch, "K18 (main group)", ltp_predict, ltp_predict_plain,
+                  main18),
+            check(torch, "K18 (tail group)", ltp_predict, ltp_predict_plain,
+                  tail18))
+    for what, *a in k18_cases(np):
+        ta = tuple(torch.from_numpy(x).to(dev) for x in a[:3]) + (a[3],)
+        e = max(e, check(torch, f"K18 ({what})", ltp_predict,
+                         ltp_predict_plain, ta))
+    main_t = stage_timed(torch, lambda: ltp_predict(*main18),
+                         lambda: ltp_predict_plain(*main18))
+    tail_t = stage_timed(torch, lambda: ltp_predict(*tail18),
+                         lambda: ltp_predict_plain(*tail18))
+    b = k18_bound(main18)
+    on = int((main18[2] > 0).sum())
+    print(f"phase 16 K18 ltp_predict at V={V} n={n} order 3 ({on} rows "
+          f"with a period): bit-equal (also the tail group and 4 odd "
+          f"cases: n 333 and 4096, orders 1 and 3, periods 8 and 262, "
+          f"the delay past n, int32 extremes), kernel {main_t['ms']:.4f} "
+          f"ms, device time {main_t['device_ms']:.4f} ms, plain "
+          f"{main_t['plain_ms']:.2f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms); tail: "
+          f"kernel {tail_t['ms']:.4f} ms, device time "
+          f"{tail_t['device_ms']:.4f} ms [{card}]")
+    recs.append(dict(name="ltp_predict", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/ltp_predict.cu",
+                     replaces="srla_tpu/kernels/exact.py:1128",
+                     max_abs_err=e, ms=main_t["ms"],
+                     plain_ms=main_t["plain_ms"], **b, library_ms=None,
+                     tail_ms=tail_t["ms"], device_ms=main_t["device_ms"],
+                     tail_device_ms=tail_t["device_ms"]))
+
+    # K5's row entry on the chosen rows of both groups, and odd rows.
+    def rows_args(c, s, k):
+        return (c["residual"], c["code_type"], c["porder"], c["ks"], k["n"],
+                s["starts"], s["lens_w"], k["B"] * 2 * k["W"], s["rows"])
+
+    tail_sel = select.select_blocks(tail_small,
+                                    rice_risky=tail_core["rice_risky"],
+                                    **tail_kw)
+    main5, tail5 = rows_args(core, out, kw), rows_args(tail_core, tail_sel,
+                                                       tail_kw)
+    e = max(k5_rows_check(torch, "at the main group", main5, W),
+            k5_rows_check(torch, "at the tail group", tail5, tail_W))
+    for V5, n5, p5 in ((12, 334, 1), (40, 512, 9)):
+        a5, image = k5_rows_case(torch, np, dev, V5, n5, p5, V5 + n5)
+        e = max(e, k5_rows_check(torch, f"at {V5} rows x {n5}", a5, image))
+
+    def packed(a, image):
+        return lambda: pack_residual_sections(*a[:8], section_words=image,
+                                              rows=a[8])
+
+    def gathered(a, image):
+        res, ct, po, ks, nn, st, lw, cap, rows = a
+        return lambda: pack_residual_sections(
+            zigzag32(res)[rows], ct[rows], po[rows], ks[rows], nn, st, lw,
+            cap, section_words=image)
+
+    main_t = stage_timed(torch, packed(main5, W),
+                         lambda: pack_residual_sections_plain(
+                             *main5[:8], rows=main5[8]), reps=10)
+    tail_t = stage_timed(torch, packed(tail5, tail_W),
+                         lambda: pack_residual_sections_plain(
+                             *tail5[:8], rows=tail5[8]))
+    before = cuda_ms(torch, gathered(main5, W), 10)
+    b = k5_rows_bound(main5)
+    print(f"phase 16 K5's row entry on the main group's {main5[8].numel()} "
+          f"chosen rows of {main5[0].shape[0]} x {n}: bit-equal to its "
+          f"plain version and to the gathered entry (also the tail group, "
+          f"12 rows x 334 (rows not 16-byte aligned) and 40 x 512 at "
+          f"porders 0..9), kernel {main_t['ms']:.4f} ms, device time "
+          f"{main_t['device_ms']:.4f} ms, plain {main_t['plain_ms']:.2f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); before "
+          f"(zigzag32 of every row, the gather, the gathered entry) "
+          f"{before:.4f} ms; tail: kernel {tail_t['ms']:.4f} ms, device "
+          f"time {tail_t['device_ms']:.4f} ms [{card}]")
+    rows_entry = dict(max_abs_err=e, ms=main_t["ms"],
+                      device_ms=main_t["device_ms"],
+                      plain_ms=main_t["plain_ms"], tail_ms=tail_t["ms"],
+                      tail_device_ms=tail_t["device_ms"],
+                      bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                      gathered_before_ms=before)
+    return recs, rows_entry
 
 
 def main(argv) -> int:
@@ -4926,6 +5517,10 @@ def main(argv) -> int:
                                                           card)
 
     records += phase_encode_kernels(torch, np, dev, pcm)
+    # Phase 16 (K16, K17, K18, K5's row entry) runs here, before the
+    # encodes that launch them.
+    stage_recs, k5_rows = phase_encode_stages(torch, np, dev, pcm, card)
+    records += stage_recs
     launches.update(phase_encode(torch, np, dev, pcm, stream, card))
     k6_records, k6_launches = phase_bitfield(torch, np, dev)
     records += k6_records
@@ -4964,6 +5559,13 @@ def main(argv) -> int:
     launches["ltp_synth"] = ltp_dec_got["ltp_synth"]
     launches["ltp_analyze"] = ltp_launches["music120_V0_P3"]["encode"][
         "ltp_analyze"]
+    # K16's and K17's encode entry's path is phase 6's encode (counted
+    # there); K17's measurement entry's the CLI's -V 1 encode of phase 8,
+    # K18's the -V 0 -P 3 encode of phase 9.
+    launches["measure_blocks"] = var_launches["music120_V1"]["encode"][
+        "measure_blocks"]
+    launches["ltp_predict"] = ltp_launches["music120_V0_P3"]["encode"][
+        "ltp_predict"]
     var_errs["ltp_synth"] = max(k9_err, k9_shape_err)
     var_errs["ltp_analyze"] = k10_shape_err
     # Phase 15: the f32 approximate encode; K14's and K15's path is its
@@ -5009,6 +5611,16 @@ def main(argv) -> int:
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":
             rec["generic_3072"] = generic
+        if rec["name"] == "pack_residual_sections":
+            # The encode runs the row entry (phase 16); phase 5's figures
+            # are the entry on gathered rows, kept beside them.
+            keys = ("ms", "device_ms", "plain_ms", "tail_ms",
+                    "tail_device_ms", "bound_ms", "bound_by")
+            rec["gathered"] = {k: rec[k] for k in keys}
+            rec.update({k: k5_rows[k] for k in keys})
+            rec["gathered_before_ms"] = k5_rows["gathered_before_ms"]
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     k5_rows["max_abs_err"])
         if rec["name"] == "lpc_analyze":
             # K7's SVR entries: their launches on phase 12's full-width
             # encode and the coefficient entry against its plain version.

@@ -4,26 +4,28 @@ device path: ``_encode_spans`` -> ``_device_dispatch`` ->
 ``_measure_spans_device``).
 
 The file's samples go to the device once per encode (int16, int32 above 16
-bits); every group of blocks or spans is cut from that resident copy on the
-device. The host types the blocks (RAW below the order limit, SILENT when
-all zero, else COMPRESS) and groups the COMPRESS blocks by size. Each
-even-size group is encoded in one ``kernels.exact.encode_blocks`` call: f64
-analysis with decision-boundary flags, FIR residual (kernel K3), Rice
-parameter search (K4), bit accounting, stereo selection and the residual
-pack (K5). The host then fetches the parameters and exactly the packed words
-it needs, re-derives flagged blocks on the exact host path
-(``stats["repaired_blocks"]``) and assembles the framed blocks.
+bits); every group of blocks or spans is read from that resident copy on
+the device, where it lies (``Spans``). The host types the blocks (RAW below
+the order limit, SILENT when all zero, else COMPRESS) and groups the
+COMPRESS blocks by size. Each even-size group is encoded in one
+``kernels.exact.encode_blocks`` call: the variant stack and pre-emphasis
+(kernel K16), f64 analysis with decision-boundary flags, FIR residual
+(K3), Rice parameter search (K4), bit accounting and stereo selection
+(K17) and the residual pack (K5). The host then fetches the parameters and
+exactly the packed words it needs, re-derives flagged blocks on the exact
+host path (``stats["repaired_blocks"]``) and assembles the framed blocks.
 
 Variable block sizes (-V > 0) first choose the blocks: every candidate span
 of every even-length lookahead window is measured, one
-``kernels.exact.measure_spans`` call per span size (K3 and K4, no pack),
+``kernels.exact.measure_spans`` call per span size (K16, K3, K4 and
+K17's measurement entry, no pack),
 flagged spans are re-measured on the host (``stats["remeasured_spans"]``,
 beside ``stats["device_spans"]``), and the reference's Dijkstra picks each
 window's partition on the host. The chosen spans are then encoded as above.
 
 Long-term prediction (-P 1 or 3) runs inside the same calls: the pitch
-autocorrelation (torch f64), the pitch search and LTP solve (kernel K10)
-and the LTP residual come before the LPC analysis of every row, and the
+autocorrelation (K8), the pitch search and LTP solve (kernel K10) and
+the LTP residual (K18) come before the LPC analysis of every row, and the
 assembly writes the periods and coefficients. So does SVR refinement
 (``--svr-filter-learning-iteration``): K7 stops at the f64 coefficients,
 K11 forms each row's covariance, K12 refines the coefficients and K7
@@ -79,7 +81,7 @@ from .format import StreamHeader, encode_header, frame_block
 from .host_encoder import (EncodeParameter, _compute_offset_lshift,
                            make_parameter)
 from .kernels.encode import encode_blocks_approx, measure_spans_approx
-from .kernels.exact import cut_spans, encode_blocks, measure_spans, no_timer
+from .kernels.exact import Spans, encode_blocks, measure_spans, no_timer
 from .parallel import distinct, record_cut, resolve, shards
 
 # The smallest LTP group the device analyses (srla_tpu/encoder.py:1209).
@@ -441,8 +443,9 @@ class SRLAEncoder:
     def _encode_group(self, pcm, files, spans, idxs, size: int, lshift: int,
                       tick) -> dict[int, bytes]:
         """Equal-size blocks on the device: one ``encode_blocks`` call
-        (``encode_blocks_approx`` under approx) a shard on the blocks cut
-        from its device's copy in ``files``, every
+        (``encode_blocks_approx`` under approx) a shard on its blocks'
+        ``Spans`` of its device's copy in ``files`` (read in place by K16;
+        cut first under approx), every
         shard launched before any is fetched; then each shard's fetch,
         repair and assembly (``_finish_shard``)."""
         C = pcm.shape[0]
@@ -455,7 +458,7 @@ class SRLAEncoder:
         else:
             encode, args = encode_blocks, self._host._device_args(size)
         launched = [(idxs[lo:hi], encode(
-            cut_spans(files[d], [spans[i][0] for i in idxs[lo:hi]], size),
+            Spans(files[d], [spans[i][0] for i in idxs[lo:hi]], size),
             lshift, C=C, W=W, timer=tick, **args))
             for d, lo, hi in cuts]
         results: dict[int, bytes] = {}

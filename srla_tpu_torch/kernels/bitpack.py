@@ -7,9 +7,11 @@ ops on int64.
 ``pack_residual_sections`` is the twin of ``srla_tpu.kernels.bitpack.
 pack_residual_sections``: from the chosen rows' zigzag residuals and Rice
 choices to their packed sections in one step, each row at its own word
-offset of one flat buffer. On a CUDA tensor it launches the hand-written
-kernel ``pack_sections_kernel`` of ``csrc/bitpack.cu`` (a CTA per row, no
-codeword stream in device memory); on a CPU tensor it runs
+offset of one flat buffer; with ``rows`` it picks the chosen rows of the
+whole (V, n) int32 residual by index and zigzags them as it reads them. On
+a CUDA tensor it launches the hand-written kernel ``pack_sections_kernel``
+of ``csrc/bitpack.cu`` (a CTA per row, no codeword stream in device
+memory); on a CPU tensor it runs
 ``pack_residual_sections_plain``: the codeword stream, then ``pack_plain``.
 This is the entry the encode runs.
 
@@ -245,15 +247,21 @@ def section_stream(u, code_type, porder, ks, n: int, starts, lens_w):
 
 
 def pack_residual_sections_plain(u, code_type, porder, ks, n: int, starts,
-                                 lens_w, cap_w: int) -> torch.Tensor:
-    """Plain PyTorch version of ``pack_residual_sections``: the codeword
-    stream of every row, then ``pack_plain``. Words no row owns are 0."""
+                                 lens_w, cap_w: int,
+                                 rows=None) -> torch.Tensor:
+    """Plain PyTorch version of ``pack_residual_sections``: the chosen rows
+    zigzagged and gathered (with ``rows``), the codeword stream of every
+    row, then ``pack_plain``. Words no row owns are 0."""
+    if rows is not None:
+        u, code_type, porder, ks = (zigzag32(u)[rows], code_type[rows],
+                                    porder[rows], ks[rows])
     return pack_plain(*section_stream(u, code_type, porder, ks, n, starts,
                                       lens_w), cap_w)
 
 
 def pack_residual_sections(u, code_type, porder, ks, n: int, starts, lens_w,
-                           cap_w: int, section_words=None) -> torch.Tensor:
+                           cap_w: int, section_words=None,
+                           rows=None) -> torch.Tensor:
     """Pack the residual section of each row into one flat word buffer.
 
     u (K, n) zigzag residuals (int64 in [0, 2^32) or their int32 bit
@@ -265,6 +273,12 @@ def pack_residual_sections(u, code_type, porder, ks, n: int, starts, lens_w,
     MSB-first words as bit patterns. Words that no row owns are unspecified
     on a CUDA tensor (the buffer is not zeroed) and 0 on a CPU tensor.
 
+    ``rows`` (K,) int64, when given, picks the packed rows by index: u is
+    then the (V, n) int32 residual of every variant row (not yet
+    zigzagged), code_type, porder (V,) and ks (V, MAXP) are every row's,
+    and output row r packs row rows[r] of them, zigzagged as it is read.
+    The encode packs this way (K17's rows).
+
     ``section_words`` is an upper bound of lens_w, the size of the kernel's
     row image in shared memory; left out, it is max(lens_w), which costs a
     device synchronisation.
@@ -275,23 +289,35 @@ def pack_residual_sections(u, code_type, porder, ks, n: int, starts, lens_w,
     """
     if u.device.type == "cpu":
         return pack_residual_sections_plain(u, code_type, porder, ks, n,
-                                            starts, lens_w, cap_w)
+                                            starts, lens_w, cap_w, rows)
     if u.device.type != "cuda":
         raise ValueError(f"pack_residual_sections: no kernel for device "
                          f"{u.device}")
     dev = u.device
-    K = u.shape[0]
-    if tuple(u.shape) != (K, n) or ks.dim() != 2 or ks.shape[0] != K:
-        raise ValueError("pack_residual_sections: u must be (K, n) and ks "
-                         f"(K, MAXP), got {tuple(u.shape)} and "
+    V = u.shape[0]
+    K = V if rows is None else rows.shape[0]
+    if tuple(u.shape) != (V, n) or ks.dim() != 2 or ks.shape[0] != V:
+        raise ValueError("pack_residual_sections: u must be (V, n) and ks "
+                         f"(V, MAXP), got {tuple(u.shape)} and "
                          f"{tuple(ks.shape)} at n = {n}")
-    for name, t in (("code_type", code_type), ("porder", porder),
-                    ("starts", starts), ("lens_w", lens_w)):
-        if tuple(t.shape) != (K,) or t.device != dev:
+    for name, t, k in (("code_type", code_type, V), ("porder", porder, V),
+                       ("starts", starts, K), ("lens_w", lens_w, K)):
+        if tuple(t.shape) != (k,) or t.device != dev:
             raise ValueError(f"pack_residual_sections: {name} must have "
-                             f"shape ({K},) on {dev}")
-    u32 = u if u.dtype == torch.int32 else wrap32(u.long()).to(torch.int32)
-    u32 = u32.contiguous()
+                             f"shape ({k},) on {dev}")
+    if rows is not None:
+        if rows.dtype != torch.int64 or rows.dim() != 1 \
+                or rows.device != dev or not rows.is_contiguous():
+            raise ValueError(f"pack_residual_sections: rows must be a "
+                             f"contiguous 1-D int64 tensor on {dev}")
+        if u.dtype != torch.int32 or not u.is_contiguous():
+            raise ValueError("pack_residual_sections: with rows, u must be "
+                             "the contiguous int32 residual")
+        u32 = u
+    else:
+        u32 = u if u.dtype == torch.int32 else wrap32(u.long()).to(
+            torch.int32)
+        u32 = u32.contiguous()
     # The kernel reads the rest as int64, the type the analysis leaves them
     # in: no conversion pass on the encode's path.
     ct, po, k64, st, lw = (t.to(torch.int64).contiguous()
@@ -311,8 +337,9 @@ def pack_residual_sections(u, code_type, porder, ks, n: int, starts, lens_w,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.srla_pack_sections(
         u32.data_ptr(), ct.data_ptr(), po.data_ptr(), k64.data_ptr(),
-        st.data_ptr(), lw.data_ptr(), out.data_ptr(), K, n, maxp,
-        section_words, cap_w, stream)
+        None if rows is None else rows.data_ptr(), st.data_ptr(),
+        lw.data_ptr(), out.data_ptr(), K, V, n, maxp, section_words, cap_w,
+        stream)
     build.check(err, "pack_sections")
     pack_residual_sections.launches += 1
     return out
@@ -330,6 +357,7 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fused = lib.srla_pack_sections
         fused.restype = ctypes.c_int
-        fused.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-            + [ctypes.c_longlong, ctypes.c_void_p]
+        fused.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int,
+                                                  ctypes.c_longlong] \
+            + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
     return lib

@@ -32,8 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Flags of one library on top of NVCC_FLAGS. The f64 decisions of K10 and
 # K12 (and their first designs'), and K11's sums, feed margin flags or sums
 # that must equal their plain versions', and so do the f32 decisions of
-# K14 and K15: no multiply-add contraction.
-EXTRA_FLAGS = {"lpc_analyze_f32": ("-fmad=false",),
+# K14 and K15 and K16's f64 coefficient and flag: no multiply-add
+# contraction.
+EXTRA_FLAGS = {"preemphasis": ("-fmad=false",),
+               "lpc_analyze_f32": ("-fmad=false",),
                "rice_cost": ("-fmad=false",),
                "ltp_analyze": ("-fmad=false",),
                "ltp_analyze_v1": ("-fmad=false",),

@@ -5,7 +5,10 @@
 // srla_tpu/kernels/bitpack.py pack_residual_sections (residual_codewords,
 // then a row-wise pack: what the Pallas TPU kernel
 // srla_tpu/kernels/pallas_pack.py pallas_pack_rows was written for). It is
-// the kernel on the encode's path. bitpack_kernel is the generic pack of a
+// the kernel on the encode's path, where it takes the chosen rows by index
+// (K17's rows) from the (V, n) int32 residual of every variant row and
+// zigzags them as it loads: no zigzag pass over the V rows and no gather
+// of the chosen ones before it. bitpack_kernel is the generic pack of a
 // ready codeword stream, the twin of pallas_pack_rows and of the XLA packers
 // pack_flat_stream and pack_monotone_stream; it is off the encode's path and
 // kept for callers that hold a stream.
@@ -322,22 +325,34 @@ __device__ __forceinline__ uint32_t block_exclusive_sum(uint32_t v,
     return before + inc - v;
 }
 
+// The zigzag code of a residual's 32-bit pattern.
+__device__ __forceinline__ uint32_t zigzag32(uint32_t v) {
+    return (v << 1) ^ (uint32_t)((int32_t)v >> 31);
+}
+
+// kRows: output row r takes residual row rows[r] of the (V, n) residual
+// (and its code type, order and parameters) and zigzags as it loads;
+// otherwise row r of u holds the zigzag codes of output row r.
+template <bool kRows>
 __global__ void __launch_bounds__(kRowThreads, 8)
 pack_sections_kernel(const uint32_t* __restrict__ u,
                      const long long* __restrict__ code_type,
                      const long long* __restrict__ porder,
                      const long long* __restrict__ ks,
+                     const long long* __restrict__ rows,
                      const long long* __restrict__ starts,
                      const long long* __restrict__ lens_w,
                      uint32_t* __restrict__ out, int n, int maxp,
-                     int image_words, long long cap_w) {
+                     int image_words, long long cap_w, long long V) {
     extern __shared__ uint32_t smem[];
     __shared__ uint32_t warp_sums[kRowWarps];
     uint32_t* img = smem;                      // image_words
     uint32_t* ksh = smem + image_words;        // maxp parameters, 0..31
-    const long long row = blockIdx.x;
-    const long long lw64 = lens_w[row];
+    const long long orow = blockIdx.x;
+    const long long lw64 = lens_w[orow];
     if (lw64 <= 0) return;                     // a row that is not packed
+    const long long row = kRows ? rows[orow] : orow;
+    if (row < 0 || row >= V) return;           // no such residual row
     const uint32_t lw = (uint32_t)(lw64 < image_words ? lw64 : image_words);
     const int t = threadIdx.x;
     const uint32_t ct = (uint32_t)code_type[row] & 3u;
@@ -380,6 +395,10 @@ pack_sections_kernel(const uint32_t* __restrict__ u,
                     x[j] = j < live ? urow[s0 + j] : 0u;
                 }
             }
+            if (kRows) {
+#pragma unroll
+                for (int j = 0; j < kRun; ++j) x[j] = zigzag32(x[j]);
+            }
             uint32_t part = 0, rem = 0;
             if (live > 0) {
                 part = s0 / nsmpl;
@@ -420,7 +439,7 @@ pack_sections_kernel(const uint32_t* __restrict__ u,
         }
     }
     __syncthreads();
-    const long long start = starts[row];
+    const long long start = starts[orow];
     for (uint32_t i = t; i < lw; i += kRowThreads) {
         const long long w = start + i;
         if (w >= 0 && w < cap_w) out[w] = img[i];
@@ -453,29 +472,44 @@ extern "C" int srla_bitpack(const void* offs, const void* tails,
                                          cap_w, s);
 }
 
-// u: (rows, n) zigzag residuals as 32-bit patterns; the others int64, as
-// the analysis leaves them: code_type, porder (rows,); ks (rows, maxp) in
-// 0..31; starts, lens_w (rows,) in words, lens_w at most image_words (a
-// longer section loses its end); out: (cap_w,) 32-bit words, written
-// only at [starts[r], starts[r] + lens_w[r]). Returns cudaErrorInvalidValue
-// when the image and the parameters do not fit in a CTA's shared memory.
+// u: (V, n) 32-bit patterns: with rows null, V = count and row r holds
+// the zigzag codes of output row r; with rows (count,) int64, output row r
+// takes the residual row rows[r] and zigzags it as it loads (a row index
+// outside 0..V-1 packs nothing). code_type, porder (V,) and ks (V, maxp)
+// in 0..31 are int64, as the analysis leaves them, indexed as u; starts,
+// lens_w (count,) int64 in words, lens_w at most image_words (a longer
+// section loses its end); out: (cap_w,) 32-bit words, written only at
+// [starts[r], starts[r] + lens_w[r]). Returns cudaErrorInvalidValue when
+// the image and the parameters do not fit in a CTA's shared memory.
 extern "C" int srla_pack_sections(const void* u, const void* code_type,
                                   const void* porder, const void* ks,
-                                  const void* starts, const void* lens_w,
-                                  void* out, int rows, int n, int maxp,
+                                  const void* rows, const void* starts,
+                                  const void* lens_w, void* out, int count,
+                                  long long V, int n, int maxp,
                                   int image_words, long long cap_w,
                                   void* stream) {
     const size_t smem = ((size_t)image_words + maxp) * sizeof(uint32_t);
     if (smem > 232448 - 64) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        pack_sections_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        rows != nullptr ? pack_sections_kernel<true>
+                        : pack_sections_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    pack_sections_kernel<<<rows, kRowThreads, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)u, (const long long*)code_type,
-        (const long long*)porder, (const long long*)ks,
-        (const long long*)starts,
-        (const long long*)lens_w, (uint32_t*)out, n, maxp, image_words,
-        cap_w);
+    const dim3 grid((unsigned)count);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (rows != nullptr) {
+        pack_sections_kernel<true><<<grid, kRowThreads, smem, s>>>(
+            (const uint32_t*)u, (const long long*)code_type,
+            (const long long*)porder, (const long long*)ks,
+            (const long long*)rows, (const long long*)starts,
+            (const long long*)lens_w, (uint32_t*)out, n, maxp, image_words,
+            cap_w, V);
+    } else {
+        pack_sections_kernel<false><<<grid, kRowThreads, smem, s>>>(
+            (const uint32_t*)u, (const long long*)code_type,
+            (const long long*)porder, (const long long*)ks, nullptr,
+            (const long long*)starts, (const long long*)lens_w,
+            (uint32_t*)out, n, maxp, image_words, cap_w, V);
+    }
     return (int)cudaGetLastError();
 }

@@ -18,11 +18,14 @@ host repair.
 
 ``encode_blocks_approx`` encodes one equal-size group as
 ``kernels.exact.encode_blocks`` does, with this analysis in place of the
-exact one: ``analyze_blocks_ex``, ``exact.select_rows`` with every row
-unflagged (the argmin ``srla_tpu``'s ``_device_finish_approx`` runs on the
-host), ``exact.chosen_sections`` and K5's ``pack_residual_sections``.
+exact one: ``analyze_blocks_ex``, K17's selection (``select.select_blocks``)
+with every row unflagged (the argmin ``srla_tpu``'s
+``_device_finish_approx`` runs on the host) and K5's
+``pack_residual_sections`` on the chosen rows by index.
 ``measure_spans_approx`` measures the -V spans (``srla_tpu``'s
-``_measure_group_device`` under approx: ``analyze_variants``, no LTP).
+``_measure_group_device`` under approx: ``analyze_variants``, no LTP, then
+K17's measurement entry). The variant stack and the f32 pre-emphasis stay
+torch ops here (``variant_stack``, ``preemphasis``).
 """
 
 from __future__ import annotations
@@ -34,12 +37,13 @@ from ..constants import (LPC_RIDGE_REGULARIZATION_PARAMETER,
                          LTP_COEFFICIENT_BITWIDTH, LTP_MAX_PERIOD,
                          LTP_MIN_PERIOD, PREEMPHASIS_COEF_SHIFT)
 from .bitpack import pack_residual_sections, zigzag32
-from .exact import (_method_lengths, chosen_sections, cut_spans, no_timer,
-                    select_rows, variant_stack)
+from .exact import no_timer
 from .lpc import wrap32
 from .lpc_f32 import lpc_analyze_f32
 from .predict import predict, reverse_coefs
+from .preemphasis import Spans, as_blocks, variant_stack
 from .rice_cost import rice_cost
+from .select import measure_blocks, select_blocks
 
 _F32 = torch.float32
 _RIDGE = float(np.float32(1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER))
@@ -187,7 +191,7 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
     ltp_period = torch.zeros(V, dtype=torch.int32, device=dev)
     ltp_coefs = torch.zeros((V, max(ltp_order, 1)), dtype=torch.int32,
                             device=dev)
-    timer("variants + pre-emphasis (torch)")
+    timer("variants + f32 pre-emphasis (torch)")
     if ltp_order > 0 and fft_size >= LTP_MAX_PERIOD + 1:
         work, ltp_period, ltp_coefs = ltp(work, n, bps, fft_size, ltp_order)
         timer("LTP (torch, cuFFT, linalg.solve)")
@@ -267,8 +271,9 @@ def analyze_blocks_ex(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
     on the device. Stacks the variants ([M, S] for C >= 2, then each
     channel) and analyses them. Returns (small, big): ``small`` the per-row
     parameters with ``section_bits`` (K15's exact packed lengths), no
-    ``risky`` (nothing is flagged); ``big`` the zigzag residuals as int32
-    bit patterns (what K5 reads) and the Rice choices."""
+    ``risky`` (nothing is flagged); ``big`` the int32 residual (what K5's
+    row entry reads; JAX's twin hands over its zigzag codes) and the Rice
+    choices."""
     if blocks.shape[1] != C:
         raise ValueError(f"analyze_blocks_ex: blocks have {blocks.shape[1]} "
                          f"channels, C = {C}")
@@ -280,42 +285,43 @@ def analyze_blocks_ex(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
                                  "coefs", "code_type", "porder",
                                  "ltp_period", "ltp_coefs")}
     small["section_bits"] = out["rice_bits"]
-    big = dict(u=zigzag32(out["residual"]), code_type=out["code_type"],
+    big = dict(residual=out["residual"], code_type=out["code_type"],
                porder=out["porder"], ks=out["ks"])
     return small, big
 
 
-def encode_blocks_approx(blocks: torch.Tensor, lshift: int, *, n: int,
-                         bps: int, max_params: int, max_fixed: bool,
-                         fft_size: int, max_porder: int, C: int, W: int,
-                         ltp_order: int = 0, timer=no_timer):
+def encode_blocks_approx(blocks, lshift: int, *, n: int, bps: int,
+                         max_params: int, max_fixed: bool, fft_size: int,
+                         max_porder: int, C: int, W: int, ltp_order: int = 0,
+                         timer=no_timer):
     """The approximate encode of one equal-size block group: the twin of
     ``srla_tpu``'s ``_device_dispatch`` + ``_device_finish_approx`` under
     approx, with the same results as ``kernels.exact.encode_blocks``.
 
-    ``analyze_blocks_ex``, then ``exact.select_rows`` with every row
+    blocks: a (B, C, n) tensor or ``Spans`` of the resident file (cut
+    first). ``analyze_blocks_ex``, then K17's selection with every row
     unflagged (so ``risky_blk`` is all False; a section above W words still
     gets lens_w 0, and its block goes to the host), then K5 on the chosen
-    rows. Returns (small, flat) as ``encode_blocks`` does: ``flat`` holds
-    the chosen sections compacted in row order in its first sum(lens_w)
-    words."""
+    rows by index. Returns (small, flat) as ``encode_blocks`` does:
+    ``flat`` holds the chosen sections compacted in row order in its first
+    sum(lens_w) words."""
     B = blocks.shape[0]
-    small, big = analyze_blocks_ex(blocks, lshift, n=n, bps=bps,
+    small, big = analyze_blocks_ex(as_blocks(blocks), lshift, n=n, bps=bps,
                                    max_params=max_params,
                                    max_fixed=max_fixed, fft_size=fft_size,
                                    max_porder=max_porder, C=C,
                                    ltp_order=ltp_order, timer=timer)
     small = dict(small)
-    small["risky"] = torch.zeros(small["orders"].shape[0], dtype=torch.bool,
-                                 device=small["orders"].device)
-    sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
-                      max_params=max_params)
-    sections = chosen_sections(big, sel, n, B * C * W)
-    timer("accounting + selection + codewords (torch)")
-    flat = pack_residual_sections(*sections, section_words=W)
+    sel = select_blocks(small, B=B, C=C, n=n, bps=bps, W=W,
+                        max_params=max_params)
+    timer("K17 select")
+    flat = pack_residual_sections(
+        big["residual"], big["code_type"], big["porder"], big["ks"], n,
+        sel["starts"], sel["lens_w"], B * C * W, section_words=W,
+        rows=sel["rows"])
     timer("K5 bitpack")
     for k in ("method", "bits", "raw_blk", "risky_blk", "use_sum",
-              "lens_w"):
+              "lens_w", "risky"):
         small[k] = sel[k]
     return small, flat
 
@@ -330,7 +336,7 @@ def measure_spans_approx(file: torch.Tensor, offsets, lshift: int, *, n: int,
     by ``analyze_variants`` (no LTP), the accounting and the best stereo
     method. Returns each span's rounded block bits (B,) int64; nothing is
     flagged."""
-    blocks = cut_spans(file, offsets, n)
+    blocks = Spans(file, offsets, n).cut()
     out = analyze_variants(variant_stack(blocks, lshift), n=n, bps=bps,
                            max_params=max_params, max_fixed=max_fixed,
                            fft_size=fft_size, max_porder=max_porder,
@@ -340,10 +346,9 @@ def measure_spans_approx(file: torch.Tensor, offsets, lshift: int, *, n: int,
     small = dict(section_bits=out["rice_bits"], orders=out["orders"],
                  coefs=out["coefs"], ltp_period=zeros,
                  ltp_coefs=zeros[:, None])
-    lens, _ = _method_lengths(small, B=blocks.shape[0], C=C,
-                              max_params=max_params, bps=bps)
-    bits = ((lens.min(dim=0).values + 2 + 7) // 8) * 8
-    timer("accounting + selection (torch)")
+    bits = measure_blocks(small, B=blocks.shape[0], C=C, bps=bps,
+                          max_params=max_params)["bits"]
+    timer("K17 measure")
     return bits
 
 

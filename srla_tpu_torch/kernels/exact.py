@@ -20,8 +20,12 @@ solve in kernel K10 (``ltp.ltp_analyze``, its margins beside it in
 between K7's coefficients and their quantization: the covariance in kernel
 K11 (``svr.svr_cov``), the refinement loop in K12 (``svr.svr_refine``),
 their margins beside them in ``svr.py``. The residual and all bit math
-are exact integer code, partly in the kernels K3 (``predict``), K4
-(``rice_search``) and K5 (``bitpack.pack_residual_sections``).
+are exact integer code in kernels: the variant stack and pre-emphasis K16
+(``preemphasis.variant_preemphasis``), the LTP residual K18
+(``ltp.ltp_predict``), the FIR residual K3 (``predict``), the Rice search
+K4 (``rice_search``), the bit accounting and stereo selection K17
+(``select.select_blocks``, ``select.measure_blocks``) and the pack K5
+(``bitpack.pack_residual_sections``, on the chosen rows by index).
 
 Decision parity targets (reference): libs/lpc/src/lpc.c:330-441
 (autocorr + Levinson), :535-570, :1341-1405 (quantize),
@@ -32,28 +36,25 @@ srla_encoder.c:1121-1187 (accounting), :1323-1367 (selection).
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import (LPC_COEFFICIENT_ORDER_BITWIDTH,
-                         LPC_RIDGE_REGULARIZATION_PARAMETER,
-                         LTP_COEFFICIENT_BITWIDTH, LTP_ORDER_BITWIDTH,
-                         LTP_PERIOD_BITWIDTH, PREEMPHASIS_COEF_SHIFT,
-                         RSHIFT_LPC_COEFFICIENT_BITWIDTH)
-from ..huffman import parameter_codebook, sum_parameter_codebook
+from ..constants import LPC_RIDGE_REGULARIZATION_PARAMETER
 from .autocorr import autocorr, autocorr_plain  # noqa: F401 (re-exported)
-from .bitpack import (pack_residual_sections, section_stream, zigzag,
-                      zigzag32)
+from .bitpack import pack_residual_sections, zigzag
 from .levinson import (_dist_to_half, _round_half_away,  # noqa: F401
                        levinson, lpc_analyze, lpc_coefs, lpc_quantize,
                        quantize_exact, select_order_exact)
-from .lpc import wrap32
 from .ltp import LTP_COLS, LTP_LAGS, ltp_analyze, ltp_predict
 from .predict import predict, reverse_coefs
+from .preemphasis import (Spans, cut_spans,  # noqa: F401 (re-exported)
+                          preemphasis_rows, variant_preemphasis,
+                          variant_stack)
 from .rice_search import rice_search
+from .select import (account_bits, chosen_sections,  # noqa: F401
+                     chosen_stream, measure_blocks, method_lengths,
+                     section_starts, select_blocks, select_rows)
 from .svr import svr_cov, svr_refine
 
 # Safety margins, as in srla_tpu.kernels.exact (sized there for df64; f64
@@ -66,7 +67,10 @@ from .svr import svr_cov, svr_refine
 #   stay below 2^53, and then 16 * r1 / r0 is the same two roundings: the
 #   distance is 0. Above 2^53 (24-bit blocks can reach 2^60) the host sums
 #   sequentially in f64, off by at most n * u = 2^-39 of r0 in each sum:
-#   |16 * r1 / r0| moves by under 16 * 2^-38 = 6e-11 < _EPS_PREEMPH.
+#   |16 * r1 / r0| moves by under 16 * 2^-38 = 6e-11 < _EPS_PREEMPH. K16
+#   (csrc/preemphasis.cu) and its plain version (preemphasis.py) both sum
+#   in 64-bit integers, exact in any order, and round once with the same
+#   f64 operations: they take the same decisions, and this holds for both.
 # - Autocorrelation: the plain version (autocorr_plain) sums the n lag
 #   products in torch's tree (strips of a few terms, then pairwise), off by
 #   at most (log2 n + strip) * u of r0; measured <= 2^-52 * r0. K8
@@ -92,31 +96,16 @@ from .svr import svr_cov, svr_refine
 # - Rice (K4): rice_search.py, beside the Rice margins.
 _EPS_PREEMPH = 1e-8          # |16*r1/r0| distance to rounding half-boundary
 
-_F64 = torch.float64
-
 
 # ---------------------------------------------------------------------------
 # Analysis stages (``_analyze_core_exact``)
 # ---------------------------------------------------------------------------
 
 def preemphasis_exact(sig: torch.Tensor):
-    """sig (V, n) int32. Returns (work int32, coef int32, risky bool).
-    r0 and r1 are exact int64 sums rounded once to f64, as the host's are
-    whenever they stay below 2^53."""
-    x = sig.long()
-    r0i = (x * x).sum(dim=1)
-    r1i = (x[:, :-1] * x[:, 1:]).sum(dim=1)
-    zero = r0i == 0
-    r0 = torch.where(zero, 1, r0i).to(_F64)
-    dc16 = (r1i.to(_F64) / r0) * float(1 << PREEMPHASIS_COEF_SHIFT)
-    q = _round_half_away(dc16).clamp(-(1 << PREEMPHASIS_COEF_SHIFT),
-                                     (1 << PREEMPHASIS_COEF_SHIFT) - 1)
-    coef = torch.where(zero, 0, q.long())
-    risky = (_dist_to_half(dc16) < _EPS_PREEMPH) & ~zero
-    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
-    pred = wrap32(prev * coef[:, None]) >> PREEMPHASIS_COEF_SHIFT
-    work = wrap32(x - pred).to(torch.int32)
-    return work, coef.to(torch.int32), risky
+    """sig (V, n) int32. Returns (work int32, coef int32, risky bool): the
+    pre-emphasis of K16's plain version (``preemphasis.preemphasis_rows``)
+    at this module's margin."""
+    return preemphasis_rows(sig, _EPS_PREEMPH)
 
 
 def ltp_lags(work: torch.Tensor, n: int, bps: int,
@@ -146,35 +135,37 @@ def rice_exact(residual: torch.Tensor, n: int, max_porder: int,
     return out
 
 
-def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
+def analyze_core(src, lshift: int, *, n: int, bps: int, max_params: int,
                  max_fixed: bool, fft_size: int, max_porder: int,
                  ltp_order: int = 0, svr_iter: int = 0, margins=(),
                  timer=no_timer) -> dict:
-    """The exact analysis of each variant row of sig (V, n) int32: the twin
-    of ``_analyze_core_exact``. Returns a dict of per-row tensors, ``work``
-    (the pre-emphasised rows, LTP-filtered at ltp_order > 0: the input of
-    K3) among them. With svr_iter > 0 the LPC coefficients are refined by
-    SVR over ``margins`` before they are quantized: K8, K7's coefficient
-    entry, K11, K12, K7's quantization entry, then K3. ``timer`` is called
-    with a step name after each step."""
-    V = sig.shape[0]
-    dev = sig.device
-    work, pre_coef, risky = preemphasis_exact(sig)
+    """The exact analysis of each variant row of a group of B blocks: the
+    twin of ``_variant_analysis``'s stack and ``_analyze_core_exact``. src:
+    the (B, C, n) int16/int32 blocks, or ``Spans`` of the resident file
+    (read in place). Returns a dict of per-row tensors, ``work`` (the
+    pre-emphasised rows, LTP-filtered at ltp_order > 0: the input of K3)
+    among them. K16 stacks the variants and pre-emphasises them; with
+    svr_iter > 0 the LPC coefficients are refined by SVR over ``margins``
+    before they are quantized: K8, K7's coefficient entry, K11, K12, K7's
+    quantization entry, then K3. ``timer`` is called with a step name
+    after each step."""
+    work, pre_coef, risky, pre_prev = variant_preemphasis(
+        src, lshift, eps=_EPS_PREEMPH)
+    timer("K16 preemphasis")
+    V = work.shape[0]
+    dev = work.device
     ltp_period = torch.zeros(V, dtype=torch.int32, device=dev)
     ltp_coefs = torch.zeros((V, max(ltp_order, 1)), dtype=torch.int32,
                             device=dev)
     if ltp_order > 0:
-        timer("variants + pre-emphasis (torch)")
         lags = ltp_lags(work, n, bps, fft_size)
         timer("K8 autocorr (pitch lags)")
         ltp_period, ltp_coefs, r_ltp = ltp_analyze(lags, ltp_order)
         timer("K10 ltp_analyze")
         work = ltp_predict(work, ltp_coefs, ltp_period, ltp_order)
-        timer("LTP residual (torch)")
+        timer("K18 ltp_predict")
         risky = risky | r_ltp
     if max_params > 0:
-        if ltp_order == 0:
-            timer("variants + pre-emphasis (torch)")
         ac = autocorr(work, n, bps, max_params + 1, fft_size)
         timer("K8 autocorr (LPC lags)")
         ac[:, 0] = ac[:, 0] * (1.0 + LPC_RIDGE_REGULARIZATION_PARAMETER)
@@ -210,77 +201,53 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
         residual = work
     code_type, porder, rice_bits, ks, r_rice = rice_exact(residual, n,
                                                           max_porder, timer)
-    return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
+    return dict(pre_prev=pre_prev, pre_coef=pre_coef, orders=orders,
                 rshifts=rshifts, coefs=coefs_rev, work=work,
                 residual=residual, code_type=code_type, porder=porder,
                 rice_bits=rice_bits, ks=ks, risky=risky, rice_risky=r_rice,
                 ltp_period=ltp_period, ltp_coefs=ltp_coefs)
 
 
-def variant_stack(blocks: torch.Tensor, lshift: int) -> torch.Tensor:
-    """blocks (B, C, n) int -> the (V, n) int32 analysis rows: [M, S] (for
-    C >= 2) then each channel, each a (B, n) slab, after the offset shift."""
-    work = blocks.to(torch.int32) >> lshift
-    C = work.shape[1]
-    parts = []
-    if C >= 2:
-        s = work[:, 1] - work[:, 0]
-        parts += [work[:, 0] + (s >> 1), s]
-    parts += [work[:, c] for c in range(C)]
-    return torch.cat(parts, dim=0).contiguous()
-
-
-def cut_spans(file: torch.Tensor, offsets, n: int) -> torch.Tensor:
-    """The (B, C, n) spans of the resident (C, N) ``file`` that start at
-    the host ``offsets`` (B,), cut on the file's device. Every span must lie
-    inside the file: a CUDA gather past its end would read other memory."""
-    offs = np.asarray(offsets, dtype=np.int64)
-    N = file.shape[1]
-    if offs.ndim != 1 or (offs < 0).any() or (offs + n > N).any():
-        raise ValueError(f"cut_spans: a span of {n} samples leaves the "
-                         f"{N}-sample file")
-    idx = (torch.from_numpy(offs).to(file.device)[:, None]
-           + torch.arange(n, device=file.device))
-    return file[:, idx].permute(1, 0, 2)
-
-
-def _small(core: dict) -> dict:
+def core_small(core: dict) -> dict:
     """``analyze_core``'s per-row parameters and flags under the names of
-    ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``."""
+    ``srla_tpu.kernels.exact.analyze_blocks_exact``'s ``small``, ``risky``
+    not yet merged with the Rice flags (K17 merges them)."""
     small = {k: core[k] for k in ("pre_prev", "pre_coef", "orders",
                                   "rshifts", "coefs", "code_type", "porder",
-                                  "ltp_period", "ltp_coefs")}
+                                  "ltp_period", "ltp_coefs", "risky")}
     small["section_bits"] = core["rice_bits"]
-    # The accounting's first step: every flag of a row together.
-    small["risky"] = core["risky"] | core["rice_risky"]
     return small
 
 
-def variant_analysis(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+def variant_analysis(blocks, lshift: int, *, n: int, bps: int,
                      max_params: int, max_fixed: bool, fft_size: int,
                      max_porder: int, ltp_order: int = 0, svr_iter: int = 0,
                      margins=(), timer=no_timer):
-    """Stack the stereo variants and analyse them. Returns (small, big,
-    core): ``small`` and ``big`` hold what ``srla_tpu.kernels.exact.
-    analyze_blocks_exact`` returns (per-row parameters and risky flags; the
-    zigzag residuals and the Rice choices), ``core`` is ``analyze_core``'s
-    dict."""
-    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
-                        max_params=max_params, max_fixed=max_fixed,
-                        fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, svr_iter=svr_iter,
-                        margins=margins, timer=timer)
+    """Stack the stereo variants of blocks (a (B, C, n) tensor or
+    ``Spans``) and analyse them. Returns (small, big, core): ``small`` and
+    ``big`` hold what ``srla_tpu.kernels.exact.analyze_blocks_exact``
+    returns (per-row parameters and risky flags; the zigzag residuals and
+    the Rice choices), ``core`` is ``analyze_core``'s dict."""
+    core = analyze_core(blocks, lshift, n=n, bps=bps, max_params=max_params,
+                        max_fixed=max_fixed, fft_size=fft_size,
+                        max_porder=max_porder, ltp_order=ltp_order,
+                        svr_iter=svr_iter, margins=margins, timer=timer)
     big = dict(u=zigzag(core["residual"]), code_type=core["code_type"],
                porder=core["porder"], ks=core["ks"])
-    return _small(core), big, core
+    # The accounting's first step: every flag of a row together.
+    small = core_small(core)
+    small["risky"] = core["risky"] | core["rice_risky"]
+    return small, big, core
 
 
 def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
     """The numpy outputs of ``srla_tpu.kernels.exact.analyze_blocks_exact``
     or of the approximate ``srla_tpu.kernels.encode.analyze_blocks_ex``
     (``small``, ``big``) as the port's tensors on ``device``, so that the
-    port's selection, codewords and pack can run on JAX's decisions. The
-    approximate ``small`` has no ``risky``: every row is unflagged."""
+    port's selection, codewords and pack can run on JAX's decisions (``big``
+    gains the int32 residual the zigzag codes stand for, what K5's row
+    entry reads). The approximate ``small`` has no ``risky``: every row is
+    unflagged."""
     keys = ("pre_prev", "pre_coef", "orders", "rshifts", "coefs",
             "code_type", "porder", "section_bits", "ltp_period", "ltp_coefs")
     s = {k: torch.from_numpy(np.asarray(small[k]).astype(np.int32)).to(device)
@@ -289,9 +256,10 @@ def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
     s["risky"] = torch.from_numpy(
         np.zeros(len(s["orders"]), bool) if risky is None
         else np.array(risky, bool)).to(device)
-    b = {"u": torch.from_numpy(
-             np.asarray(big["u"]).astype(np.uint32).astype(np.int64)
-         ).to(device)}
+    u = np.asarray(big["u"]).astype(np.uint32).astype(np.int64)
+    b = {"u": torch.from_numpy(u).to(device),
+         "residual": torch.from_numpy(
+             ((u >> 1) ^ -(u & 1)).astype(np.int32)).to(device)}
     for k in ("code_type", "porder", "ks"):
         b[k] = torch.from_numpy(np.asarray(big[k]).astype(np.int64)).to(
             device)
@@ -302,159 +270,41 @@ def from_jax_analysis(small: dict, big: dict, device) -> tuple[dict, dict]:
 # Fused encode: bit accounting, stereo selection and the residual pack
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=None)
-def _huffman_len_tables():
-    return (np.asarray(parameter_codebook().lengths, np.int64),
-            np.asarray(sum_parameter_codebook().lengths, np.int64))
-
-
-def account_bits(sec_bits, orders, coefs, bps: int, ltp_period,
-                 ltp_order: int):
-    """Exact per-variant code length (everything but the stereo method
-    field) and the direct-vs-summed coefficient choice: the twin of
-    ``exact._account_bits_dev`` plus the LTP fields of the rows with a
-    period (``encode_blocks_exact:1376-1380``). coefs (V, M) reversed,
-    left-aligned; ltp_period (V,) (0: no LTP fields). Returns (code_len
-    (V,) int64, use_sum (V,) bool)."""
-    dev = coefs.device
-    pl, sl = _huffman_len_tables()
-    plens = torch.from_numpy(pl).to(dev)
-    slens = torch.from_numpy(sl).to(dev)
-    M = coefs.shape[1]
-    orders = orders.long()
-    mask = torch.arange(M, device=dev)[None, :] < orders[:, None]
-    uvc = zigzag(coefs).clamp(max=255)
-    coef_cost = torch.where(mask, plens[uvc], 0).sum(dim=1)
-    suv = zigzag(wrap32(coefs[:, 1:].long() + coefs[:, :-1].long()))
-    smask = mask[:, 1:]
-    svalid = (~smask | (suv < 256)).all(dim=1)
-    sum_cost = plens[uvc[:, 0]] + torch.where(
-        smask, slens[suv.clamp(max=255)], 0).sum(dim=1)
-    use_sum = (orders > 0) & svalid & ((orders == 1)
-                                       | (sum_cost < coef_cost))
-    coef_bits = torch.where(orders > 0,
-                            torch.where(use_sum, sum_cost, coef_cost), 0)
-    fixed = (bps + 1 + (PREEMPHASIS_COEF_SHIFT + 1)
-             + LPC_COEFFICIENT_ORDER_BITWIDTH
-             + RSHIFT_LPC_COEFFICIENT_BITWIDTH + 1 + 1)
-    ltp_bits = torch.where(ltp_period > 0, LTP_ORDER_BITWIDTH
-                           + LTP_PERIOD_BITWIDTH
-                           + ltp_order * LTP_COEFFICIENT_BITWIDTH, 0)
-    return sec_bits.long() + fixed + coef_bits + ltp_bits, use_sum
-
-
-def _method_lengths(small: dict, *, B: int, C: int, max_params: int,
-                    bps: int):
-    """Each block's code length under each stereo method (NONE, MS, LS, SR
-    for C >= 2; one row for C = 1), everything but the method field and the
-    byte rounding, and the variants' coefficient choice. The LTP order is
-    the width of small["ltp_coefs"] (its periods are all 0 without -P).
-    Returns ((4 or 1, B) int64, use_sum (V,) bool)."""
-    nvar = C + 2 if C >= 2 else 1
-    code_len, use_sum = account_bits(
-        small["section_bits"], small["orders"],
-        small["coefs"][:, :max(max_params, 1)], bps, small["ltp_period"],
-        small["ltp_coefs"].shape[1])
-    cl = code_len.reshape(nvar, B)
-    if C >= 2:
-        cl = torch.stack([cl[2] + cl[3], cl[0] + cl[1], cl[2] + cl[1],
-                          cl[3] + cl[1]])
-    return cl, use_sum
-
-
-def select_rows(small: dict, *, B: int, C: int, n: int, bps: int, W: int,
-                max_params: int) -> dict:
-    """Stereo method (first minimum wins, as jnp.argmin), rounded block
-    bits, raw-fallback and risky block masks, the chosen variant row of
-    each (block, channel), and the packed section lengths in words:
-    ``encode_blocks_exact``'s selection (:1373-1411). Rows r = block*C +
-    channel; a zero ``lens_w`` row is not packed (raw fallback, risky
-    block, or a section above W words)."""
-    dev = small["orders"].device
-    nvar = C + 2 if C >= 2 else 1
-    lens, use_sum = _method_lengths(small, B=B, C=C, max_params=max_params,
-                                    bps=bps)
-    bi = torch.arange(B, device=dev)[:, None]
-    ci = torch.arange(C, device=dev)[None, :]
-    method = lens.argmin(dim=0)
-    bits = lens.gather(0, method[None, :])[0]
-    if C >= 2:
-        m = method[:, None]
-        vix = torch.where((m == 1) & (ci < 2), ci,
-                          torch.where(((m == 2) & (ci == 1))
-                                      | ((m == 3) & (ci == 0)), 1, 2 + ci))
-    else:
-        vix = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-    bits = ((bits + 2 + 7) // 8) * 8
-    raw_blk = bits >= bps * n * C
-    risky_blk = small["risky"].reshape(nvar, B).any(dim=0)
-    rows = (vix * B + bi).reshape(-1)
-    sec = small["section_bits"].long()[rows]
-    skip = ((raw_blk | risky_blk)[:, None]
-            | (sec.reshape(B, C) > W * 32)).reshape(-1)
-    lens_w = torch.where(skip, 0, (sec + 31) // 32)
-    return dict(method=method, bits=bits, raw_blk=raw_blk,
-                risky_blk=risky_blk, use_sum=use_sum, rows=rows, skip=skip,
-                lens_w=lens_w)
-
-
-def section_starts(lens_w: torch.Tensor) -> torch.Tensor:
-    """The first word of each row's section in the compacted buffer: the
-    running sum of the previous rows' lens_w."""
-    return torch.cumsum(lens_w, dim=0) - lens_w
-
-
-def chosen_sections(big: dict, sel: dict, n: int, cap_w: int) -> tuple:
-    """``bitpack.pack_residual_sections``' arguments for the chosen rows:
-    their zigzag residuals (big["u"]: int64 codes or int32 bit patterns) and
-    Rice choices, compacted in row order into a buffer of cap_w words;
-    skipped rows have lens_w 0 and contribute nothing."""
-    rows, lens_w = sel["rows"], sel["lens_w"]
-    return (big["u"][rows], big["code_type"][rows], big["porder"][rows],
-            big["ks"][rows], n, section_starts(lens_w), lens_w, cap_w)
-
-
-def chosen_stream(big: dict, sel: dict, n: int):
-    """The chosen rows' codeword stream at absolute bit offsets in the
-    compacted buffer. Returns (offsets, tails, tbits) (K, 2 + MAXP + n)
-    int64: what the generic ``bitpack.pack`` takes."""
-    return section_stream(*chosen_sections(big, sel, n, 0)[:7])
-
-
-def encode_blocks(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+def encode_blocks(blocks, lshift: int, *, n: int, bps: int,
                   max_params: int, max_fixed: bool, fft_size: int,
                   max_porder: int, C: int, W: int, ltp_order: int = 0,
                   svr_iter: int = 0, margins=(), timer=no_timer):
     """Fused exact encode of one equal-size block group (the twin of
     ``srla_tpu.kernels.exact.encode_blocks_exact``).
 
-    blocks (B, C, n) int16/int32 samples on the device. Returns (small,
-    flat): ``small`` holds the per-variant parameters plus the per-block
-    selection (method, bits, raw_blk, risky_blk, use_sum) and lens_w, the
-    packed section length of each (block, channel) row in words; ``flat`` is
-    a (B*C*W,) int32 word buffer whose first sum(lens_w) words are the
-    chosen residual sections, bit-packed MSB-first and compacted in row
-    order; the words after them are unspecified. ``timer`` is called with a
-    step name after each step.
+    blocks: the (B, C, n) int16/int32 samples on the device, or ``Spans``
+    of the resident file (read in place by K16). Returns (small, flat):
+    ``small`` holds the per-variant parameters and merged flags plus the
+    per-block selection (method, bits, raw_blk, risky_blk, use_sum) and
+    lens_w, the packed section length of each (block, channel) row in
+    words; ``flat`` is a (B*C*W,) int32 word buffer whose first sum(lens_w)
+    words are the chosen residual sections, bit-packed MSB-first and
+    compacted in row order; the words after them are unspecified. The
+    stages: K16, the analysis (K8, K7, K3, K4; K10 and K18 with LTP; K11
+    and K12 with SVR), K17's selection and K5 on the chosen rows by index.
+    ``timer`` is called with a step name after each step.
     """
     B = blocks.shape[0]
-    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
-                        max_params=max_params, max_fixed=max_fixed,
-                        fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, svr_iter=svr_iter,
-                        margins=margins, timer=timer)
-    small = _small(core)
-    sel = select_rows(small, B=B, C=C, n=n, bps=bps, W=W,
-                      max_params=max_params)
-    # K5's arguments, the zigzag codes as the 32-bit patterns it reads.
-    sections = chosen_sections(
-        dict(u=zigzag32(core["residual"]), code_type=core["code_type"],
-             porder=core["porder"], ks=core["ks"]), sel, n, B * C * W)
-    timer("accounting + selection + codewords (torch)")
-    flat = pack_residual_sections(*sections, section_words=W)
+    core = analyze_core(blocks, lshift, n=n, bps=bps, max_params=max_params,
+                        max_fixed=max_fixed, fft_size=fft_size,
+                        max_porder=max_porder, ltp_order=ltp_order,
+                        svr_iter=svr_iter, margins=margins, timer=timer)
+    small = core_small(core)
+    sel = select_blocks(small, B=B, C=C, n=n, bps=bps, W=W,
+                        max_params=max_params, rice_risky=core["rice_risky"])
+    timer("K17 select")
+    flat = pack_residual_sections(
+        core["residual"], core["code_type"], core["porder"], core["ks"], n,
+        sel["starts"], sel["lens_w"], B * C * W, section_words=W,
+        rows=sel["rows"])
     timer("K5 bitpack")
     for k in ("method", "bits", "raw_blk", "risky_blk", "use_sum",
-              "lens_w"):
+              "lens_w", "risky"):
         small[k] = sel[k]
     return small, flat
 
@@ -471,27 +321,26 @@ def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
     ``srla_tpu.kernels.exact.measure_spans_exact``.
 
     file: the (C, N) int16 (int32 above 16 bits) samples, resident on the
-    device; offsets: (B,) host offsets with offset + n <= N. The spans are
-    cut on the device and analysed as ``encode_blocks`` analyses a group
-    (K3 and K4 run once each, K10 too at ltp_order > 0); nothing is packed.
-    Returns ``small``: the per-variant ``section_bits``, ``orders``,
-    ``coefs``, ``risky`` and ``ltp_period`` of ``measure_spans_exact`` and
-    ``ltp_coefs``, plus per span ``bits``, the rounded block bits of the
-    best stereo method (``srla_tpu/encoder.py:2020-2032``), and
-    ``risky_blk``."""
-    blocks = cut_spans(file, offsets, n)
-    core = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
-                        max_params=max_params, max_fixed=max_fixed,
-                        fft_size=fft_size, max_porder=max_porder,
-                        ltp_order=ltp_order, svr_iter=svr_iter,
-                        margins=margins, timer=timer)
-    small = {k: v for k, v in _small(core).items()
+    device; offsets: (B,) host offsets with offset + n <= N. K16 reads the
+    spans in place and the group is analysed as ``encode_blocks`` analyses
+    one (K3 and K4 run once each, K10 and K18 too at ltp_order > 0); K17's
+    measurement entry takes each span's best stereo method; nothing is
+    packed. Returns ``small``: the per-variant ``section_bits``,
+    ``orders``, ``coefs``, ``risky`` and ``ltp_period`` of
+    ``measure_spans_exact`` and ``ltp_coefs``, plus per span ``bits``, the
+    rounded block bits of the best stereo method
+    (``srla_tpu/encoder.py:2020-2032``), and ``risky_blk``."""
+    spans = Spans(file, offsets, n)
+    core = analyze_core(spans, lshift, n=n, bps=bps, max_params=max_params,
+                        max_fixed=max_fixed, fft_size=fft_size,
+                        max_porder=max_porder, ltp_order=ltp_order,
+                        svr_iter=svr_iter, margins=margins, timer=timer)
+    small = {k: v for k, v in core_small(core).items()
              if k in ("section_bits", "orders", "coefs", "risky",
                       "ltp_period", "ltp_coefs")}
-    B = blocks.shape[0]
-    lens, _ = _method_lengths(small, B=B, C=C, max_params=max_params,
-                              bps=bps)
-    small["bits"] = ((lens.min(dim=0).values + 2 + 7) // 8) * 8
-    small["risky_blk"] = small["risky"].reshape(-1, B).any(dim=0)
-    timer("accounting + selection (torch)")
+    got = measure_blocks(small, B=spans.shape[0], C=C, bps=bps,
+                         max_params=max_params,
+                         rice_risky=core["rice_risky"])
+    small.update(got)
+    timer("K17 measure")
     return small

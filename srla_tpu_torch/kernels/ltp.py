@@ -13,8 +13,10 @@ integer LTP residual between them.
   261 or when no segment is open after the scan (``lpc.c``'s detect loop
   runs once more from ``start = max_period``); ``_ltp_exact`` stops at 261
   and misses that candidate.
-- ``ltp_predict`` is ``exact._ltp_predict_dev``: order <= 3 gathers, torch
-  ops.
+- ``ltp_predict`` is the twin of ``exact._ltp_predict_dev``, the integer
+  LTP residual between the two: on a CUDA tensor it launches
+  ``csrc/ltp_predict.cu`` (K18), on a CPU tensor it runs
+  ``ltp_predict_plain``.
 
 Parity targets: libs/lpc/src/lpc.c:1473-1649 (pitch and solve), the host's
 ``native_decoder.ltp_analyze_batch`` and ``dsp.pitch``; srla_decoder.c's LTP
@@ -285,13 +287,10 @@ def ltp_analyze(ac: torch.Tensor, order: int):
 ltp_analyze.launches = 0
 
 
-def ltp_predict(work: torch.Tensor, coefs: torch.Tensor,
-                periods: torch.Tensor, order: int) -> torch.Tensor:
-    """The integer LTP residual (``exact._ltp_predict_dev``): out[s] = x[s]
-    - ((16 + sum_i c[i] * x[s - delay + i]) >> 5) for s >= delay + 1,
-    delay = period + order // 2, x the unfiltered input throughout; rows
-    with period 0 pass through. work (V, n) int32, coefs (V, order) int32
-    reversed, periods (V,) int32. Wrapping int32, computed in int64."""
+def ltp_predict_plain(work: torch.Tensor, coefs: torch.Tensor,
+                      periods: torch.Tensor, order: int) -> torch.Tensor:
+    """Plain PyTorch version of K18 (``exact._ltp_predict_dev``): order
+    gathers in int64, then the wrap to int32."""
     V, n = work.shape
     delay = periods.long() + (order >> 1)
     s = torch.arange(n, device=work.device)[None, :]
@@ -304,6 +303,45 @@ def ltp_predict(work: torch.Tensor, coefs: torch.Tensor,
     on = (periods > 0)[:, None] & (s >= (delay + 1)[:, None])
     pred = wrap32(acc) >> _LTP_RSHIFT
     return torch.where(on, wrap32(x - pred), x).to(torch.int32)
+
+
+def ltp_predict(work: torch.Tensor, coefs: torch.Tensor,
+                periods: torch.Tensor, order: int) -> torch.Tensor:
+    """The integer LTP residual (``exact._ltp_predict_dev``): out[s] = x[s]
+    - ((16 + sum_i c[i] * x[s - delay + i]) >> 5) for s >= delay + 1,
+    delay = period + order // 2, x the unfiltered input throughout; rows
+    with period 0 pass through. work (V, n) int32, coefs (V, >= order)
+    int32 reversed, periods (V,) int32; order 1 or 3. Wrapping int32.
+
+    CUDA tensors go through the kernel K18 (``csrc/ltp_predict.cu``;
+    ``ltp_predict.launches`` counts its launches); CPU tensors go through
+    ``ltp_predict_plain``."""
+    if work.device.type == "cpu":
+        return ltp_predict_plain(work, coefs, periods, order)
+    dev = work.device
+    if dev.type != "cuda":
+        raise ValueError(f"ltp_predict: no kernel for device {dev}")
+    V, n = work.shape
+    if order not in (1, 3) or coefs.dim() != 2 or coefs.shape[1] < order:
+        raise ValueError(f"ltp_predict: order {order} (1 or 3) with coefs "
+                         f"{tuple(coefs.shape)}")
+    build.check_arg("ltp_predict", "work", work, (V, n), dev)
+    build.check_arg("ltp_predict", "coefs", coefs, (V, coefs.shape[1]), dev)
+    build.check_arg("ltp_predict", "periods", periods, (V,), dev)
+    out = torch.empty((V, n), dtype=torch.int32, device=dev)
+    if V == 0 or n == 0:
+        return out
+    lib = _lib("ltp_predict", "srla_ltp_predict", 4, 4)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.srla_ltp_predict(work.data_ptr(), coefs.data_ptr(),
+                               periods.data_ptr(), out.data_ptr(), V, n,
+                               order, coefs.shape[1], stream)
+    build.check(err, "ltp_predict")
+    ltp_predict.launches += 1
+    return out
+
+
+ltp_predict.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,8 @@ from srla_tpu_torch.kernels import encode as P  # noqa: E402
 from srla_tpu_torch.kernels import exact as texact  # noqa: E402
 from srla_tpu_torch.kernels import lpc_f32  # noqa: E402
 from srla_tpu_torch.kernels import rice_cost as K15  # noqa: E402
-from srla_tpu_torch.kernels.bitpack import residual_codewords  # noqa: E402
+from srla_tpu_torch.kernels.bitpack import (  # noqa: E402
+    residual_codewords, zigzag32)
 from srla_tpu_torch.rice import MLNOPTX  # noqa: E402
 from srla_tpu_torch.signals import make_music, make_segmented  # noqa: E402
 from srla_tpu_torch.wavio import WavData, read_audio, write_wav  # noqa: E402
@@ -572,8 +573,8 @@ def test_port_analysis_matches_jax_analyze_blocks_ex():
     for k in ("pre_coef", "orders", "rshifts", "coefs", "code_type",
               "porder", "section_bits"):
         np.testing.assert_array_equal(ps[k].numpy(), np.asarray(js[k]), k)
-    np.testing.assert_array_equal(pb["u"].numpy().view(np.uint32),
-                                  np.asarray(jb["u"]))
+    np.testing.assert_array_equal(
+        zigzag32(pb["residual"]).numpy().view(np.uint32), np.asarray(jb["u"]))
     np.testing.assert_array_equal(pb["ks"].numpy(), np.asarray(jb["ks"]))
 
 

@@ -127,6 +127,9 @@ def _check(pcm, bps, preset, device="cpu"):
     ("chirp", 2, 16, 2), ("chirp", 1, 24, 0), ("music", 2, 8, 2),
     ("lshifted_sine", 2, 16, 4), ("pitchy", 3, 16, 2),
     ("gaussian_noise", 2, 16, 0),
+    # Max orders 8, 32 and 128: the accounting's coefficient loops at
+    # widths the other cases do not reach.
+    ("music", 2, 16, 1), ("pitchy", 3, 16, 3), ("music", 2, 24, 5),
 ])
 def test_bytes_equal_host_exact(kind, C, bps, preset):
     _check(_pcm(kind, C, bps), bps, preset)
@@ -217,10 +220,13 @@ def test_step_timer_breakdown():
     assert enc.encode_whole(pcm) == host_encode(pcm, 16, 44100,
                                                 max_block=BLOCK)
     steps = enc.timer.seconds
-    for name in ("host typing", "upload", "K3 fir_predict",
-                 "K4 rice_search", "K5 bitpack", "fetch + big-endian bytes",
-                 "repair (host)", "assembly"):
+    for name in ("host typing", "upload", "K16 preemphasis",
+                 "K3 fir_predict", "K4 rice_search", "K17 select",
+                 "K5 bitpack", "fetch + big-endian bytes", "repair (host)",
+                 "assembly"):
         assert steps[name] >= 0.0, name
+    # No stage of the group encode runs as torch ops.
+    assert not [k for k in steps if "(torch)" in k]
     # The Rice search is one step, K4's.
     assert not [k for k in steps if "Rice" in k]
 
@@ -332,6 +338,7 @@ def test_cli_progress_meter(tmp_path, monkeypatch, capsys):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,C,bps,preset", [
     ("music", 2, 16, 4), ("chirp", 1, 24, 2), ("pitchy", 3, 16, 0),
+    ("music", 2, 24, 5),
 ])
 def test_encode_on_card(cuda, kind, C, bps, preset):
     _check(_pcm(kind, C, bps), bps, preset, device=cuda)

@@ -182,6 +182,7 @@ def test_ltp_predict_matches_jax():
     work[:4] = rng.randint(-(1 << 31), 1 << 31, (4, n))   # int32 wrapping
     periods = rng.randint(8, 263, V).astype(np.int32)
     periods[4:8] = (0, 8, 262, 9)
+    periods[8:10] = (n, n + 5)          # the delay past the row
     for order in (1, 3):
         coefs = rng.randint(-32, 32, (V, order)).astype(np.int32)
         want = np.asarray(_ltp_predict_dev(jnp.asarray(work),

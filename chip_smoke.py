@@ -281,7 +281,12 @@ then:
      rows at 12 x 334, not 16-byte aligned, and 40 x 512 at porders
      0..9); each timed (CUDA events, graph replay) beside its plain
      version and its bound, K5's row entry beside the work it replaced
-     (zigzag32 of every row, the gather, the gathered entry). Phases 6,
+     (zigzag32 of every row, the gather, the gathered entry); K16 also at
+     k16_layout_cases (n 1 to 16384, C 1 to 8, odd offsets, a strided
+     view) beside a copy of its bytes, K17 also at K17_EDGES, 100
+     launches back to back and 6 replays of a captured launch on new
+     inputs, beside an empty kernel on its grid (the card's floor).
+     Phases 6,
      8, 9, 11, 12, 13 and 15 count K16, K17's two entries and K18 as they
      count K3, and run their encodes with every plain version of K16,
      K17, K18 and K5's section entry replaced by a tripwire.
@@ -335,9 +340,10 @@ K5's fused entry also get copy_ms, the device time of one copy that moves
 as many bytes as their bound counts.
 With --parent DIR (a checkout of another commit, such as the parent's
 ``git archive``) it first runs srla_tpu_torch/tools/kernel_ab.py in DIR
-and here in turns (DIR, here, here, DIR, each its own process) and prints
-the device times of K7's quantization entry and the generic pack of each
-beside phase 12's and phase 5's own; without it they read "not measured".
+and here in turns (DIR, here, here, DIR, each its own process), by default
+and with --stages, and prints the device times of K7's quantization entry
+and the generic pack of each beside phase 12's and phase 5's own, and
+K16's and K17's beside phase 16's; without it they read "not measured".
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -405,15 +411,16 @@ def device_ms(torch, fn, reps: int) -> float:
 PARENT_AB: dict = {}
 
 
-def parent_runs(key: str) -> list:
-    """[(checkout, device ms)] of one kernel in turns, or [] without
-    --parent."""
+def parent_runs(key: str, mode: str = "runs") -> list:
+    """[(checkout, device ms)] of one kernel in turns (``mode``: "runs",
+    tools/kernel_ab.py's default, or "stages", its --stages), or []
+    without --parent."""
     return [(r["root"], r[f"{key}_device_ms"]) for r in PARENT_AB.get(
-        "runs", [])]
+        mode, [])]
 
 
-def parent_text(key: str) -> str:
-    runs = parent_runs(key)
+def parent_text(key: str, mode: str = "runs") -> str:
+    runs = parent_runs(key, mode)
     if not runs:
         return ("the parent in turns: not measured (chip_smoke.py --parent "
                 "DIR)")
@@ -4955,12 +4962,57 @@ def k16_cases(np) -> list:
             ("n 64 C 2 half-boundary blocks", s, None, 64, 0)]
 
 
+def k16_layout_cases(np) -> list:
+    """K16's cases of its CTA-a-block layout, as k16_cases: n 1, 31, 333,
+    4064 and 4096 (chunks of four cut short, one tile, a row shorter than
+    a warp's samples); int16 spans at odd offsets (the scalar loads, rows
+    not 16-byte aligned); a strided view of a block tensor (a (B, C, w)
+    tensor wider than n, read through its columns 1..n); C 1, 2, 3 and 8
+    (the units after the pair); int32 extremes at n 4096 (M and S wrap,
+    the sums wrap); n 16384 (four tiles: the residual re-read by tile) at
+    int32 lshift 8, as -B 16384 gives 24-bit samples of a 16-bit source,
+    and at C 1."""
+    rng = np.random.RandomState(21)
+
+    def lap(shape, scale, dtype=np.int16, lim=1 << 15):
+        return rng.laplace(0, scale, shape).clip(-lim, lim - 1).astype(dtype)
+
+    pair = lap((2, 20000), 3000)
+    octo = lap((8, 9000), 3000)
+    wide = lap((2, 70000), 3000, np.int32) << 8
+    return [
+        ("n 1 C 2 int16 blocks", lap((5, 2, 1), 3000), None, 1, 0),
+        ("n 31 C 1 int16 blocks", lap((7, 1, 31), 3000), None, 31, 0),
+        ("n 333 C 2 int16 spans at odd offsets", pair,
+         [1, 3, 335, 1001, 4093, 19001], 333, 0),
+        ("n 4064 C 2 int16 spans at odd offsets", pair,
+         [1, 4097, 8191, 15935], 4064, 0),
+        ("n 4096 C 2 int16 strided view", lap((6, 2, 4099), 3000), None,
+         4096, 0),
+        ("n 4096 C 3 int32 lshift 2 blocks",
+         lap((5, 3, 4096), 1 << 18, np.int32, 1 << 23) >> 2 << 2, None,
+         4096, 2),
+        ("n 4096 C 2 int32 extremes blocks", rng.randint(
+            -(1 << 31), 1 << 31, (3, 2, 4096), dtype=np.int64).astype(
+            np.int32), None, 4096, 0),
+        ("n 333 C 8 int16 blocks", lap((4, 8, 333), 3000), None, 333, 0),
+        ("n 4096 C 8 int16 spans", octo, [0, 4096, 4904], 4096, 0),
+        ("n 16384 C 2 int32 lshift 8 spans (four tiles)", wide,
+         [0, 16384, 33001, 50000], 16384, 8),
+        ("n 16384 C 1 int16 blocks (four tiles)", lap((3, 1, 16384), 3000),
+         None, 16384, 0)]
+
+
 def k16_source(torch, dev, case):
-    """The case's samples on ``dev``, as K16 takes them."""
+    """The case's samples on ``dev``, as K16 takes them: ``Spans`` where
+    the case has offsets, else the blocks (a block tensor wider than n
+    through the strided view of its columns 1..n)."""
     from srla_tpu_torch.kernels.preemphasis import Spans
     _, data, offs, n, _ = case
     t = torch.from_numpy(data).to(dev)
-    return t if offs is None else Spans(t, offs, n)
+    if offs is not None:
+        return Spans(t, offs, n)
+    return t if t.shape[2] == n else t[..., 1:1 + n]
 
 
 def k16_entries():
@@ -4988,10 +5040,10 @@ def k17_small(torch, np, dev, B: int, C: int, M: int, seed: int,
     V = nvar * B
     n, bps, W = 512, 16, 200
     orders = rng.randint(0, M + 1, V)
-    orders[1:4] = (1, M, M + 3)
+    orders[1:4] = (1, M, M + 3)[:len(orders[1:4])]
     coefs = rng.randint(-20, 21, (V, M + 2)).astype(np.int64)
     coefs[::7] = rng.randint(-300, 301, coefs[::7].shape)
-    coefs[5] = rng.choice([-(1 << 31), (1 << 31) - 1], M + 2)
+    coefs[5 % V] = rng.choice([-(1 << 31), (1 << 31) - 1], M + 2)
     sec = rng.randint(0, 12000, V)
     sec[::13] = W * 32 + 1
     period = np.where(rng.rand(V) < 0.3, rng.randint(8, 263, V), 0)
@@ -5046,6 +5098,71 @@ def k17_check(torch, what: str, small, rice_risky, kw) -> int:
                                                  **mkw),
                            select.measure_blocks_plain(
                                small, rice_risky=rice_risky, **mkw)))
+
+
+# K17's edge shapes, (B, C, M, sec64): one row; a CTA's blocks (kBlocks in
+# csrc/select.cu) less one, exactly, and one more; the encoder's largest
+# call (MAX_CALL_BLOCKS); 32 channels (34 rows a block: the four warps of
+# a block take eight or nine rows each); M 255 at C 3.
+K17_EDGES = ((1, 1, 8, True), (3, 2, 64, False), (4, 2, 64, True),
+             (5, 2, 64, False), (2048, 2, 64, True), (9, 32, 16, True),
+             (13, 3, 255, False))
+
+
+def k17_repeat_check(torch, np, dev, launches: int = 50) -> int:
+    """K17's encode entry launched back to back with no synchronisation:
+    ``launches`` launches at B 2048 C 2, each followed by one at B 9
+    (three CTAs, so the larger grid's other status words stay from an
+    earlier launch), each kind on the same inputs every time. Every launch's
+    starts equal np.cumsum(lens_w) - lens_w, its outputs the first
+    launch's of its kind, and those the plain version's. Returns the
+    launches checked."""
+    from srla_tpu_torch.kernels import select
+    cases = [k17_small(torch, np, dev, 2048, 2, 64, 2048),
+             k17_small(torch, np, dev, 9, 2, 64, 9)]
+    outs = [select.select_blocks(s, rice_risky=r, **kw)
+            for _ in range(launches) for s, r, kw in cases]
+    torch.cuda.synchronize()
+    for k, (s, r, kw) in enumerate(cases):
+        dict_err(torch, f"K17 (launch {k} of {len(outs)} back to back)",
+                 outs[k], select.select_blocks_plain(s, rice_risky=r, **kw))
+    for k, got in enumerate(outs):
+        lens = got["lens_w"].cpu().numpy()
+        require(np.array_equal(got["starts"].cpu().numpy(),
+                               np.cumsum(lens) - lens),
+                f"K17's starts of launch {k} of {len(outs)} back to back "
+                f"are not the running sum of its lens_w")
+        first = outs[k % len(cases)]
+        require(all(torch.equal(got[key], first[key]) for key in first),
+                f"K17's launch {k} of {len(outs)} back to back differs "
+                f"from the first on the same inputs")
+    return len(outs)
+
+
+def k17_graph_check(torch, np, dev, replays: int = 6) -> int:
+    """K17's encode entry captured once in a CUDA graph and replayed on
+    new inputs (copied into the captured ones) each time: each replay's
+    outputs equal the plain version's on its inputs (the starts'
+    generation is the device's, not the capture's). Returns the replays
+    checked."""
+    from srla_tpu_torch.kernels import select
+    small, rice_risky, kw = k17_small(torch, np, dev, 1291, 2, 64, 1)
+    select.select_blocks(small, rice_risky=rice_risky, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = select.select_blocks(small, rice_risky=rice_risky, **kw)
+    for k in range(replays):
+        new, new_risky, _ = k17_small(torch, np, dev, 1291, 2, 64, 100 + k)
+        for key, t in new.items():
+            small[key].copy_(t)
+        rice_risky.copy_(new_risky)
+        graph.replay()
+        torch.cuda.synchronize()
+        dict_err(torch, f"K17 (graph replay {k})", dict(out),
+                 select.select_blocks_plain(small, rice_risky=rice_risky,
+                                            **kw))
+    return replays
 
 
 def k18_cases(np) -> list:
@@ -5185,7 +5302,7 @@ def phase_encode_stages(torch, np, dev, pcm, card):
     file's spans; K18 at -P 3) and at odd shapes: bit-equal, every output;
     each timed by CUDA events, by graph replay and beside its plain
     version and its bound. Returns (the records, K5's row entry's times)."""
-    from srla_tpu_torch.kernels import exact, select
+    from srla_tpu_torch.kernels import build, exact, select
     from srla_tpu_torch.kernels.bitpack import (pack_residual_sections,
                                                 pack_residual_sections_plain,
                                                 zigzag32)
@@ -5223,6 +5340,10 @@ def phase_encode_stages(torch, np, dev, pcm, card):
             flagged = True
         require(flagged, f"K16 ({case[0]}): a half-boundary row is not "
                          f"flagged")
+    for case in k16_layout_cases(np):
+        src = k16_source(torch, dev, case)
+        e = max(e, dict_err(torch, f"K16 ({case[0]})", dict(enumerate(k16(
+            src, case[4]))), dict(enumerate(k16_plain(src, case[4])))))
     main_t = stage_timed(torch, lambda: k16(main_src, 0),
                          lambda: k16_plain(main_src, 0),
                          lambda: k16(blocks, 0))
@@ -5232,17 +5353,23 @@ def phase_encode_stages(torch, np, dev, pcm, card):
     V = 4 * B
     b = k16_bound(B, 2, n, 2, V, True)
     tail_b = k16_bound(1, 2, tail_n, 2, 4, True)
+    cp_ms = copy_ms(torch, dev, b["bound_ms"] * HBM_BYTES_PER_S / 1e3)
     print(f"phase 16 K16 preemphasis at B={B} C=2 n={n} (V={V}, int16 "
           f"spans of the resident file): bit-equal (also on the blocks "
-          f"tensor, the tail group and {len(k16_cases(np))} odd cases: n "
+          f"tensor, the tail group, {len(k16_cases(np))} odd cases: n "
           f"333 at C 1 and 3, unaligned spans, int32 extremes, half "
-          f"boundaries flagged), kernel {main_t['ms']:.4f} ms (the call, "
-          f"the offsets' upload included), device time "
+          f"boundaries flagged, and {len(k16_layout_cases(np))} layout "
+          f"cases: n 1, 31, 333, 4064, 4096 and 16384 (four tiles), C 1, "
+          f"2, 3 and 8, spans at odd offsets, a strided view, int32 at "
+          f"lshift 8), kernel {main_t['ms']:.4f} ms (the call, the "
+          f"offsets' upload included), device time "
           f"{main_t['device_ms']:.4f} ms (CUDA graph, blocks entry), plain "
           f"{main_t['plain_ms']:.2f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms); tail V=4 "
+          f"({b['bound_by']}; operations {b['ops_ms']:.4f} ms; a copy of "
+          f"its bytes {cp_ms:.4f} ms); tail V=4 "
           f"n={tail_n}: kernel {tail_t['ms']:.4f} ms, device time "
-          f"{tail_t['device_ms']:.4f} ms [{card}]")
+          f"{tail_t['device_ms']:.4f} ms; the parent "
+          f"{parent_text('k16_blocks', 'stages')} [{card}]")
     recs.append(dict(name="preemphasis", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/preemphasis.cu",
                      replaces="srla_tpu/kernels/exact.py:83",
@@ -5250,7 +5377,10 @@ def phase_encode_stages(torch, np, dev, pcm, card):
                      plain_ms=main_t["plain_ms"], **b, library_ms=None,
                      tail_ms=tail_t["ms"], device_ms=main_t["device_ms"],
                      tail_device_ms=tail_t["device_ms"],
-                     tail_bound_ms=tail_b["bound_ms"]))
+                     tail_bound_ms=tail_b["bound_ms"], copy_ms=cp_ms,
+                     parent_in_turns=parent_runs("k16_blocks", "stages"),
+                     spans_parent_in_turns=parent_runs("k16_spans",
+                                                       "stages")))
 
     # K17 on the analysis of both groups, and at odd inputs.
     def analysed(src, a):
@@ -5272,6 +5402,12 @@ def phase_encode_stages(torch, np, dev, pcm, card):
         e = max(e, k17_check(torch, f"B {B17} C {C17} M {M17}", *k17_small(
             torch, np, dev, B17, C17, M17, B17 + M17, sec64)))
         odd.append(f"B {B17} C {C17} M {M17}")
+    for B17, C17, M17, sec64 in K17_EDGES:
+        e = max(e, k17_check(torch, f"B {B17} C {C17} M {M17}", *k17_small(
+            torch, np, dev, B17, C17, M17, B17 + M17, sec64)))
+        odd.append(f"B {B17} C {C17} M {M17}")
+    repeated = k17_repeat_check(torch, np, dev)
+    replays = k17_graph_check(torch, np, dev)
 
     def sel(s, c, k):
         return lambda: select.select_blocks(s, rice_risky=c["rice_risky"],
@@ -5294,31 +5430,42 @@ def phase_encode_stages(torch, np, dev, pcm, card):
     b = k17_bound(small, out, args["max_params"])
     mb = k17_bound(small, select.measure_blocks(
         small, rice_risky=core["rice_risky"], **mkw), args["max_params"])
+    # The card's floor under the encode entry: an empty kernel on its grid.
+    floor_ms = device_ms(torch, lambda: build.check(
+        select._lib().srla_select_empty(
+            B, torch.cuda.current_stream().cuda_stream), "select_empty"), 20)
     print(f"phase 16 K17 select_blocks at B={B} C=2 (V={V}, M "
           f"{args['max_params']}): bit-equal on every output (also the "
           f"tail group and {', '.join(odd)}: ties, clamps, int32 sums, raw "
-          f"and W limits), kernel {main_t['ms']:.4f} ms, device time "
-          f"{main_t['device_ms']:.4f} ms (the ticket's memset and the "
-          f"kernel), plain {main_t['plain_ms']:.2f} ms, bound "
-          f"{b['bound_ms']:.5f} ms ({b['bound_by']}); tail: kernel "
-          f"{tail_t['ms']:.4f} ms, device time {tail_t['device_ms']:.4f} "
-          f"ms; measurement entry: kernel {meas_t['ms']:.4f} ms, device "
-          f"time {meas_t['device_ms']:.4f} ms, plain "
-          f"{meas_t['plain_ms']:.2f} ms, bound {mb['bound_ms']:.5f} ms "
-          f"[{card}]")
+          f"and W limits; {repeated} launches back to back and {replays} "
+          f"replays of a captured launch on new inputs, each its own "
+          f"starts), kernel {main_t['ms']:.4f} ms, device time "
+          f"{main_t['device_ms']:.4f} ms (one kernel, no memset), plain "
+          f"{main_t['plain_ms']:.2f} ms, bound {b['bound_ms']:.5f} ms "
+          f"({b['bound_by']}), an empty kernel on its grid (the card's "
+          f"floor) {floor_ms:.4f} ms; tail: kernel {tail_t['ms']:.4f} ms, "
+          f"device time {tail_t['device_ms']:.4f} ms; measurement entry: "
+          f"kernel {meas_t['ms']:.4f} ms, device time "
+          f"{meas_t['device_ms']:.4f} ms, plain {meas_t['plain_ms']:.2f} "
+          f"ms, bound {mb['bound_ms']:.5f} ms; the parent "
+          f"{parent_text('k17_select', 'stages')}, measurement entry "
+          f"{parent_text('k17_measure', 'stages')} [{card}]")
     recs.append(dict(name="select_blocks", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/select.cu",
                      replaces="srla_tpu/kernels/exact.py:1317",
                      max_abs_err=e, ms=main_t["ms"],
                      plain_ms=main_t["plain_ms"], **b, library_ms=None,
                      tail_ms=tail_t["ms"], device_ms=main_t["device_ms"],
-                     tail_device_ms=tail_t["device_ms"]))
+                     tail_device_ms=tail_t["device_ms"],
+                     empty_launch_device_ms=floor_ms,
+                     parent_in_turns=parent_runs("k17_select", "stages")))
     recs.append(dict(name="measure_blocks", route="cuda",
                      source="srla_tpu_torch/kernels/csrc/select.cu",
                      replaces="srla_tpu/kernels/exact.py:1317",
                      max_abs_err=e, ms=meas_t["ms"],
                      plain_ms=meas_t["plain_ms"], **mb, library_ms=None,
-                     device_ms=meas_t["device_ms"]))
+                     device_ms=meas_t["device_ms"],
+                     parent_in_turns=parent_runs("k17_measure", "stages")))
 
     # K18 at -P 3 on both groups' pre-emphasised rows, and odd cases.
     def k18_args(src, a):
@@ -5473,6 +5620,21 @@ def main(argv) -> int:
             r["root"] = label
         PARENT_AB["runs"] = runs
         print("in turns: " + json.dumps(runs))
+        # K16 and K17 (both entries) on phase 16's main group, in turns;
+        # phase 16 prints them beside its own times.
+        stages = kernel_ab.run([parent, ".", ".", parent], kernel_ab.STAGES)
+        for r in stages:
+            require("error" not in r, f"kernel_ab --stages in {r['root']}: "
+                                      f"{r.get('error')}")
+        for key in [k for k in stages[0] if k.endswith("_sha256")]:
+            require(len({r[key] for r in stages}) == 1,
+                    f"the parent's and this checkout's outputs differ "
+                    f"({key})")
+        for r, label in zip(stages, ("parent", "change", "change",
+                                     "parent")):
+            r["root"] = label
+        PARENT_AB["stages"] = stages
+        print("in turns (--stages): " + json.dumps(stages))
 
     records = [phase_lpc(torch, np, dev)]
 

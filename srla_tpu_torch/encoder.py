@@ -457,10 +457,14 @@ class SRLAEncoder:
             encode, args = encode_blocks_approx, self._approx_args(size)
         else:
             encode, args = encode_blocks, self._host._device_args(size)
-        launched = [(idxs[lo:hi], encode(
-            Spans(files[d], [spans[i][0] for i in idxs[lo:hi]], size),
-            lshift, C=C, W=W, timer=tick, **args))
-            for d, lo, hi in cuts]
+        parts = [(idxs[lo:hi], Spans(files[d], [spans[i][0]
+                                                for i in idxs[lo:hi]], size))
+                 for d, lo, hi in cuts]
+        # The group's host set-up is a step of its own, so that the first
+        # kernel's step times that kernel's call.
+        tick("group set-up")
+        launched = [(part, encode(src, lshift, C=C, W=W, timer=tick, **args))
+                    for part, src in parts]
         results: dict[int, bytes] = {}
         for part, (small_t, flat_t) in launched:
             results.update(self._finish_shard(pcm, spans, part, size, lshift,

@@ -27,109 +27,324 @@
 //
 // What bounds it on an H100: bytes. At the main group (B 1291, C 2, n
 // 4096, int16) it reads 21 MB of samples and writes 85 MB of int32 rows:
-// 0.032 ms at 3.35 TB/s; a sample takes a dozen integer instructions.
+// 0.032 ms at 3.35 TB/s; a row sample takes a dozen integer instructions
+// (0.016 ms at the INT32 rate).
 //
-// Design (a simple first kernel): a CTA of 256 threads a variant row. Pass
-// one forms each sample of the row from its one or two channels (the
-// neighbour for r1 through L1) and sums r0 and r1 in 64-bit registers;
-// the two sums meet in warp shuffles and one shared pass; thread 0 takes
-// the coefficient and the flag. Pass two forms the samples again (the
-// row's source is in L1 or L2 by then) and writes the residual, coalesced.
+// Design: a CTA a block, each sample read from device memory once. The
+// block's channels are taken a unit at a time: channels 0 and 1 together
+// (their four rows M, S, w_0, w_1 formed in registers from the same two
+// loads), then each further channel alone (C = 1: channel 0 alone). A
+// thread holds kChunks chunks of four consecutive samples of each of the
+// unit's channels, chunk k of a tile at sample 4 (k T + t) for thread t of
+// T: a warp reads 8 (int16) or 16 (int32) contiguous bytes a lane with one
+// vector load where the channel's row is aligned to them (a scalar path
+// where it is not: spans at odd offsets), and writes each row's 16 bytes
+// a lane with one vector store where the row is 16-byte aligned. A
+// chunk's left neighbour is the previous lane's last sample, by a warp
+// shuffle; lane 0 reads it from the cache (the previous warp loaded its
+// line). The 2 x (rows) 64-bit sums meet in one transposing warp
+// butterfly (the values split across lanes as they halve, nine 64-bit
+// shuffles for eight sums) and one shared-memory pass; a thread a row
+// takes its coefficient and flag. A tile is T x 4 x kChunks samples (4096
+// at T 512): a row that fits one tile stays in registers across the
+// reduction and its residual pass reads no device memory; a longer one
+// (n 16384, say) sums tile by tile and re-reads the tiles for the
+// residual from L2, the last tile first (still in registers). T follows n
+// (at most 512, a multiple of 32), so short rows do not idle a CTA.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kChunks = 2;               // chunks of 4 samples a thread a tile
+constexpr unsigned kFull = 0xffffffffu;
 
-// Sample s of variant kind (-2: M, -1: S, c >= 0: channel c) of the block
-// whose channel 0 starts at base.
+struct Args {
+    const void* src;
+    const long long* off;                // (B,) or null: off[b] = b * bstride
+    long long bstride, cstride;
+    int B, C, n, lshift, shift;
+    double eps;
+    int32_t* work;                       // (V, n)
+    int32_t* coef;                       // (V,)
+    uint8_t* risky;                      // (V,)
+    int32_t* prev;                       // (V,)
+};
+
 template <typename T>
-__device__ __forceinline__ int32_t variant_sample(const T* __restrict__ base,
-                                                  long long cstride, int kind,
-                                                  int lshift, int s) {
-    if (kind >= 0) return (int32_t)base[kind * cstride + s] >> lshift;
-    const int32_t w0 = (int32_t)base[s] >> lshift;
-    const int32_t w1 = (int32_t)base[cstride + s] >> lshift;
-    const int32_t d = (int32_t)((uint32_t)w1 - (uint32_t)w0);
-    if (kind == -1) return d;
-    return (int32_t)((uint32_t)w0 + (uint32_t)(d >> 1));
+__device__ __forceinline__ int32_t load_one(const T* __restrict__ row, int s,
+                                            int lshift) {
+    return (int32_t)__ldg(row + s) >> lshift;
 }
 
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
+// Samples s..s+3 of a channel row after the offset shift; those at or
+// past n are 0 (they then add nothing to the sums and are not stored).
+template <typename T>
+__device__ __forceinline__ void load_chunk(const T* __restrict__ row,
+                                           bool vec, int s, int n,
+                                           int lshift, int32_t (&x)[4]) {
+    if (vec && s + 4 <= n) {
+        if constexpr (sizeof(T) == 2) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + s));
+            x[0] = (int32_t)(int16_t)(v.x & 0xffffu);
+            x[1] = (int32_t)(int16_t)(v.x >> 16);
+            x[2] = (int32_t)(int16_t)(v.y & 0xffffu);
+            x[3] = (int32_t)(int16_t)(v.y >> 16);
+        } else {
+            const int4 v = __ldg(reinterpret_cast<const int4*>(row + s));
+            x[0] = v.x;
+            x[1] = v.y;
+            x[2] = v.z;
+            x[3] = v.w;
+        }
+    } else {
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-    return v;
+        for (int k = 0; k < 4; ++k) {
+            x[k] = s + k < n ? (int32_t)__ldg(row + s + k) : 0;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] >>= lshift;
+}
+
+// The unit's rows from its channels' samples: [M, S, w_0, w_1] for a pair,
+// [w_c] for one channel.
+template <int NCH>
+struct Rows {
+    static constexpr int kRows = NCH == 2 ? 4 : 1;
+    __device__ __forceinline__ static void form(const int32_t (&w)[NCH],
+                                                int32_t (&x)[kRows]) {
+        if constexpr (NCH == 2) {
+            const int32_t d = (int32_t)((uint32_t)w[1] - (uint32_t)w[0]);
+            x[0] = (int32_t)((uint32_t)w[0] + (uint32_t)(d >> 1));
+            x[1] = d;
+            x[2] = w[0];
+            x[3] = w[1];
+        } else {
+            x[0] = w[0];
+        }
+    }
+};
+
+// Each lane's N 64-bit values summed over the warp, transposed: lane l
+// returns the warp's sum of value l / (32 / N) (N a power of two <= 32).
+// The values halve at each of the first log2 N steps (a lane keeps one
+// half and sends the other), then the last sum is finished alone.
+template <int N>
+__device__ __forceinline__ unsigned long long warp_transpose_sum(
+        unsigned long long (&v)[N], int lane) {
+#pragma unroll
+    for (int h = N / 2; h >= 1; h >>= 1) {
+        const int d = 32 * h / N;        // 16 at the first step
+        const bool up = (lane & d) != 0;
+#pragma unroll
+        for (int i = 0; i < h; ++i) {
+            const unsigned long long send = up ? v[i] : v[i + h];
+            const unsigned long long keep = up ? v[i + h] : v[i];
+            v[i] = keep + __shfl_xor_sync(kFull, send, d);
+        }
+    }
+    unsigned long long s = v[0];
+#pragma unroll
+    for (int d = 16 / N; d > 0; d >>= 1) s += __shfl_xor_sync(kFull, s, d);
+    return s;
+}
+
+// The coefficient and flag of one row from its exact sums (the plain
+// version's f64 arithmetic, every operation an _rn intrinsic).
+__device__ __forceinline__ int32_t coefficient(long long r0i, long long r1i,
+                                               int shift, double eps,
+                                               bool* risky) {
+    const bool zero = r0i == 0;
+    const double d0 = zero ? 1.0 : __ll2double_rn(r0i);
+    const double dc16 = __dmul_rn(__ddiv_rn(__ll2double_rn(r1i), d0),
+                                  (double)(1 << shift));
+    const double ax = fabs(dc16);
+    const double r = floor(__dadd_rn(ax, 0.5));
+    double q = dc16 < 0.0 ? -r : r;
+    const double lim = (double)(1 << shift);
+    q = q < -lim ? -lim : (q > lim - 1.0 ? lim - 1.0 : q);
+    const double dist = fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5));
+    *risky = dist < eps && !zero;
+    return zero ? 0 : (int32_t)q;
+}
+
+// One tile of the unit's channels: the chunks of this thread and each
+// chunk's left neighbour (0 before sample 0).
+template <typename T, int NCH>
+__device__ __forceinline__ void load_tile(const T* const (&row)[NCH],
+                                          const bool (&vec)[NCH], int t0,
+                                          int n, int lshift, int lane,
+                                          int32_t (&w)[NCH][kChunks][4],
+                                          int32_t (&p)[NCH][kChunks]) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+        const int s = t0 + (j * (int)blockDim.x + (int)threadIdx.x) * 4;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+            load_chunk(row[c], vec[c], s, n, lshift, w[c][j]);
+            int32_t q = __shfl_up_sync(kFull, w[c][j][3], 1);
+            if (lane == 0) q = s > 0 && s < n ? load_one(row[c], s - 1, lshift)
+                                              : 0;
+            p[c][j] = q;
+        }
+    }
+}
+
+// One unit (a pair of channels, or one) of block b: sums, coefficients,
+// residual rows. row0: the row of the unit's first variant (its next
+// variants' rows are B apart).
+template <typename T, int NCH>
+__device__ __forceinline__ void unit(const Args& a, const T* const (&row)[NCH],
+                                     long long row0,
+                                     unsigned long long (*part)[8],
+                                     int32_t* coef_sh) {
+    using R = Rows<NCH>;
+    constexpr int NV = R::kRows;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n = a.n;
+    const int tile = (int)blockDim.x * 4 * kChunks;
+    const int tiles = (n + tile - 1) / tile;
+    bool vec[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+        vec[c] = (reinterpret_cast<uintptr_t>(row[c]) & (4 * sizeof(T) - 1))
+            == 0;
+    }
+    int32_t w[NCH][kChunks][4], p[NCH][kChunks];
+    unsigned long long acc[2 * NV];
+#pragma unroll
+    for (int i = 0; i < 2 * NV; ++i) acc[i] = 0;
+    for (int t = 0; t < tiles; ++t) {
+        load_tile(row, vec, t * tile, n, a.lshift, lane, w, p);
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                int32_t cw[NCH], pw[NCH];
+#pragma unroll
+                for (int c = 0; c < NCH; ++c) {
+                    cw[c] = w[c][j][k];
+                    pw[c] = k ? w[c][j][k - 1] : p[c][j];
+                }
+                int32_t x[NV], y[NV];
+                R::form(cw, x);
+                R::form(pw, y);
+#pragma unroll
+                for (int v = 0; v < NV; ++v) {
+                    acc[2 * v] += (unsigned long long)((long long)x[v] * x[v]);
+                    acc[2 * v + 1] +=
+                        (unsigned long long)((long long)y[v] * x[v]);
+                }
+            }
+        }
+        if (t == 0 && threadIdx.x == 0) {
+            int32_t cw[NCH], x[NV];
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) cw[c] = w[c][0][0];
+            R::form(cw, x);
+#pragma unroll
+            for (int v = 0; v < NV; ++v) a.prev[row0 + (long long)v * a.B] = x[v];
+        }
+    }
+    const unsigned long long s = warp_transpose_sum<2 * NV>(acc, lane);
+    if (lane % (32 / (2 * NV)) == 0) part[warp][lane / (32 / (2 * NV))] = s;
+    __syncthreads();
+    if (threadIdx.x < NV) {
+        const int v = threadIdx.x;
+        unsigned long long r0 = 0, r1 = 0;
+        const int nw = blockDim.x >> 5;
+        for (int i = 0; i < nw; ++i) {
+            r0 += part[i][2 * v];
+            r1 += part[i][2 * v + 1];
+        }
+        bool rk;
+        const int32_t cf = coefficient((long long)r0, (long long)r1, a.shift,
+                                       a.eps, &rk);
+        const long long r = row0 + (long long)v * a.B;
+        a.coef[r] = cf;
+        a.risky[r] = (uint8_t)rk;
+        coef_sh[v] = cf;
+    }
+    __syncthreads();
+    uint32_t cf[NV];
+    int32_t* out[NV];
+    bool vout[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+        cf[v] = (uint32_t)coef_sh[v];
+        const long long r = row0 + (long long)v * a.B;
+        out[v] = a.work + r * n;
+        vout[v] = ((r * n) & 3) == 0;
+    }
+    // The last tile first: it is still in registers.
+    for (int t = tiles - 1; t >= 0; --t) {
+        if (t != tiles - 1) load_tile(row, vec, t * tile, n, a.lshift, lane, w,
+                                      p);
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+            const int s = t * tile + (j * (int)blockDim.x + (int)threadIdx.x)
+                * 4;
+            if (s >= n) continue;
+            int32_t res[NV][4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                int32_t cw[NCH], pw[NCH];
+#pragma unroll
+                for (int c = 0; c < NCH; ++c) {
+                    cw[c] = w[c][j][k];
+                    pw[c] = k ? w[c][j][k - 1] : (s == 0 ? cw[c] : p[c][j]);
+                }
+                int32_t x[NV], y[NV];
+                R::form(cw, x);
+                R::form(pw, y);
+#pragma unroll
+                for (int v = 0; v < NV; ++v) {
+                    const int32_t pred = (int32_t)((uint32_t)y[v] * cf[v])
+                        >> a.shift;
+                    res[v][k] = (int32_t)((uint32_t)x[v] - (uint32_t)pred);
+                }
+            }
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+                if (vout[v] && s + 4 <= n) {
+                    *reinterpret_cast<int4*>(out[v] + s) =
+                        make_int4(res[v][0], res[v][1], res[v][2], res[v][3]);
+                } else {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        if (s + k < n) out[v][s + k] = res[v][k];
+                    }
+                }
+            }
+        }
+    }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-preemphasis_kernel(const T* __restrict__ src,
-                   const long long* __restrict__ off, long long bstride,
-                   long long cstride, int B, int C, int n, int lshift,
-                   int shift, double eps, int32_t* __restrict__ work,
-                   int32_t* __restrict__ coef_out,
-                   uint8_t* __restrict__ risky_out,
-                   int32_t* __restrict__ prev_out) {
-    __shared__ unsigned long long part[2][kWarps];
-    __shared__ int32_t coef_sh;
-    const int row = blockIdx.x;                    // v * B + b
-    const int v = row / B;
-    const int b = row - v * B;
-    const int kind = C >= 2 ? v - 2 : v;
-    const T* base = src + (off != nullptr ? off[b] : (long long)b * bstride);
-    unsigned long long r0 = 0, r1 = 0;
-    for (int s = threadIdx.x; s < n; s += kThreads) {
-        const long long x = variant_sample(base, cstride, kind, lshift, s);
-        r0 += (unsigned long long)(x * x);
-        if (s + 1 < n) {
-            const long long y = variant_sample(base, cstride, kind, lshift,
-                                               s + 1);
-            r1 += (unsigned long long)(x * y);
-        }
+__global__ void __launch_bounds__(kMaxThreads, 2)
+preemphasis_kernel(Args a) {
+    __shared__ unsigned long long part[kMaxWarps][8];
+    __shared__ int32_t coef_sh[4];
+    const int b = blockIdx.x;
+    const T* base = static_cast<const T*>(a.src)
+        + (a.off != nullptr ? a.off[b] : (long long)b * a.bstride);
+    if (a.C == 1) {
+        const T* const row[1] = {base};
+        unit<T, 1>(a, row, b, part, coef_sh);
+        return;
     }
-    r0 = warp_sum(r0);
-    r1 = warp_sum(r1);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) {
-        part[0][warp] = r0;
-        part[1][warp] = r1;
+    {
+        const T* const row[2] = {base, base + a.cstride};
+        unit<T, 2>(a, row, b, part, coef_sh);
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        unsigned long long s0 = 0, s1 = 0;
-        for (int w = 0; w < kWarps; ++w) {
-            s0 += part[0][w];
-            s1 += part[1][w];
-        }
-        const long long r0i = (long long)s0, r1i = (long long)s1;
-        const bool zero = r0i == 0;
-        const double d0 = zero ? 1.0 : __ll2double_rn(r0i);
-        const double dc16 = __dmul_rn(__ddiv_rn(__ll2double_rn(r1i), d0),
-                                      (double)(1 << shift));
-        const double ax = fabs(dc16);
-        const double r = floor(__dadd_rn(ax, 0.5));
-        double q = dc16 < 0.0 ? -r : r;
-        const double lim = (double)(1 << shift);
-        q = q < -lim ? -lim : (q > lim - 1.0 ? lim - 1.0 : q);
-        const int32_t coef = zero ? 0 : (int32_t)q;
-        const double dist = fabs(__dsub_rn(__dsub_rn(ax, floor(ax)), 0.5));
-        coef_out[row] = coef;
-        risky_out[row] = (uint8_t)(dist < eps && !zero);
-        prev_out[row] = variant_sample(base, cstride, kind, lshift, 0);
-        coef_sh = coef;
-    }
-    __syncthreads();
-    const uint32_t coef = (uint32_t)coef_sh;
-    int32_t* out = work + (long long)row * n;
-    for (int s = threadIdx.x; s < n; s += kThreads) {
-        const int32_t x = variant_sample(base, cstride, kind, lshift, s);
-        const int32_t p = s > 0
-            ? variant_sample(base, cstride, kind, lshift, s - 1) : x;
-        const int32_t pred = (int32_t)((uint32_t)p * coef) >> shift;
-        out[s] = (int32_t)((uint32_t)x - (uint32_t)pred);
+    for (int c = 2; c < a.C; ++c) {
+        __syncthreads();                 // part and coef_sh are reused
+        const T* const row[1] = {base + c * a.cstride};
+        unit<T, 1>(a, row, (long long)(c + 2) * a.B + b, part, coef_sh);
     }
 }
 
@@ -148,17 +363,32 @@ extern "C" int srla_preemphasis(const void* src, const void* off,
     if (B <= 0 || C <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
     const long long rows = (long long)(C >= 2 ? C + 2 : 1) * B;
     if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    Args a;
+    a.src = src;
+    a.off = (const long long*)off;
+    a.bstride = bstride;
+    a.cstride = cstride;
+    a.B = B;
+    a.C = C;
+    a.n = n;
+    a.lshift = lshift;
+    a.shift = shift;
+    a.eps = eps;
+    a.work = (int32_t*)work;
+    a.coef = (int32_t*)coef;
+    a.risky = (uint8_t*)risky;
+    a.prev = (int32_t*)prev;
+    // Threads: enough for one tile of n samples, a multiple of 32, at
+    // most kMaxThreads.
+    const int per = 4 * kChunks;
+    int threads = (int)(((long long)n + per - 1) / per);
+    threads = ((threads + 31) / 32) * 32;
+    threads = threads > kMaxThreads ? kMaxThreads : threads;
     cudaStream_t s = (cudaStream_t)stream;
     if (src32) {
-        preemphasis_kernel<int32_t><<<(unsigned)rows, kThreads, 0, s>>>(
-            (const int32_t*)src, (const long long*)off, bstride, cstride, B,
-            C, n, lshift, shift, eps, (int32_t*)work, (int32_t*)coef,
-            (uint8_t*)risky, (int32_t*)prev);
+        preemphasis_kernel<int32_t><<<B, threads, 0, s>>>(a);
     } else {
-        preemphasis_kernel<int16_t><<<(unsigned)rows, kThreads, 0, s>>>(
-            (const int16_t*)src, (const long long*)off, bstride, cstride, B,
-            C, n, lshift, shift, eps, (int32_t*)work, (int32_t*)coef,
-            (uint8_t*)risky, (int32_t*)prev);
+        preemphasis_kernel<int16_t><<<B, threads, 0, s>>>(a);
     }
     return (int)cudaGetLastError();
 }

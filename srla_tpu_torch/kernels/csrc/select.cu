@@ -24,10 +24,8 @@
 // and for each of its channels c the chosen variant row, skip = raw_blk or
 // risky_blk or its section above W words, lens_w = skip ? 0 : ceil(sec /
 // 32). The encode entry also writes starts, the exclusive running sum of
-// lens_w over the B * C (block, channel) rows: the CTA that takes the last
-// ticket of an atomic counter (zeroed by the entry before the launch) scans
-// them once every CTA has written its own. The measurement entry writes
-// only bits, risky_blk and the merged row flags.
+// lens_w over the B * C (block, channel) rows. The measurement entry
+// writes only bits, risky_blk and the merged row flags.
 //
 // The Huffman length tables (plen, slen: 256 entries each) are a device
 // tensor the wrapper makes once a device; nothing is uploaded per call.
@@ -36,22 +34,46 @@
 // M 64) it reads ~1.4 MB (the coefficients, the rows' fields) and writes
 // ~0.1 MB: 0.0004 ms at 3.35 TB/s, under the launch itself.
 //
-// Design (a simple first kernel): a CTA of four warps a block, a warp a
-// variant row: its lanes take the coefficients j = lane, lane + 32, ...,
-// look both lengths up (the tables through L1), and meet in shuffles;
-// lane 0 writes the row's length and flag to shared memory. Thread 0 then
-// takes the block's method and bits, the first C threads the channels'
-// rows. The last CTA's scan walks the rows in tiles of the CTA's threads,
-// a warp scan and a shared pass a tile.
+// Design: four blocks a CTA of 512 threads (B 1291: 323 CTAs), four warps
+// a block and a warp a variant row (the warps walk the rows past four):
+// the lanes load the row's fields and its coefficients j = lane, lane +
+// 32, ... below M at once (whatever the order, so no load waits for
+// another; the terms past the order are masked), look the lengths up
+// through L1 and meet in shuffles; lane 0 keeps the row's length,
+// section bits and flag in shared memory. After one barrier the block's
+// first warp takes its method, lane c its channel's row and lens_w, and
+// the lanes scan their lens_w. (A warp a block, eight blocks a CTA, gave
+// each lane four times the serial work at stereo and was slower.)
+//
+// starts in the same launch: each CTA publishes its aggregate (the sum of
+// its rows' lens_w) with a release store of its status word, then its
+// threads wait on the status words of every CTA before it at once (a
+// thread a CTA, acquire loads; windows of kThreads CTAs past kThreads) and
+// sum their aggregates: one round trip to L2, where a chain of look-back
+// windows took one a window. A CTA waits only on CTAs of lower index,
+// which publish before they wait: with CTAs dispatched in index order (as
+// CUB's single-pass scan also assumes) it never waits on one that cannot
+// run. The status words live in a per-device buffer the wrapper makes
+// once, zeroed: scan[0] is a generation count, and a status word is the
+// generation + 1 of the launch that wrote it, so a word of an earlier
+// launch never matches and no launch clears the buffer first (no memset).
+// The last CTA bumps the generation once it has seen every other CTA's
+// word, so every CTA has read it by then (each reads it before it
+// publishes). The generation lives on the device, so a CUDA graph that
+// replays the launch still gives each replay its own. Launches that share
+// a buffer must be ordered (one stream).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kBlocks = 4;              // blocks a CTA
+constexpr int kRowWarps = 4;            // warps a block, a row each
+constexpr int kWarps = kBlocks * kRowWarps;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxVariants = 34;        // C <= 32
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
     const void* sec_bits;               // (V,) int32 or int64
@@ -75,11 +97,27 @@ struct Args {
     uint8_t* skip;                      // (B * C,)
     long long* lens_w;                  // (B * C,)
     long long* starts;                  // (B * C,)
-    unsigned int* ticket;
+    // starts: [generation, status[cap], aggregate[cap]]
+    unsigned long long* scan;
+    long long cap;
 };
 
 __device__ __forceinline__ uint32_t zz(int32_t x) {
     return ((uint32_t)x << 1) ^ (uint32_t)(x >> 31);
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+        const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;"
+                 :: "l"(p), "l"(v) : "memory");
 }
 
 template <typename SB>
@@ -90,162 +128,202 @@ __device__ __forceinline__ long long sec_at(const Args& a, long long r) {
 template <typename SB, bool kMeasure>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(Args a) {
-    __shared__ long long len_sh[kMaxVariants];
-    __shared__ uint8_t risky_sh[kMaxVariants];
-    __shared__ long long scan_sh[kWarps];
-    __shared__ bool last_sh;
-    const int b = blockIdx.x;
+    __shared__ long long len_sh[kBlocks][kMaxVariants];
+    __shared__ long long sec_sh[kBlocks][kMaxVariants];
+    __shared__ uint8_t risky_sh[kBlocks][kMaxVariants];
+    __shared__ long long total_sh[kBlocks];
+    __shared__ long long part_sh[kWarps];
+    __shared__ unsigned long long gen_sh;
     const int B = a.B, C = a.C;
     const int nvar = C >= 2 ? C + 2 : 1;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int blk = warp / kRowWarps, wib = warp % kRowWarps;
+    const int b = blockIdx.x * kBlocks + blk;
     const int32_t* plen = a.tables;
     const int32_t* slen = a.tables + 256;
-    for (int v = warp; v < nvar; v += kWarps) {
+    if (!kMeasure && threadIdx.x == 0) gen_sh = __ldcg(a.scan);
+    for (int v = wib; b < B && v < nvar; v += kRowWarps) {  // warp-uniform
         const long long r = (long long)v * B + b;
-        const int order = a.orders[r];
+        const int order = __ldg(a.orders + r);
+        const long long sec = sec_at<SB>(a, r);
+        const bool ltp = a.ltp_period != nullptr
+            && __ldg(a.ltp_period + r) > 0;
+        const bool rr = (a.risky != nullptr && __ldg(a.risky + r))
+            || (a.rice_risky != nullptr && __ldg(a.rice_risky + r));
         const int m = order < 0 ? 0 : (order < a.M ? order : a.M);
         const int32_t* c = a.coefs + r * a.stride;
         int ccost = 0, scost = 0;
+        int32_t c0 = 0;
         bool svalid = true;
-        for (int j = lane; j < m; j += 32) {
-            const int32_t cj = c[j];
-            const uint32_t z = zz(cj);
-            ccost += __ldg(plen + (z < 255u ? z : 255u));
-            if (j + 1 < m) {
-                const uint32_t zs = zz((int32_t)((uint32_t)c[j + 1]
-                                                 + (uint32_t)cj));
-                svalid &= zs < 256u;
-                scost += __ldg(slen + (zs < 255u ? zs : 255u));
+#pragma unroll 4
+        for (int j = lane; j < a.M; j += 32) {
+            const int32_t cj = __ldg(c + j);
+            const int32_t cn = j + 1 < a.M ? __ldg(c + j + 1) : 0;
+            if (j == 0) c0 = cj;
+            if (j < m) {
+                const uint32_t z = zz(cj);
+                ccost += __ldg(plen + (z < 255u ? z : 255u));
+                if (j + 1 < m) {
+                    const uint32_t zs = zz((int32_t)((uint32_t)cn
+                                                     + (uint32_t)cj));
+                    svalid &= zs < 256u;
+                    scost += __ldg(slen + (zs < 255u ? zs : 255u));
+                }
             }
         }
 #pragma unroll
         for (int d = 16; d > 0; d >>= 1) {
-            ccost += __shfl_xor_sync(0xffffffffu, ccost, d);
-            scost += __shfl_xor_sync(0xffffffffu, scost, d);
+            ccost += __shfl_xor_sync(kFull, ccost, d);
+            scost += __shfl_xor_sync(kFull, scost, d);
         }
-        svalid = __all_sync(0xffffffffu, svalid);
+        svalid = __all_sync(kFull, svalid);
         if (lane == 0) {
             bool use = false;
             int coef_bits = 0;
             if (order > 0) {
-                const uint32_t z0 = zz(c[0]);
+                const uint32_t z0 = zz(c0);
                 const int sum_cost = __ldg(plen + (z0 < 255u ? z0 : 255u))
                     + scost;
                 use = svalid && (order == 1 || sum_cost < ccost);
                 coef_bits = use ? sum_cost : ccost;
             }
-            const bool ltp = a.ltp_period != nullptr && a.ltp_period[r] > 0;
-            len_sh[v] = sec_at<SB>(a, r) + a.fixed + coef_bits
+            sec_sh[blk][v] = sec;
+            len_sh[blk][v] = sec + a.fixed + coef_bits
                 + (ltp ? a.ltp_bits : 0);
-            const bool rk = (a.risky != nullptr && a.risky[r])
-                || (a.rice_risky != nullptr && a.rice_risky[r]);
-            risky_sh[v] = (uint8_t)rk;
-            a.risky_out[r] = (uint8_t)rk;
+            risky_sh[blk][v] = (uint8_t)rr;
+            a.risky_out[r] = (uint8_t)rr;
             if (!kMeasure) a.use_sum[r] = (uint8_t)use;
         }
     }
     __syncthreads();
-    // Every thread takes the block's method (a few registers): the
-    // channels' threads need it below.
-    int method = 0;
-    long long best = len_sh[0];
-    if (C >= 2) {
-        const long long l[4] = {len_sh[2] + len_sh[3], len_sh[0] + len_sh[1],
-                                len_sh[2] + len_sh[1], len_sh[3] + len_sh[1]};
-        best = l[0];
+    long long lw = 0, incl = 0;
+    if (b < B && wib == 0) {             // the block's first warp
+        const bool rk = __any_sync(
+            kFull, (lane < nvar && risky_sh[blk][lane])
+                   || (lane + 32 < nvar && risky_sh[blk][lane + 32]));
+        int method = 0;
+        long long best = len_sh[blk][0];
+        if (C >= 2) {
+            const long long* l = len_sh[blk];
+            const long long m4[4] = {l[2] + l[3], l[0] + l[1], l[2] + l[1],
+                                     l[3] + l[1]};
+            best = m4[0];
 #pragma unroll
-        for (int k = 1; k < 4; ++k) {
-            if (l[k] < best) {
-                best = l[k];
-                method = k;
+            for (int k = 1; k < 4; ++k) {
+                if (m4[k] < best) {
+                    best = m4[k];
+                    method = k;
+                }
+            }
+        }
+        const long long rounded = ((best + 2 + 7) / 8) * 8;
+        if (kMeasure) {
+            if (lane == 0) {
+                a.bits[b] = rounded;
+                a.risky_blk[b] = (uint8_t)rk;
+            }
+        } else {
+            const bool raw = rounded >= (long long)a.bps * a.n * C;
+            if (lane == 0) {
+                a.method[b] = method;
+                a.bits[b] = rounded;
+                a.raw_blk[b] = (uint8_t)raw;
+                a.risky_blk[b] = (uint8_t)rk;
+            }
+            if (lane < C) {
+                const int ch = lane;
+                int vix = 0;
+                if (C >= 2) {
+                    vix = (method == 1 && ch < 2) ? ch
+                        : (((method == 2 && ch == 1)
+                            || (method == 3 && ch == 0)) ? 1 : 2 + ch);
+                }
+                const long long sec = sec_sh[blk][vix];
+                const bool sk = raw || rk || sec > a.W * 32;
+                const long long o = (long long)b * C + ch;
+                a.rows[o] = (long long)vix * B + b;
+                a.skip[o] = (uint8_t)sk;
+                lw = sk ? 0 : (sec + 31) / 32;
+                a.lens_w[o] = lw;
+            }
+            incl = lw;
+#pragma unroll
+            for (int d = 1; d < 32; d <<= 1) {
+                const long long up = __shfl_up_sync(kFull, incl, d);
+                if (lane >= d) incl += up;
             }
         }
     }
-    const long long rounded = ((best + 2 + 7) / 8) * 8;
-    bool rk = false;
-    for (int v = 0; v < nvar; ++v) rk |= risky_sh[v] != 0;
-    if (kMeasure) {
-        if (threadIdx.x == 0) {
-            a.bits[b] = rounded;
-            a.risky_blk[b] = (uint8_t)rk;
-        }
-        return;
-    }
-    const bool raw = rounded >= (long long)a.bps * a.n * C;
-    if (threadIdx.x == 0) {
-        a.method[b] = method;
-        a.bits[b] = rounded;
-        a.raw_blk[b] = (uint8_t)raw;
-        a.risky_blk[b] = (uint8_t)rk;
-    }
-    for (int ch = threadIdx.x; ch < C; ch += kThreads) {
-        int vix = 0;
-        if (C >= 2) {
-            vix = (method == 1 && ch < 2) ? ch
-                : (((method == 2 && ch == 1) || (method == 3 && ch == 0))
-                   ? 1 : 2 + ch);
-        }
-        const long long row = (long long)vix * B + b;
-        const long long sec = sec_at<SB>(a, row);
-        const bool sk = raw || rk || sec > a.W * 32;
-        const long long o = (long long)b * C + ch;
-        a.rows[o] = row;
-        a.skip[o] = (uint8_t)sk;
-        a.lens_w[o] = sk ? 0 : (sec + 31) / 32;
-    }
-    // The running sum of lens_w: the last CTA to finish scans every row.
-    __threadfence();
+    if (kMeasure) return;
+    if (wib == 0 && lane == 31) total_sh[blk] = incl;
     __syncthreads();
+    const int i = blockIdx.x;
+    const unsigned long long gen = gen_sh;
+    unsigned long long* status = a.scan + 1;
+    long long* aggs = reinterpret_cast<long long*>(a.scan + 1 + a.cap);
     if (threadIdx.x == 0) {
-        last_sh = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+        long long agg = 0;
+        for (int k = 0; k < kBlocks; ++k) agg += total_sh[k];
+        aggs[i] = agg;
+        st_release(status + i, gen + 1);
     }
+    // The exclusive prefix: the aggregates of every CTA before this one,
+    // a thread a CTA, each waited for (a word that never comes, from a
+    // buffer shared by launches that overlap, stops the kernel with an
+    // error, not a hang).
+    long long x = 0;
+    for (int j = threadIdx.x; j < i; j += kThreads) {
+        for (long long spins = 0; ld_acquire(status + j) != gen + 1;
+             ++spins) {
+            if (spins > (1LL << 24)) __trap();
+        }
+        x += __ldcg(aggs + j);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x += __shfl_xor_sync(kFull, x, d);
+    if (lane == 0) part_sh[warp] = x;
     __syncthreads();
-    if (!last_sh) return;
-    __threadfence();
-    const long long K = (long long)B * C;
-    long long carry = 0;
-    for (long long base = 0; base < K; base += kThreads) {
-        const long long i = base + threadIdx.x;
-        const long long x = i < K ? __ldcg(a.lens_w + i) : 0;
-        long long inc = x;
+    if (threadIdx.x == 0 && i == (int)gridDim.x - 1) {
+        asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+                     :: "l"(a.scan), "l"(gen + 1) : "memory");
+    }
+    if (b < B && wib == 0 && lane < C) {
+        long long before = 0;
 #pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const long long up = __shfl_up_sync(0xffffffffu, inc, d);
-            if (lane >= d) inc += up;
-        }
-        if (lane == 31) scan_sh[warp] = inc;
-        __syncthreads();
-        long long before = carry, total = carry;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-            if (w < warp) before += scan_sh[w];
-            total += scan_sh[w];
-        }
-        if (i < K) a.starts[i] = before + inc - x;
-        carry = total;
-        __syncthreads();
+        for (int w = 0; w < kWarps; ++w) before += part_sh[w];
+        for (int k = 0; k < blk; ++k) before += total_sh[k];
+        a.starts[(long long)b * C + lane] = before + incl - lw;
     }
 }
 
 template <typename SB>
 cudaError_t launch(const Args& a, bool measure, cudaStream_t s) {
+    const unsigned grid = (unsigned)((a.B + kBlocks - 1) / kBlocks);
     if (measure) {
-        select_kernel<SB, true><<<a.B, kThreads, 0, s>>>(a);
+        select_kernel<SB, true><<<grid, kThreads, 0, s>>>(a);
     } else {
-        select_kernel<SB, false><<<a.B, kThreads, 0, s>>>(a);
+        select_kernel<SB, false><<<grid, kThreads, 0, s>>>(a);
     }
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// The starts buffer's words for B blocks (zeroed once by its owner).
+extern "C" long long srla_select_scan_words(int B) {
+    const long long cap = ((long long)B + kBlocks - 1) / kBlocks;
+    return 1 + 2 * cap;
+}
+
 // sec_bits: (V,) int32 (sec64 0) or int64; orders, ltp_period: (V,)
 // int32 (ltp_period may be null: no LTP fields); coefs: (V, stride) int32,
 // its first M columns read; risky, rice_risky: (V,) bool or null; tables:
 // 512 int32 on the device. Outputs as Args lists them; the measurement
 // entry (measure non-zero) writes bits, risky_blk and risky_out only and
-// takes null for the others. ticket: one uint32 of device memory, zeroed
-// here before the launch.
+// takes null for the others. scan: the encode entry's starts buffer,
+// scan_words words (at least srla_select_scan_words(B)), zeroed when it
+// was made and handed to no other launch in flight; null for the
+// measurement entry.
 extern "C" int srla_select(const void* sec_bits, int sec64,
                            const void* orders, const void* coefs, int stride,
                            int M, const void* risky, const void* rice_risky,
@@ -255,15 +333,12 @@ extern "C" int srla_select(const void* sec_bits, int sec64,
                            void* method, void* bits, void* raw_blk,
                            void* risky_blk, void* use_sum, void* risky_out,
                            void* rows, void* skip, void* lens_w, void* starts,
-                           void* ticket, void* stream) {
+                           void* scan, long long scan_words, void* stream) {
     if (B <= 0 || C <= 0 || C + 2 > kMaxVariants || M < 1 || stride < M)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (!measure) {
-        const cudaError_t err = cudaMemsetAsync(ticket, 0, sizeof(unsigned),
-                                                s);
-        if (err != cudaSuccess) return (int)err;
-    }
+    if (!measure && (scan == nullptr
+                     || scan_words < srla_select_scan_words(B)))
+        return (int)cudaErrorInvalidValue;
     Args a;
     a.sec_bits = sec_bits;
     a.orders = (const int32_t*)orders;
@@ -291,7 +366,24 @@ extern "C" int srla_select(const void* sec_bits, int sec64,
     a.skip = (uint8_t*)skip;
     a.lens_w = (long long*)lens_w;
     a.starts = (long long*)starts;
-    a.ticket = (unsigned int*)ticket;
+    a.scan = (unsigned long long*)scan;
+    a.cap = scan_words > 0 ? (scan_words - 1) / 2 : 0;
+    cudaStream_t s = (cudaStream_t)stream;
     return (int)(sec64 ? launch<int64_t>(a, measure != 0, s)
                        : launch<int32_t>(a, measure != 0, s));
+}
+
+namespace {
+
+__global__ void empty_kernel() {}
+
+}  // namespace
+
+// The card's floor under the encode entry at B blocks: an empty kernel
+// launched on the same grid (a measurement aid; no path calls it).
+extern "C" int srla_select_empty(int B, void* stream) {
+    if (B <= 0) return (int)cudaErrorInvalidValue;
+    empty_kernel<<<(B + kBlocks - 1) / kBlocks, kThreads, 0,
+                   (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
 }

@@ -331,6 +331,7 @@ def measure_spans(file: torch.Tensor, offsets, lshift: int, *, n: int,
     rounded block bits of the best stereo method
     (``srla_tpu/encoder.py:2020-2032``), and ``risky_blk``."""
     spans = Spans(file, offsets, n)
+    timer("set-up")
     core = analyze_core(spans, lshift, n=n, bps=bps, max_params=max_params,
                         max_fixed=max_fixed, fft_size=fft_size,
                         max_porder=max_porder, ltp_order=ltp_order,

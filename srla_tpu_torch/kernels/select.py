@@ -209,6 +209,10 @@ def measure_blocks_plain(small: dict, *, B: int, C: int, bps: int,
 # ---------------------------------------------------------------------------
 
 _TABLES: dict = {}
+_SCAN: dict = {}
+# The starts buffer is made for at least this many blocks (the encoder's
+# MAX_CALL_BLOCKS), so the encode's calls never grow it.
+_SCAN_BLOCKS = 2048
 
 
 def _tables(dev) -> torch.Tensor:
@@ -220,6 +224,46 @@ def _tables(dev) -> torch.Tensor:
         _TABLES[key] = torch.from_numpy(
             np.concatenate([pl, sl]).astype(np.int32)).to(dev)
     return _TABLES[key]
+
+
+def _scan(dev, B: int) -> torch.Tensor:
+    """The encode entry's starts buffer on ``dev`` (each CTA's status word
+    and aggregate, tagged by a generation the kernel keeps in the buffer's
+    first word): zeroed once when made, and made again, larger, only for a
+    call of more blocks than it holds. The launches on a device share it,
+    so they must be ordered: the port launches them on the current stream
+    of the encoding thread."""
+    need = _lib().srla_select_scan_words(max(B, _SCAN_BLOCKS))
+    key = str(dev)
+    buf = _SCAN.get(key)
+    if buf is None or buf.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("select_blocks: make the starts buffer "
+                               "(one call outside the CUDA graph) before "
+                               "capturing a call of this size")
+        buf = torch.zeros(need, dtype=torch.int64, device=dev)
+        _SCAN[key] = buf
+    return buf
+
+
+def _outputs(dev, B: int, C: int, V: int, measure: bool) -> dict:
+    """The entry's outputs, carved from one allocation: the int64 ones
+    first, then the bool ones."""
+    wide = [("bits", B)]
+    flags = [("risky_blk", B), ("risky", V)]
+    if not measure:
+        wide += [("method", B), ("rows", B * C), ("lens_w", B * C),
+                 ("starts", B * C)]
+        flags += [("raw_blk", B), ("use_sum", V), ("skip", B * C)]
+    n64 = sum(k for _, k in wide)
+    buf = torch.empty(8 * n64 + sum(k for _, k in flags), dtype=torch.uint8,
+                      device=dev)
+    res = {}
+    for parts, data in ((wide, buf[:8 * n64].view(torch.int64)),
+                        (flags, buf[8 * n64:].view(torch.bool))):
+        for (name, _), t in zip(parts, data.split([k for _, k in parts])):
+            res[name] = t
+    return res
 
 
 def _launch(small: dict, rice_risky, *, B: int, C: int, n: int, bps: int,
@@ -253,21 +297,10 @@ def _launch(small: dict, rice_risky, *, B: int, C: int, n: int, bps: int,
         flags.append(None if t is None else t.data_ptr())
     if sec.device != dev or not sec.is_contiguous():
         raise ValueError(f"{what}: section_bits must be contiguous on {dev}")
-
-    def out(*shape, dtype=torch.int64):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    res = dict(bits=out(B), risky_blk=out(B, dtype=torch.bool),
-               risky=out(V, dtype=torch.bool))
-    if not measure:
-        res.update(method=out(B), raw_blk=out(B, dtype=torch.bool),
-                   use_sum=out(V, dtype=torch.bool), rows=out(B * C),
-                   skip=out(B * C, dtype=torch.bool), lens_w=out(B * C),
-                   starts=out(B * C))
+    res = _outputs(dev, B, C, V, measure)
     if B == 0:
         return res
-    ticket = None if measure else torch.empty(1, dtype=torch.int32,
-                                              device=dev)
+    scan = None if measure else _scan(dev, B)
 
     def ptr(key):
         return res[key].data_ptr() if key in res else None
@@ -282,8 +315,8 @@ def _launch(small: dict, rice_risky, *, B: int, C: int, n: int, bps: int,
         ltp_field_bits(small["ltp_coefs"].shape[1]), int(measure),
         ptr("method"), ptr("bits"), ptr("raw_blk"), ptr("risky_blk"),
         ptr("use_sum"), ptr("risky"), ptr("rows"), ptr("skip"),
-        ptr("lens_w"), ptr("starts"),
-        None if ticket is None else ticket.data_ptr(), stream)
+        ptr("lens_w"), ptr("starts"), None if scan is None else
+        scan.data_ptr(), 0 if scan is None else scan.numel(), stream)
     build.check(err, what)
     return res
 
@@ -348,5 +381,12 @@ def _lib() -> ctypes.CDLL:
                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 12)
+                       + [ctypes.c_void_p] * 11
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        words = lib.srla_select_scan_words
+        words.restype = ctypes.c_longlong
+        words.argtypes = [ctypes.c_int]
+        empty = lib.srla_select_empty
+        empty.restype = ctypes.c_int
+        empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
     return lib

@@ -1,11 +1,13 @@
 """K7's quantization entry and K5's generic pack in several checkouts side
-by side, the quantization entry's two layouts, and K14 and K15 (the f32
-approximate encode's kernels) in several checkouts side by side.
+by side, the quantization entry's two layouts, K14 and K15 (the f32
+approximate encode's kernels) in several checkouts side by side, and K16
+and K17 (the exact encode's pre-emphasis and selection) likewise.
 
     python -m srla_tpu_torch.tools.kernel_ab ROOT [ROOT ...]
     python -m srla_tpu_torch.tools.kernel_ab --layouts
     python -m srla_tpu_torch.tools.kernel_ab --approx ROOT [ROOT ...]
     python -m srla_tpu_torch.tools.kernel_ab --k15-parts
+    python -m srla_tpu_torch.tools.kernel_ab --stages ROOT [ROOT ...]
 
 Needs one CUDA card. For each checkout ROOT, in the order given, a fresh
 Python process in that directory builds the kernels with that checkout's
@@ -42,6 +44,19 @@ ROOTs (give the parent first), each with the decision that moved and its
 margin, from each ROOT's own plain version (``levinson_f32``: its error
 variances and its coefficients at its orders, saved by its process) on
 the same lags.
+
+``--stages`` runs, for each ROOT in turn and in a fresh process there,
+K16 (``variant_preemphasis``) on the ``Spans`` of the resident file and on
+the block tensor, and K17's encode entry (``select_blocks``) and
+measurement entry (``measure_blocks``) on the analysis of those spans:
+phase 16's main group of that checkout's ``chip_smoke.py`` (120 s of
+``make_music``, 1291 blocks of 4096 int16 stereo samples, M 64). One JSON
+line a ROOT: each call's device time (a CUDA graph of 20 calls, replayed)
+and CUDA-event time, SHA-256 prefixes of its outputs, and the card's name
+and power limit. The ``Spans`` entry uploads the offsets each call, so its
+device time is taken only where that upload can be captured (null where it
+cannot; its event time always). ``chip_smoke.py --parent DIR`` prints
+these in phase 16.
 
 ``--k15-parts`` times where K15's time goes on the same main group: this
 checkout's ``csrc/rice_cost.cu`` beside copies built with one part taken
@@ -316,6 +331,60 @@ print(json.dumps({"rows": V, "n": n, "max_porder": P,
 '''
 
 
+STAGES = r'''
+import hashlib, json, os, subprocess, sys
+sys.path.insert(0, os.getcwd())
+import numpy as np, torch
+import chip_smoke as cs
+from srla_tpu_torch.kernels import build, exact, select
+from srla_tpu_torch.kernels.preemphasis import Spans, variant_preemphasis
+from srla_tpu_torch.signals import make_music
+build.load_all(cs.LIBRARIES)
+dev = torch.device("cuda")
+music = make_music(cs.MAIN_SECONDS)
+file = torch.from_numpy(np.ascontiguousarray(music, np.int16)).to(dev)
+blocks, B, args, W = cs.main_group(torch, np, dev, music)
+n = args["n"]
+spans = Spans(file, np.arange(B) * n, n)
+core = exact.analyze_core(spans, 0, **args)
+small = exact.core_small(core)
+kw = dict(B=B, C=2, n=n, bps=16, W=W, max_params=args["max_params"])
+mkw = {k: kw[k] for k in ("B", "C", "bps", "max_params")}
+calls = {
+    "k16_blocks": lambda: variant_preemphasis(blocks, 0, eps=cs.K16_EPS),
+    "k17_select": lambda: select.select_blocks(
+        small, rice_risky=core["rice_risky"], **kw),
+    "k17_measure": lambda: select.measure_blocks(
+        small, rice_risky=core["rice_risky"], **mkw),
+    "k16_spans": lambda: variant_preemphasis(spans, 0, eps=cs.K16_EPS)}
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True).stdout.strip()
+
+
+def digest(out):
+    if isinstance(out, dict):
+        out = [out[k] for k in sorted(out)]
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+rec = {"B": B, "n": n, "V": 4 * B, "M": args["max_params"]}
+for name, fn in calls.items():
+    rec[f"{name}_sha256"] = digest(fn())
+    rec[f"{name}_ms"] = cs.cuda_ms(torch, fn, 20)
+    try:
+        rec[f"{name}_device_ms"] = cs.device_ms(torch, fn, 20)
+    except RuntimeError as e:            # an upload that cannot be captured
+        rec[f"{name}_device_ms"] = None
+        rec[f"{name}_device_error"] = str(e).splitlines()[0][:200]
+rec["card"] = card
+print(json.dumps(rec))
+'''
+
+
 def run(roots, child: str = _CHILD, save_dir=None) -> list:
     """One child process a checkout, in the order given: its JSON record
     (or {"root": ROOT, "error": ...}). With save_dir, the approximate
@@ -409,6 +478,8 @@ def main(argv) -> int:
     approx = bool(argv) and argv[0] == "--approx"
     if approx:
         child, argv = _APPROX, argv[1:]
+    elif argv and argv[0] == "--stages":
+        child, argv = STAGES, argv[1:]
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2

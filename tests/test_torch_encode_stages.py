@@ -18,6 +18,9 @@ the CPU (the kernels' plain versions):
   minimum: ``srla_tpu/encoder.py:2020-2032``).
 - K5's row entry's plain version against the gathered entry on the same
   rows: equal words.
+- The encoder's ``StepTimer`` split: a group's host set-up is a step of
+  its own ("group set-up", and "measure: set-up" for a -V measurement
+  call), apart from "K16 preemphasis", and the bytes are the host's.
 
 Every comparison is exact. The card's cases are in
 ``test_torch_encode_stages_card.py``."""
@@ -202,3 +205,25 @@ def test_k5_row_entry_equals_gathered(V, n, porder):
                                         lens_w, cap)
     assert torch.equal(got, want)
     assert int(lens_w[0]) == 0 and int(lens_w.sum()) > 0
+
+
+@pytest.mark.parametrize("V", [0, 1])
+def test_step_timer_separates_group_set_up(V):
+    """A small exact encode on the CPU under a StepTimer: the group's
+    set-up and K16's call are separate steps (the measurement's too at
+    -V 1), and the stream is host_encoder.encode's."""
+    from srla_tpu_torch import SRLAEncoder, host_encoder
+    from srla_tpu_torch.encoder import StepTimer
+    from srla_tpu_torch.host_encoder import make_parameter
+    from srla_tpu_torch.signals import make_music
+    pcm = make_music(0.1)
+    enc = SRLAEncoder(make_parameter(2, 16, 44100, 2, 1024, V), "cpu")
+    enc.timer = StepTimer("cpu")
+    assert enc.encode_whole(pcm) == host_encoder.encode(
+        pcm, 16, 44100, preset=2, max_block=1024, variable_divisions=V)
+    steps = enc.timer.seconds
+    names = ["group set-up", "K16 preemphasis"]
+    if V:
+        names += ["measure: set-up", "measure: K16 preemphasis"]
+    for name in names:
+        assert steps[name] >= 0.0, name

@@ -8,8 +8,13 @@ raw blocks and sections above W at M 8-255; periods 8 and 262, the delay
 past n, order 1; rows not 16-byte aligned) and at a group of the main
 path's width; and short encodes on the card (-V 0, -V 1, -P 3): the host
 exact stream's bytes, each stage's kernel launched and no plain version
-reached. No JAX here: the CPU twin, ``test_torch_encode_stages.py``,
-holds the plain versions to ``srla_tpu``."""
+reached. K16's CTA-a-block layout at chip_smoke.k16_layout_cases (n 1 to
+16384, C 1 to 8, odd offsets, a strided view, int32 at lshift 8); K17's
+look-back at chip_smoke.K17_EDGES (one row, a CTA's blocks less one,
+exactly, one more, B 2048, C 32, M 255), back-to-back launches and replays
+of a captured launch on new inputs. No JAX here: the CPU twin,
+``test_torch_encode_stages.py``, holds the plain versions to
+``srla_tpu``."""
 
 import numpy as np
 import pytest
@@ -56,6 +61,19 @@ def test_k16_odd_cases_equal_plain(cuda, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(chip_smoke.k16_layout_cases(np))))
+def test_k16_layout_cases_equal_plain(cuda, case):
+    c = chip_smoke.k16_layout_cases(np)[case]
+    src = chip_smoke.k16_source(torch, cuda, c)
+    k16, plain = chip_smoke.k16_entries()
+    variant_preemphasis.launches = 0
+    got = k16(src, c[4])
+    torch.cuda.synchronize()
+    assert variant_preemphasis.launches == 1
+    _equal(got, plain(src, c[4]))
+
+
+@pytest.mark.gpu
 def test_k16_main_width_spans_and_blocks_equal_plain(cuda):
     """A group of the main path's width (4096-sample stereo int16 blocks)
     read as spans of the resident file, as a block tensor and as the
@@ -87,6 +105,31 @@ def test_k17_equals_plain(cuda, B, C, M, sec64):
                                 rice_risky, kw) == 0
     assert select.select_blocks.launches == 1
     assert select.measure_blocks.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,M,sec64", chip_smoke.K17_EDGES)
+def test_k17_edges_equal_plain(cuda, B, C, M, sec64):
+    small, rice_risky, kw = chip_smoke.k17_small(torch, np, cuda, B, C, M,
+                                                 B + M, sec64)
+    select.select_blocks.launches = 0
+    assert chip_smoke.k17_check(torch, f"B {B} C {C} M {M}", small,
+                                rice_risky, kw) == 0
+    assert select.select_blocks.launches == 1
+
+
+@pytest.mark.gpu
+def test_k17_back_to_back_launches(cuda):
+    """50 launches at B 2048, each followed by one at B 9, with no
+    synchronisation: every starts the running sum of its lens_w."""
+    assert chip_smoke.k17_repeat_check(torch, np, cuda, 50) == 100
+
+
+@pytest.mark.gpu
+def test_k17_graph_replays_on_new_inputs(cuda):
+    """A launch captured once and replayed on new inputs: each replay's
+    outputs are the plain version's on its inputs."""
+    assert chip_smoke.k17_graph_check(torch, np, cuda) == 6
 
 
 @pytest.mark.gpu

@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
-Builds the eighteen CUDA libraries of csrc/ (twenty-one kernels) and six
+Builds the nineteen CUDA libraries of csrc/ (twenty-two kernels, K1's and
+K16's second entries among their entries) and six
 measurement aids (the serial-chain probe csrc/chain_probe.cu and the first
 designs of K8, K7, K9, K10 and K12, csrc/autocorr_v1.cu, lpc_analyze_v1.cu,
 ltp_synth_v1.cu, ltp_analyze_v1.cu and svr_refine_v1.cu, which nothing in
@@ -20,18 +21,39 @@ then:
   2. K2 (Rice entropy decode, csrc/rice_decode.cu) against its plain version
      on every block group of the phase-3 stream: bit-equal. Times the
      1291-block group (ms) and the 1-block tail group (tail_ms).
+ 17. (Run after phase 2.) The decode's synthesis tail on the card, on every
+     group of phase 3's stream as the decode hands it over: K1's
+     coefficient entry (lpc_scan_coefs: the parsed coefficients read where
+     the packed parameters hold them, aligned as its taps load; phase 1
+     holds it at phase 1's shapes too) equal to K1's aligned entry, and
+     K19 (csrc/synth_tail.cu: the stereo inverse and offset shift, in
+     place on K1's output, the methods read from the packed parameters'
+     column) bit-equal to its plain version in place and out of place,
+     also at 37 odd cases (k19_inputs: n 333 and 4096, each method alone
+     and mixed, lshift 0, 1 and 8, C 1, 3 and 8, int32 extremes, strided
+     and contiguous methods); K19 timed at the main and tail groups (CUDA
+     events, graph replay) beside its plain version (the torch ops
+     synthesize ran before), its bound on this data, a copy of its bytes
+     and, with --parent, the parent's torch-op tail in turns; K1's entry
+     beside the aligned entry with align_coefs' gather before it; and
+     torch.profiler's list of synthesize's device work on the main group
+     and on an LTP group: K1, K9 and K19 only.
   3. 120 s of stereo 16-bit 44.1 kHz music-like audio, encoded on the host
      at -m 4 -B 4096 -V 0 (the port's exact host encoder,
      srla_tpu_torch.host_encoder, which the CPU tests hold byte-equal to
      srla_tpu.encode(backend="exact")), decoded with
      srla_tpu_torch.decode(..., device="cuda"): lossless, every COMPRESS
-     block on the device, both kernels launched by that decode; then one
+     block on the device, K2, K1's coefficient entry and K19 once a group
+     and K1's aligned entry never (decode_launches_ok: phases 4, 8, 13 and
+     14 count the same on their decodes, K1's entry once more and K9 once
+     an LTP group, K19 not on a mono group at lshift 0); then one
      warm decode under torch.profiler (device time by kernel).
   4. A 120 s -m 6 -P 3 stream from the same host encoder (long-term
      prediction; LPC orders up to 93 on this signal) decoded on the card,
      counted: lossless, K9 (LTP synthesis, csrc/ltp_synth.cu) launched once
-     per LTP group; then K9 against its plain version on every LTP group,
-     at edge shapes (delay 9 at order 3, order 1, period and order 0,
+     per LTP group, K1's coefficient entry twice there (the LPC, the
+     de-emphasis at order 0); then K9 against its plain version on every
+     LTP group, at edge shapes (delay 9 at order 3, order 1, period and order 0,
      period 262, wrapping values, n 300 and 4064) and on 37 hard rows
      (k9_hard_args: periods 8, 31, 32, 33 and 262, off rows between) at n
      16384, 4064 and 333: bit-equal; warm speed.
@@ -252,20 +274,21 @@ then:
      each timed (CUDA events, device time by graph replay) beside its
      bound on these inputs and its plain version. Then phase 3's 120 s at
      -m 4 -B 4096 -V 0, at the CLI's -V 1 -L 4 and at -V 0 -P 3, each
-     encoded approximately on the card, counted (K14, K15, K3 and K5 once
-     a group, -V 1's measurement calls adding K14, K15 and K3; K8, K7, K4
-     and K10 never; a tripwire on K14's and K15's plain versions):
+     encoded approximately on the card, counted (K16's f32 entry, K14, K15,
+     K3 and K5 once a group, -V 1's measurement calls adding K16's f32
+     entry, K14, K15 and K3, K18 once a group at -P 3; K8, K7, K4, K10 and
+     K16's exact entry never; a tripwire on the plain versions of K14,
+     K15, K16's f32 entry and K18, the torch variant stack and span cut):
      lossless through decode(..., "cuda"), at most 1.02 times the exact
      stream's size, every COMPRESS block from the device, none on the host
      or repaired, every -V span measured on the device; each encode's warm
-     best of 3 beside the exact encode's, and the -V 0 encode's step
-     split. Last, parallel.full_step_sharded over [cuda:0, cuda:0] on the
-     main group's rows: residual and bits equal to one analyze_variants
-     call. Each approximate stream's length is the one APPROX_BYTES
+     best of 3 beside the exact encode's, and the step split at -V 0, -V 1
+     -L 4 and -V 0 -P 3. Last, parallel.full_step_sharded over [cuda:0,
+     cuda:0] on the main group's rows: residual and bits equal to one
+     analyze_variants call. Each approximate stream's length is the one APPROX_BYTES
      records; K17 and K5's row entry launched once a group (K17's
-     measurement entry once a -V call), K16 and K18 never (the path
-     keeps its f32 pre-emphasis and LTP filter), no plain version of K17
-     or K5 reached.
+     measurement entry once a -V call), no plain version of K17 or K5
+     reached.
  16. (Run after phase 5.) The exact encode's last stages: K16 (the variant
      stack and exact pre-emphasis, csrc/preemphasis.cu), K17 (the bit
      accounting and stereo selection, csrc/select.cu, and its measurement
@@ -285,8 +308,13 @@ then:
      k16_layout_cases (n 1 to 16384, C 1 to 8, odd offsets, a strided
      view) beside a copy of its bytes, K17 also at K17_EDGES, 100
      launches back to back and 6 replays of a captured launch on new
-     inputs, beside an empty kernel on its grid (the card's floor).
-     Phases 6,
+     inputs, beside an empty kernel on its grid (the card's floor). K16's
+     f32 entry (variant_preemphasis_f32, the approximate analysis'
+     pre-emphasis) against its plain version on the same groups and
+     cases, the rows' (V, 1, n) view and 24-bit rows of 16384 (r0 above
+     2^53), timed beside its plain version, its bound and the torch stack
+     and f32 pre-emphasis it replaced (and, with --parent, the parent's
+     in turns). Phases 6,
      8, 9, 11, 12, 13 and 15 count K16, K17's two entries and K18 as they
      count K3, and run their encodes with every plain version of K16,
      K17, K18 and K5's section entry replaced by a tripwire.
@@ -308,7 +336,10 @@ its row entry's (phase 16), its gathered entry's beside them;
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
 ``launches_corpus`` on phase 13's paths, encode and decode apart,
 ``launches_resident`` on phase 14's, ``launches_approx`` on phase 15's
-three encodes; K14's and K15's ``launches`` on phase 15's -V 0 encode; K7's
+three encodes; K14's, K15's and K16's f32 entry's ``launches`` on phase
+15's -V 0 encode; K19's and K1's coefficient entry's on phase 3's decode,
+K1's record counting the kernel's launches by both entries
+(``launches_by_entry``); K7's
 record also carries its SVR entries' launches on phase 12's full-width
 encode and the coefficient entry's agreement with its plain version)
 and, last, the device JSON line. A kernel's bound is the larger of the
@@ -342,8 +373,10 @@ With --parent DIR (a checkout of another commit, such as the parent's
 ``git archive``) it first runs srla_tpu_torch/tools/kernel_ab.py in DIR
 and here in turns (DIR, here, here, DIR, each its own process), by default
 and with --stages, and prints the device times of K7's quantization entry
-and the generic pack of each beside phase 12's and phase 5's own, and
-K16's and K17's beside phase 16's; without it they read "not measured".
+and the generic pack of each beside phase 12's and phase 5's own, K16's
+and K17's and K16's f32 entry's (the parent: its torch f32 pre-emphasis)
+beside phase 16's, and K19's (the parent: its torch-op tail) beside phase
+17's; without it they read "not measured".
 Any failed check raises and the exit code is non-zero; without a CUDA device
 it exits non-zero before printing any result. Imports nothing of JAX and
 nothing of srla_tpu.
@@ -486,8 +519,10 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
                seed: int):
     """K1 arguments on the card: rows of order min_order..M plus, when
     R >= 5, edge rows (order 0, rshift 0, order M, int32-wrapping residuals
-    and taps)."""
-    from srla_tpu_torch.kernels.decode2 import align_coefs
+    and taps). Returns (lpc_scan's args, the fused de-emphasis' kwargs, the
+    coefficients left-aligned as the decode's packed parameters hold them:
+    an (R, M) view of an (R, M + 5) array, for K1's coefficient entry)."""
+    from srla_tpu_torch.kernels.lpc import align_coefs
 
     rng = np.random.RandomState(seed)
     res = rng.randint(-30000, 30000, (R, n))
@@ -507,8 +542,97 @@ def lpc_inputs(torch, np, dev, R: int, n: int, M: int, min_order: int,
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
     ord_t = t(orders)
-    args = (t(res), align_coefs(t(coefs), ord_t, M), ord_t, t(rshifts), n, M)
-    return args, dict(dcoef=t(dcoef), dprev=t(dprev))
+    packed = np.zeros((R, M + 5), np.int64)
+    packed[:, 2:2 + M] = coefs
+    left = t(packed)[:, 2:2 + M]
+    args = (t(res), align_coefs(left, ord_t, M), ord_t, t(rshifts), n, M)
+    return args, dict(dcoef=t(dcoef), dprev=t(dprev)), left
+
+
+INT32_EDGES = (-(1 << 31), (1 << 31) - 1, -(1 << 31) + 1, -1, 0, 1,
+               1 << 30, -(1 << 30))
+
+
+def synth_inputs(np, B: int, C: int, n: int, M: int, seed: int,
+                 ltp: bool = False, width: int = 0):
+    """numpy inputs of decode2.synthesize for a group of B blocks of C
+    channels, n samples, max order M: (res, orders, rshifts, meta, cols,
+    methods) with the coefficients and methods inside one (B, K) int32
+    array as the decode packs them (``meta``, K at least C * M + width
+    past them; ``cols`` its column offsets), so that their views are
+    strided. Orders 0..M (0 and M in every group), rshifts 0..15; methods
+    0-3, each in a group of 4 or more; LTP rows (ltp) of order 0, 1 and 3
+    at periods 0, 8 and up to 262. Block 0's rows are order 0 with
+    de-emphasis 0, so K1 hands its residuals, int32 extremes among them,
+    to the stereo inverse as they are."""
+    rng = np.random.RandomState(seed)
+    res = rng.randint(-30000, 30000, (B, C, n)).astype(np.int32)
+    res[0] = rng.choice(INT32_EDGES, (C, n))
+    if B > 1:
+        res[1] = rng.randint(-(1 << 31), 1 << 31, (C, n), dtype=np.int64)
+    orders = rng.randint(0, M + 1, (B, C)).astype(np.int32)
+    orders.flat[1 % orders.size] = M
+    orders[0] = 0
+    rshifts = rng.randint(0, 16, (B, C)).astype(np.int32)
+    cols = {"method": 0, "coefs": 2, "ltp_orders": 2 + C * M + width}
+    K = cols["ltp_orders"] + 3 * C + 2
+    meta = np.zeros((B, K), np.int32)
+    meta[:, 1] = rng.randint(-5, 5, B)          # a neighbour column
+    meta[:, 0] = rng.permutation(np.arange(B) % 4)
+    meta[:, 2:2 + C * M] = rng.randint(-(1 << 13), 1 << 13, (B, C * M))
+    if B > 2:
+        meta[2, 2:2 + C * M] = rng.randint(-(1 << 30), 1 << 30, C * M)
+    pre_coef = rng.randint(-16, 16, (B, C)).astype(np.int32)
+    pre_coef[0] = 0
+    pre_prev = rng.randint(-30000, 30000, (B, C)).astype(np.int32)
+    lo = np.zeros((B, C), np.int32)
+    lp = np.zeros((B, C), np.int32)
+    lc = np.zeros((B, C, 3), np.int32)
+    if ltp:
+        lo = rng.choice([0, 1, 3, 3], (B, C)).astype(np.int32)
+        lp = rng.choice([0, 8, 9, 31, 100, 262], (B, C)).astype(np.int32)
+        lc = rng.randint(-32, 32, (B, C, 3)).astype(np.int32)
+    return dict(res=res, orders=orders, rshifts=rshifts, meta=meta,
+                cols=cols, ltp_orders=lo, ltp_periods=lp, ltp_coefs=lc,
+                pre_coef=pre_coef, pre_prev=pre_prev)
+
+
+def synth_args(torch, np, inp: dict, dev, C: int, M: int):
+    """decode2.synthesize's arguments from synth_inputs on ``dev``: the
+    coefficients (B, C, M) and the methods (B,) as strided views of the
+    packed array, the rest contiguous."""
+    meta = torch.from_numpy(inp["meta"]).to(dev)
+    B = meta.shape[0]
+    o = inp["cols"]["coefs"]
+    t = {k: torch.from_numpy(np.ascontiguousarray(inp[k])).to(dev)
+         for k in ("res", "orders", "rshifts", "ltp_orders", "ltp_periods",
+                   "ltp_coefs", "pre_coef", "pre_prev")}
+    coefs = meta[:, o:o + C * M].view(B, C, M)
+    methods = meta[:, inp["cols"]["method"]]
+    return (t["res"], t["orders"], t["rshifts"], coefs, t["ltp_orders"],
+            t["ltp_periods"], t["ltp_coefs"], t["pre_coef"], t["pre_prev"],
+            methods)
+
+
+def k19_inputs(torch, np, dev, B: int, C: int, n: int, method, seed: int,
+               strided: bool = True):
+    """K19's inputs on ``dev``: y (B, C, n) int32 of full-range values with
+    int32 extremes in block 0, methods (B,) int32 (``method``: one for
+    every block, or None for 0-3 mixed) as a strided column of a (B, 3)
+    array or contiguous."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(-(1 << 31), 1 << 31, (B, C, n), dtype=np.int64)
+    y[0] = rng.choice(INT32_EDGES, (C, n))
+    m = (rng.randint(0, 4, B) if method is None
+         else np.full(B, method)).astype(np.int32)
+    packed = np.zeros((B, 3), np.int32)
+    packed[:, 1] = m
+    packed[:, 0] = rng.randint(-9, 9, B)
+    packed[:, 2] = rng.randint(-9, 9, B)
+    mt = torch.from_numpy(packed).to(dev)[:, 1]
+    if not strided:
+        mt = mt.contiguous()
+    return torch.from_numpy(y.astype(np.int32)).to(dev), mt
 
 
 def chain_step_ms(torch, kind: int) -> float:
@@ -544,28 +668,36 @@ def chain_step_ms(torch, kind: int) -> float:
 def phase_lpc(torch, np, dev):
     """K1 against its plain version at 256 taps (orders 200..256), at the
     tail group's shape (2 rows of 4064 samples) and at the main-path shape,
-    with and without fused de-emphasis; times the main and the tail shape.
-    Returns the kernel's JSON record without its launch count."""
-    from srla_tpu_torch.kernels.lpc import lpc_scan, lpc_scan_plain
+    with and without fused de-emphasis; K1's coefficient entry on the same
+    inputs read as a strided view of left-aligned coefficients, equal to
+    the aligned entry; times the main and the tail shape. Returns the
+    kernel's JSON record without its launch count, and the coefficient
+    entry's main and tail arguments."""
+    from srla_tpu_torch.kernels.lpc import (lpc_scan, lpc_scan_coefs,
+                                            lpc_scan_plain)
 
     err, shapes = 0, {}
     for R, n, M, min_order in ((264, 4096, 256, 200), (2, 4064, 64, 1),
                                (2584, 4096, 64, 1)):
-        args, fused = lpc_inputs(torch, np, dev, R, n, M, min_order, seed=M)
+        args, fused, left = lpc_inputs(torch, np, dev, R, n, M, min_order,
+                                       seed=M)
         for kw in ({}, fused):
             got = lpc_scan(*args, **kw)
             want = lpc_scan_plain(*args, **kw)
+            coefs_got = lpc_scan_coefs(args[0], left, *args[2:], **kw)
             torch.cuda.synchronize()
-            e = max_abs_err(torch, got, want)
-            require(e == 0, f"K1 differs from its plain version at R={R} "
-                            f"M={M} (fused={bool(kw)}, max abs err {e})")
+            e = max(max_abs_err(torch, got, want),
+                    max_abs_err(torch, coefs_got, want))
+            require(e == 0, f"K1 (or its coefficient entry) differs from "
+                            f"its plain version at R={R} M={M} "
+                            f"(fused={bool(kw)}, max abs err {e})")
             err = max(err, e)
-        shapes[R] = (args, fused)
-        print(f"phase 1 K1 lpc_synth: bit-equal to plain at R={R} n={n} "
-              f"M={M}, orders {min_order}..{M}, with and without fused "
-              f"de-emphasis")
-    args, fused = shapes[2584]
-    tail_args, tail_fused = shapes[2]
+        shapes[R] = (args, fused, left)
+        print(f"phase 1 K1 lpc_synth and its coefficient entry: bit-equal "
+              f"to plain at R={R} n={n} M={M}, orders {min_order}..{M}, "
+              f"with and without fused de-emphasis")
+    args, fused, _ = shapes[2584]
+    tail_args, tail_fused, _ = shapes[2]
     ms = cuda_ms(torch, lambda: lpc_scan(*args, **fused), 20)
     tail_ms = cuda_ms(torch, lambda: lpc_scan(*tail_args, **tail_fused), 20)
     plain_ms = cuda_ms(torch, lambda: lpc_scan_plain(*args, **fused), 1)
@@ -590,7 +722,7 @@ def phase_lpc(torch, np, dev):
                 replaces="srla_tpu/kernels/pallas_lpc.py:102",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                 library_ms=None, tail_ms=tail_ms, serial_floor_ms=floor_ms,
-                tail_serial_floor_ms=tail_floor_ms)
+                tail_serial_floor_ms=tail_floor_ms), err
 
 
 def phase_rice(torch, dev, stream: bytes):
@@ -651,6 +783,231 @@ def phase_rice(torch, dev, stream: bytes):
                 tail_serial_floor_ms=tail_floor_ms)
 
 
+def k19_bound(y, methods, lshift: int) -> dict:
+    """K19's bound on this run's data: the bytes the in-place pass must
+    move (a block's rows 0 and 1 read where its method changes them, each
+    changed row written; every row of every channel read and written when
+    lshift is not 0) and about four integer instructions a sample of each
+    pair it changes. ``full`` adds the bound of a pass over every row read
+    and written once."""
+    B, C, n = y.shape
+    m = methods.long().cpu()
+    if lshift != 0:
+        rows_read = rows_written = B * C
+        pairs = B if C >= 2 else 0
+    elif C >= 2:
+        changed = int(((m >= 1) & (m <= 3)).sum())
+        rows_read = 2 * changed
+        rows_written = 2 * int((m == 1).sum()) + int(((m == 2) | (m == 3))
+                                                     .sum())
+        pairs = changed
+    else:
+        rows_read = rows_written = pairs = 0
+    b = bound(4 * n * (rows_read + rows_written), 4 * n * pairs)
+    b["full_bound_ms"] = bound(2 * nbytes(y), 4 * n * B)["bound_ms"]
+    return b
+
+
+def phase_synth_tail(torch, np, dev, stream: bytes, card: str):
+    """Phase 17 (run after phase 2): the decode's synthesis on the card on
+    phase 3's stream, each group's own inputs. K1's coefficient entry
+    (lpc_scan_coefs: the coefficients read where the packed parameters
+    hold them) equal to K1's aligned entry on align_coefs' taps; K19
+    (synth_tail: the stereo inverse and offset shift) on K1's output and
+    the methods column of the packed parameters (a strided view), in place
+    and out of place, bit-equal to synth_tail_plain; then K19 at odd cases
+    (k19_inputs: n 333, C 1, 3 and 8, each method alone and mixed, lshift
+    0, 1 and 8, int32 extremes, a strided and a contiguous methods view).
+    Times K19 and K1's coefficient entry at the main (1291 blocks of 4096)
+    and tail (1 block of 4064) groups beside their plain versions and
+    bounds (K19's parent in turns from kernel_ab --stages where given),
+    and lists by torch.profiler the device work of synthesize on the main
+    group and on a synthetic LTP group: only K1, K9 and K19. Returns the
+    records of K19 and of K1's coefficient entry (without launches)."""
+    from srla_tpu_torch.decoder import SRLADecoder, upload_stream
+    from srla_tpu_torch.kernels.decode2 import (meta_cols, synth_tail,
+                                                synth_tail_plain, synthesize)
+    from srla_tpu_torch.kernels.lpc import (align_coefs, lpc_scan,
+                                            lpc_scan_coefs, lpc_scan_plain)
+    from srla_tpu_torch.kernels.rice_decode import rice_decode
+
+    t_phase = time.perf_counter()
+    header, _, groups = SRLADecoder(dev).plan(stream)
+    C, lshift = header.num_channels, header.offset_lshift
+    words = upload_stream(stream, dev)
+    err1 = err19 = 0
+    cases = []
+    for g in groups:
+        cols, _ = meta_cols(C, g.M, 3)
+        meta = torch.from_numpy(g.meta).to(dev)
+        B, R, n = meta.shape[0], meta.shape[0] * C, g.n
+
+        def col(name, shape=()):
+            o, w = cols[name]
+            v = meta[:, o:o + w]
+            return (v.reshape((B,) + shape) if shape else v[:, 0])
+
+        res = rice_decode(words, col("word_start").contiguous(),
+                          col("bit_rem").contiguous(), n, C, g.W)
+        coefs = col("coefs", (C, g.M))
+        orders = col("orders", (C,)).reshape(R).contiguous()
+        k1 = (res.reshape(R, n), coefs, orders,
+              col("rshifts", (C,)).reshape(R).contiguous(), n, g.M)
+        kw = dict(dcoef=col("pre_coef", (C,)).reshape(R).contiguous(),
+                  dprev=col("pre_prev", (C,)).reshape(R).contiguous())
+        y = lpc_scan_coefs(*k1, **kw)
+        aligned = (k1[0], align_coefs(coefs.reshape(R, -1), orders, g.M),
+                   *k1[2:])
+        e = max_abs_err(torch, y, lpc_scan(*aligned, **kw))
+        require(e == 0, f"K1's coefficient entry differs from the aligned "
+                        f"entry on the {B}-block group (max abs err {e})")
+        err1 = max(err1, e)
+        y = y.reshape(B, C, n)
+        methods = col("method")
+        require(methods.stride(0) == meta.shape[1], "methods not strided")
+        want = synth_tail_plain(y, methods, lshift)
+        out = torch.empty_like(y)
+        e = max(max_abs_err(torch, synth_tail(y, methods, lshift, out=out),
+                            want),
+                max_abs_err(torch, synth_tail(y.clone(), methods, lshift),
+                            want))
+        require(e == 0, f"K19 differs from its plain version on the "
+                        f"{B}-block group (max abs err {e})")
+        err19 = max(err19, e)
+        cases.append((B, y, methods, k1, kw, aligned, g, meta, cols))
+    cases.sort(key=lambda c: c[0])
+    odd = []
+    for n in (333, 4096):
+        for method in (0, 1, 2, 3, None):
+            for sh in (0, 1, 8):
+                odd.append((9, 2, n, method, sh, True))
+    odd += [(5, 1, 333, None, 0, True), (5, 1, 4096, None, 8, False),
+            (5, 3, 333, None, 1, True), (5, 3, 4096, None, 0, False),
+            (5, 8, 333, None, 8, True), (5, 8, 4064, None, 0, True),
+            (1, 2, 4064, None, 0, False)]
+    odd_dev = {}
+    for i, (B, Cc, n, method, sh, strided) in enumerate(odd):
+        y, m = k19_inputs(torch, np, dev, B, Cc, n, method, i, strided)
+        want = synth_tail_plain(y, m, sh)
+        out = torch.empty_like(y)
+        e = max(max_abs_err(torch, synth_tail(y, m, sh, out=out), want),
+                max_abs_err(torch, synth_tail(y.clone(), m, sh), want))
+        require(e == 0, f"K19 differs from its plain version at B {B} C "
+                        f"{Cc} n {n} method {method} lshift {sh}")
+        err19 = max(err19, e)
+        if method is None and sh == 8 and n in (333, 4096) and Cc in (2, 8):
+            odd_dev[f"B{B}_C{Cc}_n{n}_lshift8"] = device_ms(
+                torch, lambda: synth_tail(y, m, sh, out=out), 20)
+
+    def timed_tail(case):
+        B, y, m = case[:3]
+        buf = y.clone()
+        return dict(ms=cuda_ms(torch, lambda: synth_tail(buf, m, lshift), 20),
+                    device_ms=device_ms(torch, lambda: synth_tail(
+                        buf, m, lshift), 20))
+
+    main, tail = cases[-1], cases[0]
+    B, y, m = main[:3]
+    t19, t19_tail = timed_tail(main), timed_tail(tail)
+    plain_ms = cuda_ms(torch, lambda: synth_tail_plain(y, m, lshift), 5)
+    plain_dev = device_ms(torch, lambda: synth_tail_plain(y, m, lshift), 5)
+    b19 = k19_bound(y, m, lshift)
+    mh = {int(k): int(v) for k, v in zip(*np.unique(m.cpu().numpy(),
+                                                     return_counts=True))}
+    copy = copy_ms(torch, dev, 2 * nbytes(y))
+    print(f"phase 17 K19 synth_tail: bit-equal to plain (in place and out "
+          f"of place) on the {len(cases)} groups of phase 3's stream and at "
+          f"{len(odd)} odd cases; main group B={B} C={C} n={y.shape[2]} "
+          f"(methods {mh}, lshift {lshift}): kernel {t19['ms']:.4f} ms, "
+          f"device time {t19['device_ms']:.4f} ms, plain (the torch ops "
+          f"synthesize ran before) {plain_ms:.4f} ms, device time "
+          f"{plain_dev:.4f} ms, bound {b19['bound_ms']:.4f} ms "
+          f"({b19['bound_by']}; every row read and written "
+          f"{b19['full_bound_ms']:.4f} ms; a copy of those bytes "
+          f"{copy:.4f} ms); tail B={tail[0]} n={tail[1].shape[2]}: kernel "
+          f"{t19_tail['ms']:.4f} ms, device time "
+          f"{t19_tail['device_ms']:.4f} ms; odd shapes (device ms) "
+          f"{ {k: round(v, 4) for k, v in odd_dev.items()} }; "
+          + parent_text("k19_main", "stages") + f" [{card}]")
+
+    # K1's coefficient entry at the main and tail groups.
+    k1, kw, aligned = main[3:6]
+    ms1 = cuda_ms(torch, lambda: lpc_scan_coefs(*k1, **kw), 20)
+    dev1 = device_ms(torch, lambda: lpc_scan_coefs(*k1, **kw), 5)
+    ms_al = cuda_ms(torch, lambda: lpc_scan(*aligned, **kw), 20)
+    dev_al = device_ms(torch, lambda: (lpc_scan(
+        k1[0], align_coefs(k1[1].reshape(k1[0].shape[0], -1), k1[2], k1[5]),
+        *k1[2:], **kw)), 5)
+    tk1, tkw = tail[3:5]
+    tail1 = cuda_ms(torch, lambda: lpc_scan_coefs(*tk1, **tkw), 20)
+    plain1 = cuda_ms(torch, lambda: lpc_scan_plain(
+        *aligned, **kw), 1)
+    R, n = k1[0].shape
+    b1 = bound(nbytes(k1[0], k1[2], k1[3], *kw.values()) + nbytes(k1[0])
+               + 4 * int(k1[2].long().clamp(max=k1[5]).sum()),
+               n * (int(k1[2].long().sum()) + 6 * R))
+    print(f"phase 17 K1's coefficient entry lpc_scan_coefs at the main "
+          f"group (R={R}, n={n}, M={k1[5]}, fused de-emphasis): kernel "
+          f"{ms1:.4f} ms, device time {dev1:.4f} ms; the aligned entry on "
+          f"the aligned taps {ms_al:.4f} ms, with align_coefs' gather "
+          f"before it (the decode's two steps before) device time "
+          f"{dev_al:.4f} ms; plain (align_coefs + lpc_scan_plain) "
+          f"{plain1:.2f} ms; bound {b1['bound_ms']:.4f} ms "
+          f"({b1['bound_by']}); tail R={tk1[0].shape[0]}: kernel "
+          f"{tail1:.4f} ms [{card}]")
+
+    # synthesize's device work: only K1 (K9) and K19, on its arguments as
+    # decode_blocks hands them over (made before the profiled call).
+    Bm, _, mm, _, _, _, g, meta, cols = main
+
+    def c(name, shape, strided=False):
+        o, w = cols[name]
+        v = meta[:, o:o + w].view((Bm,) + shape)
+        return v if strided else v.contiguous()
+
+    margs = (main[3][0].reshape(Bm, C, g.n), c("orders", (C,)),
+             c("rshifts", (C,)), c("coefs", (C, g.M), True),
+             c("ltp_orders", (C,)), c("ltp_periods", (C,)),
+             c("ltp_coefs", (C, 3)), c("pre_coef", (C,)),
+             c("pre_prev", (C,)), mm)
+    inp = synth_inputs(np, 64, 2, 4096, 32, seed=17, ltp=True)
+    largs = synth_args(torch, np, inp, dev, 2, 32)
+    ours = ("lpc_synth_kernel", "ltp_synth_kernel", "synth_tail_kernel")
+    lists = {}
+    for what, fn in (("main group", lambda: synthesize(
+            *margs, lshift, n=g.n, C=C, M=g.M, has_ltp=False)),
+                     ("LTP group (B 64)", lambda: synthesize(
+                         *largs, 1, n=4096, C=2, M=32, has_ltp=True))):
+        split = profile_kernels(torch, fn, runs=1)
+        other = [name for name, *_ in split
+                 if not any(k in name for k in ours)]
+        require(not other, f"synthesize on the {what} ran device work "
+                           f"besides K1, K9 and K19: {other}")
+        lists[what] = split
+    print("phase 17 synthesize's device work by torch.profiler, one call: "
+          + "; ".join(f"{what}: {split_text(split)}"
+                      for what, split in lists.items())
+          + f" (phase {time.perf_counter() - t_phase:.1f} s) [{card}]")
+    rec19 = dict(name="synth_tail", route="cuda",
+                 source="srla_tpu_torch/kernels/csrc/synth_tail.cu",
+                 replaces="srla_tpu/kernels/decode2.py:503",
+                 max_abs_err=err19, ms=t19["ms"],
+                 device_ms=t19["device_ms"], plain_ms=plain_ms,
+                 plain_device_ms=plain_dev, **b19, library_ms=None,
+                 copy_ms=copy, tail_ms=t19_tail["ms"],
+                 tail_device_ms=t19_tail["device_ms"], methods=mh,
+                 odd=odd_dev,
+                 parent_in_turns=parent_runs("k19_main", "stages"))
+    rec1 = dict(name="lpc_synth_coefs", route="cuda",
+                source="srla_tpu_torch/kernels/csrc/lpc_synth.cu",
+                replaces="srla_tpu/kernels/decode2.py:513",
+                also_replaces=["srla_tpu/kernels/pallas_lpc.py:102"],
+                max_abs_err=err1, ms=ms1, device_ms=dev1, plain_ms=plain1,
+                **b1, library_ms=None, tail_ms=tail1, aligned_entry_ms=ms_al,
+                aligned_with_gather_device_ms=dev_al)
+    return rec19, rec1
+
+
 def profile_decode(torch, fn, what: str) -> None:
     """One warm call of fn (a decode) under torch.profiler, after one call
     in the profiler's warm-up step (a second profiler session in a process
@@ -686,7 +1043,7 @@ def profile_decode(torch, fn, what: str) -> None:
                     key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in events)
     ours = ("Memcpy", "rice_decode_kernel", "lpc_synth_kernel",
-            "ltp_synth", "verify_kernel")
+            "ltp_synth", "verify_kernel", "synth_tail_kernel")
     shown = [e for i, e in enumerate(events) if dev_us(e) > 0 and (
         i < 8 or any(k in e.key for k in ours))]
     top = ", ".join(f"{e.key[:72]} {dev_us(e) / 1e3:.3f} ms x{e.count}"
@@ -699,7 +1056,7 @@ LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "bitfield_probe", "ltp_synth", "ltp_analyze",
              "autocorr", "lpc_analyze", "svr_cov", "svr_refine", "verify",
              "lpc_analyze_f32", "rice_cost", "preemphasis", "select",
-             "ltp_predict")
+             "ltp_predict", "synth_tail")
 # Measurement only: the serial floors, and the first designs of K8, K7, K9,
 # K10 and K12.
 PROBES = ("chain_probe", "autocorr_v1", "lpc_analyze_v1", "ltp_synth_v1",
@@ -1513,19 +1870,22 @@ def all_wrappers() -> dict:
     from srla_tpu_torch.kernels.bitpack import pack, pack_residual_sections
     from srla_tpu_torch.kernels.levinson import (lpc_analyze, lpc_coefs,
                                                  lpc_quantize)
-    from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.decode2 import synth_tail
+    from srla_tpu_torch.kernels.lpc import lpc_scan, lpc_scan_coefs
     from srla_tpu_torch.kernels.lpc_f32 import lpc_analyze_f32
     from srla_tpu_torch.kernels.ltp import (ltp_analyze, ltp_predict,
                                             ltp_synth)
     from srla_tpu_torch.kernels.predict import predict
-    from srla_tpu_torch.kernels.preemphasis import variant_preemphasis
+    from srla_tpu_torch.kernels.preemphasis import (variant_preemphasis,
+                                                    variant_preemphasis_f32)
     from srla_tpu_torch.kernels.rice_cost import rice_cost
     from srla_tpu_torch.kernels.rice_decode import rice_decode
     from srla_tpu_torch.kernels.rice_search import rice_search
     from srla_tpu_torch.kernels.select import measure_blocks, select_blocks
     from srla_tpu_torch.kernels.svr import svr_cov, svr_refine
     from srla_tpu_torch.kernels.verify import verify_blocks
-    return {"lpc_synth": lpc_scan, "rice_decode": rice_decode,
+    return {"lpc_synth": lpc_scan, "lpc_synth_coefs": lpc_scan_coefs,
+            "synth_tail": synth_tail, "rice_decode": rice_decode,
             "fir_predict": predict, "rice_search": rice_search,
             "pack_residual_sections": pack_residual_sections,
             "bitpack": pack, "ltp_synth": ltp_synth,
@@ -1536,7 +1896,8 @@ def all_wrappers() -> dict:
             "verify": verify_blocks, "lpc_analyze_f32": lpc_analyze_f32,
             "rice_cost": rice_cost, "preemphasis": variant_preemphasis,
             "select_blocks": select_blocks, "measure_blocks": measure_blocks,
-            "ltp_predict": ltp_predict}
+            "ltp_predict": ltp_predict,
+            "preemphasis_f32": variant_preemphasis_f32}
 
 
 def stage_plains():
@@ -1806,7 +2167,7 @@ def phase_variable(torch, np, dev, music, card):
     encode and decode apart; the checks' max_abs_err by kernel; K4's
     generic record; each path's K7 and K8 tally; the -V 3 path's PCM and
     stream)."""
-    from srla_tpu_torch import SRLAEncoder, decode
+    from srla_tpu_torch import SRLADecoder, SRLAEncoder, decode
     from srla_tpu_torch.encoder import StepTimer
     from srla_tpu_torch.host_encoder import encode as host_encode
     from srla_tpu_torch.kernels import exact
@@ -1865,9 +2226,10 @@ def phase_variable(torch, np, dev, music, card):
                                     lambda: decode(data, device=dev))
         require(np.array_equal(out, pcm), f"-V {V} decode of {what} is not "
                                           f"lossless")
-        for name in ("lpc_synth", "rice_decode"):
-            require(dec_got[name] > 0, f"{name} was not launched by the -V "
-                                       f"{V} decode")
+        ngroups = len(SRLADecoder(dev).plan(data)[2])
+        require(dec_got["rice_decode"] == ngroups, f"-V {V} decode: K2 "
+                                                   f"launches {dec_got}")
+        decode_launches_ok(dec_got, ngroups, 0, ngroups, f"-V {V} decode")
         launches[path] = {"encode": got, "decode": dec_got}
         sizes: dict = {}
         for _, n in stream_blocks(stream):
@@ -1886,7 +2248,7 @@ def phase_variable(torch, np, dev, music, card):
               f"of {nspans}, {len(spans)} lengths in {n_measure} "
               f"measurement calls; {n_encode} encode groups; launches "
               f"{got}; decode on the card lossless, launches "
-              f"{ {k: dec_got[k] for k in ('lpc_synth', 'rice_decode')} }; "
+              f"{ {k: dec_got[k] for k in DECODE_SHOWN} }; "
               f"peak device memory {peak_gb:.2f} GiB")
         tally = new_tally()
         err, checked, timed_k4 = variable_kernels(
@@ -1975,8 +2337,8 @@ def ltp_synth_groups(torch, dev, stream: bytes) -> list:
     the LPC output, the group's parameters its LTP orders, periods and
     coefficients. Returns [(blocks, n, args)]."""
     from srla_tpu_torch.decoder import SRLADecoder, upload_stream
-    from srla_tpu_torch.kernels.decode2 import align_coefs, meta_cols
-    from srla_tpu_torch.kernels.lpc import lpc_scan
+    from srla_tpu_torch.kernels.decode2 import meta_cols
+    from srla_tpu_torch.kernels.lpc import align_coefs, lpc_scan
     from srla_tpu_torch.kernels.rice_decode import rice_decode
 
     header, _, groups = SRLADecoder(dev).plan(stream)
@@ -2205,7 +2567,7 @@ def phase_ltp_decode(torch, np, dev, card):
     LTP group; then K9 against its plain version on every LTP group of the
     stream and at the edge shapes (n 300 and the 4064-sample tail).
     Returns (the decode's launches, K9's max_abs_err)."""
-    from srla_tpu_torch import decode
+    from srla_tpu_torch import SRLADecoder, decode
     from srla_tpu_torch.host_encoder import encode
     from srla_tpu_torch.kernels.ltp import ltp_synth, ltp_synth_plain
     from srla_tpu_torch.signals import make_music
@@ -2220,6 +2582,8 @@ def phase_ltp_decode(torch, np, dev, card):
     require(got["ltp_synth"] == len(groups),
             f"K9 launched {got['ltp_synth']} times by the -m 6 -P 3 decode, "
             f"expected one per LTP group ({len(groups)})")
+    ngroups = len(SRLADecoder(dev).plan(stream4)[2])
+    decode_launches_ok(got, ngroups, len(groups), ngroups, "-m 6 -P 3 decode")
     err = check_ltp_synth(torch, "-m 6 -P 3", groups)
     for n in (300, 4064):
         err = max(err, check(torch, f"K9 at the edges (n={n})", ltp_synth,
@@ -2232,7 +2596,7 @@ def phase_ltp_decode(torch, np, dev, card):
     t = best_of(torch, lambda: decode(stream4, device=dev))
     print(f"phase 4 decode -m 6 -P 3 {LTP_SECONDS:.0f} s stereo: lossless, "
           f"{len(groups)} LTP groups, launches "
-          f"{ {k: got[k] for k in ('rice_decode', 'lpc_synth', 'ltp_synth')} }"
+          f"{ {k: got[k] for k in DECODE_SHOWN} }"
           f"; K9 bit-equal to plain on every LTP group (blocks x n "
           f"{[(B, n) for B, n, _ in groups]}), at the edges (70 rows of "
           f"300 and 4064: delay 9 at order 3, order 1, period 0, order 0, "
@@ -2368,10 +2732,13 @@ def phase_ltp_encode(torch, np, dev, music, card):
                                     lambda: decode(data, device=dev))
         require(np.array_equal(out, music), f"{path} decode is not "
                                             f"lossless")
-        dec_names = ("rice_decode", "lpc_synth", "ltp_synth")
+        dec_names = ("rice_decode", "lpc_synth_coefs", "ltp_synth",
+                     "synth_tail")
         for name in dec_names:
             require(dec_got[name] > 0, f"{name} was not launched by the -V "
                                        f"{V} -P 3 decode")
+        require(dec_got["lpc_synth"] == 0, f"{path} decode: K1's aligned "
+                                           f"entry launched")
         launches[path] = {"encode": got, "decode": dec_got}
         on, checked, tally = 0, [], new_tally()
         for what, args, pre, work, lags in ltp_analysis_calls(
@@ -3896,6 +4263,45 @@ def corpus_calls(files, max_block: int, limit: int) -> dict:
                 per_file=sum(len(calls(sizes(x))) for x in files))
 
 
+def fused_tail_groups(streams) -> int:
+    """K19's launches on the fused decode of ``streams``: the fused groups
+    (``fused_groups``) of the header-compatible sets that are stereo or
+    shifted."""
+    from srla_tpu_torch.format import decode_header
+    sets: dict = {}
+    for st in streams:
+        h = decode_header(st)
+        key = (h.num_channels, h.bits_per_sample, h.offset_lshift,
+               h.max_num_samples_per_block, h.preset, h.sampling_rate)
+        sets.setdefault(key, []).append(st)
+    return sum(fused_groups(group)[0] for key, group in sets.items()
+               if key[0] >= 2 or key[2] != 0)
+
+
+def tail_groups(stream: bytes, groups: int) -> int:
+    """K19's launches on a decode of ``groups`` groups of ``stream``: one a
+    group, none where the stream is mono at offset shift 0 (nothing to
+    change)."""
+    from srla_tpu_torch.format import decode_header
+    h = decode_header(stream)
+    return groups if h.num_channels >= 2 or h.offset_lshift != 0 else 0
+
+
+DECODE_SHOWN = ("rice_decode", "lpc_synth_coefs", "ltp_synth", "synth_tail")
+
+
+def decode_launches_ok(got: dict, groups: int, ltp_groups: int,
+                       tail: int, what: str) -> None:
+    """A decode's K1, K9 and K19 launches: K1's coefficient entry once a
+    group and once more an LTP group (the de-emphasis), its aligned entry
+    never, K9 once an LTP group, K19 ``tail`` times."""
+    want = {"lpc_synth_coefs": groups + ltp_groups, "lpc_synth": 0,
+            "ltp_synth": ltp_groups, "synth_tail": tail}
+    for name, count in want.items():
+        require(got[name] == count, f"{what}: {name} launched {got[name]} "
+                                    f"times, expected {count}")
+
+
 def fused_groups(streams) -> tuple[int, int]:
     """(groups, groups of two or more blocks) of the fused decode: one
     group per COMPRESS block length of each header-compatible set of
@@ -3989,10 +4395,11 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
         [dev], want))
     require(all(np.array_equal(p, x) for p, x in zip(pcms, files)),
             f"{what}: the fused decode is not lossless")
-    for name in ("rice_decode", "lpc_synth"):
-        require(dec_l[name] == groups,
-                f"{what}: {name} launched {dec_l[name]} times by the fused "
-                f"decode, expected {groups} (one a fused group)")
+    require(dec_l["rice_decode"] == groups,
+            f"{what}: rice_decode launched {dec_l['rice_decode']} times by "
+            f"the fused decode, expected {groups} (one a fused group)")
+    decode_launches_ok(dec_l, groups, 0, fused_tail_groups(want),
+                       f"{what}: the fused decode")
     runs = {"encode": enc_l, "decode": dec_l}
     splits = [("split", [dev, dev])]
     if torch.cuda.device_count() > 1:
@@ -4033,7 +4440,7 @@ def corpus_case(torch, np, dev, what: str, files, bps: int, rate: int,
           f"against {plan['per_file']} per file, launches "
           f"{ {k: enc_l[k] for k in ENCODE_KERNELS} }, stats {stats}; "
           f"the fused decode lossless, {groups} groups, launches "
-          f"{ {k: dec_l[k] for k in ('rice_decode', 'lpc_synth')} } [{card}]")
+          f"{ {k: dec_l[k] for k in DECODE_SHOWN} } [{card}]")
     if timing:
         params = {C: make_parameter(C, bps, rate, 4, block) for C in (1, 2)}
         t_files = best_of(torch, lambda: encode_files(
@@ -4125,12 +4532,15 @@ def phase_block_api(torch, np, dev, pcm, stream, pcm4, stream4, hires,
         require(runs["encode_block"][name] == 13,
                 f"encode_block launched {name} "
                 f"{runs['encode_block'][name]} times, expected 13")
-    # K2 and K1 once a COMPRESS block, K9 and K1 again once an LTP block.
+    # K2, K1's coefficient entry and K19 once a COMPRESS block, K9 and K1
+    # again once an LTP block.
     per_block = {}
     for src in (stream, stream4):
         ncomp, nltp = compress_blocks(src), ltp_blocks(np, dev, src)
-        per_block[src] = {"rice_decode": ncomp, "lpc_synth": ncomp + nltp,
-                          "ltp_synth": nltp}
+        per_block[src] = {"rice_decode": ncomp,
+                          "lpc_synth_coefs": ncomp + nltp, "lpc_synth": 0,
+                          "ltp_synth": nltp,
+                          "synth_tail": tail_groups(src, ncomp)}
 
     def block_launches(tag: str, src: bytes) -> dict:
         got_l = {k: runs[tag][k] for k in per_block[src]}
@@ -4346,11 +4756,10 @@ def resident_case(torch, np, dev, what: str, pcm, stream: bytes):
         require(got[name] == len(groups),
                 f"phase 14 {what}: {name} launched {got[name]} times, "
                 f"expected {len(groups)} (one a group)")
-    require(got["lpc_synth"] >= len(groups),
-            f"phase 14 {what}: lpc_synth launched {got['lpc_synth']} times")
+    decode_launches_ok(got, len(groups), got["ltp_synth"],
+                       tail_groups(stream, len(groups)), f"phase 14 {what}")
     checks, largest, smallest = k13_groups(torch, np, dev, stream, want_dev)
-    shown = {k: got[k] for k in ("rice_decode", "lpc_synth", "ltp_synth",
-                                 "verify")}
+    shown = {k: got[k] for k in DECODE_SHOWN + ("verify",)}
     print(f"phase 14 {what}: resident decode True, {ncomp} COMPRESS blocks "
           f"on the device in {len(groups)} groups, launches {shown}; K13 "
           f"equal to its plain version on {checks} checks")
@@ -4673,17 +5082,24 @@ def approx_kernel_inputs(torch, np, dev, pcm, tail: bool = False):
 
 
 def approx_no_plain(fn):
-    """fn() with the plain versions of K14, K15, K17 and K5's section entry
-    replaced by tripwires: an approximate encode on the card that reached
-    one of them raises."""
+    """fn() with the plain versions of K14, K15, K16's f32 entry, K18, K17
+    and K5's section entry (and the torch variant stack and span cut that
+    K16's plain version composes) replaced by tripwires: an approximate
+    encode on the card that reached one of them raises."""
     from srla_tpu_torch.kernels import lpc_f32, rice_cost
+    from srla_tpu_torch.kernels import ltp as k18
+    from srla_tpu_torch.kernels import preemphasis as k16
     names = ((lpc_f32, "lpc_analyze_f32_plain"),
-             (rice_cost, "rice_cost_plain")) + stage_plains()
+             (rice_cost, "rice_cost_plain"),
+             (k16, "variant_preemphasis_f32_plain"),
+             (k16, "preemphasis_f32_rows"), (k16, "variant_stack"),
+             (k16, "cut_spans"), (k18, "ltp_predict_plain")) \
+        + stage_plains()
     saved = [getattr(m, name) for m, name in names]
 
     def tripwire(*_a, **_k):
-        raise RuntimeError("a plain version of K14, K15, K17 or K5 ran on "
-                           "the approximate encode's path")
+        raise RuntimeError("a plain version of K14, K15, K16, K17, K18 or "
+                           "K5 ran on the approximate encode's path")
 
     for m, name in names:
         setattr(m, name, tripwire)
@@ -4722,12 +5138,13 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
     """Phase 15: the f32 approximate encode. K14 and K15 against their
     plain versions at the main group's, the tail group's and odd shapes;
     the approximate encode of the 120 s file at -m 4 -B 4096 -V 0, counted
-    (K14, K15, K3 and K5 once a group, the exact analysis' K8, K7 and K4
-    never, no plain version reached), lossless on the card, within 2 % of
-    the exact stream, timed beside the exact encode; the same at -V 1 and
-    at -V 0 -P 3; full_step_sharded over [cuda:0, cuda:0] against one call.
-    The same at -m 5 (max order 128). K14's recursion's serial floor
-    (``k14_floor``).
+    (K16's f32 entry, K14, K15, K3 and K5 once a group, K18 once a group
+    with -P, the exact analysis' K8, K7, K4 and K16's exact entry never, no
+    plain version reached), lossless on the card, within 2 % of the exact
+    stream, timed beside the exact encode; the same at -V 1 and at -V 0 -P
+    3; the StepTimer split at -V 0, -V 1 -L 4 and -V 0 -P 3;
+    full_step_sharded over [cuda:0, cuda:0] against one call. The same at
+    -m 5 (max order 128). K14's recursion's serial floor (``k14_floor``).
     Returns (K14's and K15's records, {path: {run: launches}})."""
     from srla_tpu_torch import SRLAEncoder, decode, parallel
     from srla_tpu_torch.encoder import StepTimer
@@ -4791,7 +5208,7 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
                          "pack_residual_sections", "bitpack", "autocorr",
                          "lpc_analyze", "rice_search", "ltp_analyze",
                          "select_blocks", "measure_blocks", "preemphasis",
-                         "ltp_predict")}
+                         "ltp_predict", "preemphasis_f32")}
     exact_sizes, times = {}, {}
     for path, V, P, preset in APPROX_PATHS:
         param = approx_param(V, P, preset)
@@ -4817,12 +5234,20 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
         require(s["device_blocks"] == ncomp and s["host_blocks"] == 0
                 and s["repaired_blocks"] == 0,
                 f"{path}: block routing {s}, {ncomp} COMPRESS blocks")
-        # The approximate path keeps its f32 pre-emphasis and LTP filter
-        # (torch ops): K16 and K18 are the exact path's.
+        # K16's f32 entry once an analysis call (a group, or a -V
+        # measurement call), K18 once a group with -P; the exact analysis'
+        # kernels and K16's exact entry never.
         for name in ("autocorr", "lpc_analyze", "rice_search",
-                     "ltp_analyze", "bitpack", "preemphasis", "ltp_predict"):
+                     "ltp_analyze", "bitpack", "preemphasis"):
             require(got[name] == 0, f"{path}: {name} launched {got[name]} "
                                     f"times by the approximate encode")
+        require(got["preemphasis_f32"] == got["fir_predict"],
+                f"{path}: K16's f32 entry launched {got['preemphasis_f32']} "
+                f"times, K3 {got['fir_predict']}")
+        want18 = got["pack_residual_sections"] if P else 0
+        require(got["ltp_predict"] == want18,
+                f"{path}: K18 launched {got['ltp_predict']} times, expected "
+                f"{want18}")
         if V == 0:
             # Two groups (1291 blocks of 4096, 1 of 4064): once each.
             for name in ("lpc_analyze_f32", "rice_cost", "fir_predict",
@@ -4859,14 +5284,18 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
               f"{best * 1e3:.1f} ms = {MAIN_SECONDS / best:.1f}x realtime "
               f"(the exact encode {best_exact * 1e3:.1f} ms = "
               f"{MAIN_SECONDS / best_exact:.1f}x) [{card}]")
-    enc = SRLAEncoder(approx_param(0, 0), dev, approx=True)
-    enc.timer = StepTimer(dev)
-    enc.encode_whole(pcm)
-    steps = enc.timer.seconds
-    print("phase 15 approximate encode breakdown -V 0 (host clock, "
-          "synchronised per step, ms): "
-          + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
-          + f"; total {sum(steps.values()) * 1e3:.2f}")
+    splits = {}
+    for what, V, P in (("-V 0", 0, 0), ("-V 1 -L 4", 1, 0),
+                       ("-V 0 -P 3", 0, 3)):
+        enc = SRLAEncoder(approx_param(V, P), dev, approx=True)
+        enc.timer = StepTimer(dev)
+        enc.encode_whole(pcm)
+        steps = enc.timer.seconds
+        splits[what] = {k: v * 1e3 for k, v in steps.items()}
+        print(f"phase 15 approximate encode breakdown {what} (host clock, "
+              f"synchronised per step, ms): "
+              + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in steps.items())
+              + f"; total {sum(steps.values()) * 1e3:.2f} [{card}]")
 
     # The sharded step over two shards of one card against one call.
     args = dict(n=4096, bps=16, max_params=64, max_fixed=False,
@@ -4889,7 +5318,7 @@ def phase_approx(torch, np, dev, pcm, stream: bytes, card: str):
           f"{time.perf_counter() - t_phase:.1f} s")
 
     base = dict(route="cuda", library_ms=None, approx_sizes=exact_sizes,
-                approx_times_s=times)
+                approx_times_s=times, approx_steps_ms=splits)
     recs = [
         dict(name="lpc_analyze_f32", **base,
              source="srla_tpu_torch/kernels/csrc/lpc_analyze_f32.cu",
@@ -5243,14 +5672,32 @@ def stage_timed(torch, kernel, plain, dev_fn=None, reps: int = 20) -> dict:
 
 
 def k16_bound(B: int, C: int, n: int, elem: int, V: int,
-              spans: bool) -> dict:
+              spans: bool, flags: bool = True) -> dict:
     """K16's bound: each sample of the group read once (and the span
-    offsets), the (V, n) int32 rows and their three fields written once;
-    about 13 integer instructions a row sample (form it, two widening
-    products and 64-bit adds, the residual's product, shift and
-    subtraction)."""
-    moved = B * C * n * elem + (8 * B if spans else 0) + V * n * 4 + 9 * V
+    offsets), the (V, n) int32 rows and their three fields (two without
+    the flag: the f32 entry) written once; about 13 integer instructions a
+    row sample (form it, two widening products and 64-bit adds, the
+    residual's product, shift and subtraction)."""
+    moved = (B * C * n * elem + (8 * B if spans else 0) + V * n * 4
+             + (9 if flags else 8) * V)
     return bound(moved, 13 * V * n)
+
+
+def torch_f32_preemphasis(torch, sig):
+    """The approximate analysis' pre-emphasis before K16's f32 entry (torch
+    ops on the variant rows, the sums in f32): a yardstick of the work the
+    entry replaced, which the port no longer calls."""
+    from srla_tpu_torch.kernels.lpc import wrap32
+    x = sig.to(torch.float32)
+    r0 = (x * x).sum(dim=1)
+    r1 = (x[:, :-1] * x[:, 1:]).sum(dim=1)
+    q = torch.clamp(torch.round(16.0 * r1 / torch.clamp_min(r0, 1e-30)),
+                    -16, 15)
+    coef = torch.where(r0 < 1e-6, 0.0, q).to(torch.int32)
+    s = sig.long()
+    prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
+    pred = wrap32(prev * coef.long()[:, None]) >> 4
+    return wrap32(s - pred).to(torch.int32), coef
 
 
 def k17_bound(small, out: dict, M: int) -> dict:
@@ -5381,6 +5828,66 @@ def phase_encode_stages(torch, np, dev, pcm, card):
                      parent_in_turns=parent_runs("k16_blocks", "stages"),
                      spans_parent_in_turns=parent_runs("k16_spans",
                                                        "stages")))
+
+    # K16's f32 entry (the approximate analysis' pre-emphasis).
+    from srla_tpu_torch.kernels.preemphasis import (
+        preemphasis_f32_sums, variant_preemphasis_f32,
+        variant_preemphasis_f32_plain, variant_stack)
+    e = 0
+    rows = variant_stack(blocks, 0)
+    for what, src, sh in (
+            [("main group", main_src, 0), ("main group blocks", blocks, 0),
+             ("main group rows", rows[:, None, :], 0),
+             ("tail group", tail_src, 0)]
+            + [(c[0], k16_source(torch, dev, c), c[4])
+               for c in k16_cases(np) + k16_layout_cases(np)]):
+        e = max(e, dict_err(torch, f"K16's f32 entry ({what})", dict(
+            enumerate(variant_preemphasis_f32(src, sh))), dict(enumerate(
+                variant_preemphasis_f32_plain(src, sh)))))
+    # 24-bit rows of 16384 samples: r0 above 2^53.
+    x24 = torch.from_numpy(np.random.RandomState(24).laplace(
+        0, 1 << 21, (6, 2, 16384)).clip(-(1 << 23), (1 << 23) - 1)
+        .astype(np.int32)).to(dev)
+    e = max(e, dict_err(torch, "K16's f32 entry (24-bit n 16384)", dict(
+        enumerate(variant_preemphasis_f32(x24, 0))), dict(enumerate(
+            variant_preemphasis_f32_plain(x24, 0)))))
+    require(bool((preemphasis_f32_sums(variant_stack(x24, 0))[0].double()
+                  > 2.0 ** 53).any()), "no 24-bit row has r0 above 2^53")
+    f32_t = stage_timed(torch, lambda: variant_preemphasis_f32(main_src, 0),
+                        lambda: variant_preemphasis_f32_plain(main_src, 0),
+                        lambda: variant_preemphasis_f32(blocks, 0))
+    f32_tail = stage_timed(torch,
+                           lambda: variant_preemphasis_f32(tail_src, 0),
+                           lambda: variant_preemphasis_f32_plain(tail_src,
+                                                                 0),
+                           lambda: variant_preemphasis_f32(tail_blocks, 0))
+    # The torch ops the approximate analysis ran before: the spans cut,
+    # the variant stack and the f32 pre-emphasis (sums in f32).
+    before = device_ms(torch, lambda: torch_f32_preemphasis(
+        torch, variant_stack(blocks, 0)), 5)
+    fb = k16_bound(B, 2, n, 2, V, True, flags=False)
+    print(f"phase 16 K16's f32 entry (variant_preemphasis_f32) at B={B} "
+          f"C=2 n={n} (V={V}, int16 spans): bit-equal to its plain version "
+          f"there, on the blocks tensor, the rows' (V, 1, n) view, the tail "
+          f"group, K16's {len(k16_cases(np))} odd and "
+          f"{len(k16_layout_cases(np))} layout cases and 24-bit rows of "
+          f"16384 (r0 above 2^53); kernel {f32_t['ms']:.4f} ms, device time "
+          f"{f32_t['device_ms']:.4f} ms (blocks), plain "
+          f"{f32_t['plain_ms']:.2f} ms, the torch stack and f32 "
+          f"pre-emphasis it replaced: device time {before:.4f} ms; bound "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}); tail: kernel "
+          f"{f32_tail['ms']:.4f} ms, device time "
+          f"{f32_tail['device_ms']:.4f} ms; the parent "
+          f"{parent_text('k16f32_blocks', 'stages')} [{card}]")
+    recs.append(dict(name="preemphasis_f32", route="cuda",
+                     source="srla_tpu_torch/kernels/csrc/preemphasis.cu",
+                     replaces="srla_tpu/kernels/encode.py:41",
+                     max_abs_err=e, ms=f32_t["ms"],
+                     plain_ms=f32_t["plain_ms"], **fb, library_ms=None,
+                     tail_ms=f32_tail["ms"], device_ms=f32_t["device_ms"],
+                     tail_device_ms=f32_tail["device_ms"],
+                     torch_ops_device_ms=before,
+                     parent_in_turns=parent_runs("k16f32_blocks", "stages")))
 
     # K17 on the analysis of both groups, and at odd inputs.
     def analysed(src, a):
@@ -5582,8 +6089,6 @@ def main(argv) -> int:
         from srla_tpu_torch import SRLADecoder, decode, parallel
         from srla_tpu_torch.host_encoder import encode
         from srla_tpu_torch.kernels import build
-        from srla_tpu_torch.kernels.lpc import lpc_scan
-        from srla_tpu_torch.kernels.rice_decode import rice_decode
         from srla_tpu_torch.signals import make_music
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -5636,7 +6141,8 @@ def main(argv) -> int:
         PARENT_AB["stages"] = stages
         print("in turns (--stages): " + json.dumps(stages))
 
-    records = [phase_lpc(torch, np, dev)]
+    k1_record, k1_err = phase_lpc(torch, np, dev)
+    records = [k1_record]
 
     pcm = make_music(MAIN_SECONDS)
     t0 = time.perf_counter()
@@ -5645,21 +6151,30 @@ def main(argv) -> int:
           f"bytes in {time.perf_counter() - t0:.2f} s (the port's native "
           f"library built on first use)")
     records.append(phase_rice(torch, dev, stream))
+    # Phase 17: K19 and K1's coefficient entry on the stream's groups.
+    k19_record, k1c_record = phase_synth_tail(torch, np, dev, stream, card)
+    k1c_record["max_abs_err"] = max(k1c_record["max_abs_err"], k1_err)
+    records += [k19_record, k1c_record]
 
     # Phase 3: the main path, counted.
-    lpc_scan.launches = 0
-    rice_decode.launches = 0
     dec = SRLADecoder(dev)
-    _, out = dec.decode_whole(stream)
-    torch.cuda.synchronize()
-    launches = {"lpc_synth": lpc_scan.launches,
-                "rice_decode": rice_decode.launches}
+    (_, out), main_dec = counted(torch, all_wrappers(),
+                            lambda: dec.decode_whole(stream))
+    # K1's record counts the kernel's launches by both entries.
+    launches = {"lpc_synth": (main_dec["lpc_synth"]
+                              + main_dec["lpc_synth_coefs"]),
+                "lpc_synth_coefs": main_dec["lpc_synth_coefs"],
+                "synth_tail": main_dec["synth_tail"],
+                "rice_decode": main_dec["rice_decode"]}
     require(np.array_equal(out, pcm), "120 s decode is not lossless")
     ncomp = compress_blocks(stream)
     require(dec.stats == {"device_blocks": ncomp, "host_blocks": 0},
             f"block routing {dec.stats}, expected {ncomp} on the device")
-    for name, count in launches.items():
-        require(count > 0, f"{name} was not launched by the decode")
+    ngroups = len(dec.plan(stream)[2])
+    require(main_dec["rice_decode"] == ngroups,
+            f"decode launches {main_dec}")
+    decode_launches_ok(main_dec, ngroups, 0, tail_groups(stream, ngroups),
+                       "phase 3 decode")
     best = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -5735,7 +6250,8 @@ def main(argv) -> int:
     approx_recs, approx_launches = phase_approx(torch, np, dev, pcm, stream,
                                                 card)
     records += approx_recs
-    for name in ("lpc_analyze_f32", "rice_cost"):
+    # K16's f32 entry's path is the same -V 0 encode.
+    for name in ("lpc_analyze_f32", "rice_cost", "preemphasis_f32"):
         launches[name] = approx_launches["music120_V0_approx"]["encode"][
             name]
 
@@ -5773,6 +6289,11 @@ def main(argv) -> int:
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":
             rec["generic_3072"] = generic
+        if rec["name"] == "lpc_synth":
+            # The decode launches K1 through its coefficient entry.
+            rec["launches_by_entry"] = {
+                "lpc_scan": main_dec["lpc_synth"],
+                "lpc_scan_coefs": main_dec["lpc_synth_coefs"]}
         if rec["name"] == "pack_residual_sections":
             # The encode runs the row entry (phase 16); phase 5's figures
             # are the entry on gathered rows, kept beside them.

@@ -1,8 +1,10 @@
 """Device code of the port: PyTorch ops around hand-written CUDA kernels.
 
-Decode: K1 ``lpc.lpc_scan`` (csrc/lpc_synth.cu), K2
-``rice_decode.rice_decode`` (csrc/rice_decode.cu) and K9 ``ltp.ltp_synth``
-(csrc/ltp_synth.cu); the decode to device-resident PCM checks each
+Decode: K2 ``rice_decode.rice_decode`` (csrc/rice_decode.cu), K1
+``lpc.lpc_scan_coefs`` (csrc/lpc_synth.cu; ``lpc.lpc_scan`` is its entry
+on aligned coefficients), K9 ``ltp.ltp_synth`` (csrc/ltp_synth.cu) and
+K19 ``decode2.synth_tail`` (csrc/synth_tail.cu: the stereo inverse and
+offset shift); the decode to device-resident PCM checks each
 group with K13 ``verify.verify_blocks`` (csrc/verify.cu). Encode, composed
 by ``exact.py``: K16 ``preemphasis.variant_preemphasis``
 (csrc/preemphasis.cu: the variant stack and pre-emphasis), K8
@@ -14,7 +16,8 @@ by ``exact.py``: K16 ``preemphasis.variant_preemphasis``
 ``select.select_blocks`` and ``select.measure_blocks`` (csrc/select.cu:
 the bit accounting and stereo selection) and K5
 ``bitpack.pack_residual_sections`` (csrc/bitpack.cu). The f32
-approximate encode, composed by ``encode.py``, runs K14
+approximate encode, composed by ``encode.py``, runs K16's f32 entry
+``preemphasis.variant_preemphasis_f32``, K18 (with LTP), K14
 ``lpc_f32.lpc_analyze_f32`` (csrc/lpc_analyze_f32.cu), K3, K15
 ``rice_cost.rice_cost`` (csrc/rice_cost.cu), K17 and K5. Each wrapper
 launches its kernel for a CUDA tensor, runs its plain PyTorch version for

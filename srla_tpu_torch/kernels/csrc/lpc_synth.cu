@@ -46,6 +46,18 @@
 // No tensor cores: the dot product is wrapping int32 x int32 fed back one
 // sample at a time, and wgmma has no int32 x int32 path (its integer forms
 // take 8-bit inputs).
+//
+// Two entries, one kernel. srla_lpc_synth takes the coefficients right-
+// aligned in M columns (srla_tpu's _align_coefs done first, as JAX's
+// _lpc_scan takes them). srla_lpc_synth_coefs aligns them as it loads
+// its taps, from the parsed coefficients where they lie (the decode's
+// packed parameters, srla_tpu/kernels/decode2.py:513): row r = b * C + c
+// reads coefs[b * bstride + c * cstride + k], left-aligned (k = 0 the
+// first coefficient), and lane l's tap of lag L is
+//   L <= min(order, M) ? coefs[.. + min(order - L, M - 1)] : 0,
+// which is _align_coefs' column M - L (its gather clips at M - 1). The
+// taps are loaded once a row, before the recurrence, which is the same
+// code for both entries.
 
 #include <cstdint>
 #include <type_traits>
@@ -60,10 +72,19 @@ constexpr unsigned kFull = 0xffffffffu;
 // Order 0; the chunk may hold s < order; every s >= order.
 enum Mode { kPass, kWarmup, kSteady };
 
+// Where a row's coefficients lie: right-aligned in M columns (aligned),
+// or left-aligned at coefs + b * bstride + c * cstride for row b * C + c
+// (aligned null).
+struct Taps {
+    const int32_t* aligned;
+    const int32_t* coefs;
+    long long bstride, cstride;
+    int C;
+};
+
 template <int T, bool FUSE>
 __global__ void __launch_bounds__(kWarps * 32)
-lpc_synth_kernel(const int32_t* __restrict__ res,
-                 const int32_t* __restrict__ aligned,
+lpc_synth_kernel(const int32_t* __restrict__ res, const Taps taps,
                  const int32_t* __restrict__ orders,
                  const int32_t* __restrict__ rshifts,
                  const int32_t* __restrict__ dcoef,
@@ -78,12 +99,26 @@ lpc_synth_kernel(const int32_t* __restrict__ res,
     const int rsh = rshifts[row];
     const uint32_t half = rsh > 0 ? (1u << (rsh - 1)) : 0x80000000u;
     uint32_t c[T], w[T];
+    if (taps.aligned != nullptr) {
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-        const int lag = lane + 1 + 32 * t;
-        c[t] = lag <= M ? (uint32_t)aligned[row * M + (M - lag)] : 0u;
-        w[t] = 0u;
+        for (int t = 0; t < T; ++t) {
+            const int lag = lane + 1 + 32 * t;
+            c[t] = lag <= M ? (uint32_t)taps.aligned[row * M + (M - lag)]
+                            : 0u;
+        }
+    } else {
+        const int r = (int)row;
+        const int32_t* cr = taps.coefs + (long long)(r / taps.C)
+            * taps.bstride + (long long)(r % taps.C) * taps.cstride;
+#pragma unroll
+        for (int t = 0; t < T; ++t) {
+            const int lag = lane + 1 + 32 * t;
+            const int k = order - lag < M - 1 ? order - lag : M - 1;
+            c[t] = lag <= M && lag <= order ? (uint32_t)cr[k] : 0u;
+        }
     }
+#pragma unroll
+    for (int t = 0; t < T; ++t) w[t] = 0u;
     const uint32_t lane_half = lane == 0 ? half : 0u;   // added once
     const uint32_t dc = FUSE ? (uint32_t)dcoef[row] : 0u;
     uint32_t z = FUSE ? (uint32_t)dprev[row] : 0u;
@@ -172,33 +207,44 @@ lpc_synth_kernel(const int32_t* __restrict__ res,
 }
 
 template <int T, bool FUSE>
-cudaError_t launch(const void* res, const void* aligned, const void* orders,
+cudaError_t launch(const void* res, const Taps& taps, const void* orders,
                    const void* rshifts, const void* dcoef, const void* dprev,
                    void* out, int R, int n, int M, cudaStream_t stream) {
     const int blocks = (R + kWarps - 1) / kWarps;
     lpc_synth_kernel<T, FUSE><<<blocks, kWarps * 32, 0, stream>>>(
-        (const int32_t*)res, (const int32_t*)aligned, (const int32_t*)orders,
+        (const int32_t*)res, taps, (const int32_t*)orders,
         (const int32_t*)rshifts, (const int32_t*)dcoef,
         (const int32_t*)dprev, (int32_t*)out, R, n, M);
     return cudaGetLastError();
 }
 
 template <bool FUSE>
-cudaError_t dispatch(const void* res, const void* aligned, const void* orders,
+cudaError_t dispatch(const void* res, const Taps& taps, const void* orders,
                      const void* rshifts, const void* dcoef,
                      const void* dprev, void* out, int R, int n, int M,
                      cudaStream_t st) {
     if (M <= 32)
-        return launch<1, FUSE>(res, aligned, orders, rshifts, dcoef, dprev,
+        return launch<1, FUSE>(res, taps, orders, rshifts, dcoef, dprev,
                                out, R, n, M, st);
     if (M <= 64)
-        return launch<2, FUSE>(res, aligned, orders, rshifts, dcoef, dprev,
+        return launch<2, FUSE>(res, taps, orders, rshifts, dcoef, dprev,
                                out, R, n, M, st);
     if (M <= 128)
-        return launch<4, FUSE>(res, aligned, orders, rshifts, dcoef, dprev,
+        return launch<4, FUSE>(res, taps, orders, rshifts, dcoef, dprev,
                                out, R, n, M, st);
-    return launch<8, FUSE>(res, aligned, orders, rshifts, dcoef, dprev, out,
+    return launch<8, FUSE>(res, taps, orders, rshifts, dcoef, dprev, out,
                            R, n, M, st);
+}
+
+int run(const void* res, const Taps& taps, const void* orders,
+        const void* rshifts, const void* dcoef, const void* dprev, void* out,
+        int R, int n, int M, int fuse, void* stream) {
+    if (M < 1 || M > kMaxTaps) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    return (int)(fuse ? dispatch<true>(res, taps, orders, rshifts, dcoef,
+                                       dprev, out, R, n, M, st)
+                      : dispatch<false>(res, taps, orders, rshifts, dcoef,
+                                        dprev, out, R, n, M, st));
 }
 
 }  // namespace
@@ -210,10 +256,24 @@ extern "C" int srla_lpc_synth(const void* res, const void* aligned,
                               const void* orders, const void* rshifts,
                               const void* dcoef, const void* dprev, void* out,
                               int R, int n, int M, int fuse, void* stream) {
-    if (M < 1 || M > kMaxTaps) return (int)cudaErrorInvalidValue;
-    const cudaStream_t st = (cudaStream_t)stream;
-    return (int)(fuse ? dispatch<true>(res, aligned, orders, rshifts, dcoef,
-                                       dprev, out, R, n, M, st)
-                      : dispatch<false>(res, aligned, orders, rshifts, dcoef,
-                                        dprev, out, R, n, M, st));
+    if (aligned == nullptr) return (int)cudaErrorInvalidValue;
+    const Taps taps{(const int32_t*)aligned, nullptr, 0, 0, 1};
+    return run(res, taps, orders, rshifts, dcoef, dprev, out, R, n, M, fuse,
+               stream);
+}
+
+// As srla_lpc_synth, with row r = b * C + c's coefficients left-aligned at
+// coefs + b * bstride + c * cstride (int32 elements; at least M of them,
+// or the row's order where that is less, are read).
+extern "C" int srla_lpc_synth_coefs(const void* res, const void* coefs,
+                                    long long bstride, long long cstride,
+                                    int C, const void* orders,
+                                    const void* rshifts, const void* dcoef,
+                                    const void* dprev, void* out, int R,
+                                    int n, int M, int fuse, void* stream) {
+    if (coefs == nullptr || C < 1 || R % C != 0)
+        return (int)cudaErrorInvalidValue;
+    const Taps taps{nullptr, (const int32_t*)coefs, bstride, cstride, C};
+    return run(res, taps, orders, rshifts, dcoef, dprev, out, R, n, M, fuse,
+               stream);
 }

@@ -51,6 +51,22 @@
 // (n 16384, say) sums tile by tile and re-reads the tiles for the
 // residual from L2, the last tile first (still in registers). T follows n
 // (at most 512, a multiple of 32), so short rows do not idle a CTA.
+//
+// The f32 entry (srla_preemphasis_f32) is the same kernel for the f32
+// approximate encode: it replaces srla_tpu/kernels/encode.py:41
+// _preemphasis with analyze_blocks_ex's stack (:429-435). Only the
+// coefficient step differs (the F32 template flag):
+//
+//   r0f = float(r0), r1f = float(r1)               (__ll2float_rn, once)
+//   coef = r0f < 1e-6 ? 0
+//        : clamp(rint(16 r1f / max(r0f, 1e-30)), -16, 15)   (f32, _rn)
+//
+// rint rounding half to even as jnp.round does, and no margin flag. JAX
+// sums the rows in f32 in XLA's order; here the sums are the exact 64-bit
+// ones rounded once to f32 (as K15 takes its partition sums), so any
+// order of the adds gives the plain version's value, and an int64 sum
+// above 2^53 (24-bit rows of 16384 samples) is not rounded twice through
+// f64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -153,6 +169,18 @@ __device__ __forceinline__ unsigned long long warp_transpose_sum(
     return s;
 }
 
+// The f32 entry's coefficient of one row from its exact sums (the plain
+// version's f32 arithmetic, every operation an _rn intrinsic).
+__device__ __forceinline__ int32_t coefficient_f32(long long r0i,
+                                                   long long r1i, int shift) {
+    const float r0 = __ll2float_rn(r0i);
+    if (r0 < 1e-6f) return 0;
+    const float lim = (float)(1 << shift);
+    const float q = rintf(__fdiv_rn(__fmul_rn(lim, __ll2float_rn(r1i)),
+                                    fmaxf(r0, 1e-30f)));
+    return (int32_t)fminf(fmaxf(q, -lim), lim - 1.0f);
+}
+
 // The coefficient and flag of one row from its exact sums (the plain
 // version's f64 arithmetic, every operation an _rn intrinsic).
 __device__ __forceinline__ int32_t coefficient(long long r0i, long long r1i,
@@ -196,8 +224,8 @@ __device__ __forceinline__ void load_tile(const T* const (&row)[NCH],
 
 // One unit (a pair of channels, or one) of block b: sums, coefficients,
 // residual rows. row0: the row of the unit's first variant (its next
-// variants' rows are B apart).
-template <typename T, int NCH>
+// variants' rows are B apart). F32: the f32 entry's coefficient, no flag.
+template <typename T, int NCH, bool F32>
 __device__ __forceinline__ void unit(const Args& a, const T* const (&row)[NCH],
                                      long long row0,
                                      unsigned long long (*part)[8],
@@ -261,12 +289,17 @@ __device__ __forceinline__ void unit(const Args& a, const T* const (&row)[NCH],
             r0 += part[i][2 * v];
             r1 += part[i][2 * v + 1];
         }
-        bool rk;
-        const int32_t cf = coefficient((long long)r0, (long long)r1, a.shift,
-                                       a.eps, &rk);
         const long long r = row0 + (long long)v * a.B;
+        int32_t cf;
+        if constexpr (F32) {
+            cf = coefficient_f32((long long)r0, (long long)r1, a.shift);
+        } else {
+            bool rk;
+            cf = coefficient((long long)r0, (long long)r1, a.shift, a.eps,
+                             &rk);
+            a.risky[r] = (uint8_t)rk;
+        }
         a.coef[r] = cf;
-        a.risky[r] = (uint8_t)rk;
         coef_sh[v] = cf;
     }
     __syncthreads();
@@ -324,7 +357,7 @@ __device__ __forceinline__ void unit(const Args& a, const T* const (&row)[NCH],
     }
 }
 
-template <typename T>
+template <typename T, bool F32>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 preemphasis_kernel(Args a) {
     __shared__ unsigned long long part[kMaxWarps][8];
@@ -334,32 +367,26 @@ preemphasis_kernel(Args a) {
         + (a.off != nullptr ? a.off[b] : (long long)b * a.bstride);
     if (a.C == 1) {
         const T* const row[1] = {base};
-        unit<T, 1>(a, row, b, part, coef_sh);
+        unit<T, 1, F32>(a, row, b, part, coef_sh);
         return;
     }
     {
         const T* const row[2] = {base, base + a.cstride};
-        unit<T, 2>(a, row, b, part, coef_sh);
+        unit<T, 2, F32>(a, row, b, part, coef_sh);
     }
     for (int c = 2; c < a.C; ++c) {
         __syncthreads();                 // part and coef_sh are reused
         const T* const row[1] = {base + c * a.cstride};
-        unit<T, 1>(a, row, (long long)(c + 2) * a.B + b, part, coef_sh);
+        unit<T, 1, F32>(a, row, (long long)(c + 2) * a.B + b, part,
+                        coef_sh);
     }
 }
 
-}  // namespace
-
-// src: int16 (src32 0) or int32 (src32 non-zero) samples; off: (B,) int64
-// offsets of each block's channel 0, or null for off[b] = b * bstride;
-// cstride: the distance between a block's channels. Outputs for the V =
-// (C >= 2 ? C + 2 : 1) * B rows: work (V, n) int32, coef (V,) int32, risky
-// (V,) bool, prev (V,) int32.
-extern "C" int srla_preemphasis(const void* src, const void* off,
-                                long long bstride, long long cstride, int B,
-                                int C, int n, int lshift, int shift,
-                                double eps, int src32, void* work, void* coef,
-                                void* risky, void* prev, void* stream) {
+template <bool F32>
+int launch(const void* src, const void* off, long long bstride,
+           long long cstride, int B, int C, int n, int lshift, int shift,
+           double eps, int src32, void* work, void* coef, void* risky,
+           void* prev, void* stream) {
     if (B <= 0 || C <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
     const long long rows = (long long)(C >= 2 ? C + 2 : 1) * B;
     if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -386,9 +413,36 @@ extern "C" int srla_preemphasis(const void* src, const void* off,
     threads = threads > kMaxThreads ? kMaxThreads : threads;
     cudaStream_t s = (cudaStream_t)stream;
     if (src32) {
-        preemphasis_kernel<int32_t><<<B, threads, 0, s>>>(a);
+        preemphasis_kernel<int32_t, F32><<<B, threads, 0, s>>>(a);
     } else {
-        preemphasis_kernel<int16_t><<<B, threads, 0, s>>>(a);
+        preemphasis_kernel<int16_t, F32><<<B, threads, 0, s>>>(a);
     }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// src: int16 (src32 0) or int32 (src32 non-zero) samples; off: (B,) int64
+// offsets of each block's channel 0, or null for off[b] = b * bstride;
+// cstride: the distance between a block's channels. Outputs for the V =
+// (C >= 2 ? C + 2 : 1) * B rows: work (V, n) int32, coef (V,) int32, risky
+// (V,) bool, prev (V,) int32.
+extern "C" int srla_preemphasis(const void* src, const void* off,
+                                long long bstride, long long cstride, int B,
+                                int C, int n, int lshift, int shift,
+                                double eps, int src32, void* work, void* coef,
+                                void* risky, void* prev, void* stream) {
+    return launch<false>(src, off, bstride, cstride, B, C, n, lshift, shift,
+                         eps, src32, work, coef, risky, prev, stream);
+}
+
+// The f32 entry: the same layout and outputs, the coefficient by the f32
+// rule and no flag.
+extern "C" int srla_preemphasis_f32(const void* src, const void* off,
+                                    long long bstride, long long cstride,
+                                    int B, int C, int n, int lshift,
+                                    int shift, int src32, void* work,
+                                    void* coef, void* prev, void* stream) {
+    return launch<true>(src, off, bstride, cstride, B, C, n, lshift, shift,
+                        0.0, src32, work, coef, nullptr, prev, stream);
 }

@@ -2,14 +2,20 @@
 ``srla_tpu.kernels.encode``.
 
 Every stage runs batched over the variant rows of a group, in f32: the
-pre-emphasis statistics and the FFT autocorrelation in torch ops (JAX
-computes both with XLA and ``jnp.fft``, outside any Pallas kernel, so
-torch's reductions and ``torch.fft`` (cuFFT on the card) are their
-twins), the pitch search and LTP solve in torch ops (``torch.linalg.solve``
-where JAX calls ``jnp.linalg.solve``), the Levinson recursion, order choice
-and quantization in kernel K14 (``lpc_f32.lpc_analyze_f32``), the exact
-wrapping-int32 FIR residual in K3 (``predict.predict``) and the Rice
-parameter search in K15 (``rice_cost.rice_cost``). The parameter choices
+variant stack and the f32 pre-emphasis in K16's f32 entry
+(``preemphasis.variant_preemphasis_f32``, reading the blocks or the
+resident file's spans where they lie), the FFT autocorrelation in torch
+ops (JAX computes it with ``jnp.fft``, outside any Pallas kernel, so
+``torch.fft``, cuFFT on the card, is its twin), the pitch search and LTP
+solve in torch ops (``torch.linalg.solve_ex`` where JAX calls
+``jnp.linalg.solve``), the LTP residual in K18 (``ltp.ltp_predict``, the
+exact path's kernel: ``_ltp``'s delay FIR is its arithmetic), the Levinson
+recursion, order choice and quantization in kernel K14
+(``lpc_f32.lpc_analyze_f32``), the exact wrapping-int32 FIR residual in K3
+(``predict.predict``) and the Rice parameter search in K15
+(``rice_cost.rice_cost``). The pre-emphasis sums are the exact 64-bit sums
+rounded once to f32 where JAX sums in f32 (``ROADMAP.md``, the differences
+by design). The parameter choices
 may differ from the exact analysis', so the stream is not byte-identical
 to the reference's; the residual is the exact FIR of the quantized
 coefficients and K15's bits are the exact packed section lengths, so every
@@ -23,9 +29,8 @@ with every row unflagged (the argmin ``srla_tpu``'s
 ``_device_finish_approx`` runs on the host) and K5's
 ``pack_residual_sections`` on the chosen rows by index.
 ``measure_spans_approx`` measures the -V spans (``srla_tpu``'s
-``_measure_group_device`` under approx: ``analyze_variants``, no LTP, then
-K17's measurement entry). The variant stack and the f32 pre-emphasis stay
-torch ops here (``variant_stack``, ``preemphasis``).
+``_measure_group_device`` under approx: the analysis without LTP on the
+spans read in place, then K17's measurement entry).
 """
 
 from __future__ import annotations
@@ -34,14 +39,13 @@ import numpy as np
 import torch
 
 from ..constants import (LPC_RIDGE_REGULARIZATION_PARAMETER,
-                         LTP_COEFFICIENT_BITWIDTH, LTP_MAX_PERIOD,
-                         LTP_MIN_PERIOD, PREEMPHASIS_COEF_SHIFT)
+                         LTP_MAX_PERIOD, LTP_MIN_PERIOD)
 from .bitpack import pack_residual_sections, zigzag32
 from .exact import no_timer
-from .lpc import wrap32
 from .lpc_f32 import lpc_analyze_f32
+from .ltp import ltp_predict
 from .predict import predict, reverse_coefs
-from .preemphasis import Spans, as_blocks, variant_stack
+from .preemphasis import Spans, variant_preemphasis_f32
 from .rice_cost import rice_cost
 from .select import measure_blocks, select_blocks
 
@@ -63,19 +67,13 @@ def welch_f32(n: int, device) -> torch.Tensor:
 
 def preemphasis(sig: torch.Tensor):
     """``_preemphasis`` (:41): sig (V, n) int32. Returns (work int32, coef
-    int32): r0 and r1 summed in f32 (torch's order, not XLA's), the
-    coefficient rounded half to even and clipped to -16..15."""
-    x = sig.to(_F32)
-    r0 = (x * x).sum(dim=1)
-    r1 = (x[:, :-1] * x[:, 1:]).sum(dim=1)
-    lim = 1 << PREEMPHASIS_COEF_SHIFT
-    q = torch.clamp(torch.round(16.0 * r1 / torch.clamp_min(r0, 1e-30)),
-                    -lim, lim - 1)
-    coef = torch.where(r0 < 1e-6, 0.0, q).to(torch.int32)
-    s = sig.long()
-    prev = torch.cat([s[:, :1], s[:, :-1]], dim=1)
-    pred = wrap32(prev * coef.long()[:, None]) >> PREEMPHASIS_COEF_SHIFT
-    return wrap32(s - pred).to(torch.int32), coef
+    int32): K16's f32 entry on the rows (its plain version,
+    ``preemphasis_f32_rows``, on the CPU): r0 and r1 the exact sums rounded
+    once to f32, the coefficient rounded half to even and clipped to
+    -16..15. The rows go to K16 as the (V, 1, n) view of V one-channel
+    blocks, whose rows at lshift 0 are sig's."""
+    work, coef, _ = variant_preemphasis_f32(sig[:, None, :], 0)
+    return work, coef
 
 
 def autocorr(work: torch.Tensor, n: int, bps: int, order: int,
@@ -146,55 +144,44 @@ def ltp_params(acl: torch.Tensor, order: int):
             torch.where(valid[:, None], qrev, 0))
 
 
-def ltp_filter(work: torch.Tensor, period: torch.Tensor, qrev: torch.Tensor,
-               order: int) -> torch.Tensor:
-    """``_ltp``'s delay FIR (:274-285), exact wrapping int32: each row with
-    a period p loses its prediction from the samples p + order // 2 back,
-    from that delay + 1 on. Returns (V, n) int32."""
-    V, n = work.shape
-    rshift = LTP_COEFFICIENT_BITWIDTH - 1
-    delay = period.long() + order // 2
-    s = torch.arange(n, device=work.device)[None, :]
-    x = work.long()
-    acc = torch.full((V, n), 1 << (rshift - 1), dtype=torch.int64,
-                     device=work.device)
-    for i in range(order):
-        src = torch.clamp(s - delay[:, None] + i, 0, n - 1)
-        acc = acc + qrev[:, i:i + 1].long() * x.gather(1, src)
-    pred = wrap32(acc) >> rshift
-    apply = (period[:, None] > 0) & (s >= (delay + 1)[:, None])
-    return torch.where(apply, wrap32(x - pred), x).to(torch.int32)
-
-
-def ltp(work: torch.Tensor, n: int, bps: int, fft_size: int, order: int):
+def ltp(work: torch.Tensor, n: int, bps: int, fft_size: int, order: int,
+        timer=no_timer):
     """``_ltp`` (:216): the pitch lags (``autocorr``, 263 of them),
-    ``ltp_params`` and ``ltp_filter``. Returns (work int32, period (V,)
-    int32, coefficients (V, order) int32 reversed, as JAX's qrev); rows
-    without a valid period keep their samples and get period 0."""
+    ``ltp_params``, then ``_ltp``'s delay FIR (:274-285), which is K18's
+    arithmetic (``ltp.ltp_predict``: the same delay, tap clamp, rounding
+    and gate; rows of period 0 pass through). Returns (work int32, period
+    (V,) int32, coefficients (V, order) int32 reversed, as JAX's qrev);
+    rows without a valid period keep their samples and get period 0."""
     acl = autocorr(work, n, bps, LTP_MAX_PERIOD + 1, fft_size)
     period, qrev = ltp_params(acl, order)
-    return (ltp_filter(work, period, qrev, order), period.to(torch.int32),
-            qrev.to(torch.int32))
+    period = period.to(torch.int32)
+    qrev = qrev.to(torch.int32).contiguous()
+    timer("LTP lags + solve (torch, cuFFT)")
+    out = ltp_predict(work, qrev, period, order)
+    timer("K18 ltp_predict")
+    return out, period, qrev
 
 
-def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
+def analyze_core(src, lshift: int, *, n: int, bps: int, max_params: int,
                  max_fixed: bool, fft_size: int, max_porder: int,
                  ltp_order: int = 0, timer=no_timer) -> dict:
-    """``_analyze_core`` (:344): the f32 analysis of each row of sig (V, n)
-    int32. Returns JAX's dict (pre_prev, pre_coef, orders, rshifts, coefs
+    """``_analyze_core`` (:344) on the variant rows of ``src``, a (B, C, n)
+    block tensor or ``Spans`` (K16's f32 entry stacks and pre-emphasises
+    them; variant rows (V, n) go as their (V, 1, n) view at lshift 0).
+    Returns JAX's dict (pre_prev, pre_coef, orders, rshifts, coefs
     (reversed, left-aligned), residual, code_type, porder, rice_bits, ks,
     ltp_period, ltp_coefs). LTP runs only with fft_size >= 263 lags, as in
     JAX. ``timer`` is called with a step name after each step."""
-    V = sig.shape[0]
-    dev = sig.device
-    work, pre_coef = preemphasis(sig)
+    work, pre_coef, pre_prev = variant_preemphasis_f32(src, lshift)
+    V = work.shape[0]
+    dev = work.device
     ltp_period = torch.zeros(V, dtype=torch.int32, device=dev)
     ltp_coefs = torch.zeros((V, max(ltp_order, 1)), dtype=torch.int32,
                             device=dev)
-    timer("variants + f32 pre-emphasis (torch)")
+    timer("K16 preemphasis (f32)")
     if ltp_order > 0 and fft_size >= LTP_MAX_PERIOD + 1:
-        work, ltp_period, ltp_coefs = ltp(work, n, bps, fft_size, ltp_order)
-        timer("LTP (torch, cuFFT, linalg.solve)")
+        work, ltp_period, ltp_coefs = ltp(work, n, bps, fft_size, ltp_order,
+                                          timer)
     if max_params > 0:
         ac = autocorr(work, n, bps, max_params + 1, fft_size)
         ac[:, 0] = ac[:, 0] * _RIDGE
@@ -212,7 +199,7 @@ def analyze_core(sig: torch.Tensor, *, n: int, bps: int, max_params: int,
         residual = work
     code_type, porder, rice_bits, ks = rice_cost(residual, n, max_porder)
     timer("K15 rice_cost")
-    return dict(pre_prev=sig[:, 0], pre_coef=pre_coef, orders=orders,
+    return dict(pre_prev=pre_prev, pre_coef=pre_coef, orders=orders,
                 rshifts=rshifts, coefs=coefs_rev, residual=residual,
                 code_type=code_type, porder=porder, rice_bits=rice_bits,
                 ks=ks, ltp_period=ltp_period, ltp_coefs=ltp_coefs)
@@ -223,9 +210,10 @@ def analyze_variants(sig: torch.Tensor, *, n: int, bps: int,
                      max_porder: int, timer=no_timer) -> dict:
     """``analyze_variants`` (:378): the analysis of a batch of variant rows
     (V, n) int32 on their device, without LTP, residuals returned."""
-    return analyze_core(sig, n=n, bps=bps, max_params=max_params,
-                        max_fixed=max_fixed, fft_size=fft_size,
-                        max_porder=max_porder, timer=timer)
+    return analyze_core(sig[:, None, :], 0, n=n, bps=bps,
+                        max_params=max_params, max_fixed=max_fixed,
+                        fft_size=fft_size, max_porder=max_porder,
+                        timer=timer)
 
 
 def pack_rows(u, code_type, porder, ks, bits, n: int, W: int):
@@ -263,24 +251,25 @@ def analyze_pack_variants(sig: torch.Tensor, *, n: int, bps: int,
     return small, words
 
 
-def analyze_blocks_ex(blocks: torch.Tensor, lshift: int, *, n: int, bps: int,
+def analyze_blocks_ex(blocks, lshift: int, *, n: int, bps: int,
                       max_params: int, max_fixed: bool, fft_size: int,
                       max_porder: int, C: int, ltp_order: int = 0,
                       timer=no_timer):
     """``analyze_blocks_ex`` (:413): blocks (B, C, n) int16/int32 samples
-    on the device. Stacks the variants ([M, S] for C >= 2, then each
-    channel) and analyses them. Returns (small, big): ``small`` the per-row
-    parameters with ``section_bits`` (K15's exact packed lengths), no
-    ``risky`` (nothing is flagged); ``big`` the int32 residual (what K5's
-    row entry reads; JAX's twin hands over its zigzag codes) and the Rice
-    choices."""
+    on the device, or ``Spans`` of the resident file. K16's f32 entry
+    stacks the variants ([M, S] for C >= 2, then each channel) where the
+    samples lie; the rows are analysed. Returns (small, big): ``small``
+    the per-row parameters with ``section_bits`` (K15's exact packed
+    lengths), no ``risky`` (nothing is flagged); ``big`` the int32
+    residual (what K5's row entry reads; JAX's twin hands over its zigzag
+    codes) and the Rice choices."""
     if blocks.shape[1] != C:
         raise ValueError(f"analyze_blocks_ex: blocks have {blocks.shape[1]} "
                          f"channels, C = {C}")
-    out = analyze_core(variant_stack(blocks, lshift), n=n, bps=bps,
-                       max_params=max_params, max_fixed=max_fixed,
-                       fft_size=fft_size, max_porder=max_porder,
-                       ltp_order=ltp_order, timer=timer)
+    out = analyze_core(blocks, lshift, n=n, bps=bps, max_params=max_params,
+                       max_fixed=max_fixed, fft_size=fft_size,
+                       max_porder=max_porder, ltp_order=ltp_order,
+                       timer=timer)
     small = {k: out[k] for k in ("pre_prev", "pre_coef", "orders", "rshifts",
                                  "coefs", "code_type", "porder",
                                  "ltp_period", "ltp_coefs")}
@@ -298,15 +287,15 @@ def encode_blocks_approx(blocks, lshift: int, *, n: int, bps: int,
     ``srla_tpu``'s ``_device_dispatch`` + ``_device_finish_approx`` under
     approx, with the same results as ``kernels.exact.encode_blocks``.
 
-    blocks: a (B, C, n) tensor or ``Spans`` of the resident file (cut
-    first). ``analyze_blocks_ex``, then K17's selection with every row
+    blocks: a (B, C, n) tensor or ``Spans`` of the resident file (read in
+    place). ``analyze_blocks_ex``, then K17's selection with every row
     unflagged (so ``risky_blk`` is all False; a section above W words still
     gets lens_w 0, and its block goes to the host), then K5 on the chosen
     rows by index. Returns (small, flat) as ``encode_blocks`` does:
     ``flat`` holds the chosen sections compacted in row order in its first
     sum(lens_w) words."""
     B = blocks.shape[0]
-    small, big = analyze_blocks_ex(as_blocks(blocks), lshift, n=n, bps=bps,
+    small, big = analyze_blocks_ex(blocks, lshift, n=n, bps=bps,
                                    max_params=max_params,
                                    max_fixed=max_fixed, fft_size=fft_size,
                                    max_porder=max_porder, C=C,
@@ -332,21 +321,20 @@ def measure_spans_approx(file: torch.Tensor, offsets, lshift: int, *, n: int,
                          timer=no_timer) -> torch.Tensor:
     """The -V span measurement under approx (``srla_tpu``'s
     ``_measure_group_device`` :1933-1942): the spans of the resident (C, N)
-    ``file`` at host ``offsets`` cut on the device, their variants analysed
-    by ``analyze_variants`` (no LTP), the accounting and the best stereo
-    method. Returns each span's rounded block bits (B,) int64; nothing is
-    flagged."""
-    blocks = Spans(file, offsets, n).cut()
-    out = analyze_variants(variant_stack(blocks, lshift), n=n, bps=bps,
-                           max_params=max_params, max_fixed=max_fixed,
-                           fft_size=fft_size, max_porder=max_porder,
-                           timer=timer)
+    ``file`` at host ``offsets`` read in place by K16's f32 entry, their
+    variants analysed as ``analyze_variants`` analyses rows (no LTP), the
+    accounting and the best stereo method. Returns each span's rounded
+    block bits (B,) int64; nothing is flagged."""
+    spans = Spans(file, offsets, n)
+    out = analyze_core(spans, lshift, n=n, bps=bps, max_params=max_params,
+                       max_fixed=max_fixed, fft_size=fft_size,
+                       max_porder=max_porder, timer=timer)
     V = out["orders"].shape[0]
     zeros = torch.zeros(V, dtype=torch.int32, device=file.device)
     small = dict(section_bits=out["rice_bits"], orders=out["orders"],
                  coefs=out["coefs"], ltp_period=zeros,
                  ltp_coefs=zeros[:, None])
-    bits = measure_blocks(small, B=blocks.shape[0], C=C, bps=bps,
+    bits = measure_blocks(small, B=spans.shape[0], C=C, bps=bps,
                           max_params=max_params)["bits"]
     timer("K17 measure")
     return bits

@@ -16,6 +16,16 @@ The margin ``eps`` is the caller's (``exact._EPS_PREEMPH``, whose comment
 gives the error it covers): r0 and r1 are exact 64-bit integer sums on both
 routes, rounded once to f64, so kernel and plain version take the same
 decisions bit for bit.
+
+``variant_preemphasis_f32`` is K16's f32 entry, the twin of the stack in
+``srla_tpu.kernels.encode.analyze_blocks_ex`` (:429-435) followed by
+``encode._preemphasis`` (:41), for the f32 approximate encode: the same
+kernel and layouts, the coefficient ``clip(round_half_even(16 r1 / max(r0,
+1e-30)), -16, 15)`` in f32 (0 where r0 < 1e-6) and no flag. JAX sums in
+f32 in XLA's order; both routes here take the exact 64-bit sums rounded
+once to f32, so they agree bit for bit whatever the order of the adds.
+Its plain version is ``variant_stack`` (after ``cut_spans``) and
+``preemphasis_f32_rows``.
 """
 
 from __future__ import annotations
@@ -118,6 +128,31 @@ def preemphasis_rows(sig: torch.Tensor, eps: float):
     return work, coef.to(torch.int32), risky
 
 
+def preemphasis_f32_sums(sig: torch.Tensor):
+    """sig (V, n) int32. Returns the f32 entry's (r0, r1), (V,) f32 each:
+    the exact int64 sums of x[s]^2 and x[s] x[s+1], each converted once to
+    f32 (never through f64: above 2^53 that would round twice)."""
+    x = sig.long()
+    return ((x * x).sum(dim=1).to(torch.float32),
+            (x[:, :-1] * x[:, 1:]).sum(dim=1).to(torch.float32))
+
+
+def preemphasis_f32_rows(sig: torch.Tensor):
+    """sig (V, n) int32. Returns (work int32, coef int32) by the f32 rule
+    of ``encode._preemphasis`` on ``preemphasis_f32_sums``: the
+    coefficient ``clip(round(16 r1 / max(r0, 1e-30)), -16, 15)`` in f32,
+    rounding half to even, 0 where r0 < 1e-6."""
+    x = sig.long()
+    r0, r1 = preemphasis_f32_sums(sig)
+    lim = 1 << PREEMPHASIS_COEF_SHIFT
+    q = torch.clamp(torch.round(float(lim) * r1 / torch.clamp_min(r0, 1e-30)),
+                    -lim, lim - 1)
+    coef = torch.where(r0 < 1e-6, 0.0, q).long()
+    prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    pred = wrap32(prev * coef[:, None]) >> PREEMPHASIS_COEF_SHIFT
+    return wrap32(x - pred).to(torch.int32), coef.to(torch.int32)
+
+
 def variant_preemphasis_plain(src, lshift: int, *, eps: float):
     """Plain PyTorch version of K16: the spans cut (for ``Spans``), the
     variant rows stacked and pre-emphasised. Returns (work (V, n) int32,
@@ -126,6 +161,51 @@ def variant_preemphasis_plain(src, lshift: int, *, eps: float):
     sig = variant_stack(as_blocks(src), lshift)
     work, coef, risky = preemphasis_rows(sig, eps)
     return work, coef, risky, sig[:, 0].contiguous()
+
+
+def variant_preemphasis_f32_plain(src, lshift: int):
+    """Plain PyTorch version of K16's f32 entry: the spans cut (for
+    ``Spans``), the variant rows stacked and pre-emphasised by the f32
+    rule. Returns (work (V, n) int32, coef (V,) int32, prev (V,) int32)."""
+    sig = variant_stack(as_blocks(src), lshift)
+    work, coef = preemphasis_f32_rows(sig)
+    return work, coef, sig[:, 0].contiguous()
+
+
+def _layout(src, what: str):
+    """Where the samples of ``src`` lie on the card: (tensor, first element,
+    offsets on the card or None, block stride, channel stride, B, C, n)."""
+    data = src.file if isinstance(src, Spans) else src
+    if data.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"{what}: the samples must be int16 or int32, got "
+                         f"{data.dtype}")
+    first = 0
+    if isinstance(src, Spans):
+        data = data.contiguous()
+        B, C, n = src.shape
+        offs, cstride = src.offsets, data.shape[1]
+        step = int(offs[1] - offs[0]) if B > 1 else 0
+        if (np.diff(offs) == step).all():
+            # Evenly spaced spans (a group of fixed-size blocks): read at
+            # a block stride from the first, no offsets uploaded.
+            off, bstride, first = None, step, int(offs[0]) if B else 0
+        else:
+            # From pinned memory the copy is queued on the current stream
+            # without waiting for the card (a pageable one waits).
+            off = torch.from_numpy(offs).pin_memory().to(data.device,
+                                                         non_blocking=True)
+            bstride = 0
+    else:
+        if data.dim() != 3:
+            raise ValueError(f"{what}: blocks must be (B, C, n), got "
+                             f"{tuple(data.shape)}")
+        # Any block and channel strides (a view of cut spans, say); the
+        # samples of a row must be consecutive.
+        if data.stride(2) != 1:
+            data = data.contiguous()
+        B, C, n = data.shape
+        off, bstride, cstride = None, data.stride(0), data.stride(1)
+    return data, first, off, bstride, cstride, B, C, n
 
 
 def variant_preemphasis(src, lshift: int, *, eps: float):
@@ -148,36 +228,8 @@ def variant_preemphasis(src, lshift: int, *, eps: float):
         return variant_preemphasis_plain(src, lshift, eps=eps)
     if dev.type != "cuda":
         raise ValueError(f"variant_preemphasis: no kernel for device {dev}")
-    data = src.file if isinstance(src, Spans) else src
-    if data.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"variant_preemphasis: the samples must be int16 "
-                         f"or int32, got {data.dtype}")
-    first = 0
-    if isinstance(src, Spans):
-        data = data.contiguous()
-        B, C, n = src.shape
-        offs, cstride = src.offsets, data.shape[1]
-        step = int(offs[1] - offs[0]) if B > 1 else 0
-        if (np.diff(offs) == step).all():
-            # Evenly spaced spans (a group of fixed-size blocks): read at
-            # a block stride from the first, no offsets uploaded.
-            off, bstride, first = None, step, int(offs[0]) if B else 0
-        else:
-            # From pinned memory the copy is queued on the current stream
-            # without waiting for the card (a pageable one waits).
-            off = torch.from_numpy(offs).pin_memory().to(dev,
-                                                         non_blocking=True)
-            bstride = 0
-    else:
-        if data.dim() != 3:
-            raise ValueError(f"variant_preemphasis: blocks must be (B, C, "
-                             f"n), got {tuple(data.shape)}")
-        # Any block and channel strides (a view of cut spans, say); the
-        # samples of a row must be consecutive.
-        if data.stride(2) != 1:
-            data = data.contiguous()
-        B, C, n = data.shape
-        off, bstride, cstride = None, data.stride(0), data.stride(1)
+    data, first, off, bstride, cstride, B, C, n = _layout(
+        src, "variant_preemphasis")
     V = (C + 2 if C >= 2 else 1) * B
     work = torch.empty((V, n), dtype=torch.int32, device=dev)
     # coef and prev from one allocation (apart from the rows, which the
@@ -202,6 +254,47 @@ def variant_preemphasis(src, lshift: int, *, eps: float):
 variant_preemphasis.launches = 0
 
 
+def variant_preemphasis_f32(src, lshift: int):
+    """K16's f32 entry: the variant rows of a group of B blocks of n
+    samples, pre-emphasised by the f32 rule of the approximate encode.
+
+    src as for ``variant_preemphasis`` (a (V, n) row tensor goes as the
+    (V, 1, n) view of V one-channel blocks at lshift 0). Returns (work
+    (V, n) int32, coef (V,) int32, prev (V,) int32: each row's first
+    sample), rows ordered as ``variant_preemphasis`` orders them.
+
+    CUDA tensors go through the kernel (``variant_preemphasis_f32.launches``
+    counts its launches); CPU tensors go through
+    ``variant_preemphasis_f32_plain``.
+    """
+    dev = src.device
+    if dev.type == "cpu":
+        return variant_preemphasis_f32_plain(src, lshift)
+    if dev.type != "cuda":
+        raise ValueError(f"variant_preemphasis_f32: no kernel for device "
+                         f"{dev}")
+    data, first, off, bstride, cstride, B, C, n = _layout(
+        src, "variant_preemphasis_f32")
+    V = (C + 2 if C >= 2 else 1) * B
+    work = torch.empty((V, n), dtype=torch.int32, device=dev)
+    coef, prev = torch.empty((2, V), dtype=torch.int32, device=dev)
+    if V == 0 or n == 0:
+        return work, coef, prev
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.srla_preemphasis_f32(
+        data.data_ptr() + first * data.element_size(),
+        None if off is None else off.data_ptr(), bstride, cstride, B, C, n,
+        lshift, PREEMPHASIS_COEF_SHIFT, int(data.dtype == torch.int32),
+        work.data_ptr(), coef.data_ptr(), prev.data_ptr(), stream)
+    build.check(err, "preemphasis_f32")
+    variant_preemphasis_f32.launches += 1
+    return work, coef, prev
+
+
+variant_preemphasis_f32.launches = 0
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("preemphasis")
     fn = lib.srla_preemphasis
@@ -210,4 +303,9 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                        ctypes.c_longlong] + [ctypes.c_int] * 5 \
             + [ctypes.c_double, ctypes.c_int] + [ctypes.c_void_p] * 5
+        f32 = lib.srla_preemphasis_f32
+        f32.restype = ctypes.c_int
+        f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_longlong] + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p] * 4
     return lib

@@ -50,13 +50,22 @@ K16 (``variant_preemphasis``) on the ``Spans`` of the resident file and on
 the block tensor, and K17's encode entry (``select_blocks``) and
 measurement entry (``measure_blocks``) on the analysis of those spans:
 phase 16's main group of that checkout's ``chip_smoke.py`` (120 s of
-``make_music``, 1291 blocks of 4096 int16 stereo samples, M 64). One JSON
-line a ROOT: each call's device time (a CUDA graph of 20 calls, replayed)
-and CUDA-event time, SHA-256 prefixes of its outputs, and the card's name
-and power limit. The ``Spans`` entry uploads the offsets each call, so its
+``make_music``, 1291 blocks of 4096 int16 stereo samples, M 64). Also the
+decode's synthesis tail on that stream's main decode group (1291 blocks of
+4096, its own methods, seeded full-range int32 rows, lshift 0): K19
+(``synth_tail``, in place) where the checkout has it, else the torch ops
+its ``synthesize`` ran (``k19_main``); and the approximate analysis'
+pre-emphasis on the block tensor: K16's f32 entry
+(``variant_preemphasis_f32``) where the checkout has it, else the torch
+variant stack and f32 pre-emphasis (``k16f32_blocks``; its outputs'
+digest is named ``_digest``, not ``_sha256``: the f32 sums' order moved,
+so a coefficient at a rounding boundary may differ). One JSON line a
+ROOT: each call's device time (a CUDA graph of 20 calls, replayed) and
+CUDA-event time, SHA-256 prefixes of its outputs, and the card's name and
+power limit. The ``Spans`` entry uploads the offsets each call, so its
 device time is taken only where that upload can be captured (null where it
 cannot; its event time always). ``chip_smoke.py --parent DIR`` prints
-these in phase 16.
+these in phases 16 and 17.
 
 ``--k15-parts`` times where K15's time goes on the same main group: this
 checkout's ``csrc/rice_cost.cu`` beside copies built with one part taken
@@ -350,13 +359,50 @@ core = exact.analyze_core(spans, 0, **args)
 small = exact.core_small(core)
 kw = dict(B=B, C=2, n=n, bps=16, W=W, max_params=args["max_params"])
 mkw = {k: kw[k] for k in ("B", "C", "bps", "max_params")}
+from srla_tpu_torch import SRLADecoder, SRLAEncoder
+from srla_tpu_torch.kernels import encode as approx
+from srla_tpu_torch.kernels.decode2 import meta_cols
+stream = SRLAEncoder(cs.main_param(), dev).encode_whole(music)
+g = max(SRLADecoder(dev).plan(stream)[2], key=lambda g: len(g.starts))
+meta = torch.from_numpy(g.meta).to(dev)
+methods = meta[:, meta_cols(2, g.M, 3)[0]["method"][0]]
+y = torch.from_numpy(np.random.RandomState(19).randint(
+    -(1 << 31), 1 << 31, (meta.shape[0], 2, g.n), dtype=np.int64).astype(
+    np.int32)).to(dev)
+try:
+    from srla_tpu_torch.kernels.decode2 import synth_tail
+    ybuf = y.clone()
+    tail = lambda: synth_tail(ybuf, methods, 0)
+    tail_once = lambda: (synth_tail(y.clone(), methods, 0),)
+except ImportError:      # a checkout before K19: synthesize's torch ops
+    from srla_tpu_torch.kernels.lpc import wrap32
+
+    def tail():
+        out = y.long()
+        m = methods.long()[:, None]
+        o0, o1 = out[:, 0], out[:, 1]
+        c0_ms = wrap32(o0 - (o1 >> 1))
+        c0 = torch.where(m == 1, c0_ms, o0)
+        c1 = torch.where(m == 1, wrap32(o1 + c0_ms), o1)
+        c1 = torch.where(m == 2, wrap32(o1 + o0), c1)
+        c0 = torch.where(m == 3, wrap32(o1 - o0), c0)
+        out = torch.cat([c0[:, None], c1[:, None], out[:, 2:]], dim=1)
+        return wrap32(out << 0).to(torch.int32)
+    tail_once = lambda: (tail(),)
+try:
+    from srla_tpu_torch.kernels.preemphasis import variant_preemphasis_f32
+    pre = lambda: variant_preemphasis_f32(blocks, 0)[:2]
+except ImportError:      # before K16's f32 entry: the torch stack and ops
+    pre = lambda: approx.preemphasis(exact.variant_stack(blocks, 0))
 calls = {
     "k16_blocks": lambda: variant_preemphasis(blocks, 0, eps=cs.K16_EPS),
     "k17_select": lambda: select.select_blocks(
         small, rice_risky=core["rice_risky"], **kw),
     "k17_measure": lambda: select.measure_blocks(
         small, rice_risky=core["rice_risky"], **mkw),
-    "k16_spans": lambda: variant_preemphasis(spans, 0, eps=cs.K16_EPS)}
+    "k16_spans": lambda: variant_preemphasis(spans, 0, eps=cs.K16_EPS),
+    "k19_main": tail, "k16f32_blocks": pre}
+once = {"k19_main": tail_once}
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                        "--format=csv,noheader"], capture_output=True,
                       text=True).stdout.strip()
@@ -371,9 +417,12 @@ def digest(out):
     return h.hexdigest()[:16]
 
 
-rec = {"B": B, "n": n, "V": 4 * B, "M": args["max_params"]}
+rec = {"B": B, "n": n, "V": 4 * B, "M": args["max_params"],
+       "k19_methods": np.bincount(methods.cpu().numpy(),
+                                  minlength=4).tolist()}
 for name, fn in calls.items():
-    rec[f"{name}_sha256"] = digest(fn())
+    key = "digest" if name == "k16f32_blocks" else "sha256"
+    rec[f"{name}_{key}"] = digest(once.get(name, fn)())
     rec[f"{name}_ms"] = cs.cuda_ms(torch, fn, 20)
     try:
         rec[f"{name}_device_ms"] = cs.device_ms(torch, fn, 20)

@@ -29,7 +29,7 @@ SECONDS = 120.0
 # has: an older one lacks the later stages' sources).
 LIBRARIES = ("lpc_synth", "rice_decode", "fir_predict", "rice_search",
              "bitpack", "autocorr", "lpc_analyze", "ltp_analyze",
-             "preemphasis", "select", "ltp_predict")
+             "preemphasis", "select", "ltp_predict", "synth_tail")
 
 _CHILD = r'''
 import hashlib, os, subprocess, sys, time

@@ -39,6 +39,9 @@ from srla_tpu_torch.kernels import encode as P  # noqa: E402
 from srla_tpu_torch.kernels import exact as texact  # noqa: E402
 from srla_tpu_torch.kernels import lpc_f32  # noqa: E402
 from srla_tpu_torch.kernels import rice_cost as K15  # noqa: E402
+from srla_tpu_torch.kernels.preemphasis import (  # noqa: E402
+    Spans, as_blocks, preemphasis_f32_rows, preemphasis_f32_sums,
+    variant_preemphasis_f32)
 from srla_tpu_torch.kernels.bitpack import (  # noqa: E402
     residual_codewords, zigzag32)
 from srla_tpu_torch.rice import MLNOPTX  # noqa: E402
@@ -184,9 +187,7 @@ def test_preemphasis_matches_jax(bps):
     wp, cp = (a.numpy() for a in P.preemphasis(_t(sig)))
     r0j, r1j = (np.asarray(a, np.float64) for a in _pre_sums(
         jnp.asarray(sig)))
-    x = _t(sig).to(torch.float32)
-    r0p = (x * x).sum(1).double().numpy()
-    r1p = (x[:, :-1] * x[:, 1:]).sum(1).double().numpy()
+    r0p, r1p = (a.double().numpy() for a in preemphasis_f32_sums(_t(sig)))
     assert (np.abs(r0p - r0j) <= LEV_TOL * r0j).all()
     fj = 16.0 * r1j / np.maximum(r0j, 1e-30)
     fp = 16.0 * r1p / np.maximum(r0p, 1e-30)
@@ -195,6 +196,124 @@ def test_preemphasis_matches_jax(bps):
     _near_report(f"pre-emphasis {bps} bit", near, V)
     np.testing.assert_array_equal(cp[~near], cj[~near])
     np.testing.assert_array_equal(wp[~near], wj[~near])
+
+
+def test_preemphasis_f32_rows_matches_jax_at_24_bits_16384():
+    """K16's f32 entry's plain version against JAX's _preemphasis on
+    24-bit rows of 16384 samples, where r0 passes 2^53: decisions equal
+    off the band, as test_preemphasis_matches_jax holds them."""
+    V, n = 24, 16384
+    sig = _rows(V, n, 24, seed=53)
+    wj, cj = (np.asarray(a) for a in _pre(jnp.asarray(sig)))
+    wp, cp = (a.numpy() for a in preemphasis_f32_rows(_t(sig)))
+    r0j, r1j = (np.asarray(a, np.float64) for a in _pre_sums(
+        jnp.asarray(sig)))
+    r0p, r1p = (a.double().numpy() for a in preemphasis_f32_sums(_t(sig)))
+    assert (r0p > 2.0 ** 53).sum() >= V // 2
+    assert (np.abs(r0p - r0j) <= LEV_TOL * r0j).all()
+    fj = 16.0 * r1j / np.maximum(r0j, 1e-30)
+    fp = 16.0 * r1p / np.maximum(r0p, 1e-30)
+    b = _band(fj, fp)
+    near = _half_in(np.minimum(fj, fp) - b, np.maximum(fj, fp) + b)
+    _near_report("pre-emphasis 24 bit n 16384", near, V)
+    np.testing.assert_array_equal(cp[~near], cj[~near])
+    np.testing.assert_array_equal(wp[~near], wj[~near])
+
+
+def test_preemphasis_f32_sums_round_once():
+    """r0 = 2^60 + 2^36 + 1 rounds to 2^60 + 2^37 in f32 directly; through
+    f64 it would round to 2^60 + 2^36, then to 2^60 (a tie, to even)."""
+    sig = np.zeros((2, 8), np.int32)
+    sig[0, :3] = (1 << 30, 1 << 18, 1)
+    sig[1, 0] = 3
+    r0, r1 = preemphasis_f32_sums(_t(sig))
+    assert float(r0[0]) == float(np.float32(2.0 ** 60 + 2.0 ** 37))
+    assert float(np.float32(np.float64((1 << 60) + (1 << 36) + 1))) \
+        == 2.0 ** 60
+    assert float(r1[0]) == 2.0 ** 48          # 2^48 + 2^18, rounded
+    assert float(r0[1]) == 9.0 and float(r1[1]) == 0.0
+
+
+@pytest.mark.parametrize("C,lshift,dtype", [(2, 0, np.int16),
+                                            (3, 2, np.int32),
+                                            (1, 0, np.int16)])
+def test_variant_preemphasis_f32_matches_jax_stack(C, lshift, dtype):
+    """K16's f32 entry (its plain version) on the resident file's spans
+    equals it on the cut blocks and equals JAX's stack (analyze_blocks_ex
+    :429-435) and _preemphasis on every row not near a boundary, pre_prev
+    the stacked rows' first samples."""
+    n, B = 1024, 9
+    pcm = make_segmented(2.0)
+    file = np.concatenate([pcm, pcm[:1] - pcm[1:]])[:C]
+    if dtype == np.int32:
+        file = (file.astype(np.int32) << 8) + 77
+    file = np.ascontiguousarray(file.astype(dtype))
+    offs = np.random.RandomState(C).randint(0, file.shape[1] - n, B)
+    spans = Spans(_t(file), offs, n)
+    got = variant_preemphasis_f32(spans, lshift)
+    cut = variant_preemphasis_f32(spans.cut(), lshift)
+    for g, c in zip(got, cut):
+        assert torch.equal(g, c)
+    blocks = np.stack([file[:, o:o + n] for o in offs]).astype(np.int32)
+    w = blocks >> lshift
+    parts = []
+    if C >= 2:
+        d = w[:, 1] - w[:, 0]
+        parts += [w[:, 0] + (d >> 1), d]
+    sig = np.concatenate(parts + [w[:, c] for c in range(C)])
+    wj, cj = (np.asarray(a) for a in _pre(jnp.asarray(sig)))
+    np.testing.assert_array_equal(got[2].numpy(), sig[:, 0])
+    r0j, r1j = (np.asarray(a, np.float64) for a in _pre_sums(
+        jnp.asarray(sig)))
+    r0p, r1p = (a.double().numpy() for a in preemphasis_f32_sums(_t(sig)))
+    fj = 16.0 * r1j / np.maximum(r0j, 1e-30)
+    fp = 16.0 * r1p / np.maximum(r0p, 1e-30)
+    b = _band(fj, fp)
+    near = _half_in(np.minimum(fj, fp) - b, np.maximum(fj, fp) + b)
+    _near_report(f"f32 entry C {C}", near, len(sig))
+    np.testing.assert_array_equal(got[1].numpy()[~near], cj[~near])
+    np.testing.assert_array_equal(got[0].numpy()[~near], wj[~near])
+
+
+def test_measure_spans_approx_reads_spans_in_place():
+    """measure_spans_approx on the resident file's spans (read in place by
+    K16's f32 entry) gives the bits of the cut path: the spans cut, the
+    variant rows stacked and analysed by analyze_variants, K17's
+    measurement entry."""
+    from srla_tpu_torch.kernels.exact import variant_stack
+    from srla_tpu_torch.kernels.select import measure_blocks
+    pcm = make_segmented(2.0)
+    file = _t(np.ascontiguousarray(pcm.astype(np.int16)))
+    n = 2048
+    offs = [5, 777, 4096, 20001, 40000]
+    args = dict(n=n, bps=16, max_params=32, max_fixed=False, fft_size=n,
+                max_porder=8)
+    got = P.measure_spans_approx(file, offs, 0, C=2, **args)
+    out = P.analyze_variants(variant_stack(Spans(file, offs, n).cut(), 0),
+                             **args)
+    V = out["orders"].shape[0]
+    z = torch.zeros(V, dtype=torch.int32)
+    want = measure_blocks(dict(section_bits=out["rice_bits"],
+                               orders=out["orders"], coefs=out["coefs"],
+                               ltp_period=z, ltp_coefs=z[:, None]),
+                          B=len(offs), C=2, bps=16, max_params=32)["bits"]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_ltp_delay_fir_is_k18_plain(order):
+    """_ltp's delay FIR (:274-285) is K18's arithmetic: ltp.ltp_predict
+    (its plain version here) on JAX's own periods and reversed
+    coefficients gives JAX's filtered rows, every row."""
+    from srla_tpu_torch.kernels.ltp import ltp_predict
+    n = 1024
+    work = np.asarray(_pre(jnp.asarray(_rows(48, n, 16, seed=order)))[0])
+    wj, pj, qj = (np.asarray(a) for a in _ltp(jnp.asarray(work), n, 16, n,
+                                               order))
+    assert (pj > 0).sum() > 8
+    got = ltp_predict(_t(work), _t(qj.astype(np.int32)),
+                      _t(pj.astype(np.int32)), order)
+    np.testing.assert_array_equal(got.numpy(), wj)
 
 
 @pytest.mark.parametrize("n,M", [(256, 8), (1024, 32), (4096, 64),
@@ -504,9 +623,11 @@ def _jax_approx_env(monkeypatch):
 
 def _jax_analysis(blocks, lshift, *, n, bps, max_params, max_fixed,
                   fft_size, max_porder, C, ltp_order=0, timer=None):
-    """srla_tpu's analyze_blocks_ex on the port's blocks, padded to its
-    128-block bucket as srla_tpu pads them, its rows for the real blocks
-    handed to the port through from_jax_analysis."""
+    """srla_tpu's analyze_blocks_ex on the port's blocks (the spans cut
+    where the encode hands over ``Spans``), padded to its 128-block bucket
+    as srla_tpu pads them, its rows for the real blocks handed to the port
+    through from_jax_analysis."""
+    blocks = as_blocks(blocks)
     B = blocks.shape[0]
     Bp = (B + 127) // 128 * 128
     padded = np.zeros((Bp, C, n), np.int32)

@@ -24,7 +24,11 @@ from srla_tpu_torch.kernels.bitpack import (  # noqa: E402
     pack_residual_sections, residual_codewords)
 from srla_tpu_torch.kernels.lpc_f32 import (  # noqa: E402
     lpc_analyze_f32, lpc_analyze_f32_plain)
+from srla_tpu_torch.kernels.ltp import ltp_predict  # noqa: E402
 from srla_tpu_torch.kernels.predict import predict  # noqa: E402
+from srla_tpu_torch.kernels.preemphasis import (  # noqa: E402
+    preemphasis_f32_sums, variant_preemphasis, variant_preemphasis_f32,
+    variant_preemphasis_f32_plain, variant_stack)
 from srla_tpu_torch.kernels.rice_cost import (  # noqa: E402
     rice_cost, rice_cost_plain)
 from srla_tpu_torch.signals import make_music, make_segmented  # noqa: E402
@@ -227,6 +231,82 @@ def test_short_approx_encode_on_card(cuda, C, preset, block, ltp):
     assert len(got) <= 1.02 * len(exact)
     assert enc.stats["repaired_blocks"] == 0
     assert enc.stats["host_blocks"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(chip_smoke.k16_layout_cases(np))))
+def test_k16_f32_entry_layout_cases_equal_plain(cuda, case):
+    """K16's f32 entry at K16's layout cases (n 1 to 16384, C 1 to 8, odd
+    offsets, a strided view, int32 extremes, int32 at lshift 8): every
+    output equal to its plain version."""
+    c = chip_smoke.k16_layout_cases(np)[case]
+    src = chip_smoke.k16_source(torch, cuda, c)
+    variant_preemphasis_f32.launches = 0
+    got = variant_preemphasis_f32(src, c[4])
+    torch.cuda.synchronize()
+    assert variant_preemphasis_f32.launches == 1
+    for g, w in zip(got, variant_preemphasis_f32_plain(src, c[4])):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(chip_smoke.k16_cases(np))))
+def test_k16_f32_entry_odd_cases_equal_plain(cuda, case):
+    c = chip_smoke.k16_cases(np)[case]
+    src = chip_smoke.k16_source(torch, cuda, c)
+    got = variant_preemphasis_f32(src, c[4])
+    for g, w in zip(got, variant_preemphasis_f32_plain(src, c[4])):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_k16_f32_entry_rows_of_16384_24_bit(cuda):
+    """24-bit rows of 16384 samples, r0 above 2^53, as (V, 1, n) rows
+    (the analysis of variant rows) and as stereo blocks."""
+    rng = np.random.RandomState(24)
+    x = rng.laplace(0, 1 << 21, (6, 2, 16384)).clip(
+        -(1 << 23), (1 << 23) - 1).astype(np.int32)
+    blocks = torch.from_numpy(x).to(cuda)
+    got = variant_preemphasis_f32(blocks, 0)
+    want = variant_preemphasis_f32_plain(blocks, 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rows = variant_stack(blocks, 0)
+    r0, _ = preemphasis_f32_sums(rows)
+    assert (r0.double() > 2.0 ** 53).any()
+    assert torch.equal(P.preemphasis(rows)[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,ltp", [(0, 3), (1, 0)], ids=["V0_P3", "V1"])
+def test_approx_encode_launches_k16_f32_and_k18(cuda, V, ltp):
+    """The approximate analysis's pre-emphasis and LTP residual on the card
+    are K16's f32 entry and K18: launched once a group (and K16 once a -V
+    measurement call), the exact entry never, no plain version reached;
+    lossless, within 2 % of the exact size."""
+    pcm = make_music(3.0)
+    enc = SRLAEncoder(make_parameter(2, 16, RATE, 4, 4096, V, 4, ltp, 0),
+                      cuda, approx=True)
+    assert enc.approx
+    wrappers = (variant_preemphasis_f32, variant_preemphasis, ltp_predict,
+                pack_residual_sections, predict)
+    for w in wrappers:
+        w.launches = 0
+    got = chip_smoke.approx_no_plain(lambda: enc.encode_whole(pcm))
+    torch.cuda.synchronize()
+    k16, k16_exact, k18, groups, k3 = (w.launches for w in wrappers)
+    assert groups >= 2 and k16_exact == 0
+    assert k16 == k3                   # one analysis a group or call
+    assert k18 == (groups if ltp else 0)
+    if V == 0:
+        assert k16 == groups
+    else:
+        assert k16 > groups and enc.stats["device_spans"] > 0
+    np.testing.assert_array_equal(decode(got, cuda)[1], pcm)
+    exact = host_encoder.encode(pcm, 16, RATE, preset=4,
+                                variable_divisions=V, ltp_order=ltp)
+    assert len(got) <= 1.02 * len(exact)
 
 
 @pytest.mark.gpu

@@ -318,6 +318,19 @@ then:
      8, 9, 11, 12, 13 and 15 count K16, K17's two entries and K18 as they
      count K3, and run their encodes with every plain version of K16,
      K17, K18 and K5's section entry replaced by a tripwire.
+ 18. The work-stealing hybrid encode (SRLAEncoder(..., hybrid=True,
+     host_workers=k)) and the host decode: the 120 s file at -V 0 and at
+     the CLI's defaults (-V 1) with no hybrid and with 1, 4 and
+     (cores - 1) host threads, each stream equal to the device-only one,
+     the routing invariant with stolen_blocks, blocks stolen at k >= 1
+     (the host's first chunk, taken before a rate is known), K16, K8, K7,
+     K3, K4, K17 and K5 launched once an encode call (counted, and seen by
+     torch.profiler), no plain version reached; warm best of 3 on fresh
+     encoders and on one warm encoder (its rates kept) beside
+     host_encoder.encode with k threads alone. The approximate hybrid at
+     -V 0: lossless, within 1.02 of the exact size. host_decoder.decode
+     (the native whole-stream decode) of phase 3's and phase 4's streams:
+     the card's PCM and the source, warm best of 3 beside decode_whole.
 
 Prints the card's name and power limit, the build time, the warm decode and
 encode speeds (x realtime) and each kernel's time beside its plain
@@ -336,8 +349,9 @@ its row entry's (phase 16), its gathered entry's beside them;
 phase 4's, 9's and 11's, ``launches_svr`` on phase 12's five,
 ``launches_corpus`` on phase 13's paths, encode and decode apart,
 ``launches_resident`` on phase 14's, ``launches_approx`` on phase 15's
-three encodes; K14's, K15's and K16's f32 entry's ``launches`` on phase
-15's -V 0 encode; K19's and K1's coefficient entry's on phase 3's decode,
+three encodes, ``launches_hybrid`` on phase 18's, by host thread count;
+K14's, K15's and K16's f32 entry's ``launches`` on phase 15's -V 0
+encode; K19's and K1's coefficient entry's on phase 3's decode,
 K1's record counting the kernel's launches by both entries
 (``launches_by_entry``); K7's
 record also carries its SVR entries' launches on phase 12's full-width
@@ -6066,6 +6080,265 @@ def phase_encode_stages(torch, np, dev, pcm, card):
     return recs, rows_entry
 
 
+# Phase 18: the hybrid encode's paths (path, -V) and the card kernels each
+# card chunk launches, by wrapper name and by CUDA function name.
+HYBRID_PATHS = (("music120_V0", 0), ("music120_V1", 1))
+HYBRID_KERNELS = (("preemphasis", "preemphasis_kernel"),
+                  ("autocorr", "autocorr_kernel"),
+                  ("lpc_analyze", "lpc_analyze_kernel"),
+                  ("fir_predict", "fir_predict_kernel"),
+                  ("rice_search", "rice_search_rows"),
+                  ("select_blocks", "select_kernel"),
+                  ("pack_residual_sections", "pack_sections_kernel"))
+
+
+def hybrid_workers() -> list:
+    """The host thread counts phase 18 runs: 0 (no hybrid: every group on
+    the card), 1, 4 and one a core but the caller's."""
+    import os
+    return sorted({0, 1, 4, max(1, len(os.sched_getaffinity(0)) - 1)})
+
+
+def hybrid_encoder(param, dev, workers: int, approx: bool = False):
+    """A hybrid encoder whose encode calls are recorded: ``chunks`` (each
+    call's blocks) and host-clock seconds in the launch and the finish
+    half (``seconds``)."""
+    from srla_tpu_torch import SRLAEncoder
+    enc = SRLAEncoder(param, dev, approx=approx,
+                      host_workers=max(1, workers), hybrid=workers > 0)
+    enc.chunks, enc.seconds = [], {"launch": 0.0, "finish": 0.0}
+    launch, finish = enc._launch_group, enc._finish_group
+
+    def launched(pcm, files, spans, idxs, size, *a):
+        t0 = time.perf_counter()
+        enc.chunks.append(len(idxs))
+        out = launch(pcm, files, spans, idxs, size, *a)
+        enc.seconds["launch"] += time.perf_counter() - t0
+        return out
+
+    def finished(*a):
+        t0 = time.perf_counter()
+        out = finish(*a)
+        enc.seconds["finish"] += time.perf_counter() - t0
+        return out
+
+    enc._launch_group, enc._finish_group = launched, finished
+    return enc
+
+
+def hybrid_run(torch, np, dev, pcm, param, workers: int, approx: bool = False
+               ) -> tuple:
+    """One counted hybrid encode under torch.profiler (a warm-up step
+    first), each step from unknown rates, as a fresh encoder: (stream,
+    launches, stats, the encode calls' blocks, the CUDA kernels by
+    name)."""
+    enc = hybrid_encoder(param, dev, workers, approx)
+    out = {}
+
+    def run():
+        for k, v in enc.stats.items():
+            if isinstance(v, int):
+                enc.stats[k] = 0
+        enc._rates.update(dev=None, host=None)
+        enc.chunks.clear()
+        out["data"], out["launches"] = counted(
+            torch, all_wrappers(), lambda: without_plain(
+                lambda: enc.encode_whole(pcm)))
+
+    split = profile_kernels(torch, run, runs=1)
+    return (out["data"], out["launches"], dict(enc.stats), list(enc.chunks),
+            {name: n for name, _us, n in split})
+
+
+def hybrid_best(torch, dev, pcm, param, workers: int,
+                kept: bool = False) -> tuple:
+    """Warm best of 3 of a hybrid encode, on a fresh encoder each run or
+    (kept) on one encoder warmed once, whose rates carry over: (seconds,
+    that run's seconds in the launch and finish halves, its stats, its
+    encode calls' blocks)."""
+    best = None
+    warm = hybrid_encoder(param, dev, workers)
+    if kept:
+        warm.encode_whole(pcm)
+    for _ in range(3):
+        enc = warm if kept else hybrid_encoder(param, dev, workers)
+        for k, v in enc.stats.items():
+            if isinstance(v, int):
+                enc.stats[k] = 0
+        enc.chunks.clear()
+        enc.seconds.update(launch=0.0, finish=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_whole(pcm)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if best is None or took < best[0]:
+            best = (took, dict(enc.seconds), dict(enc.stats),
+                    list(enc.chunks))
+    return best
+
+
+def phase_hybrid(torch, np, dev, pcm, stream: bytes, pcm4, stream4,
+                 card: str) -> dict:
+    """Phase 18: the work-stealing hybrid encode and the host decode. The
+    120 s file at -V 0 and at the CLI's defaults (-V 1) with no hybrid
+    ("threads 0") and with 1, 4 and a thread a core but one host threads
+    (hybrid_workers): each stream equal to the device-only one (phases 6
+    and 8 hold that one to the host exact stream); device_blocks +
+    repaired_blocks + w_overflow_blocks + stolen_blocks == the device-size
+    COMPRESS blocks (the device-only count); the host stole blocks on the
+    counted run, which starts from unknown rates; the card
+    launched K16, K8, K7, K3, K4, K17 and K5 on its share (counted, and by
+    name under torch.profiler), each once an encode call (a card chunk, or
+    a group the hybrid does not split) and, but K17's encode entry and K5,
+    once a -V measurement call; no plain version reached. Prints the card
+    and host blocks, the card chunks and the warm best of 3 on fresh
+    encoders (with that run's host-clock seconds in the launch and the
+    finish halves); at k >= 1 also the warm best of 3 on one encoder whose
+    rates carry over, the StepTimer steps of one run and
+    host_encoder.encode with k
+    threads alone (best of 3 at -V 0, one warm run at -V 1). The
+    approximate hybrid once at -V 0: lossless, within 1.02 of the exact
+    stream. The host decode (host_decoder.decode, the native whole-stream
+    decode) of phase 3's and phase 4's streams: the card's decode's PCM and
+    the source, timed beside decode_whole. Returns {path: {run:
+    launches}}."""
+    from srla_tpu_torch import SRLADecoder, decode
+    from srla_tpu_torch import host_decoder, host_encoder
+    from srla_tpu_torch.encoder import StepTimer
+
+    t_phase = time.perf_counter()
+    got: dict = {}
+    counts = hybrid_workers()
+    for path, V in HYBRID_PATHS:
+        param = main_param() if V == 0 else variable_param(V)
+        got[path] = {}
+        base = None
+        for w in counts:
+            data, launches, s, chunks, names = hybrid_run(
+                torch, np, dev, pcm, param, w)
+            got[path][f"w{w}"] = launches
+            card_blocks = (s["device_blocks"] + s["repaired_blocks"]
+                           + s["w_overflow_blocks"])
+            if base is None:
+                base = data, card_blocks, s["host_blocks"]
+                if V == 0:
+                    require(data == stream, "phase 18: the -V 0 stream "
+                                            "differs from the host exact "
+                                            "stream")
+                    require(card_blocks == compress_blocks(stream),
+                            f"phase 18 block accounting {s}")
+            require(data == base[0], f"phase 18 {path} threads {w}: "
+                                     f"the stream differs from the "
+                                     f"device-only one")
+            require(card_blocks + s["stolen_blocks"] == base[1],
+                    f"phase 18 {path} threads {w}: routing {s}, "
+                    f"{base[1]} device-size COMPRESS blocks")
+            require(s["host_blocks"] == base[2] + s["stolen_blocks"],
+                    f"phase 18 {path} threads {w}: host_blocks {s}")
+            require((s["stolen_blocks"] > 0) == (w > 0),
+                    f"phase 18 {path} threads {w}: stolen "
+                    f"{s['stolen_blocks']}")
+            # Each encode call launches each kernel once (one device): K17's
+            # encode entry and K5 once a call, the others once more a -V
+            # measurement call (counted by K17's measurement entry).
+            per_kernel = {k: launches[k] for k, _ in HYBRID_KERNELS}
+            want = {k: len(chunks) + (0 if k in ("select_blocks",
+                                                 "pack_residual_sections")
+                                      else launches["measure_blocks"])
+                    for k in per_kernel}
+            require(per_kernel == want and len(chunks) > 0,
+                    f"phase 18 {path} threads {w}: card launches "
+                    f"{per_kernel}, {len(chunks)} encode calls {chunks}")
+            missing = [fn for _, fn in HYBRID_KERNELS
+                       if not any(fn in nm for nm in names)]
+            require(not missing, f"phase 18 {path} threads {w}: "
+                                 f"torch.profiler saw none of {missing}")
+            best, halves, bs, bchunks = hybrid_best(torch, dev, pcm, param,
+                                                    w)
+            text = (f"phase 18 hybrid {path} threads {w}: "
+                    f"byte-identical to the device-only stream, card "
+                    f"{s['device_blocks']} (repaired "
+                    f"{s['repaired_blocks']}, overflow "
+                    f"{s['w_overflow_blocks']}) / stolen "
+                    f"{s['stolen_blocks']} of {base[1]} device-size COMPRESS "
+                    f"blocks, card launches {per_kernel} (encode calls of "
+                    f"{chunks} blocks); warm best of 3 {best * 1e3:.1f} ms = "
+                    f"{MAIN_SECONDS / best:.1f}x realtime (that run: card "
+                    f"{bs['device_blocks'] + bs['repaired_blocks']} / stolen "
+                    f"{bs['stolen_blocks']} blocks, encode calls of "
+                    f"{bchunks} blocks, launch halves "
+                    f"{halves['launch'] * 1e3:.1f} ms, finish halves "
+                    f"{halves['finish'] * 1e3:.1f} ms)")
+            if w:
+                kbest, khalves, ks, kchunks = hybrid_best(
+                    torch, dev, pcm, param, w, kept=True)
+                text += (f"; rates kept, warm best of 3 {kbest * 1e3:.1f} ms "
+                         f"= {MAIN_SECONDS / kbest:.1f}x realtime (that run: "
+                         f"stolen {ks['stolen_blocks']} blocks, encode calls "
+                         f"of {kchunks} blocks, launch halves "
+                         f"{khalves['launch'] * 1e3:.1f} ms, finish halves "
+                         f"{khalves['finish'] * 1e3:.1f} ms)")
+                # The hybrid's steps (StepTimer: synchronised at each step;
+                # "hybrid: host threads" is the wait for the host threads
+                # once the card has taken its last chunk).
+                enc = hybrid_encoder(param, dev, w)
+                enc.timer = StepTimer(dev)
+                enc.encode_whole(pcm)
+                steps = enc.timer.seconds
+                text += ("; steps (host clock, synchronised per step, ms): "
+                         + ", ".join(f"{k} {v * 1e3:.2f}"
+                                     for k, v in steps.items())
+                         + f", total {sum(steps.values()) * 1e3:.2f}")
+                # host_encoder alone: best of 3 at -V 0, one warm run at
+                # -V 1 (seconds a run; its span measurement is serial).
+                host_best = best_of(torch, lambda: host_encoder.SRLAEncoder(
+                    param, workers=w).encode_whole(pcm), 3 if V == 0 else 1)
+                text += (f"; host_encoder alone, threads {w}, "
+                         f"{'best of 3' if V == 0 else 'one warm run'}: "
+                         f"{host_best * 1e3:.1f} ms = "
+                         f"{MAIN_SECONDS / host_best:.1f}x realtime")
+            print(text + f" [{card}]")
+
+    # The approximate hybrid: the card's blocks f32, the stolen ones exact.
+    w = counts[-1]
+    data, launches, s, chunks, _ = hybrid_run(torch, np, dev, pcm,
+                                              main_param(), w, approx=True)
+    got["music120_V0_approx"] = {f"w{w}": launches}
+    _, out = host_decoder.decode(data)
+    require(np.array_equal(out, pcm), "phase 18: the approximate hybrid "
+                                      "stream is not lossless")
+    require(s["stolen_blocks"] > 0, f"phase 18 approximate: stolen {s}")
+    ratio = len(data) / len(stream)
+    require(ratio <= 1.02, f"phase 18 approximate hybrid: {ratio:.5f} of "
+                           f"the exact size")
+    print(f"phase 18 approximate hybrid music120_V0 threads {w}: "
+          f"lossless, {len(data)} bytes = {ratio:.5f} of the exact stream, "
+          f"card {s['device_blocks']} / stolen {s['stolen_blocks']} blocks "
+          f"(card calls {chunks}) [{card}]")
+
+    # The host decode of phase 3's and phase 4's streams.
+    for what, src, data in (("music120_m4", pcm, stream),
+                            ("music120_m6_P3", pcm4, stream4)):
+        _, host_pcm = host_decoder.decode(data)
+        _, card_pcm = decode(data, device=dev)
+        require(np.array_equal(host_pcm, card_pcm)
+                and np.array_equal(host_pcm, src),
+                f"phase 18 host decode of {what}: not the card's PCM")
+        host_best = best_of(torch, lambda: host_decoder.decode(data))
+        dec = SRLADecoder(dev)
+        card_best = best_of(torch, lambda: dec.decode_whole(data))
+        seconds = src.shape[1] / SAMPLE_RATE
+        print(f"phase 18 host decode {what} ({seconds:.0f} s): equal to the "
+              f"card's decode and the source; warm best of 3 host_decoder."
+              f"decode {host_best * 1e3:.1f} ms = "
+              f"{seconds / host_best:.1f}x realtime, decode_whole on the "
+              f"card {card_best * 1e3:.1f} ms = {seconds / card_best:.1f}x "
+              f"realtime (phase {time.perf_counter() - t_phase:.1f} s) "
+              f"[{card}]")
+    return got
+
+
 def main(argv) -> int:
     parent = None
     if argv:
@@ -6255,6 +6528,10 @@ def main(argv) -> int:
         launches[name] = approx_launches["music120_V0_approx"]["encode"][
             name]
 
+    # Phase 18: the hybrid encode and the host decode.
+    hybrid_launches = phase_hybrid(torch, np, dev, pcm, stream, pcm4,
+                                   stream4, card)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "srla_tpu", "bench"))
     require(not foreign, f"imported outside the port: {foreign[:5]}")
@@ -6285,6 +6562,10 @@ def main(argv) -> int:
         rec["launches_approx"] = {
             path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
             for path, runs in approx_launches.items()}
+        # Phase 18: each hybrid encode's launches, by host thread count.
+        rec["launches_hybrid"] = {
+            path: {run: got.get(rec["name"], 0) for run, got in runs.items()}
+            for path, runs in hybrid_launches.items()}
         rec["max_abs_err"] = max(rec["max_abs_err"],
                                  var_errs.get(rec["name"], 0))
         if rec["name"] == "rice_search":

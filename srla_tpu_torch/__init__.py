@@ -5,7 +5,11 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a). It holds the device
 decode, ``decode(stream, device="cuda")``, and the exact device encode,
 ``encode(pcm, bits, rate, device="cuda")``, byte-identical to
 ``srla_tpu.encode(..., backend="exact")``, and with ``approx=True``
-``srla_tpu``'s f32 approximate encode (lossless, not byte-identical). The host layer (stream format,
+``srla_tpu``'s f32 approximate encode (lossless, not byte-identical);
+``hybrid=True`` splits each large group between the device and host
+threads that steal blocks from its back (``srla_tpu``'s hybrid), with the
+same bytes. ``host_decoder.decode(stream)`` decodes on the host alone
+(``srla_tpu.decode``'s native whole-stream decode). The host layer (stream format,
 bit reader and writer, Huffman tables, host DSP, the native library for
 parsing and assembly, the exact host encoder for repairs and as the byte
 reference) is the port's own: copies of ``srla_tpu``'s modules under the

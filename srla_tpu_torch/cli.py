@@ -13,7 +13,10 @@ prediction) and --svr-filter-learning-iteration N (SVR refinement of the
 LPC coefficients), both on --device too. SRLA_TPU_APPROX=1 in the
 environment takes srla_tpu's f32 approximate encode (as
 ``srla_tpu/encoder.py:169``): lossless, within about 2 % of the exact size,
-not byte-identical.
+not byte-identical. SRLA_HOST_THREADS=k splits the encode's host batches
+(its repairs) over k threads, as srla_tpu's; the bytes are the same. The
+work-stealing hybrid is not on the command line: ``SRLAEncoder(...,
+hybrid=True)`` in the API.
 """
 
 from __future__ import annotations
@@ -82,6 +85,11 @@ def main(argv=None) -> int:
         if not 0 <= args.mode <= 6:
             print(f"invalid compress mode: {args.mode}", file=sys.stderr)
             return 1
+        threads = os.environ.get("SRLA_HOST_THREADS", "1")
+        if not threads.strip().isdigit():
+            print(f"SRLA_HOST_THREADS must be a whole number of threads, "
+                  f"not {threads!r}", file=sys.stderr)
+            return 2
         wav = read_audio(args.input)
         total = wav.pcm.shape[1]
 
@@ -108,8 +116,8 @@ def main(argv=None) -> int:
                 args.svr_filter_learning_iteration))
         approx = os.environ.get("SRLA_TPU_APPROX", "") == "1"
         try:
-            data = SRLAEncoder(param, args.device,
-                               approx=approx).encode_whole(
+            data = SRLAEncoder(param, args.device, approx=approx,
+                               host_workers=int(threads)).encode_whole(
                 np.asarray(wav.pcm, dtype=np.int32),
                 progress_callback=progress)
         except ValueError as e:

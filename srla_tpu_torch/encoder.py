@@ -53,6 +53,17 @@ file from fresh memory; ``srla_tpu.encode_files`` lets an odd-length block
 take its state from the previous file's last COMPRESS block). Each stream
 equals ``host_encoder.encode`` of its file.
 
+``host_workers=k`` (the port's CLI: ``SRLA_HOST_THREADS=k``, as
+``srla_tpu``) splits each host batch of 2k blocks or more over k threads:
+the repairs, and the LTP groups under the device's smallest size.
+``hybrid=True`` takes ``srla_tpu``'s work-stealing hybrid: each device-size
+group of at least HYBRID_MIN_BLOCKS blocks is split between the device,
+which takes chunks from the front of the group's queue in the calling
+thread, and a host thread, which takes HYBRID_HOST_CHUNK blocks at a time
+from its back while the host would finish them first, and encodes them on
+the exact host path over those k threads (``_encode_group_hybrid``). The
+default, False, encodes every device-size group on the device.
+
 ``approx=True`` (the port's CLI: ``SRLA_TPU_APPROX=1``, as
 ``srla_tpu/encoder.py:169``) takes ``srla_tpu``'s f32 approximate encode
 instead: each equal-size group is one ``kernels.encode.encode_blocks_approx``
@@ -69,7 +80,10 @@ exact path (``srla_tpu/encoder.py:170-175``), whose bytes equal
 from __future__ import annotations
 
 import bisect
+import queue
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -124,9 +138,24 @@ class SRLAEncoder:
     # -V 1, on an H100 80GB), so a size's spans go in calls of at most this
     # many samples: one call a size up to about 7 minutes of audio.
     MAX_MEASURE_SAMPLES = 1 << 25
+    # The hybrid's chunks (srla_tpu/encoder.py:913-914, :1003-1010): the
+    # device's first chunk, and its chunks while a rate is unknown; its
+    # largest while the host steals; the host's chunk, also the device's
+    # smallest. A group is split when it holds at least HYBRID_MIN_BLOCKS.
+    # Set from tools/hybrid_sweep.py on an H100 80GB with 8 host cores
+    # (blocks of 4096, 16-bit stereo): no host chunk of 32, 64 and 128 was
+    # best at every length and thread count, so JAX's 64 stays; a group of
+    # 215 blocks was slower than on the device alone at every thread count
+    # and chunk (the device finished it before the host's first chunk),
+    # one of 430 not always.
+    HYBRID_FIRST_CHUNK = 128
+    HYBRID_DEV_CHUNK = 512
+    HYBRID_HOST_CHUNK = 64
+    HYBRID_MIN_BLOCKS = 3 * HYBRID_FIRST_CHUNK
 
     def __init__(self, parameter: EncodeParameter, device, devices=None,
-                 approx: bool = False):
+                 approx: bool = False, host_workers: int = 1,
+                 hybrid: bool = False):
         """device: the torch device that encodes the COMPRESS blocks and
         measures the -V spans ("cuda" runs the CUDA kernels, "cpu" their
         plain versions). devices: optional list of devices; each encode
@@ -140,7 +169,13 @@ class SRLAEncoder:
         this encoder shares. approx: the f32 approximate encode (lossless,
         not byte-exact; see the module's notes), except with LTP at
         variable block sizes, which stays exact (``self.approx`` says
-        which)."""
+        which). host_workers: the held host encoder's ``workers``, the
+        threads a host batch is split over. hybrid: split each device-size
+        group of at least HYBRID_MIN_BLOCKS blocks between the device and
+        the host, which steals chunks from its back
+        (``_encode_group_hybrid``; the bytes do not depend on the split in
+        exact mode; stolen blocks count in ``stats["host_blocks"]`` and
+        ``stats["stolen_blocks"]``)."""
         parameter.validate()
         self.p = parameter
         variable = (parameter.min_num_samples_per_block
@@ -151,7 +186,11 @@ class SRLAEncoder:
                                             and variable)
         self.device = resolve([device])[0]
         self.devices = None if devices is None else resolve(devices)
-        self._host = host_encoder.SRLAEncoder(parameter)
+        self._host = host_encoder.SRLAEncoder(parameter, host_workers)
+        self.hybrid = bool(hybrid)
+        # The hybrid's rates, samples a second: the device's and the host's
+        # (its whole pool), kept across groups and encodes.
+        self._rates = {"dev": None, "host": None}
         # srla_tpu's keys and meaning: COMPRESS blocks emitted from the
         # device, blocks encoded on the host (repairs included), flagged
         # blocks re-derived on the host, blocks whose section exceeded W.
@@ -159,6 +198,9 @@ class SRLAEncoder:
         # the device, flagged and re-measured on the host, measured on the
         # host (odd sizes, the odd last window).
         self.stats = self._host.stats
+        # Blocks of hybrid groups that host threads took from the device's
+        # queue (also in host_blocks).
+        self.stats["stolen_blocks"] = 0
         # Set to a StepTimer to collect a per-step breakdown of encode_whole.
         self.timer = None
         self._progress_cb = None
@@ -369,7 +411,8 @@ class SRLAEncoder:
     def _encode_spans(self, pcm, files, spans, lshift, tick,
                       firsts=(0,)) -> list[bytes]:
         """Type the blocks, encode each even-size COMPRESS group on the
-        device (cut from ``files``, the resident copies of ``pcm``), odd-size
+        device (cut from ``files``, the resident copies of ``pcm``; with
+        ``hybrid``, a large one split with the host), odd-size
         ones serially on the host (``srla_tpu``'s ``_encode_spans`` with the
         device route always taken). ``firsts``: the sorted indices of the
         spans that begin a file; an odd-size block takes its work-buffer
@@ -392,6 +435,10 @@ class SRLAEncoder:
         results: dict[int, bytes] = {}
         for size, idxs in by_size.items():
             if self._device_size_ok(size):
+                if self.hybrid and len(idxs) >= self.HYBRID_MIN_BLOCKS:
+                    results.update(self._encode_group_hybrid(
+                        pcm, files, spans, idxs, size, lshift, tick))
+                    continue
                 for lo in range(0, len(idxs), self.MAX_CALL_BLOCKS):
                     call = idxs[lo:lo + self.MAX_CALL_BLOCKS]
                     results.update(self._encode_group(
@@ -442,12 +489,19 @@ class SRLAEncoder:
 
     def _encode_group(self, pcm, files, spans, idxs, size: int, lshift: int,
                       tick) -> dict[int, bytes]:
-        """Equal-size blocks on the device: one ``encode_blocks`` call
+        """Equal-size blocks on the device: ``_launch_group`` then
+        ``_finish_group``."""
+        return self._finish_group(pcm, spans, size, lshift, self._launch_group(
+            pcm, files, spans, idxs, size, lshift, tick), tick)
+
+    def _launch_group(self, pcm, files, spans, idxs, size: int, lshift: int,
+                      tick) -> list:
+        """The launch half of a group: one ``encode_blocks`` call
         (``encode_blocks_approx`` under approx) a shard on its blocks'
         ``Spans`` of its device's copy in ``files`` (read in place by K16;
-        cut first under approx), every
-        shard launched before any is fetched; then each shard's fetch,
-        repair and assembly (``_finish_shard``)."""
+        cut first under approx), every shard launched before any is
+        fetched. Returns [(the shard's block indices, its device
+        outputs)]."""
         C = pcm.shape[0]
         W = self._section_words(size)
         cuts = shards(len(idxs), self._targets())
@@ -463,12 +517,146 @@ class SRLAEncoder:
         # The group's host set-up is a step of its own, so that the first
         # kernel's step times that kernel's call.
         tick("group set-up")
-        launched = [(part, encode(src, lshift, C=C, W=W, timer=tick, **args))
-                    for part, src in parts]
+        return [(part, encode(src, lshift, C=C, W=W, timer=tick, **args))
+                for part, src in parts]
+
+    def _finish_group(self, pcm, spans, size: int, lshift: int, launched,
+                      tick) -> dict[int, bytes]:
+        """The finish half of a group: each shard's fetch, repair and
+        assembly (``_finish_shard``)."""
         results: dict[int, bytes] = {}
         for part, (small_t, flat_t) in launched:
             results.update(self._finish_shard(pcm, spans, part, size, lshift,
                                               small_t, flat_t, tick))
+        return results
+
+    def _encode_group_hybrid(self, pcm, files, spans, idxs, size: int,
+                             lshift: int, tick) -> dict[int, bytes]:
+        """Work-stealing split of one equal-size group between the device
+        and the host (``srla_tpu/encoder.py:916 _encode_group_hybrid``,
+        without its tunnel gates). The device side runs in this thread
+        and takes chunks from the front of the queue: HYBRID_FIRST_CHUNK
+        blocks, launched before the host starts; then, while the host
+        steals, ``rem * dev / (dev + host) / 2`` blocks, clamped to
+        [HYBRID_HOST_CHUNK, HYBRID_DEV_CHUNK] (HYBRID_FIRST_CHUNK while a
+        rate is unknown), and once it has stopped, the rest. It is one
+        deep: chunk k+1 is launched before chunk k is fetched, repaired and
+        assembled. One stealing thread takes HYBRID_HOST_CHUNK blocks from
+        the back while the host, at its measured rate, would finish them
+        before the device, at its, finishes the rest and the blocks it
+        holds, and encodes them on the exact host path, split over the
+        held host encoder's ``workers`` threads (``host_blocks``, and here
+        ``stolen_blocks``); with no rate of both sides yet it steals. The
+        rates (samples a second, halved towards each new reading) are this
+        encoder's, kept across groups and encodes. Both sides emit the
+        same bytes in exact mode, so the stream does not depend on the
+        split; under approx the device's blocks are approximate and the
+        stolen ones exact. Blocks are counted and reported to the meter in
+        this thread only. A device error raises once the stealing thread
+        has stopped; no block of a failed device chunk is encoded again on
+        the host."""
+        host = self._host
+        rates = self._rates
+        pending = list(idxs)
+        lock = threading.Lock()
+        done: queue.SimpleQueue = queue.SimpleQueue()
+        # Blocks the device has taken and not finished; whether the
+        # stealing thread has stopped; whether the device side failed.
+        state = {"held": 0, "stopped": False, "failed": False}
+
+        def take_front(want: int) -> list:
+            with lock:
+                chunk = pending[:want]
+                del pending[:want]
+                state["held"] += len(chunk)
+                return chunk
+
+        def take_back() -> list:
+            with lock:
+                k = min(self.HYBRID_HOST_CHUNK, len(pending))
+                dev, hst = rates["dev"], rates["host"]
+                late = (dev is not None and hst is not None and k / hst
+                        > (len(pending) - k + state["held"]) / dev)
+                if state["failed"] or not k or late:
+                    state["stopped"] = True
+                    return []
+                chunk = pending[-k:]
+                del pending[-k:]
+                return chunk
+
+        def measured(key: str, samples: int, seconds: float) -> None:
+            rate = samples / max(seconds, 1e-6)
+            with lock:
+                old = rates[key]
+                rates[key] = rate if old is None else 0.5 * (old + rate)
+
+        def steal() -> None:
+            while chunk := take_back():
+                t0 = time.perf_counter()
+                out = host._encode_host_batch(pcm, spans, chunk, size,
+                                              lshift)
+                measured("host", len(chunk) * size,
+                         time.perf_counter() - t0)
+                done.put((chunk, out))
+
+        results: dict[int, bytes] = {}
+
+        def collect() -> None:
+            while True:
+                try:
+                    chunk, out = done.get_nowait()
+                except queue.Empty:
+                    return
+                results.update(out)
+                self.stats["stolen_blocks"] += len(chunk)
+                self._blocks_done(len(chunk), size)
+
+        def want() -> int:
+            with lock:
+                dev, hst, rem = rates["dev"], rates["host"], len(pending)
+                stopped = state["stopped"]
+            if stopped:
+                return self.MAX_CALL_BLOCKS
+            if dev is None or hst is None:
+                return self.HYBRID_FIRST_CHUNK
+            return int(min(self.HYBRID_DEV_CHUNK,
+                           max(self.HYBRID_HOST_CHUNK,
+                               rem * dev / (dev + hst) * 0.5)))
+
+        chunk = take_front(self.HYBRID_FIRST_CHUNK)
+        launched = self._launch_group(pcm, files, spans, chunk, size, lshift,
+                                      tick)
+        stealer = ThreadPoolExecutor(1)
+        try:
+            stolen = stealer.submit(steal)
+            last = time.perf_counter()
+            while launched is not None:
+                nxt_chunk = take_front(want())
+                nxt = (self._launch_group(pcm, files, spans, nxt_chunk, size,
+                                          lshift, tick)
+                       if nxt_chunk else None)
+                results.update(self._finish_group(pcm, spans, size, lshift,
+                                                  launched, tick))
+                with lock:
+                    state["held"] -= len(chunk)
+                self._blocks_done(len(chunk), size)
+                now = time.perf_counter()
+                measured("dev", len(chunk) * size, now - last)
+                last = now
+                collect()
+                launched, chunk = nxt, nxt_chunk
+            stolen.result()
+        except BaseException:
+            with lock:
+                state["failed"] = True
+            raise
+        finally:
+            stealer.shutdown(wait=True)
+        collect()
+        tick("hybrid: host threads")
+        if set(results) != set(idxs):
+            raise RuntimeError(f"hybrid encode emitted {len(results)} of "
+                               f"{len(idxs)} blocks")
         return results
 
     def _finish_shard(self, pcm, spans, idxs, size: int, lshift: int,
@@ -587,15 +775,19 @@ def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            device, preset: int = 4, max_block: int = 4096,
            variable_divisions: int = 0, lookahead_factor: int = 4,
            ltp_order: int = 0, svr_iterations: int = 0,
-           approx: bool = False) -> bytes:
+           approx: bool = False, host_workers: int = 1,
+           hybrid: bool = False) -> bytes:
     """One-shot file encode on ``device``: ``host_encoder.encode``'s (and
     ``srla_tpu.encode``'s) result for the same arguments; with approx, the
-    f32 approximate encode (lossless, not byte-exact)."""
+    f32 approximate encode (lossless, not byte-exact); host_workers and
+    hybrid as ``SRLAEncoder``'s."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
                            lookahead_factor, ltp_order, svr_iterations)
-    return SRLAEncoder(param, device, approx=approx).encode_whole(pcm)
+    return SRLAEncoder(param, device, approx=approx,
+                       host_workers=host_workers,
+                       hybrid=hybrid).encode_whole(pcm)
 
 
 def encode_files(pcm_list, bits_per_sample: int, sampling_rate: int,

@@ -10,6 +10,12 @@ the host one-block reference, ``decode_block_params`` (:130, the entropy
 decode) and ``synthesize_block`` (:187, the integer synthesis chain):
 sequential numpy, what the device decode of a block is held to in the
 tests, never on a device path.
+
+``decode`` is the port's host decode of a whole stream, the counterpart of
+``srla_tpu.decode`` (``srla_tpu/decoder.py:282-306``): the native library's
+``decode_stream`` where it builds, else a walk over the blocks with the
+one-block reference. ``decode_block`` decodes one COMPRESS payload on the
+host the same way. Neither touches a device.
 """
 
 from __future__ import annotations
@@ -20,14 +26,15 @@ import numpy as np
 
 from . import native_decoder, rice
 from .bitio import BitReader, uint32_to_sint32
-from .constants import (LPC_COEFFICIENT_ORDER_BITWIDTH,
+from .constants import (HEADER_SIZE, LPC_COEFFICIENT_ORDER_BITWIDTH,
                         LTP_COEFFICIENT_BITWIDTH, LTP_MIN_PERIOD,
                         LTP_ORDER_BITWIDTH, LTP_PERIOD_BITWIDTH,
                         MAX_COEFFICIENT_ORDER, PREEMPHASIS_COEF_SHIFT,
-                        RSHIFT_LPC_COEFFICIENT_BITWIDTH, ChProcessMethod)
+                        RSHIFT_LPC_COEFFICIENT_BITWIDTH, BlockDataType,
+                        ChProcessMethod)
 from .dsp.predict import lpc_synthesize, ltp_synthesize
 from .dsp.preemphasis import deemphasis
-from .format import StreamHeader
+from .format import StreamHeader, decode_header, parse_block_header
 from .huffman import parameter_codebook, sum_parameter_codebook
 
 
@@ -141,3 +148,51 @@ class SRLADecoder:
             if header.offset_lshift:
                 buf = (buf << header.offset_lshift).astype(np.int32)
         return buf
+
+
+def decode_block(payload: bytes, header: StreamHeader,
+                 num_samples: int) -> np.ndarray:
+    """One COMPRESS payload decoded on the host -> (C, n) int32 PCM: the
+    native ``decode_block`` where the library builds, else
+    ``decode_block_params`` and ``synthesize_block``."""
+    if native_decoder.available():
+        return native_decoder.decode_block(
+            payload, header.num_channels, header.bits_per_sample,
+            num_samples, header.offset_lshift)
+    dec = SRLADecoder()
+    return dec.synthesize_block(
+        dec.decode_block_params(payload, header, num_samples), header,
+        num_samples)
+
+
+def decode(data: bytes, check_checksum: bool = True
+           ) -> tuple[StreamHeader, np.ndarray]:
+    """Decode a whole .srl stream on the host -> (header, (C, N) int32
+    PCM), ``srla_tpu.decode(data)``'s result: the native whole-stream
+    decode where the library builds, else the block walk of
+    ``srla_tpu/decoder.py:289-306``. A checksum mismatch (with
+    ``check_checksum``) or a stream cut inside a block raises ValueError; a
+    stream cut at a block boundary leaves the missing tail silent."""
+    header = decode_header(data)
+    C, N = header.num_channels, header.num_samples
+    if native_decoder.available():
+        return header, native_decoder.decode_stream(
+            data[HEADER_SIZE:], C, header.bits_per_sample, N,
+            header.offset_lshift, check_checksum)
+    dec = SRLADecoder()
+    pcm = np.zeros((C, N), dtype=np.int32)
+    offset = HEADER_SIZE
+    progress = 0
+    while progress < N and offset < len(data):
+        btype, nsamples, poff, psize = parse_block_header(data, offset,
+                                                          check_checksum)
+        payload = data[poff:poff + psize]
+        if btype == BlockDataType.RAW:
+            pcm[:, progress:progress + nsamples] = dec.decode_raw_block(
+                payload, header, nsamples)
+        elif btype == BlockDataType.COMPRESS:
+            pcm[:, progress:progress + nsamples] = decode_block(
+                payload, header, nsamples)
+        offset = poff + psize
+        progress += nsamples
+    return header, pcm

@@ -15,8 +15,10 @@ lookahead window, RAW and SILENT blocks, flagged repairs), and ``encode`` is
 the byte reference of the port's tests and ``chip_smoke.py``: the tests hold
 it byte-equal to ``srla_tpu.encode(..., backend="exact")``, which is
 byte-exact with the C reference, SVR refinement
-(``--svr-filter-learning-iteration``, ``dsp/svr.py``) included. Not copied:
-the device backends and the host worker process.
+(``--svr-filter-learning-iteration``, ``dsp/svr.py``) included. Its host
+batches split over ``workers`` threads, as ``SRLA_HOST_THREADS`` splits
+``srla_tpu``'s. Not copied: the device backends and the host worker
+process (``srla_tpu/hostproc.py``).
 
 API parity targets: SRLAEncoder_* in libs/srla_encoder/src/srla_encoder.c.
 """
@@ -26,6 +28,7 @@ from __future__ import annotations
 import math
 import threading
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -121,9 +124,21 @@ def _slice_params(p: _ChannelParams, lo: int, hi: int) -> _ChannelParams:
 
 
 class SRLAEncoder:
-    def __init__(self, parameter: EncodeParameter):
+    def __init__(self, parameter: EncodeParameter, workers: int = 1):
+        """workers: threads a host batch of even-size blocks is split over
+        (``srla_tpu``'s ``SRLA_HOST_THREADS``): with more than one and at
+        least two blocks a thread, the batch is sharded ``idxs[j::workers]``
+        over a thread pool (the hot loops are native or numpy and release
+        the GIL). The bytes do not depend on it."""
         parameter.validate()
         self.p = parameter
+        self.workers = max(1, int(workers))
+        # Guards ``stats`` and the progress meter: host batches may run on
+        # two threads at once (a device encoder's repairs and its hybrid's
+        # stealing thread).
+        self._lock = threading.Lock()
+        self._progress_cb = None
+        self._progress_done = 0
         # Per-encode accounting, with srla_tpu's keys: COMPRESS blocks
         # emitted from the device, blocks encoded on the host, flagged
         # blocks re-derived on the host, blocks whose packed section
@@ -617,13 +632,10 @@ class SRLAEncoder:
         """Advance the per-encode progress meter (parity: the reference's
         EncodeBlockCallback, srla_encoder.c:1780). Fired per encoded chunk —
         the batched pipeline has no per-block serial point."""
-        cb = getattr(self, "_progress_cb", None)
+        cb = self._progress_cb
         if cb is None:
             return
-        lock = getattr(self, "_progress_lock", None)
-        if lock is None:
-            lock = self._progress_lock = threading.Lock()
-        with lock:
+        with self._lock:
             self._progress_done += nsamples
             done = self._progress_done
         try:
@@ -739,16 +751,40 @@ class SRLAEncoder:
         return [results[i] for i in range(len(spans))]
 
     def _encode_host_batch(self, pcm, spans, idxs, size, offset_lshift):
-        """Host-native batched encode of even-size blocks (one thread)."""
+        """Host-native batched encode of even-size blocks: one thread, or
+        ``workers`` threads each taking every workers-th block
+        (``srla_tpu/encoder.py:826-847``). Each shard is counted in
+        ``stats["host_blocks"]`` and reported to the meter as the calling
+        thread collects it."""
+        n = self.workers
+        if n > 1 and len(idxs) >= 2 * n:
+            shards = [list(idxs[j::n]) for j in range(n)]
+            results: dict[int, bytes] = {}
+            with ThreadPoolExecutor(n) as ex:
+                futs = [ex.submit(self._encode_host_shard, pcm, spans, sh,
+                                  size, offset_lshift) for sh in shards]
+                for sh, f in zip(shards, futs):
+                    results.update(f.result())
+                    self._count_host(len(sh), size)
+            return results
+        out = self._encode_host_shard(pcm, spans, idxs, size, offset_lshift)
+        self._count_host(len(idxs), size)
+        return out
+
+    def _encode_host_shard(self, pcm, spans, idxs, size, offset_lshift):
         C = pcm.shape[0]
         blocks = np.stack([pcm[:, spans[i][0]:spans[i][0] + size]
                            for i in idxs])
         method, params, _bits = self._compute_coefficients(
             blocks.astype(np.int32), size, offset_lshift)
-        out = self._emit_host_batch(pcm, spans, idxs, size, method, params, C)
-        self.stats["host_blocks"] += len(idxs)
-        self._report_progress(len(idxs) * size)
-        return out
+        return self._emit_host_batch(pcm, spans, idxs, size, method, params,
+                                     C)
+
+    def _count_host(self, count: int, size: int) -> None:
+        """Count ``count`` host-encoded blocks of ``size`` samples."""
+        with self._lock:
+            self.stats["host_blocks"] += count
+        self._report_progress(count * size)
 
     def _emit_host_batch(self, pcm, spans, idxs, size, method, params,
                          C) -> dict[int, bytes]:
@@ -1179,11 +1215,12 @@ def make_parameter(num_channels: int, bits_per_sample: int,
 def encode(pcm: np.ndarray, bits_per_sample: int, sampling_rate: int,
            preset: int = 4, max_block: int = 4096, variable_divisions: int = 0,
            lookahead_factor: int = 4, ltp_order: int = 0,
-           svr_iterations: int = 0) -> bytes:
+           svr_iterations: int = 0, workers: int = 1) -> bytes:
     """One-shot exact host encode: the bytes of ``srla_tpu.encode(...,
-    backend="exact")`` for the same arguments."""
+    backend="exact")`` for the same arguments, its host batches split over
+    ``workers`` threads."""
     pcm = np.asarray(pcm, dtype=np.int32)
     param = make_parameter(pcm.shape[0], bits_per_sample, sampling_rate,
                            preset, max_block, variable_divisions,
                            lookahead_factor, ltp_order, svr_iterations)
-    return SRLAEncoder(param).encode_whole(pcm)
+    return SRLAEncoder(param, workers).encode_whole(pcm)

@@ -4,8 +4,9 @@ The port's own counterpart of ``srla_tpu/native_decoder.py``, with the
 entries the port's host paths reach: the exact host analysis (pre-emphasis,
 windowed autocorrelation, Levinson, order choice, LPC and LTP prediction,
 Rice search, bit accounting), payload emission and block assembly, the
-batched parameter-header parse and the Fletcher checksum. The C++ sources in
-``native/`` are verbatim copies of ``srla_tpu/native/``.
+batched parameter-header parse, the Fletcher checksum, and the host decode
+of a whole stream and of one block (``decode_stream``, ``decode_block``).
+The C++ sources in ``native/`` are verbatim copies of ``srla_tpu/native/``.
 
 The library is built with g++ into ``native/build/libsrla_torch_native.so``
 under a name of its own and loaded ``RTLD_LOCAL``, so a process that loads
@@ -54,6 +55,20 @@ def _load():
             subprocess.run(cmd, check=True, capture_output=True)
             os.replace(tmp, SO_PATH)
     lib = ctypes.CDLL(SO_PATH, mode=os.RTLD_LOCAL)
+    lib.srla_decode_block.restype = ctypes.c_long
+    lib.srla_decode_block.argtypes = [
+        ctypes.c_char_p, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.srla_decode_stream.restype = ctypes.c_long
+    lib.srla_decode_stream.argtypes = [
+        ctypes.c_char_p, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     lib.srla_parse_params_batch.restype = ctypes.c_long
     lib.srla_parse_params_batch.argtypes = (
         [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
@@ -521,6 +536,48 @@ def assemble_blocks(method, pre_prev, pre_coef, orders, rshifts, coefs,
     return out[:total].tobytes(), sizes
 
 
+def _lut_args() -> list:
+    """The two Huffman decode LUTs as the C entries take them."""
+    (psym, plen, pk), (ssym, slen, sk) = _luts()
+    vp = ctypes.c_void_p
+    return [psym.ctypes.data_as(vp), plen.ctypes.data_as(vp), pk,
+            ssym.ctypes.data_as(vp), slen.ctypes.data_as(vp), sk]
+
+
+def decode_stream(body: bytes, num_channels: int, bits_per_sample: int,
+                  num_samples: int, offset_lshift: int,
+                  check_checksum: bool = True) -> np.ndarray:
+    """Decode a whole .srl stream body (after the 30-byte header) on the
+    host -> (C, N) int32 PCM (``srla_tpu/native_decoder.py:538``). A
+    checksum mismatch or insufficient data raises ValueError; a stream cut
+    cleanly at a block boundary leaves the missing tail silent."""
+    out = np.empty((num_channels, num_samples), dtype=np.int32)
+    r = _load().srla_decode_stream(
+        body, len(body), num_channels, bits_per_sample, num_samples,
+        offset_lshift, 1 if check_checksum else 0, *_lut_args(),
+        out.ctypes.data_as(ctypes.c_void_p))
+    if r == -2:
+        raise ValueError("data corruption detected (checksum mismatch)")
+    if r < 0:
+        raise ValueError("insufficient data")
+    out[:, r:] = 0
+    return out
+
+
+def decode_block(payload: bytes, num_channels: int, bits_per_sample: int,
+                 num_samples: int, offset_lshift: int) -> np.ndarray:
+    """Decode one COMPRESS payload on the host -> (C, n) int32 PCM
+    (``srla_tpu/native_decoder.py:603``); a malformed payload raises
+    ValueError."""
+    out = np.empty((num_channels, num_samples), dtype=np.int32)
+    r = _load().srla_decode_block(
+        payload, len(payload), num_channels, bits_per_sample, num_samples,
+        offset_lshift, *_lut_args(), out.ctypes.data_as(ctypes.c_void_p))
+    if r < 0:
+        raise ValueError("native decoder: malformed block payload")
+    return out
+
+
 def parse_params_batch(data: bytes, payload_off: np.ndarray,
                        payload_size: np.ndarray, num_channels: int,
                        bits_per_sample: int, max_coef: int = 256):
@@ -528,7 +585,6 @@ def parse_params_batch(data: bytes, payload_off: np.ndarray,
     call. Returns a dict of arrays (B[, C][, .]) plus 'start_bits' (B,), the
     bit offset of channel 0's residual section within each payload."""
     lib = _load()
-    (psym, plen, pk), (ssym, slen, sk) = _luts()
     B = len(payload_off)
     C = num_channels
     off = np.ascontiguousarray(payload_off, np.int64)
@@ -548,10 +604,7 @@ def parse_params_batch(data: bytes, payload_off: np.ndarray,
     r = lib.srla_parse_params_batch(
         data, off.ctypes.data_as(ctypes.c_void_p),
         psz.ctypes.data_as(ctypes.c_void_p), B, C, bits_per_sample,
-        psym.ctypes.data_as(ctypes.c_void_p),
-        plen.ctypes.data_as(ctypes.c_void_p), pk,
-        ssym.ctypes.data_as(ctypes.c_void_p),
-        slen.ctypes.data_as(ctypes.c_void_p), sk, max_coef,
+        *_lut_args(), max_coef,
         *(out[k].ctypes.data_as(ctypes.c_void_p) for k in
           ("method", "pre_prev", "pre_coef", "orders", "rshifts", "coefs",
            "ltp_orders", "ltp_periods", "ltp_coefs", "start_bits")))
